@@ -1,0 +1,23 @@
+"""Shared error taxonomy.
+
+Mirrors the reference's three-variant error enum (``src/error.rs:4-17``):
+``InvalidParams``, ``InvalidScalar``, ``InvalidGroupElement``.  Class names
+and messages are those of ``cpzk_tpu.errors``: accept/reject parity between
+the two packages includes the error text.
+"""
+
+
+class Error(Exception):
+    """Base class for all protocol errors."""
+
+
+class InvalidParams(Error):
+    """Invalid protocol parameters (reference ``Error::InvalidParams``)."""
+
+
+class InvalidScalar(Error):
+    """Invalid scalar encoding/value (reference ``Error::InvalidScalar``)."""
+
+
+class InvalidGroupElement(Error):
+    """Invalid group element encoding/value (reference ``Error::InvalidGroupElement``)."""

@@ -1,0 +1,293 @@
+"""Batch verification — re-designed from reference ``src/verifier/batch.rs``.
+
+API parity: ``BatchVerifier`` accumulates up to ``max_size`` entries of
+(params, statement, proof, context), validating statements on ``add``
+(batch.rs:139-168); ``verify`` returns per-proof results, short-circuiting a
+single-entry batch to individual verification (batch.rs:171-183) and falling
+back to per-proof verification when the combined check fails
+(batch.rs:314-318) — so the *accept set* is always per-proof ground truth.
+
+Math fix (normative deviation from the reference): its combined equation
+drops the random coefficient on the ``y^c`` term (batch.rs:297-299).  This
+package implements the correct random-linear-combination check
+
+    Σ αᵢ·(sᵢ·G − r1ᵢ − cᵢ·y1ᵢ)  +  β·Σ αᵢ·(sᵢ·H − r2ᵢ − cᵢ·y2ᵢ)  ==  O
+
+with per-entry random αᵢ and one extra random weight β merging the two
+equations (soundness: Schwartz-Zippel over ℓ; per-equation failure
+probability ≤ 2/ℓ).  α and β come from the caller's host CSPRNG, never from
+a device generator.
+
+The heavy lifting is delegated to a pluggable ``VerifierBackend``: the GPU
+backend in :mod:`cpzk_tpu_torch.ops.backend` (default; it raises without
+CUDA) or ``CpuBackend``, the host oracle, when the caller passes it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..errors import Error, InvalidParams
+from ..core import edwards
+from ..core.ristretto import Element, Ristretto255, Scalar
+from ..core.rng import SecureRng
+from ..core.scalars import L, sc_mul
+from ..core.transcript import Transcript, derive_challenges_batch
+from .gadgets import Parameters, Proof, Statement
+from .verifier import Verifier
+
+MAX_BATCH_SIZE = 1000
+
+
+@dataclass
+class BatchEntry:
+    params: Parameters
+    statement: Statement
+    proof: Proof
+    transcript_context: bytes | None
+
+
+@dataclass
+class BatchRow:
+    """Flattened, challenge-resolved entry handed to a backend."""
+
+    g: Element
+    h: Element
+    y1: Element
+    y2: Element
+    r1: Element
+    r2: Element
+    s: Scalar
+    c: Scalar
+    alpha: Scalar
+
+
+@dataclass
+class PreparedBatch:
+    """Host-phase output of :meth:`BatchVerifier.prepare_batch` — the
+    challenge-resolved rows (or the n == 1 verifier) ready for backend
+    dispatch via :meth:`BatchVerifier.run_prepared`.  Built on one thread,
+    consumable on another: nothing here touches the backend or the RNG."""
+
+    n: int
+    # n == 1 individual-verification path
+    entry: BatchEntry | None = None
+    verifier: Verifier | None = None
+    transcript: Transcript | None = None
+    # n >= 2 batch path
+    rows: list[BatchRow] | None = None
+    beta: Scalar | None = None
+    same_generators: bool = True
+
+
+class VerifierBackend:
+    """Backend interface for the batch-verification compute plane.
+
+    Thread-safety contract: callers may run ``verify_combined`` /
+    ``verify_each`` for different batches concurrently from worker
+    threads.  Implementations keep per-call state on the stack and guard
+    any shared caches (see ``TorchBackend._gh``)."""
+
+    #: Whether the combined RLC fast path is actually faster than per-proof
+    #: checks on this backend. False for the scalar CPU oracle; True for
+    #: vectorized backends where the combined check amortizes.
+    prefers_combined: bool = True
+
+    def verify_combined(self, rows: list[BatchRow], beta: Scalar) -> bool:
+        """Corrected-RLC combined check; True iff the whole batch passes."""
+        raise NotImplementedError
+
+    def verify_each(self, rows: list[BatchRow]) -> list[bool]:
+        """Per-proof ground-truth checks (the accept-set decider)."""
+        raise NotImplementedError
+
+
+class CpuBackend(VerifierBackend):
+    """Host-plane backend over the integer-exact core (the oracle)."""
+
+    prefers_combined = False
+
+    def verify_combined(self, rows: list[BatchRow], beta: Scalar) -> bool:
+        acc = edwards.IDENTITY
+        sum_as = 0  # Σ αᵢ·sᵢ mod ℓ
+        for row in rows:
+            a = row.alpha.value
+            ac = sc_mul(a, row.c.value)
+            sum_as = (sum_as + a * row.s.value) % L
+            # subtract αᵢ·r1ᵢ + (αᵢcᵢ)·y1ᵢ + β·(αᵢ·r2ᵢ + (αᵢcᵢ)·y2ᵢ)
+            term = edwards.pt_add(
+                edwards.pt_scalar_mul(row.r1.point, a),
+                edwards.pt_scalar_mul(row.y1.point, ac),
+            )
+            term2 = edwards.pt_add(
+                edwards.pt_scalar_mul(row.r2.point, sc_mul(a, beta.value)),
+                edwards.pt_scalar_mul(row.y2.point, sc_mul(ac, beta.value)),
+            )
+            acc = edwards.pt_add(acc, edwards.pt_add(term, term2))
+        # add (Σαs)·G + β(Σαs)·H — valid only when all rows share generators;
+        # BatchVerifier only takes this path in that case
+        g = rows[0].g.point
+        h = rows[0].h.point
+        lhs = edwards.pt_add(
+            edwards.pt_scalar_mul(g, sum_as),
+            edwards.pt_scalar_mul(h, sc_mul(sum_as, beta.value)),
+        )
+        return edwards.pt_eq(lhs, acc)
+
+    def verify_each(self, rows: list[BatchRow]) -> list[bool]:
+        out: list[bool] = []
+        for row in rows:
+            lhs1 = edwards.pt_scalar_mul(row.g.point, row.s.value)
+            rhs1 = edwards.pt_add(row.r1.point, edwards.pt_scalar_mul(row.y1.point, row.c.value))
+            lhs2 = edwards.pt_scalar_mul(row.h.point, row.s.value)
+            rhs2 = edwards.pt_add(row.r2.point, edwards.pt_scalar_mul(row.y2.point, row.c.value))
+            out.append(edwards.pt_eq(lhs1, rhs1) and edwards.pt_eq(lhs2, rhs2))
+        return out
+
+
+class BatchVerifier:
+    """Accumulate-and-verify batch API (reference ``BatchVerifier`` twin).
+
+    ``max_size`` defaults to the reference's 1000-entry cap but is
+    configurable up to device scale.  ``backend=None`` means
+    ``TorchBackend()`` on the card, which raises without CUDA; the host
+    oracle runs only when passed (``backend=CpuBackend()``)."""
+
+    def __init__(
+        self,
+        backend: VerifierBackend | None = None,
+        max_size: int = MAX_BATCH_SIZE,
+    ):
+        if max_size < 1:
+            raise InvalidParams("Batch capacity must be positive")
+        self.entries: list[BatchEntry] = []
+        self.max_size = max_size
+        if backend is None:
+            from ..ops.backend import TorchBackend  # ops imports this module
+
+            backend = TorchBackend()
+        self.backend = backend
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def is_empty(self) -> bool:
+        return not self.entries
+
+    def remaining_capacity(self) -> int:
+        return max(0, self.max_size - len(self.entries))
+
+    def clear(self) -> None:
+        """Empty the batch for reuse (reference BatchVerifier::clear)."""
+        self.entries.clear()
+
+    def add(self, params: Parameters, statement: Statement, proof: Proof) -> None:
+        self.add_with_context(params, statement, proof, None)
+
+    def add_with_context(
+        self,
+        params: Parameters,
+        statement: Statement,
+        proof: Proof,
+        context: bytes | None,
+    ) -> None:
+        """Validates the statement on add (batch.rs:139-168)."""
+        if len(self.entries) >= self.max_size:
+            raise InvalidParams(f"Batch size limit exceeded (max {self.max_size})")
+        statement.validate()
+        self.entries.append(BatchEntry(params, statement, proof, context))
+
+    # --- verification ---
+
+    def prepare_rows(self, rng: SecureRng) -> list[BatchRow]:
+        """Derive the backend-facing rows: per-entry Fiat-Shamir challenge
+        plus a fresh random RLC weight alpha per row."""
+        eb = Ristretto255.element_to_bytes
+        challenges = derive_challenges_batch(
+            [e.transcript_context for e in self.entries],
+            [eb(e.params.generator_g) for e in self.entries],
+            [eb(e.params.generator_h) for e in self.entries],
+            [eb(e.statement.y1) for e in self.entries],
+            [eb(e.statement.y2) for e in self.entries],
+            [eb(e.proof.commitment.r1) for e in self.entries],
+            [eb(e.proof.commitment.r2) for e in self.entries],
+        )
+        # RLC coefficients from one pooled CSPRNG draw
+        alphas = Ristretto255.random_scalars(rng, len(self.entries))
+        return [
+            BatchRow(
+                g=entry.params.generator_g,
+                h=entry.params.generator_h,
+                y1=entry.statement.y1,
+                y2=entry.statement.y2,
+                r1=entry.proof.commitment.r1,
+                r2=entry.proof.commitment.r2,
+                s=entry.proof.response.s,
+                c=c,
+                alpha=alpha,
+            )
+            for entry, c, alpha in zip(self.entries, challenges, alphas, strict=True)
+        ]
+
+    def verify(self, rng: SecureRng) -> list[Error | None]:
+        """Verify all entries; per-entry ``None`` (ok) or ``Error``.
+
+        Mirrors batch.rs:171-183: an empty batch is an error; n == 1
+        verifies individually; otherwise the combined check decides the
+        fast path and failure falls back to per-proof results.  Composes
+        :meth:`prepare_batch` (host phase) with :meth:`run_prepared`
+        (device phase)."""
+        return self.run_prepared(self.prepare_batch(rng))
+
+    def prepare_batch(self, rng: SecureRng) -> PreparedBatch:
+        """Host phase: Fiat-Shamir challenge derivation, RLC coefficient
+        draws, and (n == 1) verifier/transcript construction — everything
+        that does not touch the backend."""
+        if not self.entries:
+            raise InvalidParams("Cannot verify empty batch")
+        n = len(self.entries)
+        if n == 1:
+            entry = self.entries[0]
+            transcript = Transcript()
+            if entry.transcript_context is not None:
+                transcript.append_context(entry.transcript_context)
+            return PreparedBatch(
+                n=1, entry=entry, verifier=Verifier(entry.params, entry.statement),
+                transcript=transcript,
+            )
+        g0 = self.entries[0].params.generator_g
+        h0 = self.entries[0].params.generator_h
+        same_generators = all(
+            e.params.generator_g == g0 and e.params.generator_h == h0
+            for e in self.entries
+        )
+        rows = self.prepare_rows(rng)
+        beta = Ristretto255.random_scalar(rng)
+        return PreparedBatch(
+            n=n, rows=rows, beta=beta, same_generators=same_generators,
+        )
+
+    def run_prepared(self, prepared: PreparedBatch) -> list[Error | None]:
+        """Device phase: backend dispatch and result assembly for a
+        :meth:`prepare_batch` output."""
+        if prepared.n == 1:
+            try:
+                prepared.verifier.verify_with_transcript(
+                    prepared.entry.proof, prepared.transcript)
+                return [None]
+            except Error as exc:
+                return [exc]
+
+        backend = self.backend
+        rows, beta = prepared.rows, prepared.beta
+        if (
+            prepared.same_generators
+            and backend.prefers_combined
+            and backend.verify_combined(rows, beta)
+        ):
+            return [None] * len(rows)
+        # Fallback: per-proof ground truth (batch.rs:314-318)
+        return [
+            None if ok else InvalidParams("Proof verification failed")
+            for ok in backend.verify_each(rows)
+        ]

@@ -1,0 +1,197 @@
+"""Protocol gadgets: Parameters, Witness, Statement, Commitment, Response, Proof.
+
+Mirrors the reference ``src/primitives/gadgets.rs`` including the exact
+109-byte versioned, length-prefixed proof wire format
+(``gadgets.rs:343-361``) and every ``from_bytes`` rejection rule
+(``gadgets.rs:364-489``): size caps, truncation, trailing bytes, identity
+commitments, zero responses.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..errors import InvalidParams
+from ..core.ristretto import Element, Ristretto255, Scalar
+
+PROTOCOL_VERSION = 1
+
+# The one wire size a valid proof can have: ver(1) + 3 × [len u32 + 32-byte
+# field].
+PROOF_WIRE_SIZE = 1 + 3 * (4 + 32)
+
+MAX_ELEMENT_SIZE = 4096
+MAX_SCALAR_SIZE = 512
+MIN_PROOF_SIZE = 1 + 4 + 1 + 4 + 1 + 4 + 1
+
+
+def frame_fields(version: int, *fields: bytes) -> bytes:
+    """The proof wire framing: ``[ver u8]`` then u32-BE length-prefixed
+    fields."""
+    out = bytearray([version])
+    for field in fields:
+        out += len(field).to_bytes(4, "big")
+        out += field
+    return bytes(out)
+
+
+@dataclass(frozen=True)
+class Parameters:
+    """Public generators (g, h) — gadgets.rs:25-121."""
+
+    generator_g: Element
+    generator_h: Element
+
+    @staticmethod
+    def new() -> "Parameters":
+        return Parameters(Ristretto255.generator_g(), Ristretto255.generator_h())
+
+    @staticmethod
+    def with_generators(g: Element, h: Element) -> "Parameters":
+        """Custom generators; rejects identity/equal/invalid (gadgets.rs:77-103)."""
+        Ristretto255.validate_element(g)
+        Ristretto255.validate_element(h)
+        if Ristretto255.is_identity(g):
+            raise InvalidParams("Generator g cannot be identity")
+        if Ristretto255.is_identity(h):
+            raise InvalidParams("Generator h cannot be identity")
+        if g == h:
+            raise InvalidParams("Generators g and h must be different")
+        return Parameters(g, h)
+
+
+class Witness:
+    """Secret discrete log x (gadgets.rs:125-164).
+
+    Best-effort zeroization: ``clear()`` wipes the value; Python cannot
+    guarantee copies are destroyed.
+    """
+
+    __slots__ = ("_x",)
+
+    def __init__(self, x: Scalar):
+        self._x = x
+
+    def secret(self) -> Scalar:
+        return self._x
+
+    def clear(self) -> None:
+        self._x = Scalar(0)
+
+    def __repr__(self) -> str:
+        # redaction guard: a Witness in a log line / traceback / debugger
+        # must never emit the scalar encoding
+        return "Witness(<secret scalar redacted>)"
+
+    __str__ = __repr__
+
+
+@dataclass(frozen=True)
+class Statement:
+    """Public values y1 = g^x, y2 = h^x (gadgets.rs:168-238)."""
+
+    y1: Element
+    y2: Element
+
+    @staticmethod
+    def from_witness(params: Parameters, witness: Witness) -> "Statement":
+        y1, y2 = Ristretto255.double_base_mul(
+            params.generator_g, params.generator_h, witness.secret()
+        )
+        return Statement(y1, y2)
+
+    def validate(self) -> None:
+        Ristretto255.validate_element(self.y1)
+        Ristretto255.validate_element(self.y2)
+
+
+@dataclass(frozen=True)
+class Commitment:
+    """First prover message r1 = g^k, r2 = h^k (gadgets.rs:244-265)."""
+
+    r1: Element
+    r2: Element
+
+
+class Response:
+    """Prover response s = k + c*x (gadgets.rs:270-286)."""
+
+    __slots__ = ("_s",)
+
+    def __init__(self, s: Scalar):
+        self._s = s
+
+    @property
+    def s(self) -> Scalar:
+        return self._s
+
+    def clear(self) -> None:
+        self._s = Scalar(0)
+
+    def __repr__(self) -> str:
+        # redaction guard: the response scalar is bound to the witness
+        return "Response(<secret scalar redacted>)"
+
+    __str__ = __repr__
+
+
+class Proof:
+    """Complete NIZK proof: version + commitment + response (gadgets.rs:306-489)."""
+
+    __slots__ = ("version", "commitment", "response")
+
+    def __init__(self, commitment: Commitment, response: Response, version: int = PROTOCOL_VERSION):
+        self.version = version
+        self.commitment = commitment
+        self.response = response
+
+    def to_bytes(self) -> bytes:
+        """Wire format: ``[ver u8][len u32_be|r1][len|r2][len|s]`` = 109 bytes."""
+        return frame_fields(
+            self.version,
+            Ristretto255.element_to_bytes(self.commitment.r1),
+            Ristretto255.element_to_bytes(self.commitment.r2),
+            Ristretto255.scalar_to_bytes(self.response.s),
+        )
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "Proof":
+        """Full adversarial-input validation (gadgets.rs:364-489), with the
+        reference's exact error messages."""
+        if len(data) < MIN_PROOF_SIZE:
+            raise InvalidParams(f"Proof too small: {len(data)} bytes")
+
+        version = data[0]
+        if version != PROTOCOL_VERSION:
+            raise InvalidParams(f"Unsupported proof version: {version}")
+
+        pos = 1
+        fields = []
+        for name, cap in (("r1", MAX_ELEMENT_SIZE), ("r2", MAX_ELEMENT_SIZE), ("s", MAX_SCALAR_SIZE)):
+            if pos + 4 > len(data):
+                raise InvalidParams(f"Truncated proof: missing {name} length")
+            flen = int.from_bytes(data[pos : pos + 4], "big")
+            pos += 4
+            if flen == 0 or flen > cap:
+                raise InvalidParams(f"Invalid {name} length: {flen}")
+            if pos + flen > len(data):
+                raise InvalidParams(f"Truncated proof: incomplete {name} data")
+            fields.append(data[pos : pos + flen])
+            pos += flen
+
+        if pos != len(data):
+            raise InvalidParams(f"Proof has {len(data) - pos} trailing bytes")
+
+        r1 = Ristretto255.element_from_bytes(fields[0])
+        r2 = Ristretto255.element_from_bytes(fields[1])
+        s = Ristretto255.scalar_from_bytes(fields[2])
+
+        Ristretto255.validate_element(r1)
+        Ristretto255.validate_element(r2)
+
+        if Ristretto255.is_identity(r1) or Ristretto255.is_identity(r2):
+            raise InvalidParams("Commitment contains identity element")
+        if Ristretto255.scalar_is_zero(s):
+            raise InvalidParams("Response scalar is zero")
+
+        return Proof(Commitment(r1, r2), Response(s), version)

@@ -1,0 +1,90 @@
+"""The port stands alone: nothing under ``cpzk_tpu_torch/`` (nor
+``chip_smoke.py``) imports ``jax`` or ``cpzk_tpu``, importing the package
+pulls in neither, and its GPU entry point refuses to run without CUDA
+unless the caller asks for the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "cpzk_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "cpzk_tpu")
+
+
+def imported_modules(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_no_file_imports_jax_or_the_jax_package():
+    assert len(PORT_FILES) > 10
+    offenders = {}
+    for path in PORT_FILES:
+        bad = sorted(m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN)
+        if bad:
+            offenders[str(path.relative_to(ROOT))] = bad
+    assert offenders == {}
+
+
+def test_import_pulls_in_neither_jax_nor_cpzk_tpu():
+    code = (
+        "import sys\n"
+        "import cpzk_tpu_torch, cpzk_tpu_torch.convert\n"
+        "import cpzk_tpu_torch.ops.backend, cpzk_tpu_torch.ops.verify\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cpzk_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+def test_torch_backend_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    from cpzk_tpu_torch.ops.backend import TorchBackend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchBackend()
+    assert TorchBackend(device="cpu").device == torch.device("cpu")
+
+
+def test_batch_verifier_defaults_to_the_card(monkeypatch):
+    from cpzk_tpu_torch import BatchVerifier, CpuBackend
+    from cpzk_tpu_torch.ops.backend import TorchBackend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BatchVerifier()
+    assert isinstance(BatchVerifier(backend=CpuBackend()).backend, CpuBackend)
+    cpu = TorchBackend(device="cpu")
+    assert BatchVerifier(backend=cpu).backend is cpu
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):
+    """Without a card, or run outside the repository, the script exits
+    non-zero and prints no result line."""
+    env_code = "import torch; torch.cuda.is_available = lambda: False; "
+    res = subprocess.run(
+        [sys.executable, "-c", env_code + "import runpy, sys; sys.argv = ['chip_smoke.py']; "
+         "runpy.run_path('chip_smoke.py', run_name='__main__')"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    res = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
