@@ -7,14 +7,15 @@ It builds the CUDA kernels from ``cpzk_tpu_torch/csrc`` (into the ignored
 
 1. ``device``  — the card (torch, and ``nvidia-smi`` name / power limit /
    max SM clock);
-2. ``build``   — seconds to build the kernels, and the compiler's register
-   and spill report;
+2. ``build``   — seconds to build the kernels, and per kernel the
+   compiler's registers and spills (``-Xptxas -v``) and the block size it
+   is launched with at each lane count of phase 3;
 3. ``kernels_vs_plain`` — each kernel against its plain PyTorch version on
    the card at n in {1, 127, 4096, 6144, 16384, 18432} lanes (random valid
-   points plus the +-9500 adversarial limb patterns): canonical values must
-   be equal (tolerance: exact) and output limbs within |9500|; device time
-   per call of kernel and plain version (torch.profiler), beside the
-   kernel's bound;
+   points plus the +-9500 adversarial limb patterns): the kernels compute
+   in their own radix, so values must be equal after canonicalization
+   (tolerance: exact) and output limbs within |9500|; device time per call
+   of kernel and plain version (torch.profiler), beside the kernel's bound;
 4. ``serving_batch`` — ``BatchVerifier(backend=TorchBackend(),
    max_size=4096)`` over 4096 entries tiling a corpus of proofs made by the
    port's host prover: all-valid must accept every entry; about 1% tampered
@@ -54,10 +55,13 @@ KERNEL_NS = (1, 127, 4096, 6144, 16384, 18432)
 #: lane width at which the kernels line reports times: one full lane chunk,
 #: the shape most main-path launches of the 16,384-row check take
 MAIN_N = 16384
+#: the lane width of one 4096-row combined check (4097 lanes, padded)
+CHUNK_4096_N = 6144
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_OPS_PER_SM_CLOCK = 64
 REPLACES = {"point_add": "cpzk_tpu/ops/pallas_kernels.py:51",
             "point_double_k": "cpzk_tpu/ops/pallas_kernels.py:87"}
+SOURCES = ["cpzk_tpu_torch/csrc/point_ops.cu", "cpzk_tpu_torch/csrc/fe25519_w32.cuh"]
 
 
 def emit(obj: dict) -> None:
@@ -137,16 +141,21 @@ def device_ms(name: str, kernel, plain, reps: int, plain_reps: int) -> dict:
         for _ in range(plain_reps):
             plain()
 
-    ours_us = other_us = 0.0
-    ours_count = other_count = 0
-    for key, us, count in profiled(work):
-        if f"::{name}_kernel(" in key:
-            ours_us += us
-            ours_count += count
-        else:
-            other_us += us
-            other_count += count
-    if ours_count < 1 or other_us <= 0:
+    # the profiler can miss a step's launches altogether; such a step is
+    # traced again, up to three times in all
+    for _ in range(3):
+        ours_us = other_us = 0.0
+        ours_count = other_count = 0
+        for key, us, count in profiled(work):
+            if f"::{name}_kernel(" in key:
+                ours_us += us
+                ours_count += count
+            else:
+                other_us += us
+                other_count += count
+        if ours_count >= 1 and other_us > 0:
+            break
+    else:
         raise AssertionError(f"{name}: the profiler saw no device time")
     return {"ms": ours_us / 1e3 / ours_count, "plain_ms": other_us / 1e3 / plain_reps,
             "profiled_launches": ours_count, "expected_launches": reps,
@@ -436,14 +445,18 @@ def main() -> int:
     lib_path, report = pk.build()
     ptxas = [ln.strip() for ln in report.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    per_kernel = pk.ptxas_report(report)
+    for name in REPLACES:
+        per_kernel.setdefault(name, {})["block_threads"] = {
+            n: pk.block_threads(n, dev) for n in KERNEL_NS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": lib_path.name, "ptxas": ptxas})
+          "library": lib_path.name, "kernels": per_kernel, "ptxas": ptxas})
 
     # 3. kernels against their plain versions
     gen = SeededRng(SEED)
     int32_ops_per_s = sms * INT32_OPS_PER_SM_CLOCK * max_sm_mhz * 1e6
     kernel_rows = kernels_vs_plain(dev, KERNEL_NS, int32_ops_per_s, gen)
-    emit({"phase": "kernels_vs_plain", "tolerance": "exact", **card,
+    emit({"phase": "kernels_vs_plain", "tolerance": "exact after canonicalization", **card,
           "results": kernel_rows})
 
     t0 = time.perf_counter()
@@ -470,14 +483,18 @@ def main() -> int:
     kernels = []
     for name, results in kernel_rows.items():
         main_row = next(r for r in results if r["n"] == MAIN_N)
+        chunk_row = next(r for r in results if r["n"] == CHUNK_4096_N)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "cpzk_tpu_torch/csrc/point_ops.cu",
+            "source": SOURCES[0], "sources": SOURCES,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in results),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None, "n": MAIN_N,
+            f"ms_{CHUNK_4096_N}": chunk_row["ms"], f"bound_ms_{CHUNK_4096_N}": chunk_row["bound_ms"],
+            "registers": per_kernel[name].get("registers"),
+            "spill_bytes": per_kernel[name].get("spill_store_bytes"),
             "launches_per_4096_verify": serving["valid_launches"][name],
             "launches_per_16384_check": star["valid_launches"][name],
         })

@@ -8,36 +8,55 @@
 // Layout: every coordinate is a limb-major [20, n] int32 array, limb i of
 // lane j at i * n + j.  One thread owns one lane: it loads its coordinates
 // (a warp's loads of one limb are 32 consecutive words, so coalesced),
-// keeps the point in registers through every field multiplication of the
-// operation (all k rounds of double_k, with no stores between rounds) and
-// stores the result once.  Threads past n return at once, so any n >= 1
-// works.  The field arithmetic is fe25519.cuh, shared with the host build
-// the tests run.
+// turns each into 8 words of fe25519_w32.cuh, keeps the point in registers
+// through the whole operation (all k rounds of double_k, with no stores
+// between rounds), and stores limbs in [0, 2^13) once.  Threads past n
+// return at once, so any n >= 1 works.
+//
+// What bounds them: per lane an add moves 960 bytes and needs ~1.6k int32
+// operations, so at a full lane chunk it is bound by bytes; double_k(4)
+// moves 560 bytes and needs ~4.6k operations, so it is bound by operations
+// (ops/point_kernels.py counts both).  Each lane is one thread running a few
+// thousand dependent integer instructions (about 4 for each word product:
+// IMAD.WIDE.U32 and the carry adds), and the main path's launches are only
+// a few thousand lanes wide, so each warp is about alone on its scheduler
+// and a launch costs that warp's issue time.  So:
+// * the block size follows n (block_threads): one-warp blocks until every
+//   scheduler of every SM has a warp, larger blocks beyond that;
+// * __launch_bounds__(256, 1) lets ptxas use as many registers as it likes
+//   (with the default it held the add to 80 and spilled), so it can keep
+//   the independent multiplies of a formula in flight together;
+// * fe25519_w32.cuh interleaves those multiplies (mul_n, sq_n).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fe25519.cuh"
+#include "fe25519_w32.cuh"
 
 namespace {
 
+using cpzk::Fe;
 using cpzk::NL;
 
-constexpr int kThreads = 64;
+constexpr int kMaxThreads = 256;
+constexpr int kSchedulersPerSm = 4;
 
-__device__ __forceinline__ void load_fe(int32_t out[NL],
-                                        const int32_t* __restrict__ src,
+__device__ __forceinline__ void load_fe(Fe& out, const int32_t* __restrict__ src,
                                         int n, int j) {
+  int32_t l[NL];
 #pragma unroll
-  for (int i = 0; i < NL; ++i) out[i] = src[(size_t)i * n + j];
+  for (int i = 0; i < NL; ++i) l[i] = src[(size_t)i * n + j];
+  cpzk::fe_from_limbs(out, l);
 }
 
-__device__ __forceinline__ void store_fe(int32_t* __restrict__ dst,
-                                         const int32_t v[NL], int n, int j) {
+__device__ __forceinline__ void store_fe(int32_t* __restrict__ dst, const Fe& v,
+                                         int n, int j) {
+  int32_t l[NL];
+  cpzk::fe_to_limbs(l, v);
 #pragma unroll
-  for (int i = 0; i < NL; ++i) dst[(size_t)i * n + j] = v[i];
+  for (int i = 0; i < NL; ++i) dst[(size_t)i * n + j] = l[i];
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 point_add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
                  const int32_t* __restrict__ z1, const int32_t* __restrict__ t1,
                  const int32_t* __restrict__ x2, const int32_t* __restrict__ y2,
@@ -46,44 +65,68 @@ point_add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
                  int32_t* __restrict__ oz, int32_t* __restrict__ ot, int n) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  int32_t X1[NL], Y1[NL], Z1[NL], T1[NL], X2[NL], Y2[NL], Z2[NL], T2[NL];
-  load_fe(X1, x1, n, j);
-  load_fe(Y1, y1, n, j);
-  load_fe(Z1, z1, n, j);
-  load_fe(T1, t1, n, j);
-  load_fe(X2, x2, n, j);
-  load_fe(Y2, y2, n, j);
-  load_fe(Z2, z2, n, j);
-  load_fe(T2, t2, n, j);
-  int32_t X3[NL], Y3[NL], Z3[NL], T3[NL];
-  cpzk::point_add(X3, Y3, Z3, T3, X1, Y1, Z1, T1, X2, Y2, Z2, T2);
-  store_fe(ox, X3, n, j);
-  store_fe(oy, Y3, n, j);
-  store_fe(oz, Z3, n, j);
-  store_fe(ot, T3, n, j);
+  Fe p[4], q[4], r[4];
+  load_fe(p[0], x1, n, j);
+  load_fe(p[1], y1, n, j);
+  load_fe(p[2], z1, n, j);
+  load_fe(p[3], t1, n, j);
+  load_fe(q[0], x2, n, j);
+  load_fe(q[1], y2, n, j);
+  load_fe(q[2], z2, n, j);
+  load_fe(q[3], t2, n, j);
+  cpzk::point_add(r, p, q);
+  store_fe(ox, r[0], n, j);
+  store_fe(oy, r[1], n, j);
+  store_fe(oz, r[2], n, j);
+  store_fe(ot, r[3], n, j);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 point_double_k_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                       const int32_t* __restrict__ z, int32_t* __restrict__ ox,
                       int32_t* __restrict__ oy, int32_t* __restrict__ oz,
                       int32_t* __restrict__ ot, int n, int k) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  int32_t X[NL], Y[NL], Z[NL], T[NL];
-  load_fe(X, x, n, j);
-  load_fe(Y, y, n, j);
-  load_fe(Z, z, n, j);
-  cpzk::point_double_k(X, Y, Z, T, k);
-  store_fe(ox, X, n, j);
-  store_fe(oy, Y, n, j);
-  store_fe(oz, Z, n, j);
-  store_fe(ot, T, n, j);
+  Fe p[4];
+  load_fe(p[0], x, n, j);
+  load_fe(p[1], y, n, j);
+  load_fe(p[2], z, n, j);
+  cpzk::point_double_k(p, k);
+  store_fe(ox, p[0], n, j);
+  store_fe(oy, p[1], n, j);
+  store_fe(oz, p[2], n, j);
+  store_fe(ot, p[3], n, j);
 }
 
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+// SMs of the current device, read once per device.
+int sm_count() {
+  static int counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0) {
+    int c = 0;
+    if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    counts[dev] = c;
+  }
+  return counts[dev];
+}
+
+int threads_for(int n, int sms) {
+  const int warps = (n + 31) / 32;
+  int per_block = warps / (kSchedulersPerSm * (sms > 0 ? sms : 1));
+  if (per_block < 1) per_block = 1;
+  if (per_block > kMaxThreads / 32) per_block = kMaxThreads / 32;
+  return 32 * per_block;
+}
 
 }  // namespace
+
+// Threads per block for an n-lane launch on the current device: one-warp
+// blocks (so n >= 32 * SMs puts a block on every SM) until each SM has a
+// warp for every scheduler, then blocks of up to 256 threads.
+extern "C" int cpzk_block_threads(int n) { return threads_for(n, sm_count()); }
 
 // Each entry point launches on `stream` (a cudaStream_t), does not
 // synchronise, and returns cudaGetLastError() of the launch (0 = success).
@@ -93,7 +136,8 @@ extern "C" int cpzk_point_add(const void* x1, const void* y1, const void* z1,
                               void* oy, void* oz, void* ot, int n,
                               void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  point_add_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  const int threads = cpzk_block_threads(n);
+  point_add_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x1, (const int32_t*)y1, (const int32_t*)z1,
       (const int32_t*)t1, (const int32_t*)x2, (const int32_t*)y2,
       (const int32_t*)z2, (const int32_t*)t2, (int32_t*)ox, (int32_t*)oy,
@@ -105,7 +149,8 @@ extern "C" int cpzk_point_double_k(const void* x, const void* y, const void* z,
                                    void* ox, void* oy, void* oz, void* ot,
                                    int n, int k, void* stream) {
   if (n < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  point_double_k_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  const int threads = cpzk_block_threads(n);
+  point_double_k_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)ox,
       (int32_t*)oy, (int32_t*)oz, (int32_t*)ot, n, k);
   return (int)cudaGetLastError();

@@ -8,34 +8,37 @@ kernel                 replaces
 ``point_double_k``     ``cpzk_tpu/ops/pallas_kernels.py::_double_k_kernel``
 =====================  ======================================================
 
-Sources: ``csrc/fe25519.cuh`` (field and point arithmetic for one lane,
+Sources: ``csrc/fe25519_w32.cuh`` (field and point arithmetic for one lane,
 ``__host__ __device__``) and ``csrc/point_ops.cu`` (the ``__global__``
-kernels and a plain C launch interface), built with ``nvcc`` for ``sm_90a``
-into a shared library at first use (:func:`build`) and loaded with
-``ctypes``.
+kernels, their block size and a plain C launch interface), built with
+``nvcc`` for ``sm_90a`` into a shared library at first use (:func:`build`)
+and loaded with ``ctypes``.
 
 Design.  One thread per lane (batch column) of the limb-major ``[20, n]``
 layout, so a warp's load of one limb is 32 consecutive words.  The thread
-keeps its point in registers through the whole operation: the 9 field
-multiplications of an add, and all k rounds of ``double_k`` with no stores
-between rounds, which is what the Pallas kernels kept in VMEM.  The
-arithmetic is the 20x13-bit schedule of :mod:`.limbs`, so outputs are
-bit-identical to the plain versions below.
+converts its coordinates once to 8 unsigned 32-bit words (value below
+2^256, not reduced below p), keeps its point in registers through the
+whole operation (the 9 field multiplications of an add, and all k rounds
+of ``double_k`` with no stores between rounds, which is what the Pallas
+kernels kept in VMEM), and stores limbs in [0, 2^13) once.  A multiply is
+64 word products with the thread's 32x32->64-bit multiply-add, folded by
+38 (2^256 = 38 mod p); a square is 36 products.  The TPU kernels' 20x13
+signed-limb schedule exists because the TPU has no widening multiply;
+copied onto the H100 it cost about 1.2k instructions a multiply and made
+each launch as slow as one lane's dependent chain at every width.  The
+kernels have their own radix, so their outputs equal the plain versions'
+after :func:`limbs.canonical`, not limb for limb; every output limb is
+within :data:`limbs.BOUND`, so every plain op downstream takes them.
 
 What bounds them on an H100.  Per lane an add moves 12 coordinate arrays
-(960 B) and needs about 4.5k int32 operations, a ``double_k(4)`` moves
-7 arrays (560 B) and needs about 11.7k (:data:`ADD_OPS_PER_LANE`,
-:func:`double_k_ops_per_lane`: the schoolbook products and one carry pass
-per multiply, not the longer carry schedule these kernels copy from
-:mod:`.limbs`).  Against 3.35 TB/s and the card's int32 rate (132 SMs x
-64 operations a clock) the add is bound by bytes, and ``double_k(4)`` by
-operations at about 4x its byte time.  The design does nothing clever
-about that yet: every schoolbook product and carry round is plain integer
-code, one lane per thread, and the whole point is live in registers (168
-a thread, no spills, on sm_90a), so an SM holds few warps and a launch
-costs about the latency of one lane's dependent chain at any width.
-Faster radices, a shorter carry schedule and multi-lane tiling are later
-work; ``PERF.md`` holds the measured times beside these bounds.
+(960 B) and a ``double_k(4)`` 7 arrays (560 B); the int32 operations the
+function needs are the fewer of two counts (:data:`ADD_OPS_PER_LANE`,
+:func:`double_k_ops_per_lane`).  Against 3.35 TB/s and the card's int32
+rate (132 SMs x 64 operations a clock) the add is bound by bytes and
+``double_k(4)`` by operations.  A launch of a few thousand lanes is still
+one dependent chain per thread, so the block size follows n
+(:func:`block_threads`): one-warp blocks spread the warps over every SM's
+schedulers.  ``PERF.md`` holds the measured times beside these bounds.
 
 Routing: each wrapper runs the plain version for a tensor on the CPU and
 launches its kernel for a CUDA tensor; any other device raises.  There is
@@ -47,6 +50,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -62,7 +66,6 @@ Point = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: build output (listed in .gitignore); one library per source hash
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("point_ops.cu", "fe25519.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -72,27 +75,56 @@ NVCC_FLAGS = (
 #: wrapper adds one where it launches its kernel and nowhere else.
 LAUNCHES = {"point_add": 0, "point_double_k": 0}
 
-#: int32 operations one lane needs, the count behind the kernels' bound: a
-#: field multiply is 400 schoolbook multiply-adds, a squaring 210 (20
-#: squares, 190 cross products) plus 19 doublings of the cross operand, and
-#: each ends in one carry pass (19 multiply-adds folding the upper product
-#: limbs by 608, then a shift, a mask and an add per limb, and the top
-#: fold).  Limbs have headroom for the sums between multiplies, so an
-#: add/sub or a doubling (``mul_small(., 2)``) is 20 operations.  The
-#: kernels themselves run the longer carry schedule of :mod:`.limbs`
-#: (about 1.2k operations a multiply), which the bound does not count.
+#: int32 operations one lane needs, the count behind the kernels' bound: the
+#: fewer of two schedules' counts, so that the bound is the least work.
+#:
+#: 20x13-bit limbs (the TPU schedule, :mod:`.limbs`): a field multiply is
+#: 400 schoolbook multiply-adds, a squaring 210 (20 squares, 190 cross
+#: products) plus 19 doublings of the cross operand, and each ends in one
+#: carry pass (19 multiply-adds folding the upper product limbs by 608,
+#: then a shift, a mask and an add per limb, and the top fold).  Limbs have
+#: headroom for the sums between multiplies, so an add/sub or a doubling
+#: (``mul_small(., 2)``) is 20 operations.  (:mod:`.limbs` itself runs a
+#: longer carry schedule, about 1.2k operations a multiply, not counted.)
 CARRY_OPS = 19 + 3 * 20 + 1
 MUL_OPS = 400 + CARRY_OPS
 SQ_OPS = 210 + 19 + CARRY_OPS
 LINEAR_OPS = 20
-#: 9 multiplies, one doubling, 8 add/sub
-ADD_OPS_PER_LANE = 9 * MUL_OPS + 9 * LINEAR_OPS
+#:
+#: 8x32-bit words (``csrc/fe25519_w32.cuh``): a word product is 2 operations
+#: (the low and the high multiply-add, each taking its addend and carry), and
+#: each row of products ends in one carry add.  A multiply is 64 products
+#: and 8 row carries; a square 28 cross products and 7 row carries, 16
+#: shifts to double them, 8 squares and 8 carry adds.  Both end in the fold:
+#: 8 multiply-adds by 38 (2 operations each), the carry out times 38 (1)
+#: and its chain over 8 words (8), and the last fold into word 0 (1).  An
+#: add, sub or x2 is one 8-word chain plus the last three of the fold.
+W32_FOLD_OPS = 8 * 2 + 1 + 8 + 1
+W32_MUL_OPS = 64 * 2 + 8 + W32_FOLD_OPS
+W32_SQ_OPS = 28 * 2 + 7 + 16 + 8 * 2 + 8 + W32_FOLD_OPS
+W32_LINEAR_OPS = 8 + 1 + 8
+
+
+def _add_ops(mul: int, linear: int) -> int:
+    """9 multiplies, one doubling and 8 add/sub."""
+    return 9 * mul + 9 * linear
+
+
+def _double_k_ops(k: int, mul: int, sq: int, linear: int) -> int:
+    """k rounds of 4 squarings, 3 multiplies, one doubling and 5 add/sub,
+    then the final T multiply."""
+    return k * (4 * sq + 3 * mul + 6 * linear) + mul
+
+
+ADD_OPS_PER_LANE = min(_add_ops(MUL_OPS, LINEAR_OPS),
+                       _add_ops(W32_MUL_OPS, W32_LINEAR_OPS))
 
 
 def double_k_ops_per_lane(k: int) -> int:
-    """k rounds of 4 squarings, 3 multiplies, one doubling and 5 add/sub,
-    then the final T multiply."""
-    return k * (4 * SQ_OPS + 3 * MUL_OPS + 6 * LINEAR_OPS) + MUL_OPS
+    """int32 operations one lane of ``point_double_k(p, k)`` needs (the
+    fewer of the two schedules' counts)."""
+    return min(_double_k_ops(k, MUL_OPS, SQ_OPS, LINEAR_OPS),
+               _double_k_ops(k, W32_MUL_OPS, W32_SQ_OPS, W32_LINEAR_OPS))
 
 
 def reset_launches() -> None:
@@ -158,26 +190,65 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/point_ops.cu`` into ``_build/`` unless a library for
-    the current sources already exists.  Returns the library path and the
-    compiler's report (``-Xptxas -v``: registers and spills per kernel;
-    empty when the library was already built)."""
+def build(csrc: Path = CSRC) -> tuple[Path, str]:
+    """Compile ``point_ops.cu`` of ``csrc`` (by default the package's own
+    sources) into ``_build/`` unless a library for those sources already
+    exists.  Returns the library path and the compiler's report
+    (``-Xptxas -v``: registers and spills per kernel), kept beside the
+    library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for src in sorted(csrc.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     out = BUILD_DIR / f"libcpzk_points_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out, ""
+    report = out.with_suffix(".ptxas.txt")
+    if out.exists() and report.exists():
+        return out, report.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "point_ops.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / "point_ops.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+    report.write_text(res.stderr)
     os.replace(tmp, out)
     return out, res.stderr
+
+
+def ptxas_report(report: str) -> dict[str, dict[str, int]]:
+    """Registers and stack and spill bytes per kernel (keyed by wrapper
+    name) from the ``-Xptxas -v`` report that :func:`build` returns."""
+    out: dict[str, dict[str, int]] = {}
+    current = None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            current = next((k for k in LAUNCHES if f"{k}_kernel" in m.group(1)), None)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(current, {}).update(
+                stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(current, {})["registers"] = int(m.group(1))
+    return out
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a library built from ``point_ops.cu`` and declare its two launch
+    entry points."""
+    lib = ctypes.CDLL(str(path))
+    lib.cpzk_point_add.argtypes = [_P] * 12 + [ctypes.c_int, _P]
+    lib.cpzk_point_add.restype = ctypes.c_int
+    lib.cpzk_point_double_k.argtypes = [_P] * 7 + [ctypes.c_int] * 2 + [_P]
+    lib.cpzk_point_double_k.restype = ctypes.c_int
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
@@ -185,13 +256,19 @@ def _lib() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is None:
             path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            lib.cpzk_point_add.argtypes = [_P] * 12 + [ctypes.c_int, _P]
-            lib.cpzk_point_add.restype = ctypes.c_int
-            lib.cpzk_point_double_k.argtypes = [_P] * 7 + [ctypes.c_int] * 2 + [_P]
-            lib.cpzk_point_double_k.restype = ctypes.c_int
+            lib = load(path)
+            lib.cpzk_block_threads.argtypes = [ctypes.c_int]
+            lib.cpzk_block_threads.restype = ctypes.c_int
             _LIB = lib
         return _LIB
+
+
+def block_threads(n: int, device: torch.device | str = "cuda") -> int:
+    """Threads per block the kernels launch with for n lanes on ``device``
+    (``cpzk_block_threads`` in ``csrc/point_ops.cu``)."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        return lib.cpzk_block_threads(n)
 
 
 # ---------------------------------------------------------------------------

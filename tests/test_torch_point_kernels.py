@@ -88,3 +88,28 @@ def test_wrapper_broadcasts_and_rejects(pts):
         pk._lanes([tp[0].long()], tp[0].device)
     with pytest.raises(ValueError):
         pk._lanes([tp[0][:19]], tp[0].device)
+
+
+def test_ptxas_report_and_operation_counts():
+    """The build report chip_smoke.py prints per kernel, parsed from an
+    ``nvcc -Xptxas -v`` report; and the bound counts the fewer operations
+    of the two schedules."""
+    report = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL_21point_double_k_kernelEPKiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN4_GLOBAL_21point_double_k_kernelEPKiii",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 110 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL_16point_add_kernelEPKii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN4_GLOBAL_16point_add_kernelEPKii",
+        "    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 0 barriers, 16 bytes cumulative stack size",
+    ])
+    assert pk.ptxas_report(report) == {
+        "point_double_k": {"stack_bytes": 0, "spill_store_bytes": 0,
+                           "spill_load_bytes": 0, "registers": 110},
+        "point_add": {"stack_bytes": 16, "spill_store_bytes": 12,
+                      "spill_load_bytes": 8, "registers": 80},
+    }
+    assert pk.ADD_OPS_PER_LANE == pk._add_ops(pk.W32_MUL_OPS, pk.W32_LINEAR_OPS) == 1611
+    assert pk.double_k_ops_per_lane(4) == 4578
+    assert pk.double_k_ops_per_lane(4) < pk._double_k_ops(4, pk.MUL_OPS, pk.SQ_OPS, pk.LINEAR_OPS)
