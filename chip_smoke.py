@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``cpzk_tpu_torch``) on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It builds the CUDA kernels from ``cpzk_tpu_torch/csrc`` (into the ignored
+It builds the CUDA kernels from ``cpzk_tpu_torch/csrc`` and the C++ host
+core from ``cpzk_tpu_torch/native`` (both into the ignored
 ``cpzk_tpu_torch/_build``), and prints one JSON line per phase:
 
 1. ``device``  — the card (torch, and ``nvidia-smi`` name / power limit /
@@ -10,19 +11,33 @@ It builds the CUDA kernels from ``cpzk_tpu_torch/csrc`` (into the ignored
 2. ``build``   — seconds to build the kernels, and per kernel the
    compiler's registers and spills (``-Xptxas -v``) and the block size it
    is launched with at each lane count of phase 3;
+   ``host_core`` — seconds to build and load the host core (g++), its
+   library name and the threads its pools use; the 256-proof corpus made
+   by the port's prover on the core's constant-time comb;
+   ``derive_challenges_batch`` on 4096 rows (µs per row; equal to the
+   pure-Python twin on a 256-row sample, exact); ``Proof.from_bytes_batch``
+   of 4096 wires, eager and deferred (µs per proof); ``wires_to_device`` of
+   4 x 4097 wires to the card (limbs equal to ``points_soa`` of the
+   Python-decoded points on a sample, exact);
 3. ``kernels_vs_plain`` — each kernel against its plain PyTorch version on
    the card at n in {1, 127, 4096, 6144, 16384, 18432} lanes (random valid
    points plus the +-9500 adversarial limb patterns): the kernels compute
    in their own radix, so values must be equal after canonicalization
    (tolerance: exact) and output limbs within |9500|; device time per call
    of kernel and plain version (torch.profiler), beside the kernel's bound;
-4. ``serving_batch`` — ``BatchVerifier(backend=TorchBackend(),
-   max_size=4096)`` over 4096 entries tiling a corpus of proofs made by the
-   port's host prover: all-valid must accept every entry; about 1% tampered
-   rows (wrong s, wrong context, swapped r1) must be rejected at exactly
-   those indices with the exact error; a 64-entry sub-batch must agree with
-   the port's ``CpuBackend``; the kernel launches of one all-valid
-   4096-entry verify are reported on their own;
+4. ``serving_parse`` and ``serving_batch`` — 4096 entries tiling the
+   corpus, each parsed fresh from wire bytes as a server parses them
+   (``Proof.from_bytes_batch``, eager and deferred; statements with
+   ``element_from_bytes``; parse times on the ``serving_parse`` line), then
+   ``BatchVerifier(backend=TorchBackend(), max_size=4096)``: all-valid must
+   accept every entry (eager and deferred); about 1% tampered rows (wrong
+   s, wrong context, swapped r1) must be rejected at exactly those indices
+   with the exact error, and 2 rows whose commitment wire does not decode
+   must fail the eager parse and come back from the deferred batch as
+   ``InvalidProofEncoding`` without reaching the card; a 64-entry
+   sub-batch must agree with the port's ``CpuBackend`` and with the
+   pure-Python ``Verifier.verify_pure``; the kernel launches of one
+   all-valid 4096-entry verify are reported on their own;
 5. ``north_star`` — ``TorchBackend.verify_combined`` on 16,384 rows (16,385
    lanes with the correction row, two lane chunks) with fresh alphas: True,
    and False with one tampered row; the launches of the valid check are
@@ -40,6 +55,7 @@ unavailable or the package is missing.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -50,6 +66,8 @@ SEED = 20261017
 CORPUS = 256
 SERVING_N = 4096
 SUB_BATCH_N = 64
+#: rows of the host-core checks held against the pure-Python twins
+SAMPLE_N = 256
 NORTH_STAR_N = 16384
 KERNEL_NS = (1, 127, 4096, 6144, 16384, 18432)
 #: lane width at which the kernels line reports times: one full lane chunk,
@@ -254,74 +272,318 @@ def make_corpus(n: int, gen):
     return params, corpus
 
 
-def serving_batch(backend, params, corpus, n: int, sub_n: int) -> dict:
-    """Phase 4: all-valid and ~1%-tampered n-entry batches through
-    ``BatchVerifier``, and a sub-batch against the port's CpuBackend."""
-    from cpzk_tpu_torch import BatchVerifier, CpuBackend, InvalidParams, SecureRng
-    from cpzk_tpu_torch.core.ristretto import Scalar
-    from cpzk_tpu_torch.protocol.gadgets import Commitment, Proof, Response
+def host_core(dev, gen, n: int, sample: int) -> tuple[dict, object, list]:
+    """Phase 2b: build and load the host core, make the corpus on its comb,
+    and time the host-prep pieces of the main path at the serving width."""
+    import torch
 
+    from cpzk_tpu_torch import BatchVerifier, CpuBackend
+    from cpzk_tpu_torch.core import _native, edwards
+    from cpzk_tpu_torch.core.transcript import (
+        derive_challenges_batch, derive_challenges_batch_pure)
+    from cpzk_tpu_torch.ops import curve
+    from cpzk_tpu_torch.ops.backend import _pad_lanes
+    from cpzk_tpu_torch.protocol.gadgets import Proof
+
+    t0 = time.perf_counter()
+    lib_path = _native.build()
+    build_s = time.perf_counter() - t0
+    _native.load()
+    load_s = time.perf_counter() - t0 - build_s
+
+    t0 = time.perf_counter()
+    params, corpus = make_corpus(CORPUS, gen)
+    corpus_s = time.perf_counter() - t0
+
+    m = len(corpus)
+    gw, hw = params.generator_g.wire(), params.generator_h.wire()
+    cols = ([b"host-core-%d" % i for i in range(n)], [gw] * n, [hw] * n,
+            [corpus[i % m][0].y1.wire() for i in range(n)],
+            [corpus[i % m][0].y2.wire() for i in range(n)],
+            [corpus[i % m][1].commitment.r1.wire() for i in range(n)],
+            [corpus[i % m][1].commitment.r2.wire() for i in range(n)])
+    t0 = time.perf_counter()
+    challenges = derive_challenges_batch(*cols)
+    challenge_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pure = derive_challenges_batch_pure(*(c[:sample] for c in cols))
+    pure_s = time.perf_counter() - t0
+    if [c.value for c in challenges[:sample]] != [c.value for c in pure]:
+        raise AssertionError("native challenges differ from the pure-Python twin")
+
+    wires = [corpus[i % m][1].to_bytes() for i in range(n)]
+    parse_us = {}
+    for mode, deferred in (("eager", False), ("deferred", True)):
+        t0 = time.perf_counter()
+        parsed = Proof.from_bytes_batch(wires, defer_point_validation=deferred)
+        parse_us[mode] = (time.perf_counter() - t0) / n * 1e6
+        if any(not isinstance(p, Proof) or p.deferred != deferred
+               or p.to_bytes() != w for p, w in zip(parsed, wires)):
+            raise AssertionError(f"{mode} parse of {n} valid wires failed")
+    # the deferred proofs' screening (one native deep parse), as
+    # BatchVerifier.prepare_batch runs it for a backend that prefers the
+    # combined check
+    bv = BatchVerifier(backend=CpuBackend(), max_size=n)
+    for i, p in enumerate(parsed):
+        bv.add_with_context(params, corpus[i % m][0], p, None)
+    t0 = time.perf_counter()
+    if bv._screen_deferred() or any(p.deferred for p in parsed):
+        raise AssertionError("screening rejected or left a valid deferred proof")
+    parse_us["deferred_screen"] = (time.perf_counter() - t0) / n * 1e6
+
+    # four columns of one combined check (n rows + the correction row)
+    lanes = n + 1
+    pad = _pad_lanes(lanes)
+    point_wires = [b"".join(c[i % n] for i in range(lanes)) for c in cols[3:7]]
+    curve.wires_to_device(point_wires[0], pad, dev)  # warm: first allocations
+    decode_ms = []
+    for blob in point_wires:
+        synchronize()
+        t0 = time.perf_counter()
+        soa = curve.wires_to_device(blob, pad, dev)
+        synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    picks = list(range(0, lanes, max(1, lanes // sample)))[:sample]
+    last = point_wires[-1]
+    ref = curve.points_soa(
+        [edwards.ristretto_decode(last[32 * i:32 * i + 32]) for i in picks], len(picks), dev)
+    idx = torch.tensor(picks, device=dev)
+    if not all(torch.equal(c.index_select(1, idx), r) for c, r in zip(soa, ref)):
+        raise AssertionError("wires_to_device limbs differ from points_soa")
+    return {
+        "library": lib_path.name, "build_s": build_s, "load_s": load_s,
+        "threads": _native.default_threads(), "cpu_count": os.cpu_count(),
+        "affinity_cpus": len(os.sched_getaffinity(0)),
+        "corpus_proofs": m, "corpus_s": corpus_s,
+        "challenge_rows": n, "challenge_us_per_row": challenge_s / n * 1e6,
+        "challenge_pure_us_per_row": pure_s / sample * 1e6,
+        "challenge_sample_equal": sample,
+        "parse_us_per_proof": parse_us,
+        "wires_to_device_ms": decode_ms, "wires_to_device_lanes": lanes,
+        "wires_to_device_pad": pad,
+        "wires_to_device_us_per_point": sum(decode_ms) * 1e3 / (4 * lanes),
+        "limbs_sample_equal": len(picks),
+    }, params, corpus
+
+
+class GcPauses:
+    """Seconds the interpreter has spent in garbage collections since
+    :meth:`start` (``gc.callbacks``), to tell a collection's pause from the
+    work it lands in."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self._t0 = 0.0
+
+    def _callback(self, phase, info) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._t0
+
+    def start(self) -> None:
+        gc.callbacks.append(self._callback)
+
+    def stop(self) -> None:
+        gc.callbacks.remove(self._callback)
+
+
+class RecordingBackend:
+    """The GPU backend, recording the rows it is handed (their count per
+    call, and their r1 wires) to show which rows reached the card."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.prefers_combined = backend.prefers_combined
+        self.supports_deferred_decode = backend.supports_deferred_decode
+        self.calls: list[int] = []
+        self.seen: set[bytes] = set()
+
+    def _record(self, rows) -> None:
+        self.calls.append(len(rows))
+        self.seen.update(r.r1.wire() for r in rows)
+
+    def verify_combined(self, rows, beta):
+        self._record(rows)
+        return self.backend.verify_combined(rows, beta)
+
+    def verify_each(self, rows):
+        self._record(rows)
+        return self.backend.verify_each(rows)
+
+
+def serving_wires(params, corpus, n: int):
+    """The n entries of phase 4 as wire bytes (proof wire, statement wires,
+    context), tiling the corpus; the about 1% tampered rows, and the 2 rows
+    whose commitment wire does not decode."""
+    from cpzk_tpu_torch.core.scalars import L
+
+    m = len(corpus)
+    valid = []
+    for i in range(n):
+        st, pr, ctx = corpus[i % m]
+        valid.append((pr.to_bytes(), st.y1.wire(), st.y2.wire(), ctx))
+    mixed = list(valid)
     bad = {}
     step = max(2, n // 42)
     for k, idx in enumerate(range(37 % n, n, step)):
-        st, pr, ctx = corpus[idx % len(corpus)]
+        wire, y1, y2, ctx = valid[idx]
         how = ("wrong_s", "wrong_context", "swapped_r1")[k % 3]
         if how == "wrong_s":
-            pr = Proof(pr.commitment, Response(Scalar(pr.response.s.value + 1)))
+            s = int.from_bytes(wire[77:], "little") + 1
+            if s % L == 0:
+                s += 1
+            wire = wire[:77] + (s % L).to_bytes(32, "little")
         elif how == "wrong_context":
             ctx = ctx + b"-replayed"
         else:
-            other = corpus[(idx + 1) % len(corpus)][1]
-            pr = Proof(Commitment(other.commitment.r1, pr.commitment.r2), pr.response)
-        bad[idx] = (st, pr, ctx)
+            other = valid[(idx + 1) % n][0]
+            wire = wire[:5] + other[5:37] + wire[37:]
+        mixed[idx] = (wire, y1, y2, ctx)
+        bad[idx] = how
+    undecodable = [i for i in (1, n - 2) if i not in bad]
+    for i in undecodable:
+        wire, y1, y2, ctx = valid[i]
+        mixed[i] = (wire[:5] + b"\xff" * 32 + wire[37:], y1, y2, ctx)
+    return valid, mixed, bad, undecodable
 
-    def batch(size: int, tampered: bool, verifier_backend) -> BatchVerifier:
+
+def parse_entries(entries, deferred: bool):
+    """Proofs and statements parsed from wire bytes as a server parses them."""
+    from cpzk_tpu_torch import Ristretto255, Statement
+    from cpzk_tpu_torch.protocol.gadgets import Proof
+
+    t0 = time.perf_counter()
+    proofs = Proof.from_bytes_batch([e[0] for e in entries],
+                                    defer_point_validation=deferred)
+    t1 = time.perf_counter()
+    statements = [Statement(Ristretto255.element_from_bytes(e[1]),
+                            Ristretto255.element_from_bytes(e[2])) for e in entries]
+    t2 = time.perf_counter()
+    return proofs, statements, t1 - t0, t2 - t1
+
+
+def serving_batch(backend, params, corpus, n: int, sub_n: int) -> tuple[dict, dict]:
+    """Phase 4: 4096 entries parsed from wire bytes, all-valid (eager and
+    deferred) and mixed (deferred), through ``BatchVerifier``; a sub-batch
+    against the port's CpuBackend and the pure-Python verifier."""
+    from cpzk_tpu_torch import (
+        BatchVerifier, CpuBackend, Error, InvalidGroupElement, InvalidParams,
+        InvalidProofEncoding, SecureRng, Verifier)
+    from cpzk_tpu_torch.protocol.gadgets import Proof
+
+    bad_point = "Bytes do not represent a valid Ristretto point"
+    valid, mixed, bad, undecodable = serving_wires(params, corpus, n)
+
+    def batch(entries, proofs, statements, verifier_backend) -> BatchVerifier:
         bv = BatchVerifier(backend=verifier_backend, max_size=n)
-        for i in range(size):
-            st, pr, ctx = corpus[i % len(corpus)]
-            if tampered and i in bad:
-                st, pr, ctx = bad[i]
+        for (_, _, _, ctx), pr, st in zip(entries, proofs, statements):
             bv.add_with_context(params, st, pr, ctx)
         return bv
 
     def run(bv: BatchVerifier):
-        t0 = time.perf_counter()
+        """(results, host s, backend s, host CPU s of all threads)."""
+        c0, t0 = time.process_time(), time.perf_counter()
         prepared = bv.prepare_batch(SecureRng())
-        t1 = time.perf_counter()
+        c1, t1 = time.process_time(), time.perf_counter()
         results = bv.run_prepared(prepared)
         synchronize()
-        return results, t1 - t0, time.perf_counter() - t1
-
-    (valid, host_s, backend_s), valid_launches = launches_of(
-        lambda: run(batch(n, False, backend)))
-    if valid != [None] * n:
-        raise AssertionError(f"all-valid {n}-entry batch was not fully accepted")
-    mixed, m_host_s, m_backend_s = run(batch(n, True, backend))
-    flagged = [i for i, r in enumerate(mixed) if r is not None]
-    if flagged != sorted(bad):
-        raise AssertionError(f"flagged rows {flagged} != tampered rows {sorted(bad)}")
-    for i in flagged:
-        r = mixed[i]
-        if type(r) is not InvalidParams or str(r) != "Proof verification failed":
-            raise AssertionError(f"row {i}: unexpected result {r!r}")
+        return results, t1 - t0, time.perf_counter() - t1, c1 - c0
 
     def as_text(results):
         return [None if r is None else (type(r).__name__, str(r)) for r in results]
 
-    sub_dev, _, _ = run(batch(sub_n, True, backend))
-    sub_cpu = batch(sub_n, True, CpuBackend()).verify(SecureRng())
+    timings = {}
+    valid_launches = None
+    pauses = GcPauses()
+    for mode, deferred in (("eager", False), ("deferred", True)):
+        pauses.start()
+        try:
+            proofs, statements, proof_s, stmt_s = parse_entries(valid, deferred)
+            parse_gc_s = pauses.seconds
+            if not all(isinstance(p, Proof) and p.deferred == deferred for p in proofs):
+                raise AssertionError(f"{mode} parse of the valid wires failed")
+            (results, host_s, backend_s, host_cpu_s), launches = launches_of(
+                lambda: run(batch(valid, proofs, statements, backend)))
+        finally:
+            pauses.stop()
+        gc_s, pauses.seconds = pauses.seconds, 0.0
+        if results != [None] * n:
+            raise AssertionError(f"all-valid {n}-entry batch ({mode}) was not fully accepted")
+        if valid_launches is None:
+            valid_launches = launches
+        timings[mode] = {
+            "parse_proofs_s": proof_s, "parse_statements_s": stmt_s,
+            "host_s": host_s, "host_cpu_s": host_cpu_s, "backend_s": backend_s,
+            "gc_pause_s": gc_s, "gc_pause_in_parse_s": parse_gc_s,
+            "backend_rows_per_s": n / backend_s,
+            "verify_rows_per_s": n / (host_s + backend_s),
+            "end_to_end_rows_per_s": n / (proof_s + stmt_s + host_s + backend_s),
+        }
+
+    eager, _, _, _ = parse_entries(mixed, False)
+    for i in undecodable:
+        if type(eager[i]) is not InvalidGroupElement or str(eager[i]) != bad_point:
+            raise AssertionError(f"row {i}: eager parse gave {eager[i]!r}")
+    if any(isinstance(p, Error) for i, p in enumerate(eager) if i not in undecodable):
+        raise AssertionError("eager parse rejected a decodable row")
+
+    proofs, statements, proof_s, stmt_s = parse_entries(mixed, True)
+    recording = RecordingBackend(backend)
+    results, m_host_s, m_backend_s, _ = run(batch(mixed, proofs, statements, recording))
+    flagged = [i for i, r in enumerate(results) if r is not None]
+    if flagged != sorted([*bad, *undecodable]):
+        raise AssertionError(f"flagged rows {flagged} != tampered + undecodable rows")
+    for i in flagged:
+        r = results[i]
+        want = ((InvalidProofEncoding, bad_point) if i in undecodable
+                else (InvalidParams, "Proof verification failed"))
+        if (type(r), str(r)) != want:
+            raise AssertionError(f"row {i}: unexpected result {r!r}")
+    if any(mixed[i][0][5:37] in recording.seen for i in undecodable):
+        raise AssertionError("an undecodable row reached the card")
+
+    sub = mixed[:sub_n]
+    proofs, statements, _, _ = parse_entries(sub, True)
+    sub_dev, _, _, _ = run(batch(sub, proofs, statements, backend))
+    proofs, statements, _, _ = parse_entries(sub, True)
+    sub_cpu = batch(sub, proofs, statements, CpuBackend()).verify(SecureRng())
+    proofs, statements, _, _ = parse_entries(sub, True)
+    sub_pure = []
+    for (_, _, _, ctx), pr, st in zip(sub, proofs, statements):
+        try:
+            Verifier(params, st).verify_pure(pr, ctx)
+            sub_pure.append(None)
+        except Error as exc:
+            sub_pure.append(exc)
     if as_text(sub_dev) != as_text(sub_cpu):
         raise AssertionError(f"{sub_n}-entry sub-batch disagrees with CpuBackend")
-    return {
-        "n": n, "tampered": len(bad),
-        "valid_host_s": host_s, "valid_backend_s": backend_s,
-        "valid_backend_rows_per_s": n / backend_s,
-        "valid_verify_rows_per_s": n / (host_s + backend_s),
+    if as_text(sub_dev) != as_text(sub_pure):
+        raise AssertionError(f"{sub_n}-entry sub-batch disagrees with the pure verifier")
+
+    parse = {
+        "n": n, "tolerance": "exact",
+        "eager_us_per_proof": timings["eager"]["parse_proofs_s"] / n * 1e6,
+        "deferred_us_per_proof": timings["deferred"]["parse_proofs_s"] / n * 1e6,
+        "statements_us_per_entry": timings["eager"]["parse_statements_s"] / n * 1e6,
+        "undecodable_rows": undecodable,
+        "eager_parse_error": bad_point,
+    }
+    valid_t = timings["eager"]
+    return parse, {
+        "n": n, "tampered": len(bad), "undecodable": len(undecodable),
+        "valid_host_s": valid_t["host_s"], "valid_backend_s": valid_t["backend_s"],
+        "valid_backend_rows_per_s": valid_t["backend_rows_per_s"],
+        "valid_verify_rows_per_s": valid_t["verify_rows_per_s"],
+        "valid_end_to_end_rows_per_s": valid_t["end_to_end_rows_per_s"],
         "valid_launches": valid_launches,
+        "valid": timings,
         "mixed_host_s": m_host_s, "mixed_backend_s": m_backend_s,
         "mixed_backend_rows_per_s": n / m_backend_s,
         "mixed_verify_rows_per_s": n / (m_host_s + m_backend_s),
+        "mixed_rows_per_backend_call": recording.calls,
         "sub_batch": sub_n, "sub_batch_rejected": sum(r is not None for r in sub_dev),
+        "sub_batch_matches": ["CpuBackend", "Verifier.verify_pure"],
     }
 
 
@@ -452,22 +714,24 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": lib_path.name, "kernels": per_kernel, "ptxas": ptxas})
 
-    # 3. kernels against their plain versions
+    # 2b. the host core, and the corpus made on its comb
     gen = SeededRng(SEED)
+    host, params, corpus = host_core(dev, gen, SERVING_N, SAMPLE_N)
+    emit({"phase": "host_core", **host, **card})
+
+    # 3. kernels against their plain versions
     int32_ops_per_s = sms * INT32_OPS_PER_SM_CLOCK * max_sm_mhz * 1e6
     kernel_rows = kernels_vs_plain(dev, KERNEL_NS, int32_ops_per_s, gen)
     emit({"phase": "kernels_vs_plain", "tolerance": "exact after canonicalization", **card,
           "results": kernel_rows})
 
-    t0 = time.perf_counter()
-    params, corpus = make_corpus(CORPUS, gen)
-    emit({"phase": "corpus", "proofs": CORPUS, "seconds": time.perf_counter() - t0})
     rows, beta = north_star_rows(params, corpus, NORTH_STAR_N, SecureRng())
 
     # 4-5. the main path, with the launch counts set to 0 just before it
     backend = TorchBackend()
     pk.reset_launches()
-    serving = serving_batch(backend, params, corpus, SERVING_N, SUB_BATCH_N)
+    parse, serving = serving_batch(backend, params, corpus, SERVING_N, SUB_BATCH_N)
+    emit({"phase": "serving_parse", **parse, **card})
     emit({"phase": "serving_batch", **serving, **card})
     star = north_star(backend, rows, beta)
     launches = dict(pk.LAUNCHES)

@@ -2,10 +2,13 @@
 
 A second package beside ``cpzk_tpu``, built for an NVIDIA H100:
 
-- **Host plane** (``core/`` + ``protocol/``): pure-Python copies of the
-  reference package's ristretto255 group arithmetic, Merlin transcripts,
-  the 109-byte proof codec, single-proof prove/verify and the
-  ``BatchVerifier`` with its combined-then-fallback policy.
+- **Host plane** (``core/`` + ``protocol/``): copies of the reference
+  package's ristretto255 group API, Merlin transcripts, the 109-byte proof
+  codec (eager and deferred batch parsing), single-proof prove/verify and
+  the ``BatchVerifier`` with its combined-then-fallback policy, running on
+  the port's own C++ host core (``native/``, built with g++ at first use
+  by ``core/_native.py``), with pure-Python twins kept as the tests'
+  oracles.
 - **GPU data plane** (``ops/``): limb-tensor field arithmetic, point
   operations and the batch-verification ladders in PyTorch, with the two
   point kernels (add, fused k-doubling) written by hand in CUDA C++ for
@@ -16,7 +19,13 @@ A second package beside ``cpzk_tpu``, built for an NVIDIA H100:
 This package imports neither ``jax`` nor ``cpzk_tpu``.
 """
 
-from .errors import Error, InvalidGroupElement, InvalidParams, InvalidScalar
+from .errors import (
+    Error,
+    InvalidGroupElement,
+    InvalidParams,
+    InvalidProofEncoding,
+    InvalidScalar,
+)
 from .core.ristretto import Element, Ristretto255, Scalar
 from .core.rng import SecureRng
 from .core.transcript import Transcript
@@ -40,6 +49,7 @@ __all__ = [
     "Error",
     "InvalidGroupElement",
     "InvalidParams",
+    "InvalidProofEncoding",
     "InvalidScalar",
     "Nonce",
     "Parameters",

@@ -6,12 +6,13 @@ coordinate representations in :mod:`.scalars` and :mod:`.edwards`.
 reference line for line (generators, canonical (de)serialization, random
 scalars via 64-byte wide reduction, group ops, recompression validation).
 
-Every group operation runs on the pure-Python integer core.  Python
-big-int arithmetic is variable-time, including the secret-scalar
-multiplications of :meth:`Ristretto255.double_base_mul` (prover nonce,
-statement derivation); this package has no constant-time native host
-core yet (docs/security.md describes the same trust boundary for the
-reference package's Python path).
+Decoding, validation and the group operations run on the port's C++ host
+core (:mod:`._native`); elements parsed from bytes carry their wire only
+and decode to coordinates on first ``.point`` access.  Secret scalars (the
+prover's nonce and witness) go through :meth:`Ristretto255.double_base_mul`,
+the core's constant-time fixed-base comb; there is no variable-time
+fallback for them.  The pure-Python twins (``*_pure``) are the tests'
+oracles and are reached only by name.
 """
 
 from __future__ import annotations
@@ -20,11 +21,14 @@ import hashlib
 import hmac
 
 from ..errors import InvalidGroupElement, InvalidScalar
-from . import edwards, scalars
+from . import _native, edwards, scalars
 from .rng import SecureRng
 
 RISTRETTO_BYTES = 32
 WIDE_REDUCTION_BYTES = 64
+
+#: The decode error's message (eager parse, and deferred-parse rows).
+BAD_POINT = "Bytes do not represent a valid Ristretto point"
 
 # Domain separation tag for the second generator h (ristretto.rs:27).
 GENERATOR_H_DST = b"chaum-pedersen-zkp-v1.0.0-generator-h"
@@ -55,8 +59,10 @@ class Element:
     """Ristretto255 group element (point coset).
 
     Dual representation, each computed lazily from the other and cached:
-    ``point`` (extended Edwards coordinates) and ``wire()`` (the canonical
-    32-byte encoding).  Elements decoded from bytes carry both.
+    ``point`` (extended Edwards coordinates, for the pure-Python paths) and
+    ``wire()`` (the canonical 32-byte encoding the host core and the GPU
+    marshalling consume).  Elements parsed from bytes or produced by the
+    host core carry wire bytes only and decode on first ``.point`` access.
     """
 
     __slots__ = ("_point", "_wire", "_validated")
@@ -82,8 +88,9 @@ class Element:
         if self._point is None:
             self._point = edwards.ristretto_decode(self._wire)
             if self._point is None:
-                raise InvalidGroupElement(
-                    "Bytes do not represent a valid Ristretto point")
+                # reachable for a deferred-parse proof's commitment wire
+                # (frame-checked, decode postponed to the verify stage)
+                raise InvalidGroupElement(BAD_POINT)
         return self._point
 
     def wire(self) -> bytes:
@@ -141,11 +148,22 @@ class Ristretto255:
 
     @staticmethod
     def element_from_bytes(data: bytes) -> Element:
+        """Canonical decode on the host core (decode success is validity
+        under RFC 9496); the element keeps the wire, coordinates stay lazy."""
+        if len(data) != RISTRETTO_BYTES:
+            raise InvalidGroupElement(f"Expected {RISTRETTO_BYTES} bytes, got {len(data)}")
+        if not _native.point_validate(bytes(data)):
+            raise InvalidGroupElement(BAD_POINT)
+        return Element(wire=bytes(data), validated=True)
+
+    @staticmethod
+    def element_from_bytes_pure(data: bytes) -> Element:
+        """Pure-Python twin of :meth:`element_from_bytes` (eager decode)."""
         if len(data) != RISTRETTO_BYTES:
             raise InvalidGroupElement(f"Expected {RISTRETTO_BYTES} bytes, got {len(data)}")
         point = edwards.ristretto_decode(data)
         if point is None:
-            raise InvalidGroupElement("Bytes do not represent a valid Ristretto point")
+            raise InvalidGroupElement(BAD_POINT)
         return Element(point, bytes(data), validated=True)
 
     @staticmethod
@@ -171,28 +189,48 @@ class Ristretto255:
 
     @staticmethod
     def scalar_mul(element: Element, scalar: Scalar) -> Element:
-        """scalar * element (variable-time; public inputs)."""
+        """scalar * element on the host core, for PUBLIC inputs (variable
+        time); secret scalars go through :meth:`double_base_mul`."""
         if scalar.value == 0:
             return Ristretto255.identity()
-        return Element(edwards.pt_scalar_mul(element.point, scalar.value), validated=True)
+        out = _native.scalarmul(element.wire(), scalars.sc_to_bytes(scalar.value))
+        if not out:
+            raise InvalidGroupElement(BAD_POINT)
+        return Element(wire=out, validated=True)
 
     @staticmethod
     def double_base_mul(g: Element, h: Element, scalar: Scalar) -> tuple[Element, Element]:
-        """(scalar*g, scalar*h) — the prover's nonce commitment
-        (prover/mod.rs:115-121) and the statement derivation
-        (gadgets.rs:217-221).  Variable-time: see the module docstring."""
+        """(scalar*g, scalar*h) for SECRET scalars: the prover's nonce
+        commitment (prover/mod.rs:115-121) and the statement derivation
+        (gadgets.rs:217-221).  Runs the host core's constant-time
+        fixed-base comb (signed radix-16, masked table scan, no
+        secret-dependent branches).  Raises :class:`._native.NativeCoreError`
+        when the comb cannot serve the pair; never runs a variable-time
+        ladder instead."""
         if scalar.value == 0:
             return Ristretto255.identity(), Ristretto255.identity()
-        return (
-            Element(edwards.pt_scalar_mul(g.point, scalar.value), validated=True),
-            Element(edwards.pt_scalar_mul(h.point, scalar.value), validated=True),
-        )
+        gw, hw = g.wire(), h.wire()
+        sc = scalars.sc_to_bytes(scalar.value)
+        out = _native.double_basemul(gw, hw, sc)
+        if out is None and _native.basemul_init(gw, hw):
+            # None can also mean the comb-table race (another thread swapped
+            # the generator pair between build and read): rebuild, retry once
+            out = _native.double_basemul(gw, hw, sc)
+        if out is None:
+            raise _native.NativeCoreError(
+                "constant-time fixed-base comb failed for this generator pair "
+                "(a generator does not decode, or concurrent callers churned "
+                "the comb tables)")
+        return Element(wire=out[0], validated=True), Element(wire=out[1], validated=True)
 
     @staticmethod
     def element_mul(a: Element, b: Element) -> Element:
         """Group operation (written multiplicatively in the protocol; the
         curve implementation is additive) — ristretto.rs:158-160."""
-        return Element(edwards.pt_add(a.point, b.point), validated=True)
+        out = _native.point_add(a.wire(), b.wire())
+        if not out:
+            raise InvalidGroupElement(BAD_POINT)
+        return Element(wire=out, validated=True)
 
     @staticmethod
     def identity() -> Element:
@@ -207,9 +245,21 @@ class Ristretto255:
     @staticmethod
     def validate_element(element: Element) -> None:
         """Recompression validation (ristretto.rs:173-185): identity is valid;
-        otherwise encode→decode must round-trip to the same coset."""
+        otherwise decode→encode on the host core must give back the same
+        bytes."""
         if element._validated:
             return  # parse-time canonical decode already proved validity
+        if Ristretto255.is_identity(element):
+            return
+        compressed = element.wire()
+        if _native.point_roundtrip(compressed) != compressed:
+            raise InvalidGroupElement("Element failed recompression validation")
+
+    @staticmethod
+    def validate_element_pure(element: Element) -> None:
+        """Pure-Python twin of :meth:`validate_element`."""
+        if element._validated:
+            return
         if Ristretto255.is_identity(element):
             return
         point = edwards.ristretto_decode(element.wire())

@@ -15,6 +15,7 @@ The protocol-level labels and append order mirror the reference
 challenge DST ``"challenge"``, and the 64-byte wide challenge reduction.
 """
 
+from . import _native
 from .scalars import sc_from_bytes_mod_order_wide
 from .strobe import Strobe128
 
@@ -51,12 +52,17 @@ class Transcript:
     Mirrors ``src/primitives/transcript.rs:29-71``: construction appends the
     protocol DST under label ``"protocol"``; context/parameters/statement/
     commitment appends use the same labels; ``challenge_scalar`` squeezes 64
-    bytes under ``"challenge"`` and wide-reduces mod ℓ.
+    bytes under ``"challenge"`` and wide-reduces mod ℓ.  Runs on the host
+    core's Merlin (:class:`._native.NativeMerlin`).
     """
 
     def __init__(self) -> None:
-        self._t = MerlinTranscript(PROTOCOL_LABEL)
+        self._t = self._merlin(PROTOCOL_LABEL)
         self._t.append_message(b"protocol", PROTOCOL_DST)
+
+    @staticmethod
+    def _merlin(label: bytes):
+        return _native.NativeMerlin(label)
 
     def append_context(self, context: bytes) -> None:
         self._t.append_message(b"context", context)
@@ -80,6 +86,15 @@ class Transcript:
         return Scalar(sc_from_bytes_mod_order_wide(buf))
 
 
+class PureTranscript(Transcript):
+    """:class:`Transcript` on the pure-Python Merlin twin (the tests'
+    oracle for the native core; byte-identical)."""
+
+    @staticmethod
+    def _merlin(label: bytes):
+        return MerlinTranscript(label)
+
+
 def derive_challenges_batch(
     contexts: list[bytes | None],
     gs: list[bytes],
@@ -90,11 +105,37 @@ def derive_challenges_batch(
     r2s: list[bytes],
 ):
     """Fiat-Shamir challenges for a whole batch (host hot loop of batch
-    verification; reference analog ``src/verifier/batch.rs:239-260``):
-    one Python transcript per row.  Returns a list of Scalars."""
+    verification; reference analog ``src/verifier/batch.rs:239-260``), on
+    the host core's thread pool, one thread per online CPU.  Returns a list
+    of Scalars."""
+    from .ristretto import Scalar
+
+    out = _native.challenge_batch(
+        contexts,
+        b"".join(gs), b"".join(hs),
+        b"".join(y1s), b"".join(y2s),
+        b"".join(r1s), b"".join(r2s),
+    )
+    return [
+        Scalar(sc_from_bytes_mod_order_wide(out[64 * i : 64 * i + 64]))
+        for i in range(len(contexts))
+    ]
+
+
+def derive_challenges_batch_pure(
+    contexts: list[bytes | None],
+    gs: list[bytes],
+    hs: list[bytes],
+    y1s: list[bytes],
+    y2s: list[bytes],
+    r1s: list[bytes],
+    r2s: list[bytes],
+):
+    """Pure-Python twin of :func:`derive_challenges_batch`: one
+    :class:`PureTranscript` per row."""
     scalars = []
     for i in range(len(contexts)):
-        t = Transcript()
+        t = PureTranscript()
         if contexts[i] is not None:
             t.append_context(contexts[i])
         t.append_parameters(gs[i], hs[i])

@@ -1,7 +1,8 @@
 """Shared error taxonomy.
 
 Mirrors the reference's three-variant error enum (``src/error.rs:4-17``):
-``InvalidParams``, ``InvalidScalar``, ``InvalidGroupElement``.  Class names
+``InvalidParams``, ``InvalidScalar``, ``InvalidGroupElement`` (and
+``InvalidProofEncoding``, its deferred-parse form).  Class names
 and messages are those of ``cpzk_tpu.errors``: accept/reject parity between
 the two packages includes the error text.
 """
@@ -21,3 +22,11 @@ class InvalidScalar(Error):
 
 class InvalidGroupElement(Error):
     """Invalid group element encoding/value (reference ``Error::InvalidGroupElement``)."""
+
+
+class InvalidProofEncoding(InvalidGroupElement):
+    """A deferred-parse proof whose commitment wire failed to decode at the
+    batch-verify stage.  Same taxonomy slot as the eager parse error
+    (``InvalidGroupElement`` from ``element_from_bytes``), and the same
+    message, so deferred parsing is observationally identical to eager
+    parsing."""

@@ -3,7 +3,8 @@
 
 Port of the single-device path of ``cpzk_tpu/ops/backend.py``.  Host side:
 scalar arithmetic mod l (Python ints), window decomposition, and SoA limb
-marshalling of the row points.  Device side: the verification ladders of
+marshalling of the row points from their wire bytes (the host core's
+batch decode, :func:`.curve.wires_to_device`).  Device side: the verification ladders of
 :mod:`.verify`, whose point adds and doublings are the CUDA kernels of
 :mod:`.point_kernels`.  The combined RLC check runs per lane chunk; if it
 fails, ``verify_each`` decides per row, so accept/reject is per-proof
@@ -69,7 +70,9 @@ def _chunk_point(pt: curve.Point, lo: int, hi: int) -> curve.Point:
 
 
 def _elems_soa(elems: list, pad: int, device) -> curve.Point:
-    return curve.points_soa([e.point for e in elems], pad, device)
+    """Marshal Elements by their wire bytes (native batch decode): a wire-only
+    element's ``.point`` would be a Python decode each."""
+    return curve.wires_to_device(b"".join(e.wire() for e in elems), pad, device)
 
 
 def chunked_combined_identity(pad: int, chunk: int, r1, y1, r2, y2,

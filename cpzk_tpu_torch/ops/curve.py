@@ -5,6 +5,8 @@ coordinates: a tuple ``(X, Y, Z, T)`` of ``[20, ...batch]`` int32 limb
 tensors (x = X/Z, y = Y/Z, T = XY/Z), the limb axis leading.  No
 data-dependent control flow: masks and selects only.
 
+- host marshalling: ``wires_to_device`` (wire bytes, decoded by the host
+  core) and ``points_soa`` (host points) to ``[20, pad]`` limb tensors;
 - ``add`` / ``double`` / ``double_k`` go through the CUDA point kernels of
   :mod:`.point_kernels` (their plain versions for CPU tensors);
 - ristretto ``decode`` (RFC 9496 §4.3.1) returns a validity mask instead of
@@ -23,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import edwards as host_edwards
+from ..core import _native, edwards as host_edwards
+from ..errors import InvalidGroupElement
 from . import limbs, point_kernels
 from .limbs import NLIMBS
 
@@ -50,6 +53,34 @@ def points_soa(points: list[host_edwards.Point], pad: int, device) -> Point:
     """Identity-padded SoA limb marshal of host points to ``[20, pad]`` x 4."""
     return points_to_device(
         points + [host_edwards.IDENTITY] * (pad - len(points)), device)
+
+
+_IDENTITY_COORDS = np.zeros((4, 32), dtype=np.uint8)
+_IDENTITY_COORDS[1:3, 0] = 1  # (X, Y, Z, T) = (0, 1, 1, 0)
+
+
+def wires_to_device(wires: bytes, pad: int, device) -> Point:
+    """n concatenated 32-byte wire encodings -> ``[20, pad]`` x 4 limb
+    tensors on ``device``, identity-padded: the host core decodes the n
+    wires on its worker pool into this call's own staging buffers, and
+    :func:`limbs.bytes_to_limbs` turns each coordinate into fresh limb
+    arrays before the copy (pageable, so the copy has landed when ``.to``
+    returns).  Raises :class:`InvalidGroupElement` on a wire that
+    does not decode (callers marshal elements that passed parse-time
+    validation, so this is a guard, not a validation layer)."""
+    n = len(wires) // 32
+    if pad < n:
+        raise ValueError(f"pad={pad} is smaller than the {n} wires")
+    coords = np.empty((pad, 4, 32), dtype=np.uint8)
+    ok = np.empty((pad,), dtype=np.uint8)
+    _native.batch_decode_into(wires, coords, ok)
+    if not (ok[:n] == 1).all():
+        raise InvalidGroupElement("batch decode of pre-validated wire failed")
+    coords[n:] = _IDENTITY_COORDS  # what the identity's all-zero wire decodes to
+    return tuple(
+        torch.from_numpy(limbs.bytes_to_limbs(coords[:, k, :])).to(device)
+        for k in range(4)
+    )
 
 
 def scalars_to_windows(values: list[int]) -> np.ndarray:

@@ -71,13 +71,18 @@ def bytes_to_limbs(blob: bytes | np.ndarray) -> np.ndarray:
     """[n, 32] little-endian byte rows -> [NLIMBS, n] int32 limbs.
 
     Interprets all 256 bits; values >= 2^255 stay un-reduced (carried form
-    handles them)."""
-    raw = np.asarray(blob, dtype=np.uint8).reshape(-1, 32)
-    bits = np.unpackbits(raw, axis=1, bitorder="little")
-    bits = np.pad(bits, [(0, 0), (0, NBITS - 256)])
-    weights = (1 << np.arange(LIMB_BITS, dtype=np.int32))
-    rows = bits.reshape(len(raw), NLIMBS, LIMB_BITS).astype(np.int32) @ weights
-    return np.ascontiguousarray(rows.T)
+    handles them).  Each 13-bit limb is cut from the rows' four 64-bit
+    words with shifts (a limb may straddle two words)."""
+    raw = np.ascontiguousarray(np.asarray(blob, dtype=np.uint8).reshape(-1, 32))
+    words = raw.view("<u8")  # [n, 4]
+    out = np.empty((NLIMBS, len(raw)), dtype=np.int32)
+    for k in range(NLIMBS):
+        w, s = divmod(LIMB_BITS * k, 64)
+        v = words[:, w] >> np.uint64(s)
+        if s + LIMB_BITS > 64 and w + 1 < 4:
+            v |= words[:, w + 1] << np.uint64(64 - s)
+        out[k] = v & np.uint64(LIMB_MASK)
+    return out
 
 
 def limbs_to_int(limbs) -> int:

@@ -20,16 +20,26 @@ a device generator.
 
 The heavy lifting is delegated to a pluggable ``VerifierBackend``: the GPU
 backend in :mod:`cpzk_tpu_torch.ops.backend` (default; it raises without
-CUDA) or ``CpuBackend``, the host oracle, when the caller passes it.
+CUDA) or ``CpuBackend``, the host core's row verifier, when the caller
+passes it.
+
+Deferred-parse proofs (:meth:`Proof.from_bytes_batch` with
+``defer_point_validation=True``) settle their postponed commitment decodes
+here: a backend that reports decode failures tri-state
+(``supports_deferred_decode``, row status 2) does so in its per-row pass;
+otherwise, and always for n == 1 or a backend that prefers the combined
+check, they are screened first by one native deep parse, and the
+undecodable rows never reach the backend.  Either way an undecodable wire
+gets the eager parse's exact error.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
-from ..errors import Error, InvalidParams
-from ..core import edwards
-from ..core.ristretto import Element, Ristretto255, Scalar
+from ..errors import Error, InvalidGroupElement, InvalidParams, InvalidProofEncoding
+from ..core import _native, edwards
+from ..core.ristretto import BAD_POINT, Element, Ristretto255, Scalar
 from ..core.rng import SecureRng
 from ..core.scalars import L, sc_mul
 from ..core.transcript import Transcript, derive_challenges_batch
@@ -65,9 +75,10 @@ class BatchRow:
 @dataclass
 class PreparedBatch:
     """Host-phase output of :meth:`BatchVerifier.prepare_batch` — the
-    challenge-resolved rows (or the n == 1 verifier) ready for backend
-    dispatch via :meth:`BatchVerifier.run_prepared`.  Built on one thread,
-    consumable on another: nothing here touches the backend or the RNG."""
+    challenge-resolved rows (or the n == 1 verifier, or the deferred-parse
+    splice plan) ready for backend dispatch via
+    :meth:`BatchVerifier.run_prepared`.  Built on one thread, consumable on
+    another: nothing here touches the backend or the RNG."""
 
     n: int
     # n == 1 individual-verification path
@@ -78,6 +89,11 @@ class PreparedBatch:
     rows: list[BatchRow] | None = None
     beta: Scalar | None = None
     same_generators: bool = True
+    # deferred-parse splice path: undecodable wires mapped to their parse
+    # errors; the survivors prepared as a sub-batch
+    pre_errors: dict[int, Error] | None = None
+    sub: "BatchVerifier | None" = None
+    sub_prepared: "PreparedBatch | None" = field(default=None, repr=False)
 
 
 class VerifierBackend:
@@ -93,19 +109,30 @@ class VerifierBackend:
     #: vectorized backends where the combined check amortizes.
     prefers_combined: bool = True
 
+    #: Whether ``verify_each`` reports a deferred-parse proof's commitment
+    #: decode failure as row status 2.  When False, ``BatchVerifier``
+    #: screens deferred proofs before involving the backend, so the backend
+    #: never sees an undecodable wire.
+    supports_deferred_decode: bool = False
+
     def verify_combined(self, rows: list[BatchRow], beta: Scalar) -> bool:
         """Corrected-RLC combined check; True iff the whole batch passes."""
         raise NotImplementedError
 
-    def verify_each(self, rows: list[BatchRow]) -> list[bool]:
-        """Per-proof ground-truth checks (the accept-set decider)."""
+    def verify_each(self, rows: list[BatchRow]) -> list[int]:
+        """Per-proof ground-truth checks (the accept-set decider).  Per-row
+        status: 1/True pass, 0/False fail, 2 commitment wire failed to
+        decode (deferred-parse rows only)."""
         raise NotImplementedError
 
 
 class CpuBackend(VerifierBackend):
-    """Host-plane backend over the integer-exact core (the oracle)."""
+    """Host-plane backend: per-row checks on the host core's threaded row
+    verifier (the ground truth the GPU backend is held against), and a
+    pure-Python combined check."""
 
     prefers_combined = False
+    supports_deferred_decode = True  # native rows report status 2
 
     def verify_combined(self, rows: list[BatchRow], beta: Scalar) -> bool:
         acc = edwards.IDENTITY
@@ -134,14 +161,45 @@ class CpuBackend(VerifierBackend):
         )
         return edwards.pt_eq(lhs, acc)
 
-    def verify_each(self, rows: list[BatchRow]) -> list[bool]:
-        out: list[bool] = []
+    def verify_each(self, rows: list[BatchRow]) -> list[int]:
+        """Per-row statuses from the host core, one native call per
+        generator pair (in the order the pairs first appear)."""
+        eb = Ristretto255.element_to_bytes
+        sb = Ristretto255.scalar_to_bytes
+        groups: dict[tuple[bytes, bytes], list[int]] = {}
+        for i, row in enumerate(rows):
+            groups.setdefault((eb(row.g), eb(row.h)), []).append(i)
+        out = [0] * len(rows)
+        for (g, h), idx in groups.items():
+            part = [rows[i] for i in idx]
+            statuses = _native.verify_rows(
+                g, h,
+                b"".join(eb(r.y1) for r in part),
+                b"".join(eb(r.y2) for r in part),
+                b"".join(eb(r.r1) for r in part),
+                b"".join(eb(r.r2) for r in part),
+                b"".join(sb(r.s) for r in part),
+                b"".join(sb(r.c) for r in part),
+            )
+            for i, status in zip(idx, statuses, strict=True):
+                out[i] = status
+        return out
+
+    @staticmethod
+    def verify_each_pure(rows: list[BatchRow]) -> list[int]:
+        """Pure-Python twin of :meth:`verify_each` (the tests' oracle)."""
+        out: list[int] = []
         for row in rows:
+            try:
+                r1p, r2p = row.r1.point, row.r2.point
+            except InvalidGroupElement:
+                out.append(2)  # deferred-parse wire that does not decode
+                continue
             lhs1 = edwards.pt_scalar_mul(row.g.point, row.s.value)
-            rhs1 = edwards.pt_add(row.r1.point, edwards.pt_scalar_mul(row.y1.point, row.c.value))
+            rhs1 = edwards.pt_add(r1p, edwards.pt_scalar_mul(row.y1.point, row.c.value))
             lhs2 = edwards.pt_scalar_mul(row.h.point, row.s.value)
-            rhs2 = edwards.pt_add(row.r2.point, edwards.pt_scalar_mul(row.y2.point, row.c.value))
-            out.append(edwards.pt_eq(lhs1, rhs1) and edwards.pt_eq(lhs2, rhs2))
+            rhs2 = edwards.pt_add(r2p, edwards.pt_scalar_mul(row.y2.point, row.c.value))
+            out.append(int(edwards.pt_eq(lhs1, rhs1) and edwards.pt_eq(lhs2, rhs2)))
         return out
 
 
@@ -240,12 +298,37 @@ class BatchVerifier:
         return self.run_prepared(self.prepare_batch(rng))
 
     def prepare_batch(self, rng: SecureRng) -> PreparedBatch:
-        """Host phase: Fiat-Shamir challenge derivation, RLC coefficient
-        draws, and (n == 1) verifier/transcript construction — everything
-        that does not touch the backend."""
+        """Host phase: deferred-parse screening, Fiat-Shamir challenge
+        derivation, RLC coefficient draws, and (n == 1) verifier/transcript
+        construction — everything that does not touch the backend."""
         if not self.entries:
             raise InvalidParams("Cannot verify empty batch")
         n = len(self.entries)
+        backend = self.backend
+        g0 = self.entries[0].params.generator_g
+        h0 = self.entries[0].params.generator_h
+        same_generators = all(
+            e.params.generator_g == g0 and e.params.generator_h == h0
+            for e in self.entries
+        )
+        if any(e.proof.deferred for e in self.entries) and (
+            n == 1
+            or not same_generators
+            or not backend.supports_deferred_decode
+            or backend.prefers_combined
+        ):
+            pre_errors = self._screen_deferred()
+            if pre_errors:
+                # keep undecodable wires away from the backend: prepare the
+                # survivors as their own batch; run_prepared splices the
+                # results around the errors
+                sub = BatchVerifier(backend=backend, max_size=self.max_size)
+                sub.entries = [e for i, e in enumerate(self.entries)
+                               if i not in pre_errors]
+                return PreparedBatch(
+                    n=n, pre_errors=pre_errors, sub=sub,
+                    sub_prepared=sub.prepare_batch(rng) if sub.entries else None,
+                )
         if n == 1:
             entry = self.entries[0]
             transcript = Transcript()
@@ -255,12 +338,6 @@ class BatchVerifier:
                 n=1, entry=entry, verifier=Verifier(entry.params, entry.statement),
                 transcript=transcript,
             )
-        g0 = self.entries[0].params.generator_g
-        h0 = self.entries[0].params.generator_h
-        same_generators = all(
-            e.params.generator_g == g0 and e.params.generator_h == h0
-            for e in self.entries
-        )
         rows = self.prepare_rows(rng)
         beta = Ristretto255.random_scalar(rng)
         return PreparedBatch(
@@ -270,6 +347,16 @@ class BatchVerifier:
     def run_prepared(self, prepared: PreparedBatch) -> list[Error | None]:
         """Device phase: backend dispatch and result assembly for a
         :meth:`prepare_batch` output."""
+        if prepared.pre_errors is not None:
+            sub_results = (
+                prepared.sub.run_prepared(prepared.sub_prepared)
+                if prepared.sub_prepared is not None else []
+            )
+            survivors = iter(sub_results)
+            return [
+                prepared.pre_errors[i] if i in prepared.pre_errors else next(survivors)
+                for i in range(prepared.n)
+            ]
         if prepared.n == 1:
             try:
                 prepared.verifier.verify_with_transcript(
@@ -287,7 +374,33 @@ class BatchVerifier:
         ):
             return [None] * len(rows)
         # Fallback: per-proof ground truth (batch.rs:314-318)
-        return [
-            None if ok else InvalidParams("Proof verification failed")
-            for ok in backend.verify_each(rows)
-        ]
+        results: list[Error | None] = []
+        for status in backend.verify_each(rows):
+            if status == 2:  # deferred commitment wire failed to decode
+                results.append(InvalidProofEncoding(BAD_POINT))
+            elif status:
+                results.append(None)
+            else:
+                results.append(InvalidParams("Proof verification failed"))
+        return results
+
+    def _screen_deferred(self) -> dict[int, Error]:
+        """Settle deferred proofs' postponed point decodes with one native
+        deep parse over just the deferred wires.  Survivors are promoted to
+        fully validated (``deferred`` cleared, elements marked canonical);
+        failures map to the eager parse's exact error."""
+        idxs = [i for i, e in enumerate(self.entries) if e.proof.deferred]
+        if not idxs:
+            return {}
+        flags = _native.parse_proofs(
+            b"".join(self.entries[i].proof.to_bytes() for i in idxs))
+        out: dict[int, Error] = {}
+        for i, ok in zip(idxs, flags, strict=True):
+            proof = self.entries[i].proof
+            if ok:
+                proof.deferred = False
+                proof.commitment.r1._validated = True
+                proof.commitment.r2._validated = True
+            else:
+                out[i] = InvalidProofEncoding(BAD_POINT)
+        return out

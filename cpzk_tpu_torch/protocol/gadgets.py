@@ -11,13 +11,15 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..errors import InvalidParams
+from ..errors import Error, InvalidParams
+from ..core import _native
 from ..core.ristretto import Element, Ristretto255, Scalar
 
 PROTOCOL_VERSION = 1
 
 # The one wire size a valid proof can have: ver(1) + 3 × [len u32 + 32-byte
-# field].
+# field].  Other sizes still parse (and fail) through the framing loop so
+# the reference's per-field error messages are preserved.
 PROOF_WIRE_SIZE = 1 + 3 * (4 + 32)
 
 MAX_ELEMENT_SIZE = 4096
@@ -136,14 +138,22 @@ class Response:
 
 
 class Proof:
-    """Complete NIZK proof: version + commitment + response (gadgets.rs:306-489)."""
+    """Complete NIZK proof: version + commitment + response (gadgets.rs:306-489).
 
-    __slots__ = ("version", "commitment", "response")
+    ``deferred`` marks a proof built by the frame-only fast parse
+    (:meth:`from_bytes_batch` with ``defer_point_validation=True``): the
+    framing, scalar and identity rules are already enforced, but the two
+    commitment point decodes are postponed to the batch-verify stage.
+    ``BatchVerifier`` screens or tri-state-maps deferred proofs so that
+    accept/reject and error messages are identical to eager parsing."""
+
+    __slots__ = ("version", "commitment", "response", "deferred")
 
     def __init__(self, commitment: Commitment, response: Response, version: int = PROTOCOL_VERSION):
         self.version = version
         self.commitment = commitment
         self.response = response
+        self.deferred = False
 
     def to_bytes(self) -> bytes:
         """Wire format: ``[ver u8][len u32_be|r1][len|r2][len|s]`` = 109 bytes."""
@@ -155,9 +165,96 @@ class Proof:
         )
 
     @staticmethod
+    def _response_of(data: bytes) -> Response:
+        # the native parser proved s canonical (< l): skip the reduction
+        s = Scalar.__new__(Scalar)
+        s.value = int.from_bytes(data[77:109], "little")
+        resp = Response.__new__(Response)
+        resp._s = s
+        return resp
+
+    @staticmethod
+    def _from_validated_wire(data: bytes) -> "Proof":
+        """Construct from a PROOF_WIRE_SIZE wire that the native parser
+        validated end to end (framing, canonical non-identity points,
+        canonical nonzero scalar)."""
+        return Proof(
+            Commitment(Element(wire=data[5:37], validated=True),
+                       Element(wire=data[41:73], validated=True)),
+            Proof._response_of(data),
+        )
+
+    @staticmethod
+    def _from_framed_wire(data: bytes) -> "Proof":
+        """Construct from a frame-checked wire whose point decodes are
+        deferred to the verify stage (commitment elements unvalidated)."""
+        p = Proof(
+            Commitment(Element(wire=data[5:37]), Element(wire=data[41:73])),
+            Proof._response_of(data),
+        )
+        p.deferred = True
+        return p
+
+    @staticmethod
+    def from_bytes_batch(
+        items: "list[bytes]",
+        defer_point_validation: bool = False,
+    ) -> "list[Proof | Error]":
+        """Parse n proof wires with one native validation call for the
+        whole batch (the host core's parse pool).  Per item, a
+        :class:`Proof` or the :class:`~cpzk_tpu_torch.errors.Error` that
+        :meth:`from_bytes` raises for it: items the native pass rejects
+        re-parse on the Python parser, so error messages are exactly the
+        reference's (gadgets.rs:364-489).
+
+        ``defer_point_validation=True`` skips the two commitment point
+        decodes and returns ``deferred`` proofs (see :class:`Proof`); hand
+        those only to a :class:`~cpzk_tpu_torch.protocol.batch.BatchVerifier`."""
+        n = len(items)
+        results: list = [None] * n
+        sized = [i for i in range(n) if len(items[i]) == PROOF_WIRE_SIZE]
+        if sized:
+            packed = b"".join(bytes(items[i]) for i in sized)
+            flags = _native.parse_proofs(packed, deep=not defer_point_validation)
+            build = (Proof._from_framed_wire if defer_point_validation
+                     else Proof._from_validated_wire)
+            for j, i in enumerate(sized):
+                if flags[j]:
+                    results[i] = build(bytes(items[i]))
+        for i in range(n):
+            if results[i] is None:
+                # the native pass rejected (or never applies to) this item:
+                # the Python parser gives its exact error
+                try:
+                    results[i] = Proof._from_bytes_slow(items[i])
+                except Error as e:
+                    results[i] = e
+        return results
+
+    @staticmethod
     def from_bytes(data: bytes) -> "Proof":
         """Full adversarial-input validation (gadgets.rs:364-489), with the
-        reference's exact error messages."""
+        reference's exact error messages: one native call validates a
+        109-byte wire, and anything it rejects goes through the Python
+        parser for the message."""
+        if len(data) == PROOF_WIRE_SIZE:
+            if _native.parse_proofs(bytes(data), threads=1) == b"\x01":
+                return Proof._from_validated_wire(bytes(data))
+        return Proof._from_bytes_slow(data)
+
+    @staticmethod
+    def _from_bytes_slow(data: bytes) -> "Proof":
+        """The Python parser, decoding points on the host core."""
+        return Proof._parse(data, Ristretto255.element_from_bytes)
+
+    @staticmethod
+    def from_bytes_pure(data: bytes) -> "Proof":
+        """Pure-Python twin of :meth:`from_bytes` (the tests' oracle)."""
+        return Proof._parse(data, Ristretto255.element_from_bytes_pure)
+
+    @staticmethod
+    def _parse(data: bytes, element_from_bytes) -> "Proof":
+        """Per-field validation with the reference's exact error messages."""
         if len(data) < MIN_PROOF_SIZE:
             raise InvalidParams(f"Proof too small: {len(data)} bytes")
 
@@ -182,12 +279,11 @@ class Proof:
         if pos != len(data):
             raise InvalidParams(f"Proof has {len(data) - pos} trailing bytes")
 
-        r1 = Ristretto255.element_from_bytes(fields[0])
-        r2 = Ristretto255.element_from_bytes(fields[1])
+        # both decoders return canonical (validated) elements, so the
+        # reference's recompression validation is already done here
+        r1 = element_from_bytes(fields[0])
+        r2 = element_from_bytes(fields[1])
         s = Ristretto255.scalar_from_bytes(fields[2])
-
-        Ristretto255.validate_element(r1)
-        Ristretto255.validate_element(r2)
 
         if Ristretto255.is_identity(r1) or Ristretto255.is_identity(r2):
             raise InvalidParams("Commitment contains identity element")

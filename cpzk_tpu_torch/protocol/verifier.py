@@ -7,9 +7,10 @@ validates the statement first and mirrors the prover's Fiat-Shamir ordering
 
 from __future__ import annotations
 
-from ..errors import InvalidParams
-from ..core.ristretto import Ristretto255, Scalar
-from ..core.transcript import Transcript
+from ..errors import InvalidGroupElement, InvalidParams, InvalidProofEncoding
+from ..core import _native, edwards
+from ..core.ristretto import BAD_POINT, Ristretto255, Scalar
+from ..core.transcript import PureTranscript, Transcript
 from .gadgets import Parameters, Proof, Statement
 
 
@@ -25,7 +26,21 @@ class Verifier:
     def verify_with_transcript(self, proof: Proof, transcript: Transcript) -> None:
         """Context-bound verification (verifier/mod.rs:120-139). Raises on failure."""
         self.statement.validate()
+        self.verify_response(self._challenge(proof, transcript), proof)
 
+    def verify_pure(self, proof: Proof, context: bytes | None = None) -> None:
+        """Pure-Python twin of ``verify_with_transcript(proof, t)`` with a
+        fresh transcript ``t`` bound to ``context`` (when not None):
+        statement validation, transcript and group operations all in
+        Python.  The tests' and ``chip_smoke.py``'s oracle."""
+        Ristretto255.validate_element_pure(self.statement.y1)
+        Ristretto255.validate_element_pure(self.statement.y2)
+        transcript = PureTranscript()
+        if context is not None:
+            transcript.append_context(context)
+        self.verify_response_pure(self._challenge(proof, transcript), proof)
+
+    def _challenge(self, proof: Proof, transcript: Transcript) -> Scalar:
         transcript.append_parameters(
             Ristretto255.element_to_bytes(self.params.generator_g),
             Ristretto255.element_to_bytes(self.params.generator_h),
@@ -38,24 +53,37 @@ class Verifier:
             Ristretto255.element_to_bytes(proof.commitment.r1),
             Ristretto255.element_to_bytes(proof.commitment.r2),
         )
-
-        challenge = transcript.challenge_scalar()
-        self.verify_response(challenge, proof)
+        return transcript.challenge_scalar()
 
     def verify_response(self, challenge: Scalar, proof: Proof) -> None:
-        """Interactive fourth message check (verifier/mod.rs:144-171)."""
-        g = self.params.generator_g
-        h = self.params.generator_h
-        y1 = self.statement.y1
-        y2 = self.statement.y2
-        r1 = proof.commitment.r1
-        r2 = proof.commitment.r2
-        s = proof.response.s
+        """Interactive fourth message check (verifier/mod.rs:144-171), one
+        row of the host core's verifier."""
+        eb = Ristretto255.element_to_bytes
+        status = _native.verify_rows(
+            eb(self.params.generator_g), eb(self.params.generator_h),
+            eb(self.statement.y1), eb(self.statement.y2),
+            eb(proof.commitment.r1), eb(proof.commitment.r2),
+            Ristretto255.scalar_to_bytes(proof.response.s),
+            Ristretto255.scalar_to_bytes(challenge),
+            threads=1,
+        )[0]
+        if status == 2:
+            # a deferred-parse proof whose commitment wire never decoded:
+            # the eager parse's error, even at this single-proof entry point
+            raise InvalidProofEncoding(BAD_POINT)
+        if status != 1:
+            raise InvalidParams("Proof verification failed")
 
-        lhs1 = Ristretto255.scalar_mul(g, s)
-        rhs1 = Ristretto255.element_mul(r1, Ristretto255.scalar_mul(y1, challenge))
-        lhs2 = Ristretto255.scalar_mul(h, s)
-        rhs2 = Ristretto255.element_mul(r2, Ristretto255.scalar_mul(y2, challenge))
-
-        if not (lhs1 == rhs1 and lhs2 == rhs2):
+    def verify_response_pure(self, challenge: Scalar, proof: Proof) -> None:
+        """Pure-Python twin of :meth:`verify_response`."""
+        try:
+            r1 = proof.commitment.r1.point
+            r2 = proof.commitment.r2.point
+        except InvalidGroupElement:
+            raise InvalidProofEncoding(BAD_POINT) from None
+        s, c = proof.response.s.value, challenge.value
+        mul, add, eq = edwards.pt_scalar_mul, edwards.pt_add, edwards.pt_eq
+        ok1 = eq(mul(self.params.generator_g.point, s), add(r1, mul(self.statement.y1.point, c)))
+        ok2 = eq(mul(self.params.generator_h.point, s), add(r2, mul(self.statement.y2.point, c)))
+        if not (ok1 and ok2):
             raise InvalidParams("Proof verification failed")

@@ -88,3 +88,71 @@ def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_native_core_builds_only_from_the_port_sources():
+    """The host core is compiled from ``cpzk_tpu_torch/native`` into the
+    port's ``_build``, and loading it maps nothing of ``cpzk_tpu/_lib``."""
+    from cpzk_tpu_torch.core import _native
+
+    assert {src.parent for src in _native.SOURCES} == {ROOT / "cpzk_tpu_torch" / "native"}
+    assert _native.BUILD_DIR == ROOT / "cpzk_tpu_torch" / "_build"
+    code = (
+        "from cpzk_tpu_torch.core import _native\n"
+        "import cpzk_tpu_torch as T\n"
+        "T.Proof.from_bytes_batch([bytes(109)])\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'cpzk_tpu/_lib' not in maps and 'libcpzk_native' not in maps\n"
+        "assert str(_native.build()) in maps\n"
+        "print(_native.build())\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    path = Path(res.stdout.strip())
+    assert path.parent == ROOT / "cpzk_tpu_torch" / "_build"
+    assert path.name.startswith("libcpzk_host_")
+
+
+def test_failed_native_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
+    """A compiler that fails makes the build, and the first use of the core,
+    raise with its output in the message: there is no fallback."""
+    from cpzk_tpu_torch.core import _native
+
+    with pytest.raises(_native.NativeCoreError, match="build failed"):
+        _native.build(cxx="false", out_dir=tmp_path)
+    fake = tmp_path / "fake-cxx"
+    fake.write_text("#!/bin/sh\necho 'fake-cxx: no such target' >&2\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_native, "CXX", str(fake))
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_native, "_LIB", None)
+    with pytest.raises(_native.NativeCoreError, match="(?s)failed \\(3\\).*no such target"):
+        _native.load()
+    from cpzk_tpu_torch.core.transcript import Transcript
+
+    with pytest.raises(_native.NativeCoreError):
+        Transcript()
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_concurrent_first_builds_yield_one_loadable_library(tmp_path):
+    """Processes that build at once (as test workers do) all get the same
+    complete library, and only one is written."""
+    code = (
+        "import sys\n"
+        "from pathlib import Path\n"
+        "from cpzk_tpu_torch.core import _native\n"
+        "path = _native.build(out_dir=Path(sys.argv[1]))\n"
+        "lib = _native.open_library(path)\n"
+        "assert lib.cpzk_abi_version() == _native.ABI_VERSION\n"
+        "print(path)\n"
+    )
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(3)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0, 0], [err for _, err in outs]
+    assert len({out.strip() for out, _ in outs}) == 1
+    assert [p.name for p in tmp_path.glob("*.so")] == [Path(outs[0][0].strip()).name]
+    assert not list(tmp_path.glob("*.tmp"))
