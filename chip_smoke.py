@@ -42,11 +42,31 @@ core from ``cpzk_tpu_torch/native`` (both into the ignored
    lanes with the correction row, two lane chunks) with fresh alphas: True,
    and False with one tampered row; the launches of the valid check are
    reported on their own;
+   ``serving_plane`` — ``build_backend`` of the ``[tpu]`` settings on
+   cuda:0, which with no fallback must serve ``TorchBackend`` bare; then
+   with a counting ``CpuBackend`` passed as the fallback
+   (``FailoverBackend(TorchBackend, CpuBackend)`` behind a
+   ``DynamicBatcher`` of 4096-entry batches, prewarmed at 4096), driven in
+   one event loop: a burst of 4096 single-entry ``submit`` calls, which must
+   dispatch as one batch of 4096, then a closed loop of 64 clients
+   awaiting ``submit_many`` of 64-entry groups until 16,384 entries are
+   answered; then the closed loop again with ``pipeline_depth=1``.  The
+   entries are phase 4's (about 1% tampered).  Every result must equal its
+   expectation (``None``, or ``InvalidParams("Proof verification
+   failed")``); it fails if the breaker left CLOSED, if
+   ``tpu.backend.failover`` or ``degraded_seconds`` is above 0, if the
+   host fallback was called at all, or if either kernel was not launched
+   by the served traffic.  Printed: entries/s, request latency p50/p99,
+   batch count and sizes, the stage histograms from the port's metrics,
+   the dispatch gap and the card's work intervals (first launch to last,
+   CUDA events, idle stretches included) from the flight recorder,
+   and the kernel launches;
 6. ``profile`` — one 4096-row combined check: wall time unprofiled, then
    device time by kernel under torch.profiler (the table goes to
    ``chiprun_out/profile_4096.txt``) and the device's idle share.
 
-Then the ``kernels`` line (launches counted over phases 4-5 only), the
+Then the ``kernels`` line (``launches`` counted over phases 4-5 only,
+``launches_in_serving_plane`` over the served traffic of phase 5b), the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when CUDA is
@@ -66,6 +86,11 @@ SEED = 20261017
 CORPUS = 256
 SERVING_N = 4096
 SUB_BATCH_N = 64
+#: the serving_plane phase's closed loop: entries answered, client tasks,
+#: entries per submit_many (a batch RPC's shape)
+CLOSED_LOOP_N = 16384
+CLIENTS = 64
+GROUP_N = 64
 #: rows of the host-core checks held against the pure-Python twins
 SAMPLE_N = 256
 NORTH_STAR_N = 16384
@@ -530,7 +555,12 @@ def serving_batch(backend, params, corpus, n: int, sub_n: int) -> tuple[dict, di
 
     proofs, statements, proof_s, stmt_s = parse_entries(mixed, True)
     recording = RecordingBackend(backend)
-    results, m_host_s, m_backend_s, _ = run(batch(mixed, proofs, statements, recording))
+    pauses.start()
+    try:
+        results, m_host_s, m_backend_s, _ = run(batch(mixed, proofs, statements, recording))
+    finally:
+        pauses.stop()
+    m_gc_s, pauses.seconds = pauses.seconds, 0.0
     flagged = [i for i, r in enumerate(results) if r is not None]
     if flagged != sorted([*bad, *undecodable]):
         raise AssertionError(f"flagged rows {flagged} != tampered + undecodable rows")
@@ -578,7 +608,7 @@ def serving_batch(backend, params, corpus, n: int, sub_n: int) -> tuple[dict, di
         "valid_end_to_end_rows_per_s": valid_t["end_to_end_rows_per_s"],
         "valid_launches": valid_launches,
         "valid": timings,
-        "mixed_host_s": m_host_s, "mixed_backend_s": m_backend_s,
+        "mixed_host_s": m_host_s, "mixed_backend_s": m_backend_s, "mixed_gc_pause_s": m_gc_s,
         "mixed_backend_rows_per_s": n / m_backend_s,
         "mixed_verify_rows_per_s": n / (m_host_s + m_backend_s),
         "mixed_rows_per_backend_call": recording.calls,
@@ -639,6 +669,246 @@ def north_star(backend, rows, beta) -> dict:
         raise AssertionError(f"{n}-row combined check accepted a tampered row")
     return {"rows": n, "lanes": n + 1, "valid_s": valid_s, "tampered_s": tampered_s,
             "backend_rows_per_s": n / valid_s, "valid_launches": valid_launches}
+
+
+class LogCapture:
+    """Records of the port's loggers during the serving phase (the
+    prewarm report of ``build_backend``, and any breaker warning)."""
+
+    def __init__(self):
+        import logging
+
+        self.records: list = []
+        self._handler = logging.Handler(logging.INFO)
+        self._handler.emit = self.records.append
+        self._logger = logging.getLogger("cpzk_tpu_torch")
+
+    def __enter__(self):
+        import logging
+
+        self._level = self._logger.level
+        self._logger.setLevel(logging.INFO)
+        self._logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+        self._logger.setLevel(self._level)
+
+
+def percentile(values, q: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, max(0, -(-int(q * len(ordered)) // 100) - 1))]
+
+
+def serving_plane(params, corpus, n: int, closed_total: int, clients: int,
+                  group: int) -> dict:
+    """Phase 5b: the single-card serving plane, as a server drives it.
+    ``build_backend`` on cuda:0 (prewarm at ``n``), then in one event loop
+    a burst of ``n`` single-entry ``submit`` calls, which must dispatch as
+    one batch of ``n``, and a closed loop of ``clients`` tasks each
+    awaiting ``submit_many`` of ``group``-entry groups until
+    ``closed_total`` entries are answered; then the closed loop again on a
+    ``pipeline_depth=1`` plane.  Every result is held against its
+    expectation, and the breaker must stay closed on the card."""
+    import asyncio
+
+    import torch
+
+    from cpzk_tpu_torch import CpuBackend, InvalidParams, Ristretto255, Statement
+    from cpzk_tpu_torch.observability import get_flight_recorder
+    from cpzk_tpu_torch.ops import point_kernels as pk
+    from cpzk_tpu_torch.ops.backend import TorchBackend
+    from cpzk_tpu_torch.protocol.batch import BatchEntry
+    from cpzk_tpu_torch.protocol.gadgets import Proof
+    from cpzk_tpu_torch.resilience import BreakerState
+    from cpzk_tpu_torch.server import TpuSettings, build_backend, metrics
+
+    fallback_calls = [0]
+
+    class CountingCpuBackend(CpuBackend):
+        """The host fallback handed to ``build_backend``, counting every
+        call the breaker routes to it (the phase requires none)."""
+
+        def verify_combined(self, rows, beta):
+            fallback_calls[0] += 1
+            return super().verify_combined(rows, beta)
+
+        def verify_each(self, rows):
+            fallback_calls[0] += 1
+            return super().verify_each(rows)
+
+    valid, mixed, bad, _ = serving_wires(params, corpus, n)
+    wires = [mixed[i] if i in bad else valid[i] for i in range(n)]
+    proofs = Proof.from_bytes_batch([w[0] for w in wires])
+    statements = [Statement(Ristretto255.element_from_bytes(w[1]),
+                            Ristretto255.element_from_bytes(w[2])) for w in wires]
+    contexts = [w[3] for w in wires]
+    expected = [("InvalidParams", "Proof verification failed") if i in bad else None
+                for i in range(n)]
+
+    def entry(i: int) -> BatchEntry:
+        return BatchEntry(params, statements[i], proofs[i], contexts[i])
+
+    def check(indices, results, part: str) -> None:
+        got = [None if r is None else (type(r).__name__, str(r)) for r in results]
+        want = [expected[i] for i in indices]
+        if got != want:
+            wrong = [i for i, g, w in zip(indices, got, want) if g != w][:5]
+            raise AssertionError(f"serving_plane {part}: wrong results at rows {wrong}")
+        if any(r is not None and type(r) is not InvalidParams for r in results):
+            raise AssertionError(f"serving_plane {part}: unexpected error type")
+
+    hist_names = (("queue_wait", "tpu.batch.queue_wait", None),
+                  ("host_time", "tpu.batch.host_time", None),
+                  ("device_time", "tpu.batch.device_time", {"backend": "primary"}))
+
+    def hists() -> dict:
+        return {k: metrics.read_histogram(name, labels=labels)
+                for k, name, labels in hist_names}
+
+    def part_report(entries: int, wall_s: float, latencies, h0, records, gc_s: float):
+        h1 = hists()
+        gaps = [r.dispatch_gap_s for r in records[1:]]
+        return {
+            "entries": entries, "wall_s": wall_s, "entries_per_s": entries / wall_s,
+            "gc_pause_s": gc_s,
+            "batch_wall_ms": [r.wall_s * 1e3 for r in records],
+            "queue_wait_mean_ms": [r.queue_wait_s * 1e3 for r in records],
+            "latency_p50_ms": percentile(latencies, 50) * 1e3,
+            "latency_p99_ms": percentile(latencies, 99) * 1e3,
+            "requests": len(latencies),
+            "batches": len(records), "batch_sizes": [r.batch for r in records],
+            "dispatch_gap_ms": [r.dispatch_gap_s * 1e3 for r in records],
+            "dispatch_gap_mean_ms": (sum(gaps) / len(gaps) * 1e3) if gaps else None,
+            "device_interval_s": [r.device_interval_s for r in records],
+            "device_interval_share": sum(r.device_interval_s for r in records) / wall_s,
+            "stages_ms": {k: sum(r.stages_s.get(k, 0.0) for r in records) * 1e3
+                          for k in ("thread_hop", "pad_and_pack", "device_wait",
+                                    "marshal", "execute", "unpack")},
+            "histograms": {k: {"count": h1[k][0] - h0[k][0], "sum_s": h1[k][1] - h0[k][1]}
+                           for k in h1},
+        }
+
+    async def burst(batcher) -> dict:
+        recorder = get_flight_recorder()
+        recorder.clear()
+        h0 = hists()
+        pauses = GcPauses()
+        pauses.start()
+        t0 = time.perf_counter()
+        done_at = [0.0] * n
+
+        async def one(i):
+            r = await batcher.submit(params, statements[i], proofs[i], contexts[i])
+            done_at[i] = time.perf_counter()
+            return r
+
+        try:
+            results = await asyncio.gather(*[one(i) for i in range(n)])
+            wall = time.perf_counter() - t0
+        finally:
+            pauses.stop()
+        check(range(n), results, "burst")
+        records = recorder.snapshot()
+        if [r.batch for r in records] != [n]:
+            raise AssertionError(f"burst dispatched as {[r.batch for r in records]}, "
+                                 f"not one batch of {n}")
+        return part_report(n, wall, [d - t0 for d in done_at], h0, records,
+                           pauses.seconds)
+
+    async def closed_loop(batcher) -> dict:
+        recorder = get_flight_recorder()
+        recorder.clear()
+        h0 = hists()
+        groups = closed_total // group
+        issued = [0]
+        latencies: list[float] = []
+
+        async def client():
+            while issued[0] < groups:
+                g = issued[0]
+                issued[0] += 1
+                lo = (g * group) % n
+                idx = range(lo, lo + group)
+                t = time.perf_counter()
+                results = await batcher.submit_many([entry(i) for i in idx])
+                latencies.append(time.perf_counter() - t)
+                check(idx, results, f"closed loop group {g}")
+
+        pauses = GcPauses()
+        pauses.start()
+        t0 = time.perf_counter()
+        try:
+            await asyncio.gather(*[client() for _ in range(clients)])
+            wall = time.perf_counter() - t0
+        finally:
+            pauses.stop()
+        records = recorder.snapshot()
+        if sum(r.batch for r in records) != closed_total:
+            raise AssertionError("closed loop: dispatched entries != answered entries")
+        return part_report(closed_total, wall, latencies, h0, records,
+                           pauses.seconds)
+
+    def settings(depth: int) -> TpuSettings:
+        return TpuSettings(backend="tpu", batch_max=n, batch_window_ms=5.0,
+                           pipeline_depth=depth, prewarm_quanta=str(n))
+
+    out = {"n": n, "tampered": len(bad), "closed_total": closed_total,
+           "clients": clients, "group": group, "tolerance": "exact"}
+    failover0 = metrics.read("tpu.backend.failover")
+    before = dict(pk.LAUNCHES)
+    bare, _ = build_backend(TpuSettings(backend="tpu", prewarm_quanta=""))
+    if type(bare) is not TorchBackend:
+        raise AssertionError(f"build_backend with no fallback served {type(bare).__name__}")
+    out["default_backend"] = type(bare).__name__
+    with LogCapture() as logs:
+        t0 = time.perf_counter()
+        backend, batcher = build_backend(settings(2), fallback=CountingCpuBackend())
+        out["build_backend_s"] = time.perf_counter() - t0
+        out["prewarm_launches"] = {k: pk.LAUNCHES[k] - before[k] for k in before}
+        backend1, batcher1 = build_backend(settings(1), fallback=CountingCpuBackend())
+
+        # the served traffic, with the launch counts set to 0 just before it
+        pk.reset_launches()
+
+        async def depth2():
+            batcher.start()
+            try:
+                return await burst(batcher), await closed_loop(batcher)
+            finally:
+                await batcher.stop()
+
+        async def depth1():
+            batcher1.start()
+            try:
+                return await closed_loop(batcher1)
+            finally:
+                await batcher1.stop()
+
+        out["burst"], out["closed_loop_depth2"] = asyncio.run(depth2())
+        out["closed_loop_depth1"] = asyncio.run(depth1())
+        torch.cuda.synchronize()
+        out["launches_in_serving_plane"] = dict(pk.LAUNCHES)
+    out["prewarm_s"] = [r.prewarm_s for r in logs.records
+                        if hasattr(r, "prewarm_s")]
+    out["warnings"] = [r.getMessage() for r in logs.records if r.levelno >= 30]
+    out["breaker"] = [backend.state.value, backend1.state.value]
+    out["failover"] = metrics.read("tpu.backend.failover") - failover0
+    out["degraded_seconds"] = [backend.breaker.degraded_seconds,
+                               backend1.breaker.degraded_seconds]
+    out["fallback_calls"] = fallback_calls[0]
+    if (backend.state is not BreakerState.CLOSED or backend1.state is not BreakerState.CLOSED
+            or out["failover"] > 0 or max(out["degraded_seconds"]) > 0
+            or metrics.read("tpu.backend.degraded_seconds", kind="g") > 0):
+        raise AssertionError(f"serving_plane left the card: breaker {out['breaker']}, "
+                             f"failover {out['failover']}, warnings {out['warnings']}")
+    if fallback_calls[0]:
+        raise AssertionError(f"the host fallback was called {fallback_calls[0]} times")
+    for name, count in out["launches_in_serving_plane"].items():
+        if count < 1:
+            raise AssertionError(f"{name} was never launched by the served traffic")
+    return out
 
 
 def profile_combined(backend, rows, beta) -> dict:
@@ -740,6 +1010,11 @@ def main() -> int:
         if count < 1:
             raise AssertionError(f"{name} was never launched on the main path")
 
+    # 5b. the serving plane (its own launch counts, reset inside just before
+    # the served traffic and read just after)
+    plane = serving_plane(params, corpus, SERVING_N, CLOSED_LOOP_N, CLIENTS, GROUP_N)
+    emit({"phase": "serving_plane", **plane, **card})
+
     # 6. where the time goes
     prof = profile_combined(backend, rows[:SERVING_N], beta)
     emit({"phase": "profile", **prof, **card})
@@ -761,6 +1036,7 @@ def main() -> int:
             "spill_bytes": per_kernel[name].get("spill_store_bytes"),
             "launches_per_4096_verify": serving["valid_launches"][name],
             "launches_per_16384_check": star["valid_launches"][name],
+            "launches_in_serving_plane": plane["launches_in_serving_plane"][name],
         })
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -10,6 +10,16 @@ batch decode, :func:`.curve.wires_to_device`).  Device side: the verification la
 fails, ``verify_each`` decides per row, so accept/reject is per-proof
 ground truth.
 
+Serving-plane hooks (as in the reference): each call reports its padded
+lanes (``tpu.batch.pad_waste``, :func:`.flightrec.note_lanes`), its host
+marshalling seconds (:func:`.flightrec.note_marshal`) and the interval the
+card ran its work, timed with CUDA events on the backend's stream
+(:func:`.flightrec.note_device`) — the dispatch gap of the flight recorder
+is the card's idle time, not the host's.  :func:`prewarm` takes the place
+of the reference's ahead-of-time compile: it builds the CUDA kernels and
+runs one combined check at each serving width before a server reports
+ready.
+
 Not ported (single-device GPU path only): the jit/AOT caches, buffer
 donation, mesh sharding, Pippenger routing and the device RLC scalar plane.
 """
@@ -18,14 +28,17 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from collections import OrderedDict
 
 import torch
 
 from ..core.ristretto import Ristretto255, Scalar
 from ..core.scalars import L
+from ..observability import flightrec
 from ..protocol.batch import BatchRow, VerifierBackend
-from . import curve, verify
+from ..server import metrics
+from . import curve, point_kernels, verify
 
 #: Lane-chunk size and lane-pad quantum.  These are the JAX package's
 #: values, chosen on a TPU (the chunk sidesteps a TPU compiler defect on
@@ -67,6 +80,13 @@ def _chunk_bounds(pad: int, chunk: int = LANE_CHUNK):
 
 def _chunk_point(pt: curve.Point, lo: int, hi: int) -> curve.Point:
     return tuple(c[..., lo:hi] for c in pt)
+
+
+def _note_pad_waste(n: int, pad: int) -> None:
+    """Batch-shape telemetry: the fraction of lanes spent on padding
+    (``tpu.batch.pad_waste``) and the flight recorder's occupancy."""
+    metrics.gauge("tpu.batch.pad_waste").set((pad - n) / pad if pad > 0 else 0.0)
+    flightrec.note_lanes(n, pad)
 
 
 def _elems_soa(elems: list, pad: int, device) -> curve.Point:
@@ -134,6 +154,27 @@ class TorchBackend(VerifierBackend):
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
 
+    @contextlib.contextmanager
+    def _device_work(self):
+        """Report the interval the device ran the block's work
+        (:func:`.flightrec.note_device`).  On a card it is timed with CUDA
+        events recorded on the current stream around the block and ends
+        where the host has synchronised with the end event; on the CPU the
+        host clock times it."""
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            end.synchronize()
+            t1 = time.monotonic()
+            flightrec.note_device(t1 - start.elapsed_time(end) / 1e3, t1)
+        else:
+            t0 = time.monotonic()
+            yield
+            flightrec.note_device(t0, time.monotonic())
+
     def _gh(self, row: BatchRow) -> tuple[curve.Point, curve.Point]:
         key = (
             Ristretto255.element_to_bytes(row.g),
@@ -162,9 +203,11 @@ class TorchBackend(VerifierBackend):
     def _verify_combined(self, rows: list[BatchRow], beta: Scalar) -> bool:
         n = len(rows)
         dev = self.device
+        t0 = time.perf_counter()
         # correction row: G in slot r1 with -sum(a s), H in slot y1 with
         # -b sum(a s); identity in the other two slots
         pad = _pad_lanes(n + 1, self.lane_chunk)
+        _note_pad_waste(n + 1, pad)
         r1 = _elems_soa([r.r1 for r in rows] + [rows[0].g], pad, dev)
         y1 = _elems_soa([r.y1 for r in rows] + [rows[0].h], pad, dev)
         r2 = _elems_soa([r.r2 for r in rows], pad, dev)
@@ -181,8 +224,10 @@ class TorchBackend(VerifierBackend):
         w_ac = curve.scalar_windows(ac + [(L - b * sum_as % L) % L], pad, dev)
         w_ba = curve.scalar_windows(ba, pad, dev)
         w_bac = curve.scalar_windows(bac, pad, dev)
-        return chunked_combined_identity(
-            pad, self.lane_chunk, r1, y1, r2, y2, w_a, w_ac, w_ba, w_bac)
+        flightrec.note_marshal(time.perf_counter() - t0)
+        with self._device_work():
+            return chunked_combined_identity(
+                pad, self.lane_chunk, r1, y1, r2, y2, w_a, w_ac, w_ba, w_bac)
 
     def verify_each(self, rows: list[BatchRow]) -> list[bool]:
         with self._scope():
@@ -191,7 +236,9 @@ class TorchBackend(VerifierBackend):
     def _verify_each(self, rows: list[BatchRow]) -> list[bool]:
         n = len(rows)
         dev = self.device
+        t0 = time.perf_counter()
         pad = _pad_lanes(n, self.lane_chunk)
+        _note_pad_waste(n, pad)
         shared = all(r.g == rows[0].g and r.h == rows[0].h for r in rows)
         if shared:
             g, h = self._gh(rows[0])
@@ -204,15 +251,52 @@ class TorchBackend(VerifierBackend):
         r2 = _elems_soa([r.r2 for r in rows], pad, dev)
         ws = curve.scalar_windows([r.s.value for r in rows], pad, dev)
         wc = curve.scalar_windows([r.c.value for r in rows], pad, dev)
-        # per-row checks are lane-independent: tile and concatenate
-        masks = []
-        for lo, hi in _chunk_bounds(pad, self.lane_chunk):
-            cg = g if shared else _chunk_point(g, lo, hi)
-            ch = h if shared else _chunk_point(h, lo, hi)
-            masks.append(verify.verify_each_kernel(
-                cg, ch,
-                _chunk_point(y1, lo, hi), _chunk_point(y2, lo, hi),
-                _chunk_point(r1, lo, hi), _chunk_point(r2, lo, hi),
-                ws[:, lo:hi], wc[:, lo:hi]))
-        mask = torch.cat(masks, dim=-1)
-        return [bool(v) for v in mask[:n].cpu().tolist()]
+        flightrec.note_marshal(time.perf_counter() - t0)
+        with self._device_work():
+            # per-row checks are lane-independent: tile and concatenate
+            masks = []
+            for lo, hi in _chunk_bounds(pad, self.lane_chunk):
+                cg = g if shared else _chunk_point(g, lo, hi)
+                ch = h if shared else _chunk_point(h, lo, hi)
+                masks.append(verify.verify_each_kernel(
+                    cg, ch,
+                    _chunk_point(y1, lo, hi), _chunk_point(y2, lo, hi),
+                    _chunk_point(r1, lo, hi), _chunk_point(r2, lo, hi),
+                    ws[:, lo:hi], wc[:, lo:hi]))
+            mask = torch.cat(masks, dim=-1)[:n].cpu()
+        return [bool(v) for v in mask.tolist()]
+
+
+def _generator_rows(n: int) -> tuple[list[BatchRow], Scalar]:
+    """n valid rows made from the generators alone: statement (G, H),
+    commitment (G, H), challenge 1 and response 2, so s·G = r1 + c·y1 and
+    s·H = r2 + c·y2; alpha and beta are fixed non-zero weights."""
+    g, h = Ristretto255.generator_g(), Ristretto255.generator_h()
+    one, two = Scalar(1), Scalar(2)
+    rows = [BatchRow(g=g, h=h, y1=g, y2=h, r1=g, r2=h, s=two, c=one,
+                     alpha=Scalar(i + 1)) for i in range(n)]
+    return rows, Scalar(3)
+
+
+def prewarm(quanta, device=None) -> dict[str, float]:
+    """Build the CUDA kernels (on a card) and run one combined check at
+    each quantum's padded width (``quantum`` rows plus the correction row)
+    on valid rows made from the generators; the serving plane's
+    replacement for the reference's ahead-of-time compile.  Returns the
+    seconds each step took, keyed ``"build"`` and ``"combined/<lanes>"``.
+    A build or launch failure, or a check that rejects, raises."""
+    backend = TorchBackend(device=device)
+    seconds: dict[str, float] = {}
+    if backend.device.type == "cuda":
+        t0 = time.perf_counter()
+        point_kernels.library()
+        seconds["build"] = time.perf_counter() - t0
+    for q in quanta:
+        rows, beta = _generator_rows(int(q))
+        t0 = time.perf_counter()
+        if not backend.verify_combined(rows, beta):
+            raise RuntimeError(
+                f"prewarm: the combined check rejected {q} valid rows")
+        seconds[f"combined/{_pad_lanes(int(q) + 1, backend.lane_chunk)}"] = (
+            time.perf_counter() - t0)
+    return seconds

@@ -251,7 +251,9 @@ def load(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def _lib() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
+    """The kernel library of the package's sources: built (:func:`build`)
+    and loaded once per process."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
@@ -266,7 +268,7 @@ def _lib() -> ctypes.CDLL:
 def block_threads(n: int, device: torch.device | str = "cuda") -> int:
     """Threads per block the kernels launch with for n lanes on ``device``
     (``cpzk_block_threads`` in ``csrc/point_ops.cu``)."""
-    lib = _lib()
+    lib = library()
     with torch.cuda.device(device):
         return lib.cpzk_block_threads(n)
 
@@ -306,7 +308,7 @@ def point_add(p: Point, q: Point) -> Point:
     flat, shape = _lanes(list(p) + list(q), device)
     n = flat[0].shape[1]
     out = [torch.empty((NLIMBS, n), dtype=torch.int32, device=device) for _ in range(4)]
-    lib = _lib()
+    lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.cpzk_point_add(
@@ -328,7 +330,7 @@ def point_double_k(p: Point, k: int) -> Point:
     flat, shape = _lanes(list(p[:3]), device)
     n = flat[0].shape[1]
     out = [torch.empty((NLIMBS, n), dtype=torch.int32, device=device) for _ in range(4)]
-    lib = _lib()
+    lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.cpzk_point_double_k(

@@ -21,7 +21,8 @@ a device generator.
 The heavy lifting is delegated to a pluggable ``VerifierBackend``: the GPU
 backend in :mod:`cpzk_tpu_torch.ops.backend` (default; it raises without
 CUDA) or ``CpuBackend``, the host core's row verifier, when the caller
-passes it.
+passes it.  ``FailoverBackend`` wraps a primary and a fallback behind a
+circuit breaker (the serving plane's card-to-host failover).
 
 Deferred-parse proofs (:meth:`Proof.from_bytes_batch` with
 ``defer_point_validation=True``) settle their postponed commitment decodes
@@ -35,6 +36,9 @@ gets the eager parse's exact error.
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import time
 from dataclasses import dataclass, field
 
 from ..errors import Error, InvalidGroupElement, InvalidParams, InvalidProofEncoding
@@ -43,10 +47,33 @@ from ..core.ristretto import BAD_POINT, Element, Ristretto255, Scalar
 from ..core.rng import SecureRng
 from ..core.scalars import L, sc_mul
 from ..core.transcript import Transcript, derive_challenges_batch
+from ..observability.tracing import get_tracer
+from ..resilience.breaker import (
+    ROUTE_PRIMARY,
+    ROUTE_PROBE,
+    BreakerState,
+    CircuitBreaker,
+)
+from ..server import metrics
 from .gadgets import Parameters, Proof, Statement
 from .verifier import Verifier
 
 MAX_BATCH_SIZE = 1000
+
+log = logging.getLogger("cpzk_tpu_torch.protocol.batch")
+
+
+class _NullStages:
+    """Inert stage recorder: ``BatchVerifier.verify`` always runs under a
+    stage scope, instrumented or not (the real recorder is
+    :class:`cpzk_tpu_torch.observability.BatchStages`)."""
+
+    def stage(self, name: str):
+        del name
+        return contextlib.nullcontext()
+
+
+_NULL_STAGES = _NullStages()
 
 
 @dataclass
@@ -55,6 +82,17 @@ class BatchEntry:
     statement: Statement
     proof: Proof
     transcript_context: bytes | None
+    #: absolute ``time.monotonic()`` point after which nobody is waiting for
+    #: this entry's result (the request deadline, threaded through the
+    #: serving layer); ``None`` = wait forever.  The dynamic batcher sheds
+    #: expired entries before device dispatch instead of verifying them.
+    deadline: float | None = None
+    #: trace id of the request that queued this entry; the batcher fans
+    #: per-stage spans out to every member trace.
+    trace_id: str | None = None
+    #: ``time.monotonic()`` at enqueue, stamped by the batcher — the
+    #: ``queue_wait`` span/histogram measures from here to dispatch.
+    enqueued_at: float | None = None
 
 
 @dataclass
@@ -203,13 +241,197 @@ class CpuBackend(VerifierBackend):
         return out
 
 
+class FailoverBackend(VerifierBackend):
+    """Self-healing primary→fallback failover wrapper (the reference's
+    ``FailoverBackend``, ``cpzk_tpu/protocol/batch.py``).
+
+    Routes to ``primary`` until it raises, then degrades to ``fallback``
+    — a failed combined check simply reports False so the dispatcher's
+    per-proof path decides, keeping accept/reject semantics identical
+    through a mid-batch backend loss.  Degradation heals: after
+    ``recovery_after_s`` the breaker grants a single *probe* — one batch
+    is verified on BOTH planes, the fallback result stays authoritative,
+    and the primary is re-armed only when its answers match ground truth
+    exactly (a device that comes back *wrong* never regains traffic).
+    ``recovery_after_s=None`` keeps it degraded until :meth:`reset`.
+
+    Observability: ``tpu.backend.failover`` counts CLOSED→OPEN trips,
+    ``tpu.backend.state`` gauges the breaker (0 closed / 1 open / 2
+    half-open), ``tpu.backend.degraded_seconds`` accumulates fallback-only
+    wall time, and each transition logs WARNING exactly once and lands in
+    the trace ring as a ``breaker_transition`` event.
+    """
+
+    def __init__(
+        self,
+        primary: VerifierBackend,
+        fallback: VerifierBackend,
+        recovery_after_s: float | None = 30.0,
+        probe_batch_max: int = 64,
+        clock=None,
+    ):
+        if probe_batch_max < 1:
+            raise InvalidParams("probe_batch_max must be positive")
+        self.primary = primary
+        self.fallback = fallback
+        self.probe_batch_max = probe_batch_max
+        self.breaker = CircuitBreaker(
+            recovery_after_s=recovery_after_s,
+            clock=clock or time.monotonic,
+            on_transition=self._on_transition,
+        )
+
+    @property
+    def degraded(self) -> bool:
+        """True while traffic is (at least partly) on the fallback."""
+        return self.breaker.state is not BreakerState.CLOSED
+
+    @property
+    def state(self) -> BreakerState:
+        """Breaker state, for status lines."""
+        return self.breaker.state
+
+    @property
+    def prefers_combined(self) -> bool:  # type: ignore[override]
+        backend = self.fallback if self.degraded else self.primary
+        return backend.prefers_combined
+
+    def reset(self) -> None:
+        """Operator re-arm (bypasses the probe — trust the fix)."""
+        self.breaker.reset()
+
+    # -- transitions / observability --------------------------------------
+
+    def _on_transition(self, old: BreakerState, new: BreakerState) -> None:
+        if new is BreakerState.OPEN and old is BreakerState.CLOSED:
+            log.warning(
+                "primary verifier backend failed; degrading to fallback "
+                "(probe retry in %ss)", self.breaker.recovery_after_s,
+            )
+        elif new is BreakerState.OPEN:
+            log.warning(
+                "primary verifier probe failed or disagreed with fallback "
+                "ground truth; staying degraded (next probe in %ss)",
+                self.breaker.recovery_after_s,
+            )
+        elif new is BreakerState.HALF_OPEN:
+            log.info("probing primary verifier backend with one batch")
+        else:  # -> CLOSED
+            log.warning(
+                "primary verifier backend recovered after %.1fs degraded; "
+                "traffic back on primary", self.breaker.degraded_seconds,
+            )
+        if new is BreakerState.OPEN and old is BreakerState.CLOSED:
+            metrics.counter("tpu.backend.failover").inc()
+        metrics.gauge("tpu.backend.state").set(
+            {"closed": 0, "open": 1, "half-open": 2}[new.value]
+        )
+        # the transition lands in the trace ring buffer, so degraded periods
+        # share the /tracez timeline with the requests they hit
+        get_tracer().record_event(
+            "breaker_transition", old=old.value, new=new.value,
+        )
+
+    def _touch_degraded_gauge(self) -> None:
+        metrics.gauge("tpu.backend.degraded_seconds").set(
+            self.breaker.degraded_seconds
+        )
+
+    def _note_failure(self, exc: Exception) -> None:
+        # pipelined dispatches call backends from multiple threads; the
+        # breaker hands the CLOSED->OPEN transition to exactly one of them
+        # (the device exception itself is worth one traceback, not one per
+        # batch)
+        if self.breaker.record_failure():
+            log.warning("primary verifier backend raised", exc_info=exc)
+
+    # -- verification routing ----------------------------------------------
+
+    def verify_combined(self, rows: list[BatchRow], beta: Scalar) -> bool:
+        self._touch_degraded_gauge()
+        route = self.breaker.acquire()
+        if route == ROUTE_PRIMARY:
+            try:
+                return self.primary.verify_combined(rows, beta)
+            except Exception as exc:
+                self._note_failure(exc)
+        elif route == ROUTE_PROBE:
+            # a combined check has no per-row ground truth to compare the
+            # probe against; hand the token back so the dispatcher's
+            # verify_each pass (or the next batch) runs the real probe
+            self.breaker.release_probe()
+        # a False combined check routes the dispatcher to verify_each,
+        # which is the ground-truth path on the fallback backend
+        if self.fallback.prefers_combined:
+            return self.fallback.verify_combined(rows, beta)
+        return False
+
+    def verify_each(self, rows: list[BatchRow]) -> list[int]:
+        self._touch_degraded_gauge()
+        route = self.breaker.acquire()
+        if route == ROUTE_PRIMARY:
+            try:
+                return self.primary.verify_each(rows)
+            except Exception as exc:
+                self._note_failure(exc)
+            return self.fallback.verify_each(rows)
+        if route == ROUTE_PROBE:
+            return self._probe_each(rows)
+        return self.fallback.verify_each(rows)
+
+    def _probe_each(self, rows: list[BatchRow]) -> list[int]:
+        """Half-open probe: the fallback verifies the whole batch (its
+        result is returned — authoritative no matter what the primary
+        says); the primary re-verifies the first ``probe_batch_max`` rows
+        and must reproduce ground truth exactly to re-close the breaker."""
+        truth = self.fallback.verify_each(rows)
+        n = min(len(rows), self.probe_batch_max)
+        if n == 0:
+            self.breaker.release_probe()
+            return truth
+        try:
+            probe = self.primary.verify_each(rows[:n])
+            agreed = [int(v) for v in probe] == [int(v) for v in truth[:n]]
+        except Exception as exc:
+            log.warning("primary verifier probe raised: %s", exc)
+            agreed = False
+        if agreed:
+            self.breaker.probe_succeeded()
+        else:
+            self.breaker.probe_failed()
+        self._touch_degraded_gauge()
+        return truth
+
+
+_DEFAULT_BACKEND: VerifierBackend | None = None
+
+
+def default_backend() -> VerifierBackend:
+    """Process-wide default backend: the one set by
+    :func:`set_default_backend`, else ``TorchBackend()`` on the card (made
+    once; it raises without CUDA).  The host oracle is never a silent
+    default."""
+    global _DEFAULT_BACKEND
+    if _DEFAULT_BACKEND is None:
+        from ..ops.backend import TorchBackend  # ops imports this module
+
+        _DEFAULT_BACKEND = TorchBackend()
+    return _DEFAULT_BACKEND
+
+
+def set_default_backend(backend: VerifierBackend | None) -> None:
+    global _DEFAULT_BACKEND
+    _DEFAULT_BACKEND = backend
+
+
 class BatchVerifier:
     """Accumulate-and-verify batch API (reference ``BatchVerifier`` twin).
 
     ``max_size`` defaults to the reference's 1000-entry cap but is
     configurable up to device scale.  ``backend=None`` means
-    ``TorchBackend()`` on the card, which raises without CUDA; the host
-    oracle runs only when passed (``backend=CpuBackend()``)."""
+    :func:`default_backend`: ``TorchBackend()`` on the card, which raises
+    without CUDA, unless another default was set; the host oracle runs
+    only when passed (``backend=CpuBackend()``)."""
 
     def __init__(
         self,
@@ -220,11 +442,7 @@ class BatchVerifier:
             raise InvalidParams("Batch capacity must be positive")
         self.entries: list[BatchEntry] = []
         self.max_size = max_size
-        if backend is None:
-            from ..ops.backend import TorchBackend  # ops imports this module
-
-            backend = TorchBackend()
-        self.backend = backend
+        self.backend = backend if backend is not None else default_backend()
 
     def __len__(self) -> int:
         return len(self.entries)
@@ -287,22 +505,34 @@ class BatchVerifier:
             for entry, c, alpha in zip(self.entries, challenges, alphas, strict=True)
         ]
 
-    def verify(self, rng: SecureRng) -> list[Error | None]:
+    def verify(self, rng: SecureRng, stages=None) -> list[Error | None]:
         """Verify all entries; per-entry ``None`` (ok) or ``Error``.
 
         Mirrors batch.rs:171-183: an empty batch is an error; n == 1
         verifies individually; otherwise the combined check decides the
         fast path and failure falls back to per-proof results.  Composes
         :meth:`prepare_batch` (host phase) with :meth:`run_prepared`
-        (device phase)."""
-        return self.run_prepared(self.prepare_batch(rng))
+        (device phase).
 
-    def prepare_batch(self, rng: SecureRng) -> PreparedBatch:
+        ``stages`` is an optional stage recorder (duck-typed like
+        :class:`cpzk_tpu_torch.observability.BatchStages`): host prep is
+        timed under ``pad_and_pack``, the backend call(s) under
+        ``device_dispatch``, and result assembly under ``unpack``."""
+        st = stages if stages is not None else _NULL_STAGES
+        return self.run_prepared(self.prepare_batch(rng, st), st)
+
+    def prepare_batch(self, rng: SecureRng, stages=None) -> PreparedBatch:
         """Host phase: deferred-parse screening, Fiat-Shamir challenge
         derivation, RLC coefficient draws, and (n == 1) verifier/transcript
-        construction — everything that does not touch the backend."""
+        construction — everything that does not touch the backend.  One
+        ``pad_and_pack`` stage covers all of it."""
         if not self.entries:
             raise InvalidParams("Cannot verify empty batch")
+        st = stages if stages is not None else _NULL_STAGES
+        with st.stage("pad_and_pack"):
+            return self._prepare(rng)
+
+    def _prepare(self, rng: SecureRng) -> PreparedBatch:
         n = len(self.entries)
         backend = self.backend
         g0 = self.entries[0].params.generator_g
@@ -344,12 +574,17 @@ class BatchVerifier:
             n=n, rows=rows, beta=beta, same_generators=same_generators,
         )
 
-    def run_prepared(self, prepared: PreparedBatch) -> list[Error | None]:
-        """Device phase: backend dispatch and result assembly for a
-        :meth:`prepare_batch` output."""
+    def run_prepared(
+        self, prepared: PreparedBatch, stages=None
+    ) -> list[Error | None]:
+        """Device phase: backend dispatch (``device_dispatch`` stage) and
+        result assembly (``unpack``) for a :meth:`prepare_batch` output."""
+        st = stages if stages is not None else _NULL_STAGES
         if prepared.pre_errors is not None:
+            # the sub-batch's device phase records into THIS batch's stage
+            # recorder, so the splice path keeps the full decomposition
             sub_results = (
-                prepared.sub.run_prepared(prepared.sub_prepared)
+                prepared.sub.run_prepared(prepared.sub_prepared, st)
                 if prepared.sub_prepared is not None else []
             )
             survivors = iter(sub_results)
@@ -358,31 +593,40 @@ class BatchVerifier:
                 for i in range(prepared.n)
             ]
         if prepared.n == 1:
-            try:
-                prepared.verifier.verify_with_transcript(
-                    prepared.entry.proof, prepared.transcript)
-                return [None]
-            except Error as exc:
-                return [exc]
+            with st.stage("device_dispatch"):
+                try:
+                    prepared.verifier.verify_with_transcript(
+                        prepared.entry.proof, prepared.transcript)
+                    result: Error | None = None
+                except Error as exc:
+                    result = exc
+            with st.stage("unpack"):
+                return [result]
 
         backend = self.backend
         rows, beta = prepared.rows, prepared.beta
-        if (
-            prepared.same_generators
-            and backend.prefers_combined
-            and backend.verify_combined(rows, beta)
-        ):
-            return [None] * len(rows)
-        # Fallback: per-proof ground truth (batch.rs:314-318)
-        results: list[Error | None] = []
-        for status in backend.verify_each(rows):
-            if status == 2:  # deferred commitment wire failed to decode
-                results.append(InvalidProofEncoding(BAD_POINT))
-            elif status:
-                results.append(None)
+        with st.stage("device_dispatch"):
+            if (
+                prepared.same_generators
+                and backend.prefers_combined
+                and backend.verify_combined(rows, beta)
+            ):
+                statuses = None
             else:
-                results.append(InvalidParams("Proof verification failed"))
-        return results
+                # Fallback: per-proof ground truth (batch.rs:314-318)
+                statuses = backend.verify_each(rows)
+        with st.stage("unpack"):
+            if statuses is None:
+                return [None] * len(rows)
+            results: list[Error | None] = []
+            for status in statuses:
+                if status == 2:  # deferred commitment wire failed to decode
+                    results.append(InvalidProofEncoding(BAD_POINT))
+                elif status:
+                    results.append(None)
+                else:
+                    results.append(InvalidParams("Proof verification failed"))
+            return results
 
     def _screen_deferred(self) -> dict[int, Error]:
         """Settle deferred proofs' postponed point decodes with one native

@@ -41,6 +41,10 @@ def test_import_pulls_in_neither_jax_nor_cpzk_tpu():
         "import sys\n"
         "import cpzk_tpu_torch, cpzk_tpu_torch.convert\n"
         "import cpzk_tpu_torch.ops.backend, cpzk_tpu_torch.ops.verify\n"
+        "import cpzk_tpu_torch.server, cpzk_tpu_torch.server.plane\n"
+        "import cpzk_tpu_torch.observability, cpzk_tpu_torch.resilience.faults\n"
+        "import cpzk_tpu_torch.parallel\n"
+        "from cpzk_tpu_torch.server import build_backend, DynamicBatcher\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cpzk_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
