@@ -61,12 +61,32 @@ core from ``cpzk_tpu_torch/native`` (both into the ignored
    the dispatch gap and the card's work intervals (first launch to last,
    CUDA events, idle stretches included) from the flight recorder,
    and the kernel launches;
+   ``login_state`` — the state and wire half of the gRPC service, with no
+   gRPC and no protobuf runtime, in the stage order of the service's
+   ``verify_proof_batch``: a ``ServerState`` and ``build_backend`` at
+   ``batch_max`` 4096 on cuda:0 (prewarmed, with a counting host fallback);
+   4096 users registered from the corpus statements and one challenge
+   each; 4096 logins in five hand-encoded ``BatchVerificationRequest``
+   messages (4 x 1000 entries and 96, about 1% tampered and 2 with a
+   commitment that does not decode), each parsed by the native wire parse
+   (a punt fails the phase), its challenges consumed and users looked up in
+   bulk, its proofs parsed deferred from the packed buffer, the five
+   submitted to the batcher at once (one batch of 4096), and sessions
+   minted for the entries that pass.  Every verdict must equal its
+   expectation, every session validate to its user, a replay of the first
+   message fail at the consume for all 1000 entries with no row reaching
+   the card, both kernels be launched by the login traffic, and the breaker
+   stay CLOSED with no fallback call.  Printed: registrations/s,
+   challenges/s, native parse µs per entry, the state seconds of consume
+   and lookup and of sessions, logins/s from parse to session, GC pauses
+   and the launches;
 6. ``profile`` — one 4096-row combined check: wall time unprofiled, then
    device time by kernel under torch.profiler (the table goes to
    ``chiprun_out/profile_4096.txt``) and the device's idle share.
 
 Then the ``kernels`` line (``launches`` counted over phases 4-5 only,
-``launches_in_serving_plane`` over the served traffic of phase 5b), the
+``launches_in_serving_plane`` over the served traffic of phase 5b,
+``launches_in_login_state`` over the login traffic of phase 5c), the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when CUDA is
@@ -93,6 +113,9 @@ CLIENTS = 64
 GROUP_N = 64
 #: rows of the host-core checks held against the pure-Python twins
 SAMPLE_N = 256
+#: entries per BatchVerificationRequest in the login_state phase (the
+#: service's MAX_BATCH)
+LOGIN_RPC_MAX = 1000
 NORTH_STAR_N = 16384
 KERNEL_NS = (1, 127, 4096, 6144, 16384, 18432)
 #: lane width at which the kernels line reports times: one full lane chunk,
@@ -283,21 +306,23 @@ def kernels_vs_plain(dev, ns, int32_ops_per_s: float, gen) -> dict:
 
 
 def make_corpus(n: int, gen):
-    """n distinct context-bound proofs from the port's host prover."""
+    """n distinct context-bound proofs from the port's host prover, and the
+    provers (the login_state phase proves fresh challenges with them)."""
     from cpzk_tpu_torch import Parameters, Prover, Ristretto255, Transcript, Witness
 
     params = Parameters.new()
-    corpus = []
+    corpus, provers = [], []
     for i in range(n):
         prover = Prover(params, Witness(Ristretto255.random_scalar(gen)))
         ctx = b"chip-smoke-%d" % i
         t = Transcript()
         t.append_context(ctx)
         corpus.append((prover.statement, prover.prove_with_transcript(gen, t), ctx))
-    return params, corpus
+        provers.append(prover)
+    return params, corpus, provers
 
 
-def host_core(dev, gen, n: int, sample: int) -> tuple[dict, object, list]:
+def host_core(dev, gen, n: int, sample: int) -> tuple[dict, object, list, list]:
     """Phase 2b: build and load the host core, make the corpus on its comb,
     and time the host-prep pieces of the main path at the serving width."""
     import torch
@@ -317,7 +342,7 @@ def host_core(dev, gen, n: int, sample: int) -> tuple[dict, object, list]:
     load_s = time.perf_counter() - t0 - build_s
 
     t0 = time.perf_counter()
-    params, corpus = make_corpus(CORPUS, gen)
+    params, corpus, provers = make_corpus(CORPUS, gen)
     corpus_s = time.perf_counter() - t0
 
     m = len(corpus)
@@ -388,7 +413,7 @@ def host_core(dev, gen, n: int, sample: int) -> tuple[dict, object, list]:
         "wires_to_device_pad": pad,
         "wires_to_device_us_per_point": sum(decode_ms) * 1e3 / (4 * lanes),
         "limbs_sample_equal": len(picks),
-    }, params, corpus
+    }, params, corpus, provers
 
 
 class GcPauses:
@@ -411,6 +436,24 @@ class GcPauses:
 
     def stop(self) -> None:
         gc.callbacks.remove(self._callback)
+
+
+def counting_fallback(calls: list):
+    """The host fallback handed to ``build_backend``: the port's
+    ``CpuBackend``, adding one to ``calls[0]`` for every call the breaker
+    routes to it (the phases that pass it require none)."""
+    from cpzk_tpu_torch import CpuBackend
+
+    class CountingCpuBackend(CpuBackend):
+        def verify_combined(self, rows, beta):
+            calls[0] += 1
+            return super().verify_combined(rows, beta)
+
+        def verify_each(self, rows):
+            calls[0] += 1
+            return super().verify_each(rows)
+
+    return CountingCpuBackend()
 
 
 class RecordingBackend:
@@ -715,7 +758,7 @@ def serving_plane(params, corpus, n: int, closed_total: int, clients: int,
 
     import torch
 
-    from cpzk_tpu_torch import CpuBackend, InvalidParams, Ristretto255, Statement
+    from cpzk_tpu_torch import InvalidParams, Ristretto255, Statement
     from cpzk_tpu_torch.observability import get_flight_recorder
     from cpzk_tpu_torch.ops import point_kernels as pk
     from cpzk_tpu_torch.ops.backend import TorchBackend
@@ -725,19 +768,6 @@ def serving_plane(params, corpus, n: int, closed_total: int, clients: int,
     from cpzk_tpu_torch.server import TpuSettings, build_backend, metrics
 
     fallback_calls = [0]
-
-    class CountingCpuBackend(CpuBackend):
-        """The host fallback handed to ``build_backend``, counting every
-        call the breaker routes to it (the phase requires none)."""
-
-        def verify_combined(self, rows, beta):
-            fallback_calls[0] += 1
-            return super().verify_combined(rows, beta)
-
-        def verify_each(self, rows):
-            fallback_calls[0] += 1
-            return super().verify_each(rows)
-
     valid, mixed, bad, _ = serving_wires(params, corpus, n)
     wires = [mixed[i] if i in bad else valid[i] for i in range(n)]
     proofs = Proof.from_bytes_batch([w[0] for w in wires])
@@ -864,10 +894,10 @@ def serving_plane(params, corpus, n: int, closed_total: int, clients: int,
     out["default_backend"] = type(bare).__name__
     with LogCapture() as logs:
         t0 = time.perf_counter()
-        backend, batcher = build_backend(settings(2), fallback=CountingCpuBackend())
+        backend, batcher = build_backend(settings(2), fallback=counting_fallback(fallback_calls))
         out["build_backend_s"] = time.perf_counter() - t0
         out["prewarm_launches"] = {k: pk.LAUNCHES[k] - before[k] for k in before}
-        backend1, batcher1 = build_backend(settings(1), fallback=CountingCpuBackend())
+        backend1, batcher1 = build_backend(settings(1), fallback=counting_fallback(fallback_calls))
 
         # the served traffic, with the launch counts set to 0 just before it
         pk.reset_launches()
@@ -908,6 +938,302 @@ def serving_plane(params, corpus, n: int, closed_total: int, clients: int,
     for name, count in out["launches_in_serving_plane"].items():
         if count < 1:
             raise AssertionError(f"{name} was never launched by the served traffic")
+    return out
+
+
+def encode_batch_request(user_ids, challenge_ids, proofs) -> bytes:
+    """An ``auth.BatchVerificationRequest`` in protobuf wire encoding, by
+    hand (this phase runs with no protobuf runtime): fields 1, 2 and 3 are
+    repeated length-delimited (tags 0x0a, 0x12, 0x1a), each item a varint
+    length and its bytes."""
+
+    def varint(n: int) -> bytes:
+        out = bytearray()
+        while True:
+            byte, n = n & 0x7F, n >> 7
+            out.append(byte | (0x80 if n else 0))
+            if not n:
+                return bytes(out)
+
+    out = bytearray()
+    for tag, items in ((0x0A, [u.encode() for u in user_ids]), (0x12, challenge_ids),
+                       (0x1A, proofs)):
+        for item in items:
+            out += bytes([tag]) + varint(len(item)) + item
+    return bytes(out)
+
+
+def login_state(params, corpus, provers, n: int, max_batch_rpc: int, device=None) -> dict:
+    """The ``login_state`` phase: the state and wire half of the gRPC
+    service on the card, in the stage order of the service's
+    ``verify_proof_batch``, with no gRPC and no protobuf runtime.
+
+    A ``ServerState`` and ``build_backend`` at ``batch_max`` ``n`` on
+    cuda:0 (prewarmed, with a counting host fallback that must never be
+    called); ``n`` users registered from the corpus statements (as the
+    Register RPC parses them) and one challenge each; ``n`` logins in
+    hand-encoded ``BatchVerificationRequest`` messages of at most
+    ``max_batch_rpc`` entries (about 1% tampered, 2 with a commitment that
+    does not decode), each parsed by the native wire parse, its challenges
+    consumed and users looked up in bulk, its proofs parsed deferred from
+    the packed buffer, all messages submitted concurrently to the batcher
+    (one batch of ``n``), and sessions minted for the entries that pass.
+    Then the first message again: every entry must fail at the consume and
+    none may reach the card.  ``device=None`` means cuda:0."""
+    import asyncio
+
+    import torch
+
+    from cpzk_tpu_torch import Error, Ristretto255, SecureRng, Statement, Transcript
+    from cpzk_tpu_torch.core.scalars import L
+    from cpzk_tpu_torch.errors import InvalidProofEncoding
+    from cpzk_tpu_torch.observability import get_flight_recorder
+    from cpzk_tpu_torch.ops import point_kernels as pk
+    from cpzk_tpu_torch.protocol.batch import BatchEntry
+    from cpzk_tpu_torch.protocol.gadgets import Proof
+    from cpzk_tpu_torch.resilience import BreakerState
+    from cpzk_tpu_torch.server import ServerState, TpuSettings, UserData, build_backend, metrics
+    from cpzk_tpu_torch.server import wire as wire_mod
+    from cpzk_tpu_torch.server.state import user_id_error
+
+    bad_point = "Invalid proof: Bytes do not represent a valid Ristretto point"
+    fallback_calls = [0]
+
+    class NoProtobuf:
+        @staticmethod
+        def FromString(data):
+            raise AssertionError("the native wire parse punted a well-formed request")
+
+    out = {"n": n, "rpc_entries": max_batch_rpc, "tolerance": "exact"}
+    t0 = time.perf_counter()
+    backend, batcher = build_backend(
+        TpuSettings(backend="tpu", batch_max=n, batch_window_ms=2000.0,
+                    prewarm_quanta=str(n)),
+        device=device, fallback=counting_fallback(fallback_calls))
+    out["build_backend_s"] = time.perf_counter() - t0
+    counter = RecordingBackend(backend)
+    batcher.backend = counter  # before start(): the lane takes it from here
+    state = ServerState()
+    rng = SecureRng()
+    deser = wire_mod.make_deserializer("VerifyProofBatch", NoProtobuf)
+    m = len(corpus)
+    user_ids = [f"user-{i:05d}" for i in range(n)]
+
+    async def register_all() -> None:
+        for i, uid in enumerate(user_ids):
+            st = corpus[i % m][0]
+            # as the Register RPC parses a statement: decode, validate,
+            # no identity element
+            statement = Statement(Ristretto255.element_from_bytes(st.y1.wire()),
+                                  Ristretto255.element_from_bytes(st.y2.wire()))
+            statement.validate()
+            if Ristretto255.is_identity(statement.y1) or Ristretto255.is_identity(statement.y2):
+                raise AssertionError("identity statement in the corpus")
+            await state.register_user(UserData(uid, statement, int(time.time())))
+
+    async def challenge_all() -> list[bytes]:
+        cids = []
+        for uid in user_ids:
+            cid = state.tag_challenge_id(uid, rng.fill_bytes(32))
+            await state.create_challenge(uid, cid)
+            cids.append(cid)
+        return cids
+
+    t0 = time.perf_counter()
+    asyncio.run(register_all())
+    out["register_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cids = asyncio.run(challenge_all())
+    out["challenge_s"] = time.perf_counter() - t0
+    out["registrations_per_s"] = n / out["register_s"]
+    out["challenges_per_s"] = n / out["challenge_s"]
+
+    # proofs of the issued challenges; about 1% tampered, 2 undecodable
+    gen = SeededRng(SEED + 6)
+    t0 = time.perf_counter()
+    wires = []
+    for i, cid in enumerate(cids):
+        t = Transcript()
+        t.append_context(cid)
+        wires.append(provers[i % m].prove_with_transcript(gen, t).to_bytes())
+    out["prove_s"] = time.perf_counter() - t0
+    expected = ["ok"] * n
+    step = max(2, n // 42)
+    for k, idx in enumerate(range(41 % n, n, step)):
+        wire = wires[idx]
+        how = ("wrong_s", "wrong_context", "swapped_r1")[k % 3]
+        if how == "wrong_s":
+            sc = int.from_bytes(wire[77:], "little") + 1
+            wire = wire[:77] + ((sc % L) or 1).to_bytes(32, "little")
+        elif how == "wrong_context":
+            t = Transcript()
+            t.append_context(cids[idx] + b"-elsewhere")
+            wire = provers[idx % m].prove_with_transcript(gen, t).to_bytes()
+        else:
+            wire = wire[:5] + wires[(idx + 1) % n][5:37] + wire[37:]
+        wires[idx] = wire
+        expected[idx] = "Authentication failed"
+    for idx in (3, n - 3):
+        if expected[idx] == "ok":
+            wires[idx] = wires[idx][:5] + b"\xff" * 32 + wires[idx][37:]
+            expected[idx] = bad_point
+    out["tampered"] = sum(e == "Authentication failed" for e in expected)
+    out["undecodable"] = sum(e == bad_point for e in expected)
+
+    bounds = [(lo, min(lo + max_batch_rpc, n)) for lo in range(0, n, max_batch_rpc)]
+    messages = [encode_batch_request(user_ids[lo:hi], cids[lo:hi], wires[lo:hi])
+                for lo, hi in bounds]
+    out["rpc_sizes"] = [hi - lo for lo, hi in bounds]
+    out["request_bytes"] = [len(msg) for msg in messages]
+    timing = {"parse_s": 0.0, "consume_lookup_s": 0.0, "proof_parse_s": 0.0,
+              "sessions_s": 0.0}
+    token_rng = SecureRng()
+
+    async def login(data: bytes):
+        """One BatchVerificationRequest, in the service's stage order."""
+        t0 = time.perf_counter()
+        request = deser(data)
+        timing["parse_s"] += time.perf_counter() - t0
+        if not isinstance(request, wire_mod.NativeBatchVerificationRequest):
+            raise AssertionError(f"the native wire parse returned {type(request).__name__}")
+        k = len(request.user_ids)
+        if not (k == len(request.challenge_ids) == len(request.proofs) <= max_batch_rpc):
+            raise AssertionError("the parsed request lost entries")
+        messages_ = [""] * k
+        staged = []
+        for i in range(k):  # stage 1: argument validation
+            msg = user_id_error(request.user_ids[i])
+            if msg is None and not (0 < len(request.challenge_ids[i]) <= 64
+                                    and 0 < len(request.proofs[i]) <= 8192):
+                msg = "malformed entry"
+            if msg is None:
+                staged.append(i)
+            messages_[i] = msg or ""
+        t0 = time.perf_counter()  # stage 2: consume BEFORE verification
+        challenges = await state.consume_challenges([request.challenge_ids[i] for i in staged])
+        users = await state.get_users([request.user_ids[i] for i in staged])
+        timing["consume_lookup_s"] += time.perf_counter() - t0
+        live = []
+        for i, ch, user in zip(staged, challenges, users, strict=True):
+            if ch is None or ch.user_id != request.user_ids[i] or user is None:
+                messages_[i] = "Authentication failed"
+                continue
+            live.append((i, user))
+        t0 = time.perf_counter()  # stage 3: the deferred parse, packed
+        packed = request.packed_proofs(k) if len(live) == k else None
+        parsed = Proof.from_bytes_batch([request.proofs[i] for i, _ in live],
+                                        defer_point_validation=True, packed=packed)
+        timing["proof_parse_s"] += time.perf_counter() - t0
+        entries, queued = [], []
+        for (i, user), proof in zip(live, parsed, strict=True):
+            if isinstance(proof, Error):
+                messages_[i] = f"Invalid proof: {proof}"
+                continue
+            entries.append(BatchEntry(params, user.statement, proof,
+                                      bytes(request.challenge_ids[i])))
+            queued.append(i)
+        results = await batcher.submit_many(entries) if entries else []  # stage 4
+        verified = []
+        for i, res in zip(queued, results, strict=True):
+            if res is None:
+                verified.append(i)
+            elif isinstance(res, InvalidProofEncoding):
+                messages_[i] = f"Invalid proof: {res}"
+            else:
+                messages_[i] = "Authentication failed"
+        t0 = time.perf_counter()  # stage 5: one bulk session mint
+        pool = token_rng.fill_bytes(32 * len(verified)).hex()
+        tokens = {i: state.tag_session_token(request.user_ids[i], pool[64 * j:64 * (j + 1)])
+                  for j, i in enumerate(verified)}
+        errs = await state.create_sessions([(tokens[i], request.user_ids[i]) for i in verified])
+        timing["sessions_s"] += time.perf_counter() - t0
+        for i, err in zip(verified, errs, strict=True):
+            if err is not None:
+                raise AssertionError(f"session mint failed: {err}")
+        return request, [(tokens.get(i), messages_[i]) for i in range(k)]
+
+    async def serve_logins():
+        batcher.start()
+        try:
+            recorder = get_flight_recorder()
+            recorder.clear()
+            # the login traffic, with the launch counts set to 0 just before it
+            torch.cuda.synchronize()
+            pk.reset_launches()
+            pauses = GcPauses()
+            pauses.start()
+            t0 = time.perf_counter()
+            try:
+                answers = await asyncio.gather(*[login(msg) for msg in messages])
+                wall = time.perf_counter() - t0
+            finally:
+                pauses.stop()
+            torch.cuda.synchronize()
+            launches = dict(pk.LAUNCHES)
+            batches = [r.batch for r in recorder.snapshot()]
+            # the replay: the first message again
+            rows0 = sum(counter.calls)
+            _, replay = await login(messages[0])
+            torch.cuda.synchronize()
+            replay_launches = {k: pk.LAUNCHES[k] - launches[k] for k in launches}
+            return (answers, wall, pauses.seconds, launches, batches, replay,
+                    sum(counter.calls) - rows0, replay_launches)
+        finally:
+            await batcher.stop()
+
+    (answers, wall, gc_s, launches, batches, replay, replay_rows,
+     replay_launches) = asyncio.run(serve_logins())
+    tokens, got = [], []
+    for (lo, hi), (request, res) in zip(bounds, answers):
+        for tok, msg in res:
+            tokens.append(tok)
+            got.append("ok" if tok is not None else msg)
+    parse_s = sum(req._parse_s for req, _ in answers)
+    wrong = [i for i, (g, e) in enumerate(zip(got, expected)) if g != e]
+    if wrong:
+        raise AssertionError(f"login_state: wrong verdicts at {wrong[:5]} "
+                             f"({[(got[i], expected[i]) for i in wrong[:5]]})")
+
+    async def sessions_valid() -> int:
+        count = 0
+        for i, tok in enumerate(tokens):
+            if tok is not None:
+                if await state.validate_session(tok) != user_ids[i]:
+                    raise AssertionError(f"session of {user_ids[i]} validates to another user")
+                count += 1
+        return count
+
+    n_sessions = asyncio.run(sessions_valid())
+    if n_sessions != expected.count("ok") or asyncio.run(state.session_count()) != n_sessions:
+        raise AssertionError("login_state: not one session per valid entry")
+    if [msg for _, msg in replay] != ["Authentication failed"] * len(replay):
+        raise AssertionError("login_state: the replay was not refused entry for entry")
+    if replay_rows or any(replay_launches.values()):
+        raise AssertionError(f"login_state: the replay reached the card ({replay_rows} rows, "
+                             f"launches {replay_launches})")
+    if batches != [n]:
+        raise AssertionError(f"login_state: dispatched as {batches}, not one batch of {n}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was never launched by the login traffic")
+    if backend.state is not BreakerState.CLOSED or fallback_calls[0]:
+        raise AssertionError(f"login_state left the card: breaker {backend.state.value}, "
+                             f"fallback calls {fallback_calls[0]}")
+    out.update({
+        "valid": expected.count("ok"), "sessions": n_sessions,
+        "batches": batches, "rows_on_card": sum(counter.calls),
+        "native_parse_us_per_entry": parse_s / n * 1e6,
+        "native_parse_s": parse_s,
+        "consume_lookup_s": timing["consume_lookup_s"],
+        "proof_parse_s": timing["proof_parse_s"],
+        "sessions_s": timing["sessions_s"],
+        "login_wall_s": wall, "logins_per_s": n / wall, "gc_pause_s": gc_s,
+        "replay_entries": len(replay), "replay_rows_on_card": replay_rows,
+        "launches_in_login_state": launches,
+        "breaker": backend.state.value, "fallback_calls": fallback_calls[0],
+        "parse_native": metrics.read("transport.parse.native",
+                                     labels={"rpc": "VerifyProofBatch"}),
+    })
     return out
 
 
@@ -986,7 +1312,7 @@ def main() -> int:
 
     # 2b. the host core, and the corpus made on its comb
     gen = SeededRng(SEED)
-    host, params, corpus = host_core(dev, gen, SERVING_N, SAMPLE_N)
+    host, params, corpus, provers = host_core(dev, gen, SERVING_N, SAMPLE_N)
     emit({"phase": "host_core", **host, **card})
 
     # 3. kernels against their plain versions
@@ -1015,6 +1341,11 @@ def main() -> int:
     plane = serving_plane(params, corpus, SERVING_N, CLOSED_LOOP_N, CLIENTS, GROUP_N)
     emit({"phase": "serving_plane", **plane, **card})
 
+    # 5c. the login state path: the service's stages without gRPC (its own
+    # launch counts, reset inside just before the login traffic)
+    logins = login_state(params, corpus, provers, SERVING_N, LOGIN_RPC_MAX)
+    emit({"phase": "login_state", **logins, **card})
+
     # 6. where the time goes
     prof = profile_combined(backend, rows[:SERVING_N], beta)
     emit({"phase": "profile", **prof, **card})
@@ -1037,6 +1368,7 @@ def main() -> int:
             "launches_per_4096_verify": serving["valid_launches"][name],
             "launches_per_16384_check": star["valid_launches"][name],
             "launches_in_serving_plane": plane["launches_in_serving_plane"][name],
+            "launches_in_login_state": logins["launches_in_login_state"][name],
         })
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -66,7 +66,7 @@ def main() -> int:
     if modes != ["on"] and not has_hooks:
         raise SystemExit("--hooks: this tree's backend has no serving hooks")
     pk.build()
-    params, corpus = cs.make_corpus(cs.CORPUS, cs.SeededRng(cs.SEED))
+    params, corpus, _provers = cs.make_corpus(cs.CORPUS, cs.SeededRng(cs.SEED))
     n = cs.SERVING_N
     _, mixed, bad, undecodable = cs.serving_wires(params, corpus, n)
     want_flagged = sorted([*bad, *undecodable])

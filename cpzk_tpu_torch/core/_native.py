@@ -1,10 +1,11 @@
 """ctypes binding for the port's C++ host core (``cpzk_tpu_torch/native/``).
 
 ``merlin.cpp`` (STROBE-128/Merlin transcripts and the threaded batch
-challenge derivation) and ``ristretto.cpp`` (RFC 9496 decode/encode, the
+challenge derivation), ``ristretto.cpp`` (RFC 9496 decode/encode, the
 threaded row verifier, batch decode and proof parse, and the constant-time
-fixed-base comb for secret scalars) are built together into one shared
-library at first use, with ``g++`` called directly, into the ignored
+fixed-base comb for secret scalars) and ``wire.cpp`` (the request-wire
+scanner of the gRPC service's three hot messages) are built together into
+one shared library at first use, with ``g++`` called directly, into the ignored
 ``cpzk_tpu_torch/_build/``.  The library's name is a hash of the sources,
 the compiler, its flags and the host's CPU model (``-march=native`` code
 must not be loaded on another CPU); concurrent first builds take an
@@ -33,12 +34,12 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PACKAGE_DIR / "native"
-SOURCES = (SRC_DIR / "merlin.cpp", SRC_DIR / "ristretto.cpp")
+SOURCES = (SRC_DIR / "merlin.cpp", SRC_DIR / "ristretto.cpp", SRC_DIR / "wire.cpp")
 BUILD_DIR = PACKAGE_DIR / "_build"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 #: ``cpzk_abi_version()`` that ``ristretto.cpp`` must report.
-ABI_VERSION = 3
+ABI_VERSION = 4
 
 _LIB: ctypes.CDLL | None = None
 _LIB_LOCK = threading.Lock()
@@ -78,7 +79,7 @@ def library_name(cxx: str | None = None) -> str:
 
 
 def build(cxx: str | None = None, out_dir: Path | None = None) -> Path:
-    """Compile the two sources with ``cxx`` (default :data:`CXX`) into
+    """Compile the sources with ``cxx`` (default :data:`CXX`) into
     ``out_dir`` (default :data:`BUILD_DIR`) unless a library for them
     already exists there; returns its path.  Raises :class:`NativeCoreError`
     with the compiler's output when the compiler fails."""
@@ -143,6 +144,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cpzk_basemul_init.argtypes = [_P, _P]
     lib.cpzk_double_basemul.restype = ctypes.c_int
     lib.cpzk_double_basemul.argtypes = [_P, _P, _P, _P, _P]
+    lib.cpzk_wire_scan.restype = ctypes.c_int
+    lib.cpzk_wire_scan.argtypes = [ctypes.c_int, _P, _N, ctypes.POINTER(ctypes.c_size_t)]
+    lib.cpzk_wire_fill.restype = ctypes.c_int
+    lib.cpzk_wire_fill.argtypes = (
+        [ctypes.c_int, _P, _N] + [ctypes.POINTER(ctypes.c_uint64)] * 7 + [_P])
+    lib.cpzk_wire_gather.restype = ctypes.c_size_t
+    lib.cpzk_wire_gather.argtypes = [
+        _P, _N, ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64), _N, _P]
 
 
 def open_library(path: Path) -> ctypes.CDLL:
@@ -354,6 +363,52 @@ def double_basemul(g: bytes, h: bytes, scalar: bytes) -> tuple[bytes, bytes] | N
     if not lib.cpzk_double_basemul(g, h, scalar, out1, out2):
         return None
     return out1.raw, out2.raw
+
+
+# --- request-wire parse (native/wire.cpp) ----------------------------------
+
+#: Message kinds, mirroring the enum in ``native/wire.cpp``.
+WIRE_CHALLENGE = 1       # auth.ChallengeRequest
+WIRE_BATCH_VERIFY = 2    # auth.BatchVerificationRequest
+WIRE_STREAM_CHUNK = 3    # auth.StreamVerifyRequest
+
+
+def wire_index(kind: int, data: bytes):
+    """Index one request message's known fields natively.
+
+    Returns ``(counts, offs, lens, vals, mint)``: per-bucket counts
+    ``(n0, n1, n2, n_vals)``, per-bucket ctypes uint64 offset/length arrays
+    into ``data``, the decoded uint64 ``ids`` values, and the final
+    ``mint_sessions`` bool; or ``None`` when the message is outside the
+    parser's recognized subset (the caller then parses it with the protobuf
+    runtime, which makes accept/reject and field values identical by
+    construction)."""
+    lib = load()
+    counts = (ctypes.c_size_t * 4)()
+    if not lib.cpzk_wire_scan(kind, data, len(data), counts):
+        return None
+    n0, n1, n2, nv = counts[0], counts[1], counts[2], counts[3]
+    offs = tuple((ctypes.c_uint64 * max(n, 1))() for n in (n0, n1, n2))
+    lens = tuple((ctypes.c_uint64 * max(n, 1))() for n in (n0, n1, n2))
+    vals = (ctypes.c_uint64 * max(nv, 1))()
+    flags = ctypes.create_string_buffer(1)
+    if not lib.cpzk_wire_fill(
+        kind, data, len(data),
+        offs[0], lens[0], offs[1], lens[1], offs[2], lens[2], vals, flags,
+    ):
+        return None  # the fill walks as the scan did: unreachable
+    return (n0, n1, n2, nv), offs, lens, vals, flags.raw[0:1] == b"\x01"
+
+
+def wire_gather(data: bytes, offs, lens, n: int, total: int) -> bytes:
+    """Concatenate ``n`` (offset, length) ranges of ``data`` (``total``
+    bytes in all) into a fresh bytes object."""
+    lib = load()
+    buf = ctypes.create_string_buffer(total)
+    written = lib.cpzk_wire_gather(data, len(data), offs, lens, n, buf)
+    if written != total:
+        raise ValueError("wire gather ranges out of bounds")
+    return buf.raw
 
 
 class NativeMerlin:

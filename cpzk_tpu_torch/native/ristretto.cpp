@@ -1360,7 +1360,8 @@ int cpzk_batch_decode(size_t n, const uint8_t *wires, uint8_t *coords,
 // 2: cpzk_parse_proofs gained `deep`; cpzk_verify_rows out[] went tri-state.
 // 3: the request-wire parser (cpzk_wire_scan/fill/gather) joined the
 //    library it shares this number with; it is not part of this build.
-int cpzk_abi_version(void) { return 3; }
+// 4: wire.cpp is built into this library (the native request-wire parse).
+int cpzk_abi_version(void) { return 4; }
 
 // --- small self-check helpers exposed for differential tests ---------------
 

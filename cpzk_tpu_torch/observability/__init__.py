@@ -10,10 +10,13 @@ plane runs:
   ring buffer, and ``torch.profiler.record_function`` alignment so a
   profiler capture shows the same stage names;
 - :mod:`.flightrec` — the per-batch flight recorder: the widened stage
-  split, padded-lane occupancy, and the card's dispatch gap.
+  split, padded-lane occupancy, and the card's dispatch gap;
+- :mod:`.instrument` — the ``traced_rpc`` decorators owning the
+  requests/outcome/duration metric lifecycle of every RPC handler of the
+  gRPC service.
 
-The reference's RPC decorators, JSON logs, ops plane and SLO engine come
-with the port's gRPC service.
+The reference's JSON logs, ops plane and SLO engine come with the host
+control plane.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from .flightrec import (
     format_flightrec,
     get_flight_recorder,
 )
+from .instrument import rpc_deadline, traced_rpc, traced_stream_rpc
 from .tracing import (
     BatchStages,
     SpanRecord,
@@ -50,4 +54,7 @@ __all__ = [
     "get_flight_recorder",
     "get_tracer",
     "new_trace_id",
+    "rpc_deadline",
+    "traced_rpc",
+    "traced_stream_rpc",
 ]

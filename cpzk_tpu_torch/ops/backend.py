@@ -47,8 +47,10 @@ from . import curve, point_kernels, verify
 LANE_CHUNK = 16384
 LANE_QUANTUM = 2048
 
-#: LRU bound on ``TorchBackend._gh_cache`` — device-resident generator-pair
-#: points keyed by generator bytes.
+#: Default LRU bound on ``TorchBackend._gh_cache``: device-resident
+#: generator-pair points keyed by generator bytes.  Real deployments share
+#: one generator pair; the bound keeps a huge registered-statement
+#: population from growing device memory one pair at a time.
 GH_CACHE_MAX = 128
 
 
@@ -80,6 +82,14 @@ def _chunk_bounds(pad: int, chunk: int = LANE_CHUNK):
 
 def _chunk_point(pt: curve.Point, lo: int, hi: int) -> curve.Point:
     return tuple(c[..., lo:hi] for c in pt)
+
+
+def _note_gh_cache(size: int, evicted: int) -> None:
+    """Generator-pair cache telemetry: the ``tpu.gh_cache.size`` gauge and
+    the ``tpu.gh_cache.evictions`` counter."""
+    metrics.gauge("tpu.gh_cache.size").set(size)
+    if evicted:
+        metrics.counter("tpu.gh_cache.evictions").inc(evicted)
 
 
 def _note_pad_waste(n: int, pad: int) -> None:
@@ -121,11 +131,12 @@ class TorchBackend(VerifierBackend):
     used only when asked for (``device="cpu"``, as the tests do), and then
     the kernels' plain PyTorch versions run.  ``lane_chunk`` overrides
     :data:`LANE_CHUNK` for this instance (below the quantum, or a multiple
-    of it)."""
+    of it); ``gh_cache_max`` overrides :data:`GH_CACHE_MAX`."""
 
     prefers_combined = True
 
-    def __init__(self, device=None, lane_chunk: int | None = None):
+    def __init__(self, device=None, lane_chunk: int | None = None,
+                 gh_cache_max: int | None = None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -146,6 +157,9 @@ class TorchBackend(VerifierBackend):
         self._gh_cache: OrderedDict[
             tuple[bytes, bytes], tuple[curve.Point, curve.Point]
         ] = OrderedDict()
+        self._gh_cache_max = max(
+            1, GH_CACHE_MAX if gh_cache_max is None else gh_cache_max
+        )
         self._gh_lock = threading.Lock()
 
     def _scope(self):
@@ -180,6 +194,7 @@ class TorchBackend(VerifierBackend):
             Ristretto255.element_to_bytes(row.g),
             Ristretto255.element_to_bytes(row.h),
         )
+        evicted = 0
         with self._gh_lock:
             pair = self._gh_cache.pop(key, None)
             if pair is None:
@@ -190,8 +205,11 @@ class TorchBackend(VerifierBackend):
                     curve.points_to_device([row.h.point], self.device),
                 )
             self._gh_cache[key] = pair  # (re)insert most-recently-used
-            while len(self._gh_cache) > GH_CACHE_MAX:
+            while len(self._gh_cache) > self._gh_cache_max:
                 self._gh_cache.popitem(last=False)
+                evicted += 1
+            size = len(self._gh_cache)
+        _note_gh_cache(size, evicted)
         return pair
 
     # -- VerifierBackend interface ------------------------------------------

@@ -444,6 +444,15 @@ class BatchVerifier:
         self.max_size = max_size
         self.backend = backend if backend is not None else default_backend()
 
+    @staticmethod
+    def with_capacity(capacity: int, backend: VerifierBackend | None = None) -> "BatchVerifier":
+        """Capacity is clamped to MAX_BATCH_SIZE (batch.rs:107-117); Python
+        lists need no preallocation, so this is a naming-parity constructor
+        (``cpzk_tpu/protocol/batch.py:461-467``)."""
+        if capacity < 0:
+            raise InvalidParams("Capacity cannot be negative")
+        return BatchVerifier(backend)
+
     def __len__(self) -> int:
         return len(self.entries)
 

@@ -199,6 +199,7 @@ class Proof:
     def from_bytes_batch(
         items: "list[bytes]",
         defer_point_validation: bool = False,
+        packed: bytes | None = None,
     ) -> "list[Proof | Error]":
         """Parse n proof wires with one native validation call for the
         whole batch (the host core's parse pool).  Per item, a
@@ -209,18 +210,30 @@ class Proof:
 
         ``defer_point_validation=True`` skips the two commitment point
         decodes and returns ``deferred`` proofs (see :class:`Proof`); hand
-        those only to a :class:`~cpzk_tpu_torch.protocol.batch.BatchVerifier`."""
+        those only to a :class:`~cpzk_tpu_torch.protocol.batch.BatchVerifier`.
+
+        ``packed`` is the concatenation of ``items`` with every item at
+        ``PROOF_WIRE_SIZE``: the buffer the native request-wire parse
+        gathers straight off the socket bytes (``server/wire.py``).  The
+        native validation then runs over it with no per-item join, and an
+        item it accepts is built from its slice of ``packed``, the bytes
+        that were validated.  A buffer of any other length is ignored."""
         n = len(items)
         results: list = [None] * n
-        sized = [i for i in range(n) if len(items[i]) == PROOF_WIRE_SIZE]
+        if packed is not None and n and len(packed) == PROOF_WIRE_SIZE * n:
+            sized = range(n)
+        else:
+            packed = None
+            sized = [i for i in range(n) if len(items[i]) == PROOF_WIRE_SIZE]
         if sized:
-            packed = b"".join(bytes(items[i]) for i in sized)
+            if packed is None:
+                packed = b"".join(bytes(items[i]) for i in sized)
             flags = _native.parse_proofs(packed, deep=not defer_point_validation)
             build = (Proof._from_framed_wire if defer_point_validation
                      else Proof._from_validated_wire)
             for j, i in enumerate(sized):
                 if flags[j]:
-                    results[i] = build(bytes(items[i]))
+                    results[i] = build(packed[PROOF_WIRE_SIZE * j:PROOF_WIRE_SIZE * (j + 1)])
         for i in range(n):
             if results[i] is None:
                 # the native pass rejected (or never applies to) this item:

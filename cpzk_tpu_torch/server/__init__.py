@@ -1,5 +1,5 @@
-"""Serving plane of the port: the pieces of ``cpzk_tpu/server`` that feed
-the card.
+"""The port's server: the serving plane that feeds the card, the state
+store, and the gRPC auth service in process.
 
 - :mod:`.batching` — ``DynamicBatcher``, coalescing concurrent
   submissions into device batches, with deadline shedding and
@@ -9,13 +9,19 @@ the card.
 - :mod:`.plane` — ``build_backend``, which assembles the card (behind a
   host failover only when the caller passes one) and the batcher from the
   ``[tpu]`` settings;
-- :mod:`.config` — ``TpuSettings`` and ``validate_tpu``;
+- :mod:`.config` — ``TpuSettings``, ``validate_tpu`` and the global
+  ``RateLimiter``;
 - :mod:`.metrics` — the metrics facade, on a Prometheus registry of this
-  package's own.
+  package's own;
+- :mod:`.state` — ``ServerState``: users, single-use challenges and
+  sessions in independently locked shards, with snapshot/restore;
+- :mod:`.wire` — the native parse of the three hot request messages;
+- :mod:`.proto` and :mod:`.service` — the protobuf bindings and the gRPC
+  ``AuthServiceImpl`` with ``serve``.
 
-The gRPC service, the state store and the daemon come with a later slice.
-Exports resolve on first access: :mod:`.metrics` is imported by the
-observability layer, which the batcher itself imports.
+The daemon comes with a later slice.  Exports resolve on first access:
+:mod:`.metrics` is imported by the observability layer, which the batcher
+itself imports.
 """
 
 from __future__ import annotations
@@ -29,6 +35,12 @@ _EXPORTS = {
     "LaneStopped": "dispatch",
     "TpuSettings": "config",
     "validate_tpu": "config",
+    "RateLimiter": "config",
+    "RateLimitExceeded": "config",
+    "ServerState": "state",
+    "UserData": "state",
+    "ChallengeData": "state",
+    "SessionData": "state",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -4,12 +4,16 @@ A copy of ``TpuSettings`` (``cpzk_tpu/server/config.py``), field for field,
 so one config file serves either package: ``backend = "tpu"`` selects the
 device plane, which in this package is the GPU.  :func:`validate_tpu`
 carries the ``[tpu]`` checks of the reference's ``ServerConfig.validate``
-with its messages.  The rest of ``ServerConfig`` comes with the port's
-server daemon.
+with its messages.  :class:`RateLimiter` and :class:`RateLimitExceeded`
+are the global token bucket the gRPC service admits every RPC through
+(``cpzk_tpu/server/config.py:1085-1121``).  The rest of ``ServerConfig``
+comes with the port's server daemon.
 """
 
 from __future__ import annotations
 
+import asyncio
+import time
 from dataclasses import dataclass
 
 
@@ -102,3 +106,42 @@ def validate_tpu(tpu: TpuSettings) -> None:
         ) from None
     if any(q < 1 for q in quanta):
         raise ValueError("tpu.prewarm_quanta entries must be positive")
+
+
+class RateLimitExceeded(Exception):
+    """Global-bucket rejection.  ``retry_after_s`` is the time until one
+    token refills; the service sizes its ``cpzk-retry-after-ms`` pushback
+    from it (every RESOURCE_EXHAUSTED path carries pushback)."""
+
+    def __init__(self, message: str = "Rate limit exceeded",
+                 retry_after_s: float = 0.0):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
+class RateLimiter:
+    """Token bucket with fractional refill (config.rs:64-118 twin)."""
+
+    def __init__(self, requests_per_minute: int, burst: int):
+        self.rate = requests_per_minute
+        self.burst = burst
+        self._tokens = float(burst)
+        self._last_update = time.monotonic()
+        self._lock = asyncio.Lock()
+
+    async def check_rate_limit(self) -> None:
+        async with self._lock:
+            now = time.monotonic()
+            elapsed = now - self._last_update
+            self._tokens = min(self._tokens + elapsed * (self.rate / 60.0), float(self.burst))
+            if self._tokens >= 1.0:
+                self._tokens -= 1.0
+                self._last_update = now
+            else:
+                per_s = self.rate / 60.0
+                raise RateLimitExceeded(
+                    "Rate limit exceeded",
+                    retry_after_s=(
+                        (1.0 - self._tokens) / per_s if per_s > 0 else 1.0
+                    ),
+                )

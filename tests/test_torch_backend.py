@@ -151,3 +151,52 @@ def _row(params):
     e = T.Ristretto255.identity()
     s = T.Scalar(1)
     return BatchRow(params.generator_g, params.generator_h, e, e, e, e, s, s, s)
+
+
+def test_gh_cache_lru_bounded_telemetry():
+    """Twin of ``tests/test_flightrec.py::test_gh_cache_lru_bounded``: the
+    same four generator pairs through the JAX ``TpuBackend(gh_cache_max=2)``
+    and ``TorchBackend(gh_cache_max=2)``: the same cache size, the same
+    ``tpu.gh_cache.size`` gauge and ``tpu.gh_cache.evictions`` counts (each
+    in its own package's metrics), the same LRU order after re-touches."""
+    from cpzk_tpu.ops.backend import TpuBackend
+    from cpzk_tpu.protocol.batch import BatchRow as JBatchRow
+    from cpzk_tpu.server import metrics as jmetrics
+    from cpzk_tpu_torch.protocol.batch import BatchRow
+    from cpzk_tpu_torch.server import metrics as tmetrics
+
+    rng = SeededRng(29)
+    wires = []
+    for _ in range(4):
+        st = J.Prover(J.Parameters.new(), J.Witness(J.Ristretto255.random_scalar(rng))).statement
+        wires.append((J.Ristretto255.element_to_bytes(st.y1),
+                       J.Ristretto255.element_to_bytes(st.y2)))
+
+    def rows(pkg, Row):
+        R = pkg.Ristretto255
+        s = pkg.Scalar(1)
+        out = []
+        for y1, y2 in wires:  # any two distinct valid elements form a pair
+            g, h = R.element_from_bytes(y1), R.element_from_bytes(y2)
+            out.append(Row(g=g, h=h, y1=g, y2=h, r1=g, r2=h, s=s, c=s, alpha=s))
+        return out
+
+    def drive(backend, metrics, rs):
+        ev0 = metrics.read("tpu.gh_cache.evictions")
+        seen = []
+        for row in rs:
+            backend._gh(row)
+            seen.append((len(backend._gh_cache), metrics.read("tpu.gh_cache.size", "g"),
+                         metrics.read("tpu.gh_cache.evictions") - ev0))
+        backend._gh(rs[2])  # re-touching promotes
+        backend._gh(rs[0])  # re-marshalled (it was evicted): evicts rows[3]'s pair
+        seen.append(list(backend._gh_cache))
+        seen.append(metrics.read("tpu.gh_cache.evictions") - ev0)
+        return seen
+
+    ref = drive(TpuBackend(gh_cache_max=2), jmetrics, rows(J, JBatchRow))
+    port = drive(TorchBackend(device="cpu", gh_cache_max=2), tmetrics, rows(T, BatchRow))
+    assert port == ref
+    assert port[:4] == [(1, 1.0, 0.0), (2, 2.0, 0.0), (2, 2.0, 1.0), (2, 2.0, 2.0)]
+    assert port[4] == [wires[2], wires[0]]
+    assert port[5] == 3.0

@@ -1,7 +1,10 @@
 """The port stands alone: nothing under ``cpzk_tpu_torch/`` (nor
 ``chip_smoke.py``) imports ``jax`` or ``cpzk_tpu``, importing the package
-pulls in neither, and its GPU entry point refuses to run without CUDA
-unless the caller asks for the CPU."""
+(its gRPC service, state store, wire parse and protobuf bindings included)
+pulls in neither and puts no top-level ``auth_pb2``/``health_pb2`` module in
+``sys.modules``, the host core (the request-wire parser included) is built
+from the port's own sources, and the GPU entry point refuses to run without
+CUDA unless the caller asks for the CPU."""
 
 import ast
 import subprocess
@@ -13,7 +16,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "cpzk_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "cpzk_tpu")
+#: top-level module names the port never imports: JAX, the JAX package,
+#: and the reference's protobuf modules as it puts them on ``sys.path``
+FORBIDDEN = ("jax", "jaxlib", "cpzk_tpu", "auth_pb2", "health_pb2", "replication_pb2")
 
 
 def imported_modules(path: Path) -> set[str]:
@@ -45,8 +50,15 @@ def test_import_pulls_in_neither_jax_nor_cpzk_tpu():
         "import cpzk_tpu_torch.observability, cpzk_tpu_torch.resilience.faults\n"
         "import cpzk_tpu_torch.parallel\n"
         "from cpzk_tpu_torch.server import build_backend, DynamicBatcher\n"
+        "import cpzk_tpu_torch.server.service, cpzk_tpu_torch.server.state\n"
+        "import cpzk_tpu_torch.server.wire, cpzk_tpu_torch.server.proto\n"
+        "import cpzk_tpu_torch.observability.instrument\n"
+        "from cpzk_tpu_torch.server import RateLimiter, ServerState, UserData\n"
+        "cpzk_tpu_torch.server.proto.load_pb2(), cpzk_tpu_torch.server.proto.load_health_pb2()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cpzk_tpu')]\n"
         "assert not bad, bad\n"
+        "top = [m for m in sys.modules if m in ('auth_pb2', 'health_pb2', 'replication_pb2')]\n"
+        "assert not top, top\n"
         "print('clean')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -100,11 +112,13 @@ def test_native_core_builds_only_from_the_port_sources():
     from cpzk_tpu_torch.core import _native
 
     assert {src.parent for src in _native.SOURCES} == {ROOT / "cpzk_tpu_torch" / "native"}
+    assert {src.name for src in _native.SOURCES} == {"merlin.cpp", "ristretto.cpp", "wire.cpp"}
     assert _native.BUILD_DIR == ROOT / "cpzk_tpu_torch" / "_build"
     code = (
         "from cpzk_tpu_torch.core import _native\n"
         "import cpzk_tpu_torch as T\n"
         "T.Proof.from_bytes_batch([bytes(109)])\n"
+        "assert _native.wire_index(_native.WIRE_CHALLENGE, b'\\x0a\\x01u') is not None\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert 'cpzk_tpu/_lib' not in maps and 'libcpzk_native' not in maps\n"
         "assert str(_native.build()) in maps\n"

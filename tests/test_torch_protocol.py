@@ -136,3 +136,27 @@ def test_parse_errors_identical():
                 got.append((type(exc).__name__, str(exc)))
         assert got[0] == got[1], wire.hex()
         assert got[0] is not None
+
+
+@pytest.mark.parametrize("capacity", [-1, 0, 5, 10**6])
+def test_batch_verifier_with_capacity(capacity):
+    """``BatchVerifier.with_capacity`` as the reference's: a negative
+    capacity raises ``InvalidParams`` with the same message; otherwise an
+    empty verifier at the default bound, on the backend passed."""
+    from cpzk_tpu.protocol.batch import BatchVerifier as JBatchVerifier
+    from cpzk_tpu.protocol.batch import CpuBackend as JCpuBackend
+
+    def outcome(cls, backend):
+        try:
+            bv = cls.with_capacity(capacity, backend)
+        except Exception as e:  # noqa: BLE001 - compared across packages
+            return (type(e).__name__, str(e))
+        return (len(bv), bv.remaining_capacity(), bv.is_empty())
+
+    cpu = T.CpuBackend()
+    port = outcome(T.BatchVerifier, cpu)
+    assert port == outcome(JBatchVerifier, JCpuBackend())
+    if capacity < 0:
+        assert port == ("InvalidParams", "Capacity cannot be negative")
+    else:
+        assert T.BatchVerifier.with_capacity(capacity, cpu).backend is cpu
