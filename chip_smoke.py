@@ -80,13 +80,41 @@ core from ``cpzk_tpu_torch/native`` (both into the ignored
    challenges/s, native parse µs per entry, the state seconds of consume
    and lookup and of sessions, logins/s from parse to session, GC pauses
    and the launches;
+   ``daemon`` — the port's entry point, ``python -m cpzk_tpu_torch.server
+   --no-repl``, as a subprocess on a TOML of its own (``[tpu] backend =
+   "tpu"``, ``batch_max`` and ``prewarm_quanta`` 4096, a rate limit above
+   the traffic, the ops plane on an ephemeral port, a state file, and
+   ``CPZK_CLEANUP_INTERVAL_S=1`` so a sweep, checkpoint and ``gc.freeze()``
+   run), driven over loopback gRPC by a client hand-wired on the port's
+   ``auth_pb2`` over 8 connections: 4096 users registered with
+   ``RegisterBatch``, 4096 concurrent ``CreateChallenge`` calls, and 4096
+   logins in five concurrent ``VerifyProofBatch`` RPCs (4 x 1000 + 96,
+   tampered as in ``login_state``); every verdict must equal its
+   expectation with one session per valid entry, a replay of the first RPC
+   be refused for all 1000 entries, the flight records (``/flightrec``)
+   cover the 4096 entries with a device interval above 0, ``/metrics``
+   show no failover and both kernels launched by the logins, and the
+   daemon (not the shards) hold a CUDA context (``libcuda`` in the
+   processes' maps; one ``nvidia-smi --query-compute-apps`` row more than
+   before the daemon, and the daemon's PID among them where ``nvidia-smi``
+   shows this namespace's PIDs).  SIGTERM must exit 0 within the drain plus 30 s with a snapshot;
+   a second boot must restore the 4096 users and the sessions and log one
+   user in; a third, with ``[server] ingest_shards = 4``, must answer the
+   same logins again through the shards.  Printed: boot and shutdown
+   seconds, registrations/s, challenges/s, logins/s from the first
+   ``VerifyProofBatch`` sent to the last answer, RPC latency p50/p99, the
+   flight records' batch sizes and device intervals, the restored counts,
+   each shard's boot seconds, and the launches; the daemons' output goes
+   to ``chiprun_out/daemon_*.log``;
 6. ``profile`` — one 4096-row combined check: wall time unprofiled, then
    device time by kernel under torch.profiler (the table goes to
    ``chiprun_out/profile_4096.txt``) and the device's idle share.
 
 Then the ``kernels`` line (``launches`` counted over phases 4-5 only,
 ``launches_in_serving_plane`` over the served traffic of phase 5b,
-``launches_in_login_state`` over the login traffic of phase 5c), the
+``launches_in_login_state`` over the login traffic of phase 5c,
+``launches_in_daemon`` and ``launches_in_daemon_sharded`` over the
+daemon's first and third waves of logins), the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when CUDA is
@@ -95,12 +123,21 @@ unavailable or the package is missing.
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
 import gc
 import json
 import os
+import re
+import shutil
+import signal
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 
 SEED = 20261017
 CORPUS = 256
@@ -116,6 +153,12 @@ SAMPLE_N = 256
 #: entries per BatchVerificationRequest in the login_state phase (the
 #: service's MAX_BATCH)
 LOGIN_RPC_MAX = 1000
+#: the daemon phase: its boot limit, the ingest shards of its third boot,
+#: and the gRPC connections its client opens
+DAEMON_BOOT_TIMEOUT_S = 120.0
+DAEMON_SHARDS = 4
+DAEMON_CHANNELS = 8
+BAD_POINT = "Invalid proof: Bytes do not represent a valid Ristretto point"
 NORTH_STAR_N = 16384
 KERNEL_NS = (1, 127, 4096, 6144, 16384, 18432)
 #: lane width at which the kernels line reports times: one full lane chunk,
@@ -1237,6 +1280,456 @@ def login_state(params, corpus, provers, n: int, max_batch_rpc: int, device=None
     return out
 
 
+class DaemonProcess:
+    """One ``python -m cpzk_tpu_torch.server`` subprocess of the daemon
+    phase: its output lines kept (and written to ``chiprun_out/``), its
+    gRPC and ops-plane ports read from them, stopped with SIGTERM."""
+
+    LISTENING = re.compile(r"AuthService listening on [^:\s]+:(\d+)")
+    OPSPLANE = re.compile(r"ops plane on http://[^:\s]+:(\d+)")
+
+    def __init__(self, name: str, argv: list, cwd: str, env: dict):
+        self.name = name
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=cwd, env=env, text=True,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     start_new_session=True)
+        self.lines: list[str] = []
+        self.stamps: list[float] = []  # seconds from spawn to each line
+        self.readers = [threading.Thread(target=self._drain, args=(s,), daemon=True)
+                        for s in (self.proc.stdout, self.proc.stderr)]
+        for t in self.readers:
+            t.start()
+        self.port = self.ops_port = None
+        self.boot_s = None
+
+    def _drain(self, stream) -> None:
+        for line in stream:
+            self.stamps.append(time.perf_counter() - self.t0)
+            self.lines.append(line)
+
+    def seconds_to(self, text: str) -> float | None:
+        """Seconds from spawn to the first output line holding ``text``."""
+        for t, line in zip(list(self.stamps), list(self.lines)):
+            if text in line:
+                return t
+        return None
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+    def wait_listening(self, timeout: float) -> "DaemonProcess":
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            for line in list(self.lines):
+                if (m := self.LISTENING.search(line)) and self.port is None:
+                    self.port = int(m.group(1))
+                    self.boot_s = time.perf_counter() - self.t0
+                if m := self.OPSPLANE.search(line):
+                    self.ops_port = int(m.group(1))
+            if self.port is not None and self.ops_port is not None:
+                return self
+            if self.proc.poll() is not None:
+                raise AssertionError(f"daemon {self.name} exited {self.proc.returncode} "
+                                     f"before listening:\n{self.text()[-3000:]}")
+            time.sleep(0.02)
+        raise AssertionError(f"daemon {self.name} did not listen within {timeout} s:\n"
+                             f"{self.text()[-3000:]}")
+
+    def terminate(self, timeout: float) -> tuple[int, float]:
+        """SIGTERM; (exit code, seconds to exit)."""
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=timeout)
+        for t in self.readers:
+            t.join(timeout=5)
+        return rc, time.perf_counter() - t0
+
+    def kill(self) -> None:
+        """Kill the daemon and everything it started (its ingest shards)."""
+        if self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait(timeout=30)
+
+    def save_log(self) -> None:
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", f"daemon_{self.name}.log"), "w") as f:
+            f.write(self.text())
+
+
+def http_get(port: int, path: str) -> str:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+        return resp.read().decode()
+
+
+def scraped(text: str, name: str, labels: str = "") -> float:
+    """One sample of a Prometheus text exposition (0.0 when absent)."""
+    m = re.search(rf"^{re.escape(name + labels)} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def kernel_launches(ops_port: int) -> dict:
+    text = http_get(ops_port, "/metrics")
+    return {k: int(scraped(text, "tpu_kernel_launches", f'{{kernel="{k}"}}'))
+            for k in REPLACES}
+
+
+def card_apps() -> list[int]:
+    """The PIDs of the card's compute apps per ``nvidia-smi`` (in a PID
+    namespace it cannot map, each shows as some other number, but there
+    is one row per process holding a CUDA context)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def maps_libcuda(pid: int) -> bool:
+    """Whether process ``pid`` has the CUDA driver library mapped: a
+    process that created a CUDA context has."""
+    with open(f"/proc/{pid}/maps") as f:
+        return "libcuda.so" in f.read()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tamper_logins(wires, cids, provers, m: int, gen) -> list[str]:
+    """About 1% of the login proofs made to fail (wrong s, wrong context,
+    swapped r1) and 2 given a commitment that does not decode, as in the
+    login_state phase; returns the expected verdict of each entry."""
+    from cpzk_tpu_torch import Transcript
+    from cpzk_tpu_torch.core.scalars import L
+
+    n = len(wires)
+    expected = ["ok"] * n
+    step = max(2, n // 42)
+    for k, idx in enumerate(range(41 % n, n, step)):
+        wire = wires[idx]
+        how = ("wrong_s", "wrong_context", "swapped_r1")[k % 3]
+        if how == "wrong_s":
+            sc = int.from_bytes(wire[77:], "little") + 1
+            wire = wire[:77] + ((sc % L) or 1).to_bytes(32, "little")
+        elif how == "wrong_context":
+            t = Transcript()
+            t.append_context(cids[idx] + b"-elsewhere")
+            wire = provers[idx % m].prove_with_transcript(gen, t).to_bytes()
+        else:
+            wire = wire[:5] + wires[(idx + 1) % n][5:37] + wire[37:]
+        wires[idx] = wire
+        expected[idx] = "Authentication failed"
+    for idx in (3, n - 3):
+        if expected[idx] == "ok":
+            wires[idx] = wires[idx][:5] + b"\xff" * 32 + wires[idx][37:]
+            expected[idx] = BAD_POINT
+    return expected
+
+
+async def daemon_logins(port: int, user_ids, corpus, provers, rpc_max: int, gen,
+                        register: bool, channels: int = DAEMON_CHANNELS) -> dict:
+    """One wave of logins over loopback gRPC, hand-wired on the port's
+    ``auth_pb2``: (registration,) one challenge per user, proofs of them,
+    the logins in concurrent ``VerifyProofBatch`` RPCs of ``rpc_max``
+    entries, then the first RPC again (the replay)."""
+    import grpc
+
+    from cpzk_tpu_torch import Transcript
+    from cpzk_tpu_torch._gen import auth_pb2 as pb
+
+    n, m = len(user_ids), len(corpus)
+    bounds = [(lo, min(lo + rpc_max, n)) for lo in range(0, n, rpc_max)]
+    out = {"rpc_sizes": [hi - lo for lo, hi in bounds]}
+
+    def unary(ch, name, req_cls, resp_cls):
+        return ch.unary_unary(f"/auth.AuthService/{name}",
+                              request_serializer=req_cls.SerializeToString,
+                              response_deserializer=resp_cls.FromString)
+
+    # several connections, as several clients open: through SO_REUSEPORT
+    # the kernel spreads connections (not RPCs) over the ingest shards
+    # (a local subchannel pool each: channels to one target otherwise share
+    # one connection)
+    chans = [grpc.aio.insecure_channel(f"127.0.0.1:{port}",
+                                       options=[("grpc.use_local_subchannel_pool", 1)])
+             for _ in range(channels)]
+    try:
+        for ch in chans:
+            await asyncio.wait_for(ch.channel_ready(), DAEMON_BOOT_TIMEOUT_S)
+
+        def rpc(i: int, name: str, req_cls, resp_cls):
+            return unary(chans[i % channels], name, req_cls, resp_cls)
+
+        if register:
+            t0 = time.perf_counter()
+            resps = await asyncio.gather(*[rpc(k, "RegisterBatch", pb.BatchRegistrationRequest,
+                                               pb.BatchRegistrationResponse)(
+                pb.BatchRegistrationRequest(
+                    user_ids=user_ids[lo:hi],
+                    y1_values=[corpus[i % m][0].y1.wire() for i in range(lo, hi)],
+                    y2_values=[corpus[i % m][0].y2.wire() for i in range(lo, hi)]))
+                for k, (lo, hi) in enumerate(bounds)])
+            out["register_s"] = time.perf_counter() - t0
+            bad = [r.message for resp in resps for r in resp.results if not r.success]
+            if bad:
+                raise AssertionError(f"daemon: registration failed: {bad[:3]}")
+            out["registrations_per_s"] = n / out["register_s"]
+
+        chals = [rpc(k, "CreateChallenge", pb.ChallengeRequest, pb.ChallengeResponse)
+                 for k in range(channels)]
+        lat: list[float] = []
+
+        async def challenge(k: int, uid: str) -> bytes:
+            t = time.perf_counter()
+            resp = await chals[k % channels](pb.ChallengeRequest(user_id=uid))
+            lat.append(time.perf_counter() - t)
+            return bytes(resp.challenge_id)
+
+        t0 = time.perf_counter()
+        cids = await asyncio.gather(*[challenge(k, uid) for k, uid in enumerate(user_ids)])
+        out["challenge_s"] = time.perf_counter() - t0
+        out["challenges_per_s"] = n / out["challenge_s"]
+        out["challenge_latency_ms"] = {"p50": percentile(lat, 50) * 1e3,
+                                       "p99": percentile(lat, 99) * 1e3}
+
+        wires = []
+        for i, cid in enumerate(cids):
+            t = Transcript()
+            t.append_context(cid)
+            wires.append(provers[i % m].prove_with_transcript(gen, t).to_bytes())
+        expected = tamper_logins(wires, cids, provers, m, gen)
+        requests = [pb.BatchVerificationRequest(user_ids=user_ids[lo:hi],
+                                                challenge_ids=cids[lo:hi],
+                                                proofs=wires[lo:hi]) for lo, hi in bounds]
+        verifies = [rpc(k, "VerifyProofBatch", pb.BatchVerificationRequest,
+                        pb.BatchVerificationResponse) for k in range(channels)]
+        rpc_lat: list[float] = []
+
+        async def login(k: int, req):
+            t = time.perf_counter()
+            resp = await verifies[k % channels](req)
+            rpc_lat.append(time.perf_counter() - t)
+            return resp
+
+        t0 = time.perf_counter()
+        resps = await asyncio.gather(*[login(k, req) for k, req in enumerate(requests)])
+        out["login_wall_s"] = time.perf_counter() - t0
+        out["logins_per_s"] = n / out["login_wall_s"]
+        out["login_rpc_latency_ms"] = {"p50": percentile(rpc_lat, 50) * 1e3,
+                                       "p99": percentile(rpc_lat, 99) * 1e3}
+        results = [r for resp in resps for r in resp.results]
+        replay = (await verifies[0](requests[0])).results
+    finally:
+        for ch in chans:
+            await ch.close()
+    got = ["ok" if r.success else r.message for r in results]
+    wrong = [i for i, (g, e) in enumerate(zip(got, expected)) if g != e]
+    if len(results) != n or wrong:
+        raise AssertionError(f"daemon: {len(results)} verdicts, wrong at {wrong[:5]}: "
+                             f"{[(got[i], expected[i]) for i in wrong[:5]]}")
+    for uid, r in zip(user_ids, results):
+        if r.success != bool(r.session_token) or (
+                r.success and r.message != f"User '{uid}' authenticated successfully"):
+            raise AssertionError(f"daemon: not one session per valid entry ({uid}: {r})")
+    if [(r.success, r.message) for r in replay] != [(False, "Authentication failed")] * len(
+            requests[0].user_ids):
+        raise AssertionError("daemon: the replay was not refused entry for entry")
+    out.update(valid=expected.count("ok"), sessions=sum(bool(r.session_token) for r in results),
+               tampered=expected.count("Authentication failed"),
+               undecodable=expected.count(BAD_POINT), replay_refused=len(replay))
+    return out
+
+
+async def daemon_single_login(port: int, uid: str, prover, gen) -> str:
+    """One fresh challenge and ``VerifyProof`` for ``uid``: its message."""
+    import grpc
+
+    from cpzk_tpu_torch import Transcript
+    from cpzk_tpu_torch._gen import auth_pb2 as pb
+
+    async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+        chal = ch.unary_unary("/auth.AuthService/CreateChallenge",
+                              request_serializer=pb.ChallengeRequest.SerializeToString,
+                              response_deserializer=pb.ChallengeResponse.FromString)
+        cid = bytes((await chal(pb.ChallengeRequest(user_id=uid))).challenge_id)
+        t = Transcript()
+        t.append_context(cid)
+        proof = prover.prove_with_transcript(gen, t).to_bytes()
+        verify = ch.unary_unary("/auth.AuthService/VerifyProof",
+                                request_serializer=pb.VerificationRequest.SerializeToString,
+                                response_deserializer=pb.VerificationResponse.FromString)
+        resp = await verify(pb.VerificationRequest(user_id=uid, challenge_id=cid, proof=proof))
+    if not (resp.success and resp.session_token):
+        raise AssertionError(f"daemon: the login after the restore failed: {resp.message}")
+    return resp.message
+
+
+def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
+                 launcher: list | None = None, on_card: bool = True) -> dict:
+    """The ``daemon`` phase: the port's entry point, ``python -m
+    cpzk_tpu_torch.server --no-repl``, as a subprocess on a TOML of its
+    own, serving logins over loopback gRPC three times: a boot that
+    registers ``n`` users and logs them in (five concurrent
+    ``VerifyProofBatch`` RPCs at ``rpc_max`` entries, about 1% tampered),
+    then SIGTERM; a second boot that restores the snapshot and logs one
+    user in; a third with ``[server] ingest_shards = shards`` that logs all
+    ``n`` in again through the shards.  ``launcher`` replaces ``python -m
+    cpzk_tpu_torch.server`` (a rehearsal on the CPU passes one that gives
+    ``amain`` ``device="cpu"``, with ``on_card=False``)."""
+    from cpzk_tpu_torch.server.__main__ import DRAIN_SECONDS
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.mkdtemp(prefix="cpzk-daemon-")
+    state_file = os.path.join(workdir, "state.json")
+    config = os.path.join(workdir, "server.toml")
+    with open(config, "w") as f:
+        f.write(f'state_file = "{state_file}"\n'
+                f'[tpu]\nbackend = "tpu"\nbatch_max = {n}\nprewarm_quanta = "{n}"\n'
+                "[rate_limit]\nrequests_per_minute = 100000000\nburst = 1000000\n"
+                "[opsplane]\nenabled = true\nport = 0\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SERVER_")}
+    env.update(SERVER_CONFIG_PATH=config, CPZK_CLEANUP_INTERVAL_S="1",
+               PYTHONPATH=root + os.pathsep + env.get("PYTHONPATH", ""))
+    argv = (launcher or [sys.executable, "-m", "cpzk_tpu_torch.server"]) + ["--no-repl"]
+    user_ids = [f"user-{i:05d}" for i in range(n)]
+    gen = SeededRng(SEED + 7)
+    out = {"n": n, "rpc_entries": rpc_max, "tolerance": "exact", "config": open(config).read()}
+    procs = []
+
+    def boot(name: str, extra: list, extra_env: dict | None = None) -> DaemonProcess:
+        proc = DaemonProcess(name, argv + extra, workdir, {**env, **(extra_env or {})})
+        procs.append(proc)
+        return proc.wait_listening(DAEMON_BOOT_TIMEOUT_S)
+
+    def flight_records(ops_port: int, after_seq: int) -> list[dict]:
+        payload = json.loads(http_get(ops_port, "/flightrec"))
+        return [r for r in payload["records"] if r["seq"] > after_seq]
+
+    def last_seq(ops_port: int) -> int:
+        return max([r["seq"] for r in flight_records(ops_port, 0)], default=0)
+
+    def served(proc: DaemonProcess, register: bool) -> dict:
+        """A wave of logins with the launch counts and the flight records
+        read just before and just after it."""
+        seq0 = last_seq(proc.ops_port)
+        launches0 = kernel_launches(proc.ops_port)
+        wave = asyncio.run(daemon_logins(proc.port, user_ids, corpus, provers, rpc_max, gen,
+                                         register))
+        launches = {k: v - launches0[k] for k, v in kernel_launches(proc.ops_port).items()}
+        records = flight_records(proc.ops_port, seq0)
+        batched = sum(r["batch"] for r in records)
+        # the replay's entries fail at the consume, before any batch
+        if batched != n or any(r["device_interval_s"] <= 0 for r in records):
+            raise AssertionError(f"daemon {proc.name}: flight records "
+                                 f"{[(r['batch'], r['device_interval_s']) for r in records]}")
+        if on_card:
+            for name, count in launches.items():
+                if count < 1:
+                    raise AssertionError(f"{name} was never launched by the daemon's logins")
+        metrics_text = http_get(proc.ops_port, "/metrics")
+        failover = scraped(metrics_text, "tpu_backend_failover_total")
+        if failover:
+            raise AssertionError(f"daemon {proc.name}: {failover} failovers")
+        wave.update(batches=[r["batch"] for r in records],
+                    device_interval_s=[r["device_interval_s"] for r in records],
+                    batch_wall_s=[r["wall_s"] for r in records],
+                    launches=launches, failover=failover)
+        return wave
+
+    def on_card_pids(daemon: DaemonProcess, others: list[int]) -> dict:
+        """The daemon holds a CUDA context and none of ``others`` does:
+        ``libcuda`` in each process's maps, one more compute app on the
+        card than before the daemon (this script's own), and, where
+        ``nvidia-smi`` shows this namespace's PIDs, the daemon's among
+        them and none of the others'."""
+        if not maps_libcuda(daemon.proc.pid):
+            raise AssertionError("the daemon has no CUDA context")
+        holding = [pid for pid in others if maps_libcuda(pid)]
+        if holding:
+            raise AssertionError(f"processes {holding} hold a CUDA context")
+        apps = card_apps()
+        if len(apps) != len(apps_before) + 1:
+            raise AssertionError(f"compute apps {apps} with the daemon up, "
+                                 f"{apps_before} before it")
+        row = {"nvidia_smi_apps": apps, "apps_before": apps_before,
+               "daemon_pid": daemon.proc.pid, "others": others,
+               "nvidia_smi_pids_checked": os.getpid() in apps}
+        if row["nvidia_smi_pids_checked"]:
+            if daemon.proc.pid not in apps or set(others) & set(apps):
+                raise AssertionError(f"nvidia-smi lists {apps}: daemon {daemon.proc.pid}, "
+                                     f"others {others}")
+        return row
+
+    apps_before = card_apps() if on_card else []
+    try:
+        # 1. boot, register, log in, replay; SIGTERM with a final snapshot
+        first = boot("first", ["--port", "0"])
+        out["boot_s"] = first.boot_s
+        # the boot's parts: the imports, the CUDA context and the state up
+        # to build_backend, then its prewarm (the first combined check)
+        out["boot_to_prewarmed_s"] = first.seconds_to("prewarmed the verify kernels")
+        m = re.search(r"prewarmed the verify kernels .* in ([0-9.]+)s", first.text())
+        out["prewarm_s"] = float(m.group(1)) if m else None
+        out["first"] = served(first, register=True)
+        if on_card:
+            out["first"]["card"] = on_card_pids(first, [])
+        time.sleep(1.2)  # one sweep at CPZK_CLEANUP_INTERVAL_S: checkpoint + gc.freeze
+        rc, out["shutdown_s"] = first.terminate(DRAIN_SECONDS + 30)
+        if rc != 0 or not os.path.exists(state_file):
+            raise AssertionError(f"daemon first: exit {rc}, snapshot "
+                                 f"{os.path.exists(state_file)}:\n{first.text()[-3000:]}")
+
+        # 2. restore on the same state file, one fresh login
+        second = boot("restored", ["--port", "0"])
+        m = re.search(r"restored state snapshot: (\d+) users, (\d+) sessions", second.text())
+        restored = tuple(int(x) for x in m.groups()) if m else None
+        if restored != (n, out["first"]["sessions"]):
+            raise AssertionError(f"daemon restored {restored}, wrote ({n}, "
+                                 f"{out['first']['sessions']})")
+        out["restored"] = {"boot_s": second.boot_s, "users": restored[0],
+                           "sessions": restored[1],
+                           "login": asyncio.run(daemon_single_login(second.port, user_ids[0],
+                                                                    provers[0], gen))}
+        rc, out["restored"]["shutdown_s"] = second.terminate(DRAIN_SECONDS + 30)
+        if rc != 0:
+            raise AssertionError(f"daemon restored: exit {rc}")
+
+        # 3. the same logins through SO_REUSEPORT ingest shards
+        sharded = boot("sharded", ["--port", str(free_port())],
+                       {"SERVER_INGEST_SHARDS": str(shards)})
+        deadline = time.perf_counter() + DAEMON_BOOT_TIMEOUT_S
+        while True:
+            ingest = json.loads(http_get(sharded.ops_port, "/statusz"))["ingest"]
+            if all(row["connected"] for row in ingest["per_shard"]):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"daemon sharded: shards never connected: {ingest}")
+            time.sleep(0.05)
+        ready_s = time.perf_counter() - sharded.t0
+        time.sleep(0.5)  # each shard binds its listener right after its hello
+        shard_pids = [row["pid"] for row in ingest["per_shard"]]
+        wave = served(sharded, register=False)
+        ingest = json.loads(http_get(sharded.ops_port, "/statusz"))["ingest"]
+        wave.update(boot_s=sharded.boot_s, shards_ready_s=ready_s,
+                    shard_boot_s=[row["boot_s"] for row in ingest["per_shard"]],
+                    shard_rpcs=[row["rpcs"] for row in ingest["per_shard"]],
+                    shard_parses=[row["parses"] for row in ingest["per_shard"]])
+        if on_card:
+            wave["card"] = on_card_pids(sharded, shard_pids)
+        rc, wave["shutdown_s"] = sharded.terminate(DRAIN_SECONDS + 30)
+        if rc != 0:
+            raise AssertionError(f"daemon sharded: exit {rc}")
+        out["sharded"] = wave
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.save_log()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def profile_combined(backend, rows, beta) -> dict:
     """Phase 6: wall time of one combined check, then its device time by
     kernel under the profiler."""
@@ -1346,6 +1839,12 @@ def main() -> int:
     logins = login_state(params, corpus, provers, SERVING_N, LOGIN_RPC_MAX)
     emit({"phase": "login_state", **logins, **card})
 
+    # 5d. the daemon: the port's entry point in subprocesses, logins over
+    # loopback gRPC (launch counts read from its ops plane just before and
+    # just after each wave of logins)
+    served = daemon_phase(corpus, provers, SERVING_N, LOGIN_RPC_MAX, DAEMON_SHARDS)
+    emit({"phase": "daemon", **served, **card})
+
     # 6. where the time goes
     prof = profile_combined(backend, rows[:SERVING_N], beta)
     emit({"phase": "profile", **prof, **card})
@@ -1369,6 +1868,8 @@ def main() -> int:
             "launches_per_16384_check": star["valid_launches"][name],
             "launches_in_serving_plane": plane["launches_in_serving_plane"][name],
             "launches_in_login_state": logins["launches_in_login_state"][name],
+            "launches_in_daemon": served["first"]["launches"][name],
+            "launches_in_daemon_sharded": served["sharded"]["launches"][name],
         })
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -9,17 +9,23 @@ store, and the gRPC auth service in process.
 - :mod:`.plane` — ``build_backend``, which assembles the card (behind a
   host failover only when the caller passes one) and the batcher from the
   ``[tpu]`` settings;
-- :mod:`.config` — ``TpuSettings``, ``validate_tpu`` and the global
-  ``RateLimiter``;
+- :mod:`.config` — ``ServerConfig`` with every section of the
+  reference's (``TpuSettings`` and ``validate_tpu`` among them) and the
+  global ``RateLimiter``;
 - :mod:`.metrics` — the metrics facade, on a Prometheus registry of this
   package's own;
 - :mod:`.state` — ``ServerState``: users, single-use challenges and
   sessions in independently locked shards, with snapshot/restore;
 - :mod:`.wire` — the native parse of the three hot request messages;
 - :mod:`.proto` and :mod:`.service` — the protobuf bindings and the gRPC
-  ``AuthServiceImpl`` with ``serve``.
+  ``AuthServiceImpl`` with ``serve``;
+- :mod:`.ingest` — the SO_REUSEPORT ingest shards
+  (``[server] ingest_shards > 1``) and their supervisor;
+- :mod:`.__main__` — the daemon, ``python -m cpzk_tpu_torch.server``:
+  config resolution, the state restore, the cleanup supervisor, the ops
+  plane, the admin REPL and graceful shutdown.
 
-The daemon comes with a later slice.  Exports resolve on first access:
+Exports resolve on first access:
 :mod:`.metrics` is imported by the observability layer, which the batcher
 itself imports.
 """
@@ -33,6 +39,7 @@ _EXPORTS = {
     "QueueFull": "batching",
     "DispatchLane": "dispatch",
     "LaneStopped": "dispatch",
+    "ServerConfig": "config",
     "TpuSettings": "config",
     "validate_tpu": "config",
     "RateLimiter": "config",
@@ -41,6 +48,14 @@ _EXPORTS = {
     "UserData": "state",
     "ChallengeData": "state",
     "SessionData": "state",
+    "serve": "service",
+    "AuthServiceImpl": "service",
+    "IngestSupervisor": "ingest",
+    "amain": "__main__",
+    "handle_command": "__main__",
+    "load_state": "__main__",
+    "parse_args": "__main__",
+    "resolve_config": "__main__",
 }
 
 __all__ = sorted(_EXPORTS)

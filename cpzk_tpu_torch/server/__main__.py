@@ -1,0 +1,635 @@
+"""Server daemon + admin REPL: the port of ``cpzk_tpu/server/__main__.py``.
+
+Flags (env-overridable through ``ServerConfig``), config load +
+validation, the background cleanup task under a restart-on-crash
+supervisor, optional Prometheus exporter, the ops plane and SLO engine,
+gRPC health, an admin REPL (/status /tracez /flightrec /profile /users
+/sessions /challenges /cleanup /reset /help /quit), and graceful
+shutdown: health flips to NOT_SERVING, a 2 s drain, the ingest shards and
+the batcher stop, the listener stops, background tasks are awaited, and
+the final snapshot lands.
+
+With ``[tpu] backend = "tpu"`` (this package's default) the daemon serves
+the card bare: ``plane.build_backend`` builds the CUDA kernels and
+prewarms them before the listener binds, and a kernel or CUDA fault fails
+its batch; there is no host failover.  Without CUDA it stops at boot.
+``backend = "cpu"`` (or ``--backend cpu``) verifies inline on the host.
+
+The reference's host control plane — ``[durability]``, ``[replication]``,
+``[admission]``, ``[audit]``, ``[fleet]`` and ``[controller]`` — is not
+ported yet: a config that enables any of them stops the daemon at boot
+with an error naming the section.
+
+Run: ``python -m cpzk_tpu_torch.server --host 127.0.0.1 --port 50051``
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import contextlib
+import gc
+import logging
+import os
+import signal
+import sys
+import time
+
+from . import metrics
+from ..errors import UnsupportedFormat
+from .config import ServerConfig
+from .state import ServerState
+
+# sweep/checkpoint cadence; CPZK_CLEANUP_INTERVAL_S shortens it so a
+# bounded-duration run still observes checkpoints and sweeps
+CLEANUP_INTERVAL_SECONDS = float(os.environ.get("CPZK_CLEANUP_INTERVAL_S", 60))
+SUPERVISOR_BACKOFF_SECONDS = 5
+DRAIN_SECONDS = 2
+
+#: config sections of the reference's host control plane that the port
+#: does not have yet: enabling one stops the daemon at boot
+UNPORTED_SECTIONS = (
+    "durability", "replication", "admission", "audit", "fleet", "controller",
+)
+
+log = logging.getLogger("cpzk_tpu_torch.server")
+
+
+def _c(color: str, text: str) -> str:
+    codes = {"green": "32", "red": "31", "yellow": "33", "cyan": "36", "white": "37"}
+    if not sys.stdout.isatty():
+        return text
+    return f"\x1b[{codes[color]}m{text}\x1b[0m"
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """CLI flags are the TOP config layer: every flag defaults to None and
+    only overrides the resolved config when explicitly provided — env vars
+    (SERVER_HOST, SERVER_RATE_LIMIT_REQUESTS_PER_MINUTE, ...) and .env are
+    handled by ``ServerConfig.from_env`` so precedence stays
+    defaults < TOML < .env < env < CLI."""
+    p = argparse.ArgumentParser(prog="cpzk-server", description="Chaum-Pedersen auth server")
+    p.add_argument("-H", "--host", default=None)
+    p.add_argument("-p", "--port", type=int, default=None)
+    p.add_argument("--metrics", action="store_true", default=None,
+                   help="enable the Prometheus exporter")
+    p.add_argument("--metrics-port", type=int, default=None)
+    p.add_argument("--rate-limit", type=int, default=None,
+                   help="requests per minute")
+    p.add_argument("--rate-burst", type=int, default=None)
+    p.add_argument("--backend", choices=("cpu", "tpu"), default=None,
+                   help="verifier backend: tpu (the default: the card's CUDA "
+                        "kernels behind dynamic batching) or cpu (inline "
+                        "host verify)")
+    p.add_argument("--batch-max", type=int, default=None,
+                   help="dynamic-batcher device batch target (tpu backend)")
+    p.add_argument("--batch-window-ms", type=float, default=None,
+                   help="dynamic-batcher queue deadline in ms (tpu backend)")
+    p.add_argument("--no-repl", action="store_true", help="run headless (no admin REPL)")
+    p.add_argument("--state-file", default=None,
+                   help="opt-in checkpoint/resume: restore users+sessions "
+                        "from this JSON snapshot at boot (when it exists) "
+                        "and write it on graceful shutdown and every "
+                        "cleanup sweep. Default: in-memory only")
+    return p.parse_args(argv)
+
+
+async def cleanup_supervisor(
+    state: ServerState,
+    stop: asyncio.Event,
+    state_file: str | None = None,
+) -> None:
+    """Periodic expiry sweeps under a restart-on-crash supervisor; with
+    --state-file, each sweep also checkpoints."""
+
+    async def sweep_loop():
+        while not stop.is_set():
+            try:
+                await asyncio.wait_for(stop.wait(), timeout=CLEANUP_INTERVAL_SECONDS)
+                return
+            except asyncio.TimeoutError:
+                pass
+            nc = await state.cleanup_expired_challenges()
+            ns = await state.cleanup_expired_sessions()
+            if nc or ns:
+                log.info("cleanup: %d challenges, %d sessions expired", nc, ns)
+            if state_file:
+                await state.snapshot(state_file)
+            # freeze the surviving object graph out of the cyclic
+            # collector's gen-2 scan: at millions of registered users an
+            # automatic collection traverses every UserData/SessionData
+            # and stalls the event loop.  The state graph is acyclic
+            # (refcounting frees removed entries regardless), so freezing
+            # after each checkpoint keeps the scanned set to recent
+            # allocations only.
+            gc.freeze()
+
+    while not stop.is_set():
+        try:
+            await sweep_loop()
+            return
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            log.exception("cleanup task crashed; restarting in %ss", SUPERVISOR_BACKOFF_SECONDS)
+            try:
+                await asyncio.wait_for(stop.wait(), timeout=SUPERVISOR_BACKOFF_SECONDS)
+            except asyncio.TimeoutError:
+                pass
+
+
+HELP = """Available commands:
+  /status      (/st)  server status summary (incl. backend breaker state)
+  /overload    (/ov)  admission status (not ported yet: disabled)
+  /tracez [N]  (/tz)  last N completed request traces w/ stage breakdown
+  /flightrec [N] (/fr) last N device batches: occupancy, dispatch gap,
+                      thread_hop/marshal/device_wait split, the card's
+                      work interval
+  /profile S [DIR]    capture S seconds of torch.profiler (Chrome trace)
+  /persist     (/wal) durability status (not ported yet: disabled)
+  /audit       (/au)  proof-log status (not ported yet: disabled)
+  /replication (/repl) replication status (not ported yet: disabled)
+  /promote            promote this standby to primary (no replication)
+  /handover           coordinated primary→standby handover (no replication)
+  /fleet [reload] (/fl) partition-map status (not ported yet: disabled)
+  /controller  (/ctl) fleet controller (not ported yet: disabled)
+  /users       (/u)   registered user count
+  /sessions    (/s)   active session count
+  /challenges  (/c)   pending challenge count
+  /cleanup     (/gc)  run an expiry sweep now
+  /reset       (/rearm) re-arm the failover breaker
+  /help        (/h)   this help
+  /quit        (/q)   graceful shutdown"""
+
+
+async def handle_command(
+    cmd: str, state: ServerState, backend=None,
+) -> tuple[str, bool]:
+    """(output, should_quit) for one REPL line.  ``backend`` is the
+    serving backend: /status surfaces its breaker state and /reset re-arms
+    it when it is a ``FailoverBackend`` (the daemon serves the card bare,
+    so only a caller that builds one sees them).  The REPL commands of the
+    reference's unported subsystems answer with its "disabled" text."""
+    cmd = cmd.strip()
+    if not cmd:
+        return "", False
+    if not cmd.startswith("/"):
+        return "Commands must start with '/'. Type /help for available commands.", False
+    word = cmd.split()[0].lower()
+    if word in ("/status", "/st"):
+        u, s, c = (
+            await state.user_count(),
+            await state.session_count(),
+            await state.challenge_count(),
+        )
+        line = f"users={u} sessions={s} challenges={c}"
+        if backend is not None and hasattr(backend, "breaker"):
+            line += (
+                f" backend={backend.breaker.state.value}"
+                f" degraded_for={backend.breaker.degraded_seconds:.1f}s"
+                f" expired_shed={int(metrics.read('tpu.queue.expired'))}"
+            )
+        return line, False
+    if word in ("/overload", "/ov"):
+        return (
+            "admission control disabled (set [admission] enabled = true "
+            "to get per-client fairness + priority shedding)",
+            False,
+        )
+    if word in ("/tracez", "/traces", "/tz"):
+        from ..observability import format_tracez, get_tracer
+
+        parts = cmd.split()
+        try:
+            limit = int(parts[1]) if len(parts) > 1 else 20
+        except ValueError:
+            return f"usage: /tracez [N] — not a number: {parts[1]}", False
+        # same serializer as the ops plane's HTTP /tracez (one schema)
+        return format_tracez(get_tracer().payload(), limit=max(1, limit)), False
+    if word in ("/flightrec", "/fr"):
+        from ..observability import format_flightrec, get_flight_recorder
+
+        parts = cmd.split()
+        try:
+            limit = int(parts[1]) if len(parts) > 1 else 20
+        except ValueError:
+            return f"usage: /flightrec [N] — not a number: {parts[1]}", False
+        # same serializer as the HTTP /flightrec and the SIGUSR2 dump
+        return format_flightrec(
+            get_flight_recorder().payload(), limit=max(1, limit)
+        ), False
+    if word in ("/profile", "/prof"):
+        from ..observability import flightrec as flightrec_mod
+
+        parts = cmd.split()
+        if len(parts) < 2:
+            return "usage: /profile <seconds> [dir]", False
+        try:
+            seconds = float(parts[1])
+        except ValueError:
+            return f"usage: /profile <seconds> [dir] — not a number: {parts[1]}", False
+        if not 0 < seconds <= 600:
+            return "profile duration must be in (0, 600] seconds", False
+        logdir = parts[2] if len(parts) > 2 else (
+            f"/tmp/cpzk-torch-profile-{int(time.time())}"
+        )
+        if not flightrec_mod.start_profile(logdir):
+            return (
+                f"a profile capture is already running "
+                f"(into {flightrec_mod.profile_active()}); wait for it",
+                False,
+            )
+        try:
+            await asyncio.sleep(seconds)
+        finally:
+            flightrec_mod.stop_profile()
+        return (
+            f"torch.profiler capture ({seconds:g}s) written to {logdir} as "
+            f"a Chrome trace — open it in chrome://tracing or Perfetto "
+            f"(the cpzk.* ranges match /tracez stage names)",
+            False,
+        )
+    if word in ("/persist", "/wal"):
+        return (
+            "durability disabled (set [durability] enabled = true and a "
+            "state_file to get a write-ahead log)",
+            False,
+        )
+    if word in ("/audit", "/au"):
+        return (
+            "audit trail disabled (set [audit] enabled = true and a "
+            "log_path to record verified proofs for offline replay)",
+            False,
+        )
+    if word in ("/replication", "/repl"):
+        return (
+            "replication disabled (set [replication] enabled = true on "
+            "a durability-enabled pair to get a warm standby)",
+            False,
+        )
+    if word in ("/fleet", "/fl"):
+        return (
+            "fleet routing disabled (set [fleet] enabled = true with a "
+            "map_path to join an N-partition fleet)",
+            False,
+        )
+    if word in ("/controller", "/ctl"):
+        return (
+            "fleet controller disabled (set [controller] enabled = true "
+            "to close the signal->actuator loop; dry_run = true to "
+            "watch decisions without acting)",
+            False,
+        )
+    if word == "/promote":
+        return (
+            "nothing to promote (this node is not a replication "
+            "standby)",
+            False,
+        )
+    if word == "/handover":
+        return (
+            "nothing to hand over (this node is not a replication "
+            "primary)",
+            False,
+        )
+    if word in ("/reset", "/rearm"):
+        if backend is None or not hasattr(backend, "breaker"):
+            return "no failover backend to reset (inline CPU path)", False
+        backend.reset()
+        return "breaker re-armed: traffic back on the primary backend", False
+    if word in ("/users", "/u"):
+        return f"registered users: {await state.user_count()}", False
+    if word in ("/sessions", "/s"):
+        return f"active sessions: {await state.session_count()}", False
+    if word in ("/challenges", "/c"):
+        return f"pending challenges: {await state.challenge_count()}", False
+    if word in ("/cleanup", "/gc"):
+        nc = await state.cleanup_expired_challenges()
+        ns = await state.cleanup_expired_sessions()
+        return f"cleanup done: {nc} challenges, {ns} sessions removed", False
+    if word in ("/help", "/h", "/?"):
+        return HELP, False
+    if word in ("/quit", "/exit", "/q"):
+        return "shutting down...", True
+    return f"Unknown command: {word}. Type /help for available commands.", False
+
+
+def refuse_unported(config: ServerConfig) -> None:
+    """Stop the boot, with one error naming every such section, when the
+    config enables a subsystem the port does not have yet, rather than
+    serve without it."""
+    enabled = [s for s in UNPORTED_SECTIONS if getattr(config, s).enabled]
+    if enabled:
+        names = ", ".join(f"[{s}]" for s in enabled)
+        raise RuntimeError(
+            f"{names} enabled, but cpzk_tpu_torch has no {', '.join(enabled)} "
+            "subsystem yet (it comes with a later slice of the port); set "
+            "enabled = false there to boot"
+        )
+
+
+async def load_state(config: ServerConfig):
+    """(state, None) for the resolved config: the plain snapshot restore,
+    where a corrupt snapshot quarantines with a loud ERROR and the server
+    boots empty instead of crash-looping on every restart.  (The second
+    item is the reference's durability manager, which is not ported.)"""
+    state = ServerState(
+        shards=config.replication.shards,
+        max_users=config.server.max_users,
+        max_challenges=config.server.max_challenges,
+        max_sessions=config.server.max_sessions,
+    )
+    if config.state_file and os.path.exists(config.state_file):
+        try:
+            nu, ns = await state.restore(config.state_file)
+            log.info("restored state snapshot: %d users, %d sessions", nu, ns)
+        except asyncio.CancelledError:
+            raise
+        except UnsupportedFormat:
+            # newer-format snapshot: not corrupt, the binary is old —
+            # refuse to boot rather than quarantining live data
+            raise
+        except Exception as e:
+            from ..durability.recovery import quarantine_file
+
+            dst = quarantine_file(config.state_file, int(time.time()))
+            log.error(
+                "ERROR: corrupt state snapshot %s (%s); quarantined to %s and "
+                "booting with empty state instead of crash-looping",
+                config.state_file, e, dst,
+            )
+    return state, None
+
+
+def resolve_config(args) -> ServerConfig:
+    """defaults < TOML < .env < SERVER_* env < explicitly-provided CLI flags."""
+    config = ServerConfig.from_env()
+    if args.host is not None:
+        config.host = args.host
+    if args.port is not None:
+        config.port = args.port
+    if args.rate_limit is not None:
+        config.rate_limit.requests_per_minute = args.rate_limit
+    if args.rate_burst is not None:
+        config.rate_limit.burst = args.rate_burst
+    if args.metrics is not None:
+        config.metrics.enabled = args.metrics
+    if args.metrics_port is not None:
+        config.metrics.port = args.metrics_port
+    if args.backend is not None:
+        config.tpu.backend = args.backend
+    if args.batch_max is not None:
+        config.tpu.batch_max = args.batch_max
+    if args.batch_window_ms is not None:
+        config.tpu.batch_window_ms = args.batch_window_ms
+    if args.state_file is not None:
+        config.state_file = args.state_file
+    config.validate()
+    return config
+
+
+async def amain(args, *, device=None) -> None:
+    """Run the daemon until SIGTERM/SIGINT or /quit.  ``device`` is where
+    ``backend = "tpu"`` serves: None means ``cuda:0`` (and raises without
+    CUDA); the tests pass ``"cpu"`` to run the kernels' plain versions."""
+    # resolve config first so .env-provided RUST_LOG/LOG_LEVEL reach logging
+    config = resolve_config(args)
+    refuse_unported(config)
+
+    logging.basicConfig(
+        level=os.environ.get("RUST_LOG", os.environ.get("LOG_LEVEL", "INFO")).upper(),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
+
+    # observability: trace ring size, slow-request threshold, histogram
+    # buckets, and the (opt-in) JSON log formatter — before any RPC runs
+    from ..observability import configure as configure_observability
+
+    configure_observability(config.observability)
+    if config.observability.json_logs:
+        log.info("structured JSON logging enabled")
+
+    state, _ = await load_state(config)
+    limiter = config.rate_limit.build_limiter()
+    stop = asyncio.Event()
+
+    metrics_fallback_needed = False
+    if config.metrics.enabled:
+        if metrics.start_exporter(config.metrics.host, config.metrics.port):
+            log.info("metrics exporter on %s:%d", config.metrics.host, config.metrics.port)
+        else:
+            # the ops plane serves the facade's own text exposition on
+            # that same port instead, and says so
+            metrics_fallback_needed = True
+            log.warning(
+                "prometheus_client is not installed: the metrics exporter "
+                "cannot start; serving the metrics facade's own text "
+                "exposition at http://%s:%d/metrics via the ops plane "
+                "instead (identical family set)",
+                config.metrics.host, config.metrics.port,
+            )
+
+    tls = None
+    if config.tls.enabled:
+        def _read_tls(key_path: str, cert_path: str) -> tuple[bytes, bytes]:
+            with open(key_path, "rb") as kf, open(cert_path, "rb") as cf:
+                return kf.read(), cf.read()
+
+        tls = await asyncio.to_thread(
+            _read_tls, config.tls.key_path, config.tls.cert_path
+        )
+
+    from .service import serve
+
+    if config.tpu.backend == "tpu":
+        from .plane import build_backend
+
+        # builds the CUDA kernels and prewarms [tpu] prewarm_quanta before
+        # anything listens: a kernel that fails to build or launch stops
+        # the boot here
+        backend, batcher = build_backend(config.tpu, device=device)
+        log.info(
+            "card backend enabled on %s (batch_max=%d window=%.1fms, no "
+            "host failover)",
+            backend.device, config.tpu.batch_max, config.tpu.batch_window_ms,
+        )
+    else:
+        from ..protocol.batch import CpuBackend
+
+        # the port's serve(backend=None) means the card: ask for the host
+        backend, batcher = CpuBackend(), None
+    # the boot graph (restored state, the imported modules, the kernels'
+    # plumbing) goes into the collector's frozen set, as after each sweep
+    gc.collect()
+    gc.freeze()
+
+    cleanup_task = asyncio.create_task(
+        cleanup_supervisor(state, stop, config.state_file or None)
+    )
+
+    # ops plane + SLO engine: the remote introspection surface, started
+    # BEFORE the gRPC listener so a booting box is observable
+    from ..observability.opsplane import OpsPlane, OpsSources
+    from ..observability.slo import SloEngine
+
+    slo_engine = SloEngine(config.slo)
+
+    async def slo_ticker() -> None:
+        interval = config.slo.tick_interval_ms / 1000.0
+        while not stop.is_set():
+            try:
+                await asyncio.wait_for(stop.wait(), timeout=interval)
+                return
+            except asyncio.TimeoutError:
+                pass
+            try:
+                slo_engine.tick()
+            except Exception:
+                log.exception("SLO tick failed; continuing")
+
+    slo_task = asyncio.create_task(slo_ticker())
+
+    ops_sources = OpsSources(
+        state=state,
+        batcher=batcher,
+        backend=backend,
+        slo=slo_engine,
+        config_fingerprint=config.fingerprint(),
+        role="server",
+    )
+    ops_plane = None
+    if config.opsplane.enabled:
+        ops_plane = OpsPlane(
+            ops_sources, host=config.opsplane.host, port=config.opsplane.port
+        )
+        bound = await ops_plane.start()
+        log.info(
+            "ops plane on http://%s:%d (/metrics /statusz /tracez "
+            "/flightrec /healthz /slo)", config.opsplane.host, bound,
+        )
+    metrics_fallback_plane = None
+    if metrics_fallback_needed:
+        metrics_fallback_plane = OpsPlane(
+            ops_sources, host=config.metrics.host, port=config.metrics.port
+        )
+        await metrics_fallback_plane.start()
+
+    # sharded ingest ([server] ingest_shards > 1): the dispatch process
+    # starts PORTLESS and N SO_REUSEPORT listener processes own the
+    # public address, feeding it over the CRC-framed unix-socket seam;
+    # ingest_shards = 1 binds in-process (no supervisor is constructed)
+    shard_ingest = config.server.ingest_shards > 1
+    server, port = await serve(
+        state, limiter, host=config.host, port=config.port,
+        backend=backend, batcher=batcher, tls=tls,
+        stream_window=config.tpu.stream_window,
+        stream_entry_deadline_ms=config.tpu.stream_entry_deadline_ms,
+        wire=config.server.wire,
+        listen=not shard_ingest,
+    )
+    ingest = None
+    if shard_ingest:
+        from .ingest import IngestSupervisor
+
+        ingest = IngestSupervisor(
+            server.auth_service, server.health,
+            shards=config.server.ingest_shards,
+            host=config.host, port=config.port,
+            wire=config.server.wire, tls=tls,
+        )
+        await ingest.start()
+        port = config.port
+        ops_sources.ingest = ingest
+    # late attachments: serve() built these (health gate, stream registry)
+    ops_sources.health = server.health
+    ops_sources.service = server.auth_service
+    log.info("wire path: %s", config.server.wire)
+    print(_c("green", f"AuthService listening on {config.host}:{port}"
+             + (f" ({config.server.ingest_shards} ingest shards)"
+                if shard_ingest else "")), flush=True)
+
+    loop = asyncio.get_running_loop()
+    loop.add_signal_handler(signal.SIGINT, stop.set)
+    loop.add_signal_handler(signal.SIGTERM, stop.set)
+
+    def dump_flightrec() -> None:
+        """SIGUSR2: dump the flight-recorder ring as JSON — the live-
+        incident snapshot (``kill -USR2 <pid>``), no REPL needed."""
+        from ..observability import get_flight_recorder
+
+        path = os.environ.get(
+            "CPZK_FLIGHTREC_DUMP", f"/tmp/cpzk-flightrec-{os.getpid()}.json"
+        )
+        try:
+            get_flight_recorder().dump(path)
+            log.info("flight recorder dumped to %s", path)
+        except OSError:
+            log.exception("flight recorder dump to %s failed", path)
+
+    with contextlib.suppress(NotImplementedError, ValueError, AttributeError):
+        # absent on platforms without SIGUSR2 (windows) — REPL still works
+        loop.add_signal_handler(signal.SIGUSR2, dump_flightrec)
+
+    async def repl():
+        print(_c("cyan", "Admin REPL ready. Type /help for commands."))
+        while not stop.is_set():
+            try:
+                line = await asyncio.to_thread(input, "> ")
+            except (EOFError, KeyboardInterrupt):
+                stop.set()
+                return
+            out, quit_ = await handle_command(line, state, backend)
+            if out:
+                print(_c("white", out))
+            if quit_:
+                stop.set()
+                return
+
+    repl_task = None
+    if not args.no_repl and sys.stdin.isatty():
+        repl_task = asyncio.create_task(repl())
+
+    await stop.wait()
+
+    # graceful shutdown: not-serving -> drain -> stop -> final snapshot;
+    # background tasks are cancelled AND awaited so no in-flight sweep
+    # races the final snapshot and no "Task was destroyed but it is
+    # pending" warnings leak
+    print(_c("yellow", "shutdown: flipping health to NOT_SERVING, draining..."), flush=True)
+    server.health.serving = False
+    await asyncio.sleep(DRAIN_SECONDS)
+    if ingest is not None:
+        await ingest.stop()  # listener shards down before the batcher drain
+    if batcher is not None:
+        await batcher.stop()  # drain queued verifications before the listener
+    await server.stop(grace=5)
+    # the ops plane outlives the gRPC listener (it watched the drain);
+    # stop it after so the last /statusz of a shutdown is observable
+    if ops_plane is not None:
+        await ops_plane.stop()
+    if metrics_fallback_plane is not None:
+        await metrics_fallback_plane.stop()
+    slo_task.cancel()
+    with contextlib.suppress(asyncio.CancelledError):
+        await slo_task
+    cleanup_task.cancel()
+    with contextlib.suppress(asyncio.CancelledError):
+        await cleanup_task
+    if config.state_file:
+        await state.snapshot(config.state_file)
+        log.info("state snapshot written to %s", config.state_file)
+    if repl_task is not None:
+        repl_task.cancel()
+        # the REPL may be blocked in a to_thread(input) that only returns
+        # on the next keypress — bound the wait instead of hanging exit
+        with contextlib.suppress(asyncio.CancelledError, asyncio.TimeoutError):
+            await asyncio.wait_for(repl_task, timeout=1.0)
+    print(_c("green", "bye"), flush=True)
+
+
+def main() -> None:
+    asyncio.run(amain(parse_args()))
+
+
+if __name__ == "__main__":
+    main()

@@ -1298,6 +1298,7 @@ async def serve(
     stream_entry_deadline_ms: float = 0.0,
     fleet=None,
     wire: str = "native",
+    listen: bool = True,
 ):
     """Build and start an aio server; returns (server, bound_port).
 
@@ -1316,8 +1317,10 @@ async def serve(
     knobs (``[tpu]`` config).  ``wire`` selects the transport parse path
     ("native" = the C++ wire scanner, with the protobuf runtime for
     anything it does not recognize; "python" = protobuf runtime only; see
-    ``server/wire.py``).  The reference's portless mode for its ingest
-    shards comes with the port's daemon.
+    ``server/wire.py``).  ``listen=False`` starts the server portless
+    (``bound_port`` None) for the sharded-ingest mode, where SO_REUSEPORT
+    listener processes own the public address and feed the handlers over
+    the :class:`~cpzk_tpu_torch.server.ingest.IngestSupervisor` seam.
     """
     server = grpc.aio.server()
     service = AuthServiceImpl(
@@ -1343,6 +1346,11 @@ async def serve(
     server.fleet = fleet  # ops plane: /partitionmap + /statusz fleet block
     if batcher is not None:
         batcher.start()
+    if not listen:
+        # sharded-ingest mode: the handlers are reachable only through
+        # the ingest supervisor's framed unix-socket seam
+        await server.start()
+        return server, None
     addr = f"{host}:{port}"
     if tls is not None:
         creds = grpc.ssl_server_credentials([tls])

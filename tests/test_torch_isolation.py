@@ -3,10 +3,13 @@
 (its gRPC service, state store, wire parse and protobuf bindings included)
 pulls in neither and puts no top-level ``auth_pb2``/``health_pb2`` module in
 ``sys.modules``, the host core (the request-wire parser included) is built
-from the port's own sources, and the GPU entry point refuses to run without
-CUDA unless the caller asks for the CPU."""
+from the port's own sources, the GPU entry point refuses to run without
+CUDA unless the caller asks for the CPU, and the daemon and a started
+ingest shard pull in neither (the shard not torch's CUDA either)."""
 
 import ast
+import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -174,3 +177,113 @@ def test_concurrent_first_builds_yield_one_loadable_library(tmp_path):
     assert len({out.strip() for out, _ in outs}) == 1
     assert [p.name for p in tmp_path.glob("*.so")] == [Path(outs[0][0].strip()).name]
     assert not list(tmp_path.glob("*.tmp"))
+
+
+_DAEMON_SCRIPT = """
+import asyncio, signal, sys
+import cpzk_tpu_torch.server.__main__ as daemon
+
+args = daemon.parse_args(["--no-repl", "--port", "0"])
+
+async def main():
+    loop = asyncio.get_running_loop()
+    task = loop.create_task(daemon.amain(args, device="cpu"))
+    deadline = loop.time() + 60.0
+    while signal.getsignal(signal.SIGTERM) is signal.SIG_DFL:
+        if task.done():
+            await task
+        assert loop.time() < deadline, "daemon never listened"
+        await asyncio.sleep(0.05)
+    signal.raise_signal(signal.SIGTERM)
+    await task
+
+asyncio.run(main())
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cpzk_tpu')]
+assert not bad, bad
+assert "cpzk_tpu_torch.ops.backend" in sys.modules  # it served the card's path
+print("DAEMON-ISOLATED")
+"""
+
+
+def test_daemon_boot_pulls_in_neither_jax_nor_cpzk_tpu(tmp_path):
+    """``cpzk_tpu_torch.server.__main__``, booted on the card's path (the
+    kernels' plain versions here) and stopped, imports no JAX and nothing
+    of the JAX package."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SERVER_")}
+    env["SERVER_CONFIG_PATH"] = str(tmp_path / "none.toml")
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", _DAEMON_SCRIPT], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "DAEMON-ISOLATED" in res.stdout
+
+
+_SHARD_SCRIPT = """
+import asyncio, json, socket, sys, time
+sys.path.insert(0, sys.argv[2])
+import grpc
+import torch_shard_probe
+from cpzk_tpu_torch.protocol.batch import CpuBackend
+from cpzk_tpu_torch.server import ingest
+from cpzk_tpu_torch.server.config import RateLimiter
+from cpzk_tpu_torch.server.service import serve
+from cpzk_tpu_torch.server.state import ServerState
+
+out = sys.argv[1]
+
+async def main():
+    server, _ = await serve(ServerState(), RateLimiter(10**6, 10**6), port=0,
+                            backend=CpuBackend(), listen=False)
+    s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]; s.close()
+    sup = ingest.IngestSupervisor(server.auth_service, server.health, shards=2,
+                                  host="127.0.0.1", port=port)
+    def spawn(index):  # the supervisor's spawn, with the probe as the target
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        proc = ctx.Process(target=torch_shard_probe.probe_shard, args=(
+            index, sup.uds_path, {"host": sup.host, "port": sup.port,
+                                  "wire": sup.wire, "tls": None, "probe_out": out}),
+            daemon=True)
+        proc.start()
+        sup._procs[index] = proc
+        sup.shard_stats[index]["pid"] = proc.pid
+    sup._spawn = spawn
+    await sup.start()
+    try:
+        deadline = time.monotonic() + 30
+        while not all(r["connected"] for r in sup.shard_stats.values()):
+            assert time.monotonic() < deadline, sup.status()
+            await asyncio.sleep(0.1)
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+            call = ch.unary_unary("/auth.AuthService/CreateChallenge")
+            for _ in range(4):  # spread over the shards' connections
+                try:
+                    await call(b"\\x0a\\x06nobody")
+                except grpc.RpcError as err:
+                    assert err.code() is not grpc.StatusCode.UNAVAILABLE, err
+        assert sum(r["parses"] for r in sup.shard_stats.values()) >= 1, sup.status()
+    finally:
+        await sup.stop()
+        await server.stop(None)
+
+asyncio.run(main())
+print("SHARD-PROBED")
+"""
+
+
+def test_started_ingest_shard_imports_no_jax_and_never_touches_cuda(tmp_path):
+    """A spawned, connected and serving ingest shard of the port has no
+    JAX, nothing of the JAX package, and no CUDA context in it."""
+    out = tmp_path / "probe"
+    res = subprocess.run(
+        [sys.executable, "-c", _SHARD_SCRIPT, str(out), str(ROOT / "tests")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "SHARD-PROBED" in res.stdout
+    reports = [json.loads(p.read_text()) for p in sorted(tmp_path.glob("probe.*"))]
+    assert len(reports) == 2
+    for doc in reports:
+        assert doc["ingest_loaded"]
+        assert doc["modules"] == []
+        assert doc["cuda_initialized"] is False
+        assert doc["torch_imported"] is False  # the shard's path needs no torch

@@ -356,9 +356,14 @@ def test_default_backend_is_the_card_unless_set(monkeypatch):
 # --- build_backend ------------------------------------------------------------
 
 
-def test_build_backend_cpu_setting_is_inline():
-    assert build_backend(TpuSettings()) == (None, None)
+def test_build_backend_cpu_setting_is_inline(monkeypatch):
+    # the port's default is the card; "cpu" is the caller asking for the host
+    assert TpuSettings().backend == "tpu"
+    assert build_backend(TpuSettings(backend="cpu")) == (None, None)
     assert build_backend(TpuSettings(backend="cpu"), device="cpu") == (None, None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_backend(TpuSettings())
 
 
 def test_build_backend_refuses_without_cuda_unless_cpu_asked(monkeypatch):
