@@ -105,7 +105,29 @@ core from ``cpzk_tpu_torch/native`` (both into the ignored
    ``VerifyProofBatch`` sent to the last answer, RPC latency p50/p99, the
    flight records' batch sizes and device intervals, the restored counts,
    each shard's boot seconds, and the launches; the daemons' output goes
-   to ``chiprun_out/daemon_*.log``;
+   to ``chiprun_out/daemon_*.log``.  Admission runs at its default (on):
+   the client sends an RPC that was shed again once its
+   ``cpzk-retry-after-ms`` has passed, and the phase prints the sheds by
+   RPC and by tier (a shed ``VerifyProofBatch``, tier 0, fails it), with
+   the ``/statusz`` admission block and the shed counters;
+   ``durable_daemon`` — the daemon again, on a TOML that adds
+   ``[durability] enabled = true``, ``fsync = "always"`` and ``[server]
+   max_users = 65536``: boot A registers 65,536 users with
+   ``RegisterBatch`` (the WAL outgrows ``compact_bytes``, so the 1 s sweep
+   snapshots and compacts), logs 4096 of them in as the ``daemon`` phase
+   does, waits for a compaction, starts 1024 further ``CreateChallenge``
+   calls and SIGKILLs the daemon once 512 are acknowledged (reaped before
+   the next boot); boot B must recover 65,536 users and every
+   acknowledged session (``/statusz``) with nothing quarantined, log in
+   every acknowledged challenge in concurrent ``VerifyProofBatch`` RPCs
+   on the card (42 tampered, 2 undecodable; both kernels launched), refuse
+   a valid proof over a challenge consumed before the kill without a
+   batch, and exit 0 on SIGTERM with the WAL at 0 bytes.  Printed:
+   registrations/s, logins/s and ``VerifyProofBatch`` p50/p99 beside the
+   ``daemon`` phase's, the WAL's appends, bytes and fsyncs from
+   ``/metrics``, the recovery's seconds and counts, the admission blocks
+   and sheds by tier, the compute apps after the kill, the workdir's
+   filesystem type, and the launches of each wave;
 6. ``profile`` — one 4096-row combined check: wall time unprofiled, then
    device time by kernel under torch.profiler (the table goes to
    ``chiprun_out/profile_4096.txt``) and the device's idle share.
@@ -114,7 +136,9 @@ Then the ``kernels`` line (``launches`` counted over phases 4-5 only,
 ``launches_in_serving_plane`` over the served traffic of phase 5b,
 ``launches_in_login_state`` over the login traffic of phase 5c,
 ``launches_in_daemon`` and ``launches_in_daemon_sharded`` over the
-daemon's first and third waves of logins), the
+daemon's first and third waves of logins, ``launches_in_durable_daemon``
+and ``launches_in_durable_recovery`` over the durable daemon's waves before
+the kill and after the recovery), the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when CUDA is
@@ -158,6 +182,17 @@ LOGIN_RPC_MAX = 1000
 DAEMON_BOOT_TIMEOUT_S = 120.0
 DAEMON_SHARDS = 4
 DAEMON_CHANNELS = 8
+#: sheds of one RPC after which the phases' client gives up retrying
+PUSHBACK_TRIES = 200
+#: the durable_daemon phase: users registered (a state a deployment holds,
+#: whose WAL outgrows compact_bytes), the challenges acknowledged before
+#: the login wave and held live across the compactions after it, the
+#: challenges started before the SIGKILL, and how many of them must be
+#: acknowledged first
+DURABLE_USERS = 65536
+DURABLE_HELD = 512
+DURABLE_FURTHER = 1024
+DURABLE_KILL_AFTER = 512
 BAD_POINT = "Invalid proof: Bytes do not represent a valid Ristretto point"
 NORTH_STAR_N = 16384
 KERNEL_NS = (1, 127, 4096, 6144, 16384, 18432)
@@ -1375,6 +1410,26 @@ def kernel_launches(ops_port: int) -> dict:
             for k in REPLACES}
 
 
+def flight_records(ops_port: int, after_seq: int) -> list[dict]:
+    payload = json.loads(http_get(ops_port, "/flightrec"))
+    return [r for r in payload["records"] if r["seq"] > after_seq]
+
+
+def last_flight_seq(ops_port: int) -> int:
+    return max([r["seq"] for r in flight_records(ops_port, 0)], default=0)
+
+
+def admission_view(ops_port: int, metrics_text: str) -> dict:
+    """The daemon's ``/statusz`` admission block (level, admitted tiers)
+    and its shed counters from ``/metrics``."""
+    block = json.loads(http_get(ops_port, "/statusz"))["admission"]
+    if block is None:
+        raise AssertionError("the daemon runs without admission control")
+    return {**block, "admitted": scraped(metrics_text, "admission_admitted_total"),
+            "shed": {kind: scraped(metrics_text, f"admission_shed_{kind}_total")
+                     for kind in ("priority", "per_client", "global")}}
+
+
 def card_apps() -> list[int]:
     """The PIDs of the card's compute apps per ``nvidia-smi`` (in a PID
     namespace it cannot map, each shows as some other number, but there
@@ -1428,48 +1483,79 @@ def tamper_logins(wires, cids, provers, m: int, gen) -> list[str]:
     return expected
 
 
+async def pushback_call(stub, request, rpc: str, sheds: dict):
+    """One unary RPC, sent again after each ``RESOURCE_EXHAUSTED`` once the
+    server's ``cpzk-retry-after-ms`` has passed (the reference client's
+    policy: the pushback verbatim, at most ``MAX_PUSHBACK_S``; a negative
+    one means do not retry).  Each shed is counted in ``sheds[rpc]``."""
+    import grpc
+
+    from cpzk_tpu_torch.resilience.retry import MAX_PUSHBACK_S, RETRY_PUSHBACK_KEY
+
+    tries = 0
+    while True:
+        try:
+            return await stub(request)
+        except grpc.aio.AioRpcError as err:
+            if err.code() != grpc.StatusCode.RESOURCE_EXHAUSTED:
+                raise
+            sheds[rpc] = sheds.get(rpc, 0) + 1
+            tries += 1
+            pushback = float(dict(err.trailing_metadata() or ()).get(RETRY_PUSHBACK_KEY, -1))
+            if pushback < 0 or tries > PUSHBACK_TRIES:
+                raise
+            await asyncio.sleep(min(MAX_PUSHBACK_S, pushback / 1000.0))
+
+
+def tier_sheds(sheds: dict) -> dict:
+    """The client's shed counts by admission tier (verify, challenge,
+    register)."""
+    from cpzk_tpu_torch.admission import TIER_NAMES, classify
+
+    out = {name: 0 for name in TIER_NAMES.values()}
+    for rpc, count in sheds.items():
+        out[TIER_NAMES[classify(rpc)]] += count
+    return out
+
+
 async def daemon_logins(port: int, user_ids, corpus, provers, rpc_max: int, gen,
-                        register: bool, channels: int = DAEMON_CHANNELS) -> dict:
+                        register: bool, channels: int = DAEMON_CHANNELS,
+                        sheds: dict | None = None) -> dict:
     """One wave of logins over loopback gRPC, hand-wired on the port's
     ``auth_pb2``: (registration,) one challenge per user, proofs of them,
     the logins in concurrent ``VerifyProofBatch`` RPCs of ``rpc_max``
-    entries, then the first RPC again (the replay)."""
-    import grpc
-
+    entries, then the first RPC again (the replay).  Admission sheds are
+    retried after their pushback and counted in ``sheds`` by RPC; the
+    challenge ids and session tokens the wave saw acknowledged come back
+    under ``acked``."""
     from cpzk_tpu_torch import Transcript
     from cpzk_tpu_torch._gen import auth_pb2 as pb
 
     n, m = len(user_ids), len(corpus)
+    sheds = {} if sheds is None else sheds
     bounds = [(lo, min(lo + rpc_max, n)) for lo in range(0, n, rpc_max)]
     out = {"rpc_sizes": [hi - lo for lo, hi in bounds]}
 
-    def unary(ch, name, req_cls, resp_cls):
-        return ch.unary_unary(f"/auth.AuthService/{name}",
-                              request_serializer=req_cls.SerializeToString,
-                              response_deserializer=resp_cls.FromString)
-
     # several connections, as several clients open: through SO_REUSEPORT
     # the kernel spreads connections (not RPCs) over the ingest shards
-    # (a local subchannel pool each: channels to one target otherwise share
-    # one connection)
-    chans = [grpc.aio.insecure_channel(f"127.0.0.1:{port}",
-                                       options=[("grpc.use_local_subchannel_pool", 1)])
-             for _ in range(channels)]
+    chans = grpc_channels(port, channels)
     try:
         for ch in chans:
             await asyncio.wait_for(ch.channel_ready(), DAEMON_BOOT_TIMEOUT_S)
 
         def rpc(i: int, name: str, req_cls, resp_cls):
-            return unary(chans[i % channels], name, req_cls, resp_cls)
+            return unary_stub(chans[i % channels], name, req_cls, resp_cls)
 
         if register:
             t0 = time.perf_counter()
-            resps = await asyncio.gather(*[rpc(k, "RegisterBatch", pb.BatchRegistrationRequest,
-                                               pb.BatchRegistrationResponse)(
+            resps = await asyncio.gather(*[pushback_call(
+                rpc(k, "RegisterBatch", pb.BatchRegistrationRequest,
+                    pb.BatchRegistrationResponse),
                 pb.BatchRegistrationRequest(
                     user_ids=user_ids[lo:hi],
                     y1_values=[corpus[i % m][0].y1.wire() for i in range(lo, hi)],
-                    y2_values=[corpus[i % m][0].y2.wire() for i in range(lo, hi)]))
+                    y2_values=[corpus[i % m][0].y2.wire() for i in range(lo, hi)]),
+                "RegisterBatch", sheds)
                 for k, (lo, hi) in enumerate(bounds)])
             out["register_s"] = time.perf_counter() - t0
             bad = [r.message for resp in resps for r in resp.results if not r.success]
@@ -1483,7 +1569,8 @@ async def daemon_logins(port: int, user_ids, corpus, provers, rpc_max: int, gen,
 
         async def challenge(k: int, uid: str) -> bytes:
             t = time.perf_counter()
-            resp = await chals[k % channels](pb.ChallengeRequest(user_id=uid))
+            resp = await pushback_call(chals[k % channels], pb.ChallengeRequest(user_id=uid),
+                                       "CreateChallenge", sheds)
             lat.append(time.perf_counter() - t)
             return bytes(resp.challenge_id)
 
@@ -1509,7 +1596,7 @@ async def daemon_logins(port: int, user_ids, corpus, provers, rpc_max: int, gen,
 
         async def login(k: int, req):
             t = time.perf_counter()
-            resp = await verifies[k % channels](req)
+            resp = await pushback_call(verifies[k % channels], req, "VerifyProofBatch", sheds)
             rpc_lat.append(time.perf_counter() - t)
             return resp
 
@@ -1520,7 +1607,8 @@ async def daemon_logins(port: int, user_ids, corpus, provers, rpc_max: int, gen,
         out["login_rpc_latency_ms"] = {"p50": percentile(rpc_lat, 50) * 1e3,
                                        "p99": percentile(rpc_lat, 99) * 1e3}
         results = [r for resp in resps for r in resp.results]
-        replay = (await verifies[0](requests[0])).results
+        replay = (await pushback_call(verifies[0], requests[0], "VerifyProofBatch",
+                                      sheds)).results
     finally:
         for ch in chans:
             await ch.close()
@@ -1538,7 +1626,12 @@ async def daemon_logins(port: int, user_ids, corpus, provers, rpc_max: int, gen,
         raise AssertionError("daemon: the replay was not refused entry for entry")
     out.update(valid=expected.count("ok"), sessions=sum(bool(r.session_token) for r in results),
                tampered=expected.count("Authentication failed"),
-               undecodable=expected.count(BAD_POINT), replay_refused=len(replay))
+               undecodable=expected.count(BAD_POINT), replay_refused=len(replay),
+               sheds_by_rpc=dict(sheds), sheds_by_tier=tier_sheds(sheds),
+               acked={"challenge_ids": list(cids),
+                      "session_tokens": [r.session_token for r in results if r.session_token]})
+    if out["sheds_by_tier"]["verify"]:
+        raise AssertionError(f"daemon: tier-0 (verify) RPCs were shed: {sheds}")
     return out
 
 
@@ -1550,16 +1643,13 @@ async def daemon_single_login(port: int, uid: str, prover, gen) -> str:
     from cpzk_tpu_torch._gen import auth_pb2 as pb
 
     async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
-        chal = ch.unary_unary("/auth.AuthService/CreateChallenge",
-                              request_serializer=pb.ChallengeRequest.SerializeToString,
-                              response_deserializer=pb.ChallengeResponse.FromString)
+        chal = unary_stub(ch, "CreateChallenge", pb.ChallengeRequest, pb.ChallengeResponse)
         cid = bytes((await chal(pb.ChallengeRequest(user_id=uid))).challenge_id)
         t = Transcript()
         t.append_context(cid)
         proof = prover.prove_with_transcript(gen, t).to_bytes()
-        verify = ch.unary_unary("/auth.AuthService/VerifyProof",
-                                request_serializer=pb.VerificationRequest.SerializeToString,
-                                response_deserializer=pb.VerificationResponse.FromString)
+        verify = unary_stub(ch, "VerifyProof", pb.VerificationRequest,
+                            pb.VerificationResponse)
         resp = await verify(pb.VerificationRequest(user_id=uid, challenge_id=cid, proof=proof))
     if not (resp.success and resp.session_token):
         raise AssertionError(f"daemon: the login after the restore failed: {resp.message}")
@@ -1603,17 +1693,10 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
         procs.append(proc)
         return proc.wait_listening(DAEMON_BOOT_TIMEOUT_S)
 
-    def flight_records(ops_port: int, after_seq: int) -> list[dict]:
-        payload = json.loads(http_get(ops_port, "/flightrec"))
-        return [r for r in payload["records"] if r["seq"] > after_seq]
-
-    def last_seq(ops_port: int) -> int:
-        return max([r["seq"] for r in flight_records(ops_port, 0)], default=0)
-
     def served(proc: DaemonProcess, register: bool) -> dict:
         """A wave of logins with the launch counts and the flight records
         read just before and just after it."""
-        seq0 = last_seq(proc.ops_port)
+        seq0 = last_flight_seq(proc.ops_port)
         launches0 = kernel_launches(proc.ops_port)
         wave = asyncio.run(daemon_logins(proc.port, user_ids, corpus, provers, rpc_max, gen,
                                          register))
@@ -1632,10 +1715,12 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
         failover = scraped(metrics_text, "tpu_backend_failover_total")
         if failover:
             raise AssertionError(f"daemon {proc.name}: {failover} failovers")
+        wave.pop("acked")
         wave.update(batches=[r["batch"] for r in records],
                     device_interval_s=[r["device_interval_s"] for r in records],
                     batch_wall_s=[r["wall_s"] for r in records],
-                    launches=launches, failover=failover)
+                    launches=launches, failover=failover,
+                    admission=admission_view(proc.ops_port, metrics_text))
         return wave
 
     def on_card_pids(daemon: DaemonProcess, others: list[int]) -> dict:
@@ -1722,6 +1807,425 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
         if rc != 0:
             raise AssertionError(f"daemon sharded: exit {rc}")
         out["sharded"] = wave
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.save_log()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def fs_type(path: str) -> str:
+    """The filesystem type under ``path`` (``stat -f -c %T``): an fsync on
+    tmpfs costs nothing, so the WAL numbers say which one they are."""
+    return subprocess.run(["stat", "-f", "-c", "%T", path], capture_output=True,
+                          text=True, timeout=30, check=True).stdout.strip()
+
+
+def wal_counters(metrics_text: str) -> dict:
+    return {kind: scraped(metrics_text, f"state_wal_{kind}_total")
+            for kind in ("appends", "bytes", "fsyncs")}
+
+
+def fsync_cost(workdir: str, records: int = 256, size: int = 256) -> dict:
+    """What one WAL-sized append and its fsync cost in ``workdir``:
+    ``records`` appends of ``size`` bytes, each followed by an fsync."""
+    path = os.path.join(workdir, "fsync-probe")
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o600)
+    times = []
+    try:
+        for _ in range(records):
+            t = time.perf_counter()
+            os.write(fd, b"x" * size)
+            os.fsync(fd)
+            times.append(time.perf_counter() - t)
+    finally:
+        os.close(fd)
+        os.unlink(path)
+    return {"records": records, "bytes": size, "mean_us": sum(times) / records * 1e6,
+            "p50_us": percentile(times, 50) * 1e6, "p99_us": percentile(times, 99) * 1e6}
+
+
+def grpc_channels(port: int, channels: int) -> list:
+    import grpc
+
+    # a local subchannel pool each: channels to one target otherwise share
+    # one connection
+    return [grpc.aio.insecure_channel(f"127.0.0.1:{port}",
+                                      options=[("grpc.use_local_subchannel_pool", 1)])
+            for _ in range(channels)]
+
+
+def unary_stub(channel, name: str, req_cls, resp_cls):
+    return channel.unary_unary(f"/auth.AuthService/{name}",
+                               request_serializer=req_cls.SerializeToString,
+                               response_deserializer=resp_cls.FromString)
+
+
+async def register_users(port: int, user_ids, corpus, rpc_max: int, sheds: dict,
+                         channels: int = DAEMON_CHANNELS) -> dict:
+    """Register ``user_ids`` (user i with corpus statement i) in concurrent
+    ``RegisterBatch`` RPCs of ``rpc_max`` entries; every entry must be
+    acknowledged."""
+    from cpzk_tpu_torch._gen import auth_pb2 as pb
+
+    n, m = len(user_ids), len(corpus)
+    wires = [(st.y1.wire(), st.y2.wire()) for st, _, _ in corpus]
+    bounds = [(lo, min(lo + rpc_max, n)) for lo in range(0, n, rpc_max)]
+    requests = [pb.BatchRegistrationRequest(
+        user_ids=user_ids[lo:hi], y1_values=[wires[i % m][0] for i in range(lo, hi)],
+        y2_values=[wires[i % m][1] for i in range(lo, hi)]) for lo, hi in bounds]
+    chans = grpc_channels(port, channels)
+    try:
+        for ch in chans:
+            await asyncio.wait_for(ch.channel_ready(), DAEMON_BOOT_TIMEOUT_S)
+        stubs = [unary_stub(ch, "RegisterBatch", pb.BatchRegistrationRequest,
+                            pb.BatchRegistrationResponse) for ch in chans]
+        t0 = time.perf_counter()
+        resps = await asyncio.gather(*[pushback_call(stubs[k % channels], req,
+                                                     "RegisterBatch", sheds)
+                                       for k, req in enumerate(requests)])
+        wall = time.perf_counter() - t0
+    finally:
+        for ch in chans:
+            await ch.close()
+    acked = sum(r.success for resp in resps for r in resp.results)
+    if acked != n:
+        bad = [r.message for resp in resps for r in resp.results if not r.success]
+        raise AssertionError(f"durable_daemon: {n - acked} registrations failed: {bad[:3]}")
+    return {"users": n, "rpcs": len(bounds), "register_s": wall,
+            "registrations_per_s": n / wall}
+
+
+async def create_challenges(port: int, user_ids, sheds: dict,
+                            channels: int = DAEMON_CHANNELS) -> list[tuple[str, bytes]]:
+    """``CreateChallenge`` for every user of ``user_ids``; every call must be
+    acknowledged.  Returns the (user, challenge id) pairs."""
+    from cpzk_tpu_torch._gen import auth_pb2 as pb
+
+    chans = grpc_channels(port, channels)
+    try:
+        for ch in chans:
+            await asyncio.wait_for(ch.channel_ready(), DAEMON_BOOT_TIMEOUT_S)
+        stubs = [unary_stub(ch, "CreateChallenge", pb.ChallengeRequest,
+                            pb.ChallengeResponse) for ch in chans]
+        resps = await asyncio.gather(*[
+            pushback_call(stubs[k % channels], pb.ChallengeRequest(user_id=uid),
+                          "CreateChallenge", sheds) for k, uid in enumerate(user_ids)])
+    finally:
+        for ch in chans:
+            await ch.close()
+    return [(uid, bytes(r.challenge_id)) for uid, r in zip(user_ids, resps)]
+
+
+async def challenges_until_kill(port: int, user_ids, kill_after: int, kill, sheds: dict,
+                                channels: int = DAEMON_CHANNELS) -> dict:
+    """``CreateChallenge`` for every user of ``user_ids`` at once; ``kill()``
+    runs as soon as ``kill_after`` of them are acknowledged.  Returns the
+    (user, challenge id) pairs the client saw acknowledged, and how many
+    calls got no answer."""
+    import grpc
+
+    from cpzk_tpu_torch._gen import auth_pb2 as pb
+
+    acked: list[tuple[str, bytes]] = []
+    unanswered = []
+    killed_at: list[int] = []
+    chans = grpc_channels(port, channels)
+    try:
+        for ch in chans:
+            await asyncio.wait_for(ch.channel_ready(), DAEMON_BOOT_TIMEOUT_S)
+        stubs = [unary_stub(ch, "CreateChallenge", pb.ChallengeRequest,
+                            pb.ChallengeResponse) for ch in chans]
+
+        async def one(k: int, uid: str) -> None:
+            try:
+                resp = await pushback_call(stubs[k % channels], pb.ChallengeRequest(user_id=uid),
+                                           "CreateChallenge", sheds)
+            except grpc.aio.AioRpcError as err:
+                unanswered.append(err.code().name)
+                return
+            acked.append((uid, bytes(resp.challenge_id)))
+            if len(acked) >= kill_after and not killed_at:
+                killed_at.append(len(acked))
+                kill()
+
+        await asyncio.gather(*[one(k, uid) for k, uid in enumerate(user_ids)])
+    finally:
+        for ch in chans:
+            await ch.close()
+    if not killed_at:
+        raise AssertionError(f"durable_daemon: only {len(acked)} challenges acknowledged")
+    return {"acked": acked, "acked_at_kill": killed_at[0], "unanswered": len(unanswered),
+            "unanswered_codes": sorted(set(unanswered))}
+
+
+async def recovered_logins(port: int, pairs, user_index: dict, provers, rpc_max: int, gen,
+                           sheds: dict, channels: int = DAEMON_CHANNELS) -> dict:
+    """Log in every (user, challenge id) of ``pairs`` in one wave of
+    concurrent ``VerifyProofBatch`` RPCs, each with a valid proof: a
+    challenge the daemon lost answers "Authentication failed", so every
+    entry must succeed and get a session."""
+    from cpzk_tpu_torch import Transcript
+    from cpzk_tpu_torch._gen import auth_pb2 as pb
+
+    n, m = len(pairs), len(provers)
+    mine = [provers[user_index[uid] % m] for uid, _ in pairs]
+    wires = []
+    for (uid, cid), prover in zip(pairs, mine):
+        t = Transcript()
+        t.append_context(cid)
+        wires.append(prover.prove_with_transcript(gen, t).to_bytes())
+    cids = [cid for _, cid in pairs]
+    bounds = [(lo, min(lo + rpc_max, n)) for lo in range(0, n, rpc_max)]
+    requests = [pb.BatchVerificationRequest(
+        user_ids=[uid for uid, _ in pairs[lo:hi]], challenge_ids=cids[lo:hi],
+        proofs=wires[lo:hi]) for lo, hi in bounds]
+    chans = grpc_channels(port, channels)
+    lat: list[float] = []
+    try:
+        for ch in chans:
+            await asyncio.wait_for(ch.channel_ready(), DAEMON_BOOT_TIMEOUT_S)
+        stubs = [unary_stub(ch, "VerifyProofBatch", pb.BatchVerificationRequest,
+                            pb.BatchVerificationResponse) for ch in chans]
+
+        async def login(k: int, req):
+            t = time.perf_counter()
+            resp = await pushback_call(stubs[k % channels], req, "VerifyProofBatch", sheds)
+            lat.append(time.perf_counter() - t)
+            return resp
+
+        t0 = time.perf_counter()
+        resps = await asyncio.gather(*[login(k, req) for k, req in enumerate(requests)])
+        wall = time.perf_counter() - t0
+    finally:
+        for ch in chans:
+            await ch.close()
+    results = [r for resp in resps for r in resp.results]
+    lost = [(pairs[i][0], r.message) for i, r in enumerate(results)
+            if not (r.success and r.session_token)]
+    if len(results) != n or lost:
+        raise AssertionError(f"durable_daemon: {len(lost)} acknowledged challenges did not "
+                             f"log in after recovery: {lost[:5]}")
+    return {"entries": n, "rpc_sizes": [hi - lo for lo, hi in bounds],
+            "sessions": len(results), "login_wall_s": wall,
+            "logins_per_s": n / wall,
+            "login_rpc_latency_ms": {"p50": percentile(lat, 50) * 1e3,
+                                     "p99": percentile(lat, 99) * 1e3}}
+
+
+async def replay_consumed(port: int, uid: str, cid: bytes, prover, gen) -> tuple[str, str]:
+    """``VerifyProof`` of a valid proof over an already consumed challenge:
+    (status code, message)."""
+    import grpc
+
+    from cpzk_tpu_torch import Transcript
+    from cpzk_tpu_torch._gen import auth_pb2 as pb
+
+    t = Transcript()
+    t.append_context(cid)
+    proof = prover.prove_with_transcript(gen, t).to_bytes()
+    chans = grpc_channels(port, 1)
+    try:
+        verify = unary_stub(chans[0], "VerifyProof", pb.VerificationRequest,
+                            pb.VerificationResponse)
+        try:
+            resp = await verify(pb.VerificationRequest(user_id=uid, challenge_id=cid,
+                                                       proof=proof))
+        except grpc.aio.AioRpcError as err:
+            return err.code().name, err.details()
+    finally:
+        await chans[0].close()
+    return "OK", resp.message
+
+
+RECOVERY_LINE = re.compile(
+    r"durability: (\d+) users / (\d+) sessions from snapshot, (\d+) WAL records replayed "
+    r"\((\d+) skipped\) up to seq (\d+) in ([0-9.]+)s")
+HELD_LINE = re.compile(r"WAL compaction held at the oldest live challenge: (\d+) covered "
+                       r"bytes kept, (\d+) bytes remain")
+
+
+def durable_daemon_phase(corpus, provers, users: int, n: int, rpc_max: int, held: int,
+                         further: int, kill_after: int, launcher: list | None = None,
+                         on_card: bool = True, compact_bytes: int | None = None) -> dict:
+    """The ``durable_daemon`` phase: the port's daemon with ``[durability]
+    enabled = true`` and ``fsync = "always"`` (admission at its default,
+    on), SIGKILLed mid-traffic and recovered.  Boot A registers ``users``
+    users, takes ``held`` challenges, logs ``n`` other users in on the card
+    (five concurrent ``VerifyProofBatch`` RPCs at ``rpc_max``, about 1%
+    tampered), and waits until a sweep has snapshotted past the held
+    challenges' records with the WAL over ``compact_bytes``: the
+    compaction the daemon then holds back would have dropped them.  It then
+    starts ``further`` concurrent ``CreateChallenge`` calls and SIGKILLs the
+    daemon once ``kill_after`` are acknowledged.  Boot B, on the same
+    config, must recover every acknowledged registration and session and
+    the challenges acknowledged before the kill with nothing quarantined,
+    log each of those challenges in on the card, refuse a consumed
+    challenge before the card, and exit 0 on SIGTERM with the WAL truncated
+    to 0 bytes.  ``launcher`` and ``on_card`` are the daemon phase's;
+    ``compact_bytes`` replaces the reference default."""
+    from cpzk_tpu_torch.server.__main__ import DRAIN_SECONDS
+    from cpzk_tpu_torch.server.config import DurabilitySettings
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.mkdtemp(prefix="cpzk-durable-")
+    state_file = os.path.join(workdir, "state.json")
+    wal_file = state_file + ".wal"
+    config = os.path.join(workdir, "server.toml")
+    with open(config, "w") as f:
+        f.write(f'state_file = "{state_file}"\n'
+                f"[server]\nmax_users = {users}\n"
+                f'[tpu]\nbackend = "tpu"\nbatch_max = {n}\nprewarm_quanta = "{n}"\n'
+                "[rate_limit]\nrequests_per_minute = 100000000\nburst = 1000000\n"
+                "[opsplane]\nenabled = true\nport = 0\n"
+                '[durability]\nenabled = true\nfsync = "always"\n'
+                + (f"compact_bytes = {compact_bytes}\n" if compact_bytes is not None else ""))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SERVER_")}
+    env.update(SERVER_CONFIG_PATH=config, CPZK_CLEANUP_INTERVAL_S="1",
+               PYTHONPATH=root + os.pathsep + env.get("PYTHONPATH", ""))
+    argv = (launcher or [sys.executable, "-m", "cpzk_tpu_torch.server"]) + ["--no-repl"]
+    user_ids = [f"user-{i:05d}" for i in range(users)]
+    user_index = {uid: i for i, uid in enumerate(user_ids)}
+    gen = SeededRng(SEED + 11)
+    if compact_bytes is None:
+        compact_bytes = DurabilitySettings().compact_bytes
+    out = {"users": users, "n": n, "rpc_entries": rpc_max, "held": held, "further": further,
+           "kill_after": kill_after, "tolerance": "exact", "workdir_fs": fs_type(workdir),
+           "fsync_probe": fsync_cost(workdir), "compact_bytes": compact_bytes,
+           "config": open(config).read()}
+    procs = []
+    sheds: dict = {}
+
+    def boot(name: str) -> DaemonProcess:
+        proc = DaemonProcess(name, argv + ["--port", "0"], workdir, env)
+        procs.append(proc)
+        return proc.wait_listening(DAEMON_BOOT_TIMEOUT_S)
+
+    def statusz(proc: DaemonProcess) -> dict:
+        return json.loads(http_get(proc.ops_port, "/statusz"))
+
+    try:
+        # 1. boot A: registrations, then logins on the card
+        first = boot("durable_a")
+        out["boot_s"] = first.boot_s
+        wal0 = wal_counters(http_get(first.ops_port, "/metrics"))
+        reg = asyncio.run(register_users(first.port, user_ids, corpus, rpc_max, sheds))
+        reg["register_wal"] = {k: v - wal0[k] for k, v in
+                      wal_counters(http_get(first.ops_port, "/metrics")).items()}
+        held_ids = user_ids[n + further:n + further + held]
+        acked_h = asyncio.run(create_challenges(first.port, held_ids, sheds))
+        seq0, launches0 = last_flight_seq(first.ops_port), kernel_launches(first.ops_port)
+        wave = asyncio.run(daemon_logins(first.port, user_ids[:n], corpus, provers, rpc_max,
+                                         gen, register=False, sheds=sheds))
+        launches = {k: v - launches0[k] for k, v in kernel_launches(first.ops_port).items()}
+        records = flight_records(first.ops_port, seq0)
+        if sum(r["batch"] for r in records) != n:
+            raise AssertionError(f"durable_daemon: flight records {[r['batch'] for r in records]}")
+        if on_card and min(launches.values()) < 1:
+            raise AssertionError(f"a kernel was never launched by boot A's logins: {launches}")
+        acked_a = wave.pop("acked")
+        wave.update(launches=launches, batches=[r["batch"] for r in records],
+                    device_interval_s=[r["device_interval_s"] for r in records])
+        # snapshots hold no challenges: a sweep whose snapshot covers the
+        # held challenges' records, with the WAL over compact_bytes, would
+        # drop them in the reference and holds its compaction back here
+        t0 = time.perf_counter()
+        while not (holds := HELD_LINE.findall(first.text())):
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError(f"durable_daemon: no sweep covered the held challenges: "
+                                     f"{statusz(first)['durability']}")
+            time.sleep(0.05)
+        doc = statusz(first)
+        metrics_a = http_get(first.ops_port, "/metrics")
+        out["boot_a"] = {**reg, "logins": wave, "wal": wal_counters(metrics_a),
+                         "admission": admission_view(first.ops_port, metrics_a),
+                         "durability_before_kill": doc["durability"],
+                         "held_challenges": len(acked_h),
+                         "compactions_held": [{"kept_bytes": int(k), "wal_bytes": int(w)}
+                                              for k, w in holds],
+                         "state": {k: doc["shards"][k] for k in ("users", "sessions",
+                                                                 "challenges")}}
+
+        # 2. SIGKILL with challenges in flight (no final snapshot); the
+        # daemon is reaped before boot B starts
+        kill_t: list[float] = []
+
+        def kill() -> None:
+            kill_t.append(time.perf_counter())
+            first.kill()
+
+        further_ids = user_ids[n:n + further]
+        kill_wave = asyncio.run(challenges_until_kill(first.port, further_ids, kill_after,
+                                                      kill, sheds))
+        acked_c = acked_h + kill_wave.pop("acked")
+        out["kill"] = {**kill_wave, "acked": len(acked_c) - len(acked_h),
+                       "exit_code": first.proc.returncode,
+                       "card_apps_after_reap": card_apps() if on_card else None}
+        if first.proc.returncode != -signal.SIGKILL:
+            raise AssertionError(f"durable_daemon: boot A ended {first.proc.returncode}")
+
+        # 3. boot B: recover, check the counts, log the recovered challenges in
+        second = boot("durable_b")
+        m = RECOVERY_LINE.search(second.text())
+        if m is None:
+            raise AssertionError(f"durable_daemon: no recovery line:\n{second.text()[-3000:]}")
+        snap_users, snap_sessions, replayed, skipped, next_seq = map(int, m.groups()[:5])
+        quarantined = [f for f in os.listdir(workdir) if ".corrupt-" in f]
+        doc = statusz(second)
+        recovered = {"recovery_s": float(m.group(6)), "boot_s": second.boot_s,
+                     "snapshot_users": snap_users, "snapshot_sessions": snap_sessions,
+                     "wal_replayed": replayed, "wal_skipped": skipped, "next_seq": next_seq,
+                     "quarantined": len(quarantined),
+                     "state": {k: doc["shards"][k] for k in ("users", "sessions",
+                                                             "challenges")}}
+        out["boot_b"] = recovered
+        want_sessions = len(acked_a["session_tokens"])
+        if quarantined or recovered["state"]["users"] != users or (
+                recovered["state"]["sessions"] != want_sessions) or (
+                recovered["state"]["challenges"] < len(acked_c)):
+            raise AssertionError(f"durable_daemon: recovered {recovered}, quarantined "
+                                 f"{quarantined}; acknowledged {users} users, {want_sessions} "
+                                 f"sessions, {len(acked_c)} challenges")
+        # each acknowledged challenge, by its id: a valid proof must log in
+        seq0, launches0 = last_flight_seq(second.ops_port), kernel_launches(second.ops_port)
+        logins = asyncio.run(recovered_logins(second.port, acked_c, user_index, provers,
+                                              rpc_max, gen, sheds))
+        launches = {k: v - launches0[k] for k, v in kernel_launches(second.ops_port).items()}
+        records = flight_records(second.ops_port, seq0)
+        if sum(r["batch"] for r in records) != len(acked_c):
+            raise AssertionError(f"durable_daemon: flight records {[r['batch'] for r in records]}")
+        if on_card and min(launches.values()) < 1:
+            raise AssertionError(f"a kernel was never launched by the recovered logins: "
+                                 f"{launches}")
+        logins.update(launches=launches, batches=[r["batch"] for r in records],
+                      device_interval_s=[r["device_interval_s"] for r in records])
+        recovered["logins"] = logins
+
+        # 4. a challenge consumed before the kill: refused before the card
+        seq0, launches0 = last_flight_seq(second.ops_port), kernel_launches(second.ops_port)
+        replay = asyncio.run(replay_consumed(second.port, user_ids[0],
+                                             acked_a["challenge_ids"][0],
+                                             provers[0], gen))
+        if replay != ("PERMISSION_DENIED", "Authentication failed") or flight_records(
+                second.ops_port, seq0) or kernel_launches(second.ops_port) != launches0:
+            raise AssertionError(f"durable_daemon: the consumed challenge answered {replay}")
+        recovered["replay"] = {"code": replay[0], "message": replay[1],
+                               "reached_card": False}
+        metrics_b = http_get(second.ops_port, "/metrics")
+        recovered.update(wal=wal_counters(metrics_b),
+                         admission=admission_view(second.ops_port, metrics_b))
+
+        # 5. SIGTERM: exit 0, a final snapshot, the covered WAL truncated
+        rc, recovered["shutdown_s"] = second.terminate(DRAIN_SECONDS + 30)
+        wal_size = os.path.getsize(wal_file)
+        if rc != 0 or wal_size != 0 or "final snapshot written" not in second.text():
+            raise AssertionError(f"durable_daemon: exit {rc}, WAL {wal_size} bytes:\n"
+                                 f"{second.text()[-3000:]}")
+        recovered.update(exit_code=rc, wal_bytes_after_exit=wal_size)
+        out["sheds_by_rpc"], out["sheds_by_tier"] = dict(sheds), tier_sheds(sheds)
+        if out["sheds_by_tier"]["verify"]:
+            raise AssertionError(f"durable_daemon: tier-0 (verify) RPCs were shed: {sheds}")
     finally:
         for proc in procs:
             proc.kill()
@@ -1845,6 +2349,22 @@ def main() -> int:
     served = daemon_phase(corpus, provers, SERVING_N, LOGIN_RPC_MAX, DAEMON_SHARDS)
     emit({"phase": "daemon", **served, **card})
 
+    # 5e. the durable daemon: snapshot + WAL with fsync = "always", SIGKILL
+    # mid-traffic and recovery (launch counts read around each wave)
+    durable = durable_daemon_phase(corpus, provers, DURABLE_USERS, SERVING_N, LOGIN_RPC_MAX,
+                                   DURABLE_HELD, DURABLE_FURTHER, DURABLE_KILL_AFTER)
+    first, wave = served["first"], durable["boot_a"]["logins"]
+    durable["beside_daemon_phase"] = {
+        "registrations_per_s": {"daemon": first["registrations_per_s"],
+                                "durable_daemon": durable["boot_a"]["registrations_per_s"]},
+        "logins_per_s": {"daemon": first["logins_per_s"],
+                         "durable_daemon": wave["logins_per_s"]},
+        "verify_batch_rpc_latency_ms": {"daemon": first["login_rpc_latency_ms"],
+                                        "durable_daemon": wave["login_rpc_latency_ms"]},
+        "challenges_per_s": {"daemon": first["challenges_per_s"],
+                             "durable_daemon": wave["challenges_per_s"]}}
+    emit({"phase": "durable_daemon", **durable, **card})
+
     # 6. where the time goes
     prof = profile_combined(backend, rows[:SERVING_N], beta)
     emit({"phase": "profile", **prof, **card})
@@ -1870,6 +2390,8 @@ def main() -> int:
             "launches_in_login_state": logins["launches_in_login_state"][name],
             "launches_in_daemon": served["first"]["launches"][name],
             "launches_in_daemon_sharded": served["sharded"]["launches"][name],
+            "launches_in_durable_daemon": durable["boot_a"]["logins"]["launches"][name],
+            "launches_in_durable_recovery": durable["boot_b"]["logins"]["launches"][name],
         })
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})

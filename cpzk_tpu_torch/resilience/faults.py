@@ -1,18 +1,22 @@
 """Deterministic fault injection for the serving stack.
 
-A copy of the backend half of ``cpzk_tpu/resilience/faults.py``: a
-:class:`FaultPlan` is a seeded, declarative schedule of device faults, and
-:class:`FaultInjectionBackend` applies it to any
-:class:`~cpzk_tpu_torch.protocol.batch.VerifierBackend` (raise-after-N-
-batches, intermittent flapping, per-batch latency spikes).  Everything is
-reproducible from the plan alone — same plan, same faults, same batch
-indexes — so the chaos tests assert exact outcomes instead of sampling
-flaky timing windows.
+A copy of the backend and write-ahead-log half of
+``cpzk_tpu/resilience/faults.py``: a :class:`FaultPlan` is a seeded,
+declarative schedule of device faults, and :class:`FaultInjectionBackend`
+applies it to any :class:`~cpzk_tpu_torch.protocol.batch.VerifierBackend`
+(raise-after-N-batches, intermittent flapping, per-batch latency spikes);
+the WAL crash points (:meth:`FaultPlan.crash_on`) schedule deterministic
+process-death stand-ins at exact write sites inside
+:class:`~cpzk_tpu_torch.durability.wal.WriteAheadLog` (``pre_append`` /
+``mid_frame`` / ``post_append_pre_fsync`` / ``pre_rename`` / ``pre_seal``
+/ ``pre_unlink``).  Everything is reproducible from the plan alone — same
+plan, same faults, same batch indexes — so the chaos and durability tests
+assert exact outcomes instead of sampling flaky timing windows.
 
-The reference's crash points (write-ahead log, replication, fleet split,
-handover) and its snapshot-write injector belong to layers the port has
-not taken yet; they come with those layers.  The snapshot-error budget is
-kept, since the plan's builder API carries it.
+The reference's other crash points (replication, fleet split, handover)
+and its snapshot-write injector belong to layers the port has not taken
+yet; they come with those layers.  The snapshot-error budget is kept,
+since the plan's builder API carries it.
 
 Example::
 
@@ -30,6 +34,7 @@ import random
 import threading
 import time
 
+from ..durability.wal import WAL_CRASH_POINTS, CrashPoint  # noqa: F401 (re-export)
 from ..protocol.batch import VerifierBackend
 
 
@@ -56,6 +61,10 @@ class FaultPlan:
         self._latency_every = 0
         self._snapshot_errors = 0
         self._snapshot_lock = threading.Lock()
+        # WAL crash points: site -> scheduled occurrence indexes, and the
+        # per-site visit counters (shared lock with the snapshot budget)
+        self._crash_points: dict[str, set[int]] = {}
+        self._crash_seen: dict[str, int] = {}
 
     # -- builders ----------------------------------------------------------
 
@@ -104,6 +113,25 @@ class FaultPlan:
         self._snapshot_errors = n
         return self
 
+    def crash_on(self, point: str, occurrence: int = 0) -> "FaultPlan":
+        """Schedule a :class:`CrashPoint` at the ``occurrence``-th visit of
+        a WAL crash site (``pre_append`` / ``mid_frame`` /
+        ``post_append_pre_fsync`` count once per append, in that order;
+        ``pre_rename`` once per single-file compaction, ``pre_seal`` once
+        per segment seal, ``pre_unlink`` once per covered-segment unlink
+        under segmented compaction) — the deterministic stand-in for the
+        process dying at exactly that instruction.  Pass the plan as
+        ``WriteAheadLog(..., faults=plan)`` /
+        ``DurabilityManager(..., faults=plan)`` to arm it."""
+        if point not in WAL_CRASH_POINTS:
+            raise ValueError(
+                f"unknown crash point {point!r}; one of {WAL_CRASH_POINTS}"
+            )
+        if occurrence < 0:
+            raise ValueError("crash_on occurrence must be >= 0")
+        self._crash_points.setdefault(point, set()).add(occurrence)
+        return self
+
     # -- queries -----------------------------------------------------------
 
     def should_fail(self, batch_index: int) -> bool:
@@ -131,6 +159,14 @@ class FaultPlan:
                 return False
             self._snapshot_errors -= 1
             return True
+
+    def take_crash(self, point: str) -> bool:
+        """Visit one WAL crash site: bump its occurrence counter and report
+        whether this visit was scheduled by :meth:`crash_on`."""
+        with self._snapshot_lock:
+            i = self._crash_seen.get(point, 0)
+            self._crash_seen[point] = i + 1
+            return i in self._crash_points.get(point, ())
 
     def _roll(self, key: int) -> float:
         return random.Random(f"{self.seed}:{key}").random()

@@ -1,13 +1,16 @@
 """Server daemon + admin REPL: the port of ``cpzk_tpu/server/__main__.py``.
 
 Flags (env-overridable through ``ServerConfig``), config load +
-validation, the background cleanup task under a restart-on-crash
-supervisor, optional Prometheus exporter, the ops plane and SLO engine,
-gRPC health, an admin REPL (/status /tracez /flightrec /profile /users
-/sessions /challenges /cleanup /reset /help /quit), and graceful
-shutdown: health flips to NOT_SERVING, a 2 s drain, the ingest shards and
-the batcher stop, the listener stops, background tasks are awaited, and
-the final snapshot lands.
+validation, crash recovery (``[durability]``: snapshot + write-ahead log
+replay before anything listens), the background cleanup task under a
+restart-on-crash supervisor, optional Prometheus exporter, admission
+control (``[admission]``, on by default as in the reference), the ops
+plane and SLO engine, gRPC health, an admin REPL (/status /overload
+/tracez /flightrec /profile /persist /users /sessions /challenges
+/cleanup /reset /help /quit), and graceful shutdown: health flips to
+NOT_SERVING, a 2 s drain, the ingest shards and the batcher stop, the
+listener stops, background tasks are awaited, and the final snapshot
+lands (with durability: the covered write-ahead log is truncated).
 
 With ``[tpu] backend = "tpu"`` (this package's default) the daemon serves
 the card bare: ``plane.build_backend`` builds the CUDA kernels and
@@ -15,10 +18,10 @@ prewarms them before the listener binds, and a kernel or CUDA fault fails
 its batch; there is no host failover.  Without CUDA it stops at boot.
 ``backend = "cpu"`` (or ``--backend cpu``) verifies inline on the host.
 
-The reference's host control plane — ``[durability]``, ``[replication]``,
-``[admission]``, ``[audit]``, ``[fleet]`` and ``[controller]`` — is not
-ported yet: a config that enables any of them stops the daemon at boot
-with an error naming the section.
+The rest of the reference's host control plane — ``[replication]``,
+``[audit]``, ``[fleet]`` and ``[controller]`` — is not ported yet: a
+config that enables any of them stops the daemon at boot with an error
+naming the section.
 
 Run: ``python -m cpzk_tpu_torch.server --host 127.0.0.1 --port 50051``
 """
@@ -48,9 +51,7 @@ DRAIN_SECONDS = 2
 
 #: config sections of the reference's host control plane that the port
 #: does not have yet: enabling one stops the daemon at boot
-UNPORTED_SECTIONS = (
-    "durability", "replication", "admission", "audit", "fleet", "controller",
-)
+UNPORTED_SECTIONS = ("replication", "audit", "fleet", "controller")
 
 log = logging.getLogger("cpzk_tpu_torch.server")
 
@@ -98,9 +99,12 @@ async def cleanup_supervisor(
     state: ServerState,
     stop: asyncio.Event,
     state_file: str | None = None,
+    durability=None,
 ) -> None:
     """Periodic expiry sweeps under a restart-on-crash supervisor; with
-    --state-file, each sweep also checkpoints."""
+    --state-file, each sweep also checkpoints — through the
+    :class:`~cpzk_tpu_torch.durability.DurabilityManager` (snapshot + WAL
+    fsync/compaction) when durability is enabled."""
 
     async def sweep_loop():
         while not stop.is_set():
@@ -113,7 +117,9 @@ async def cleanup_supervisor(
             ns = await state.cleanup_expired_sessions()
             if nc or ns:
                 log.info("cleanup: %d challenges, %d sessions expired", nc, ns)
-            if state_file:
+            if durability is not None:
+                await durability.checkpoint()
+            elif state_file:
                 await state.snapshot(state_file)
             # freeze the surviving object graph out of the cyclic
             # collector's gen-2 scan: at millions of registered users an
@@ -140,13 +146,13 @@ async def cleanup_supervisor(
 
 HELP = """Available commands:
   /status      (/st)  server status summary (incl. backend breaker state)
-  /overload    (/ov)  admission status (not ported yet: disabled)
+  /overload    (/ov)  admission status: level, tiers, clients, pushback
   /tracez [N]  (/tz)  last N completed request traces w/ stage breakdown
   /flightrec [N] (/fr) last N device batches: occupancy, dispatch gap,
                       thread_hop/marshal/device_wait split, the card's
                       work interval
   /profile S [DIR]    capture S seconds of torch.profiler (Chrome trace)
-  /persist     (/wal) durability status (not ported yet: disabled)
+  /persist     (/wal) durability status: WAL size, fsync age, covered seq
   /audit       (/au)  proof-log status (not ported yet: disabled)
   /replication (/repl) replication status (not ported yet: disabled)
   /promote            promote this standby to primary (no replication)
@@ -163,13 +169,17 @@ HELP = """Available commands:
 
 
 async def handle_command(
-    cmd: str, state: ServerState, backend=None,
+    cmd: str, state: ServerState, backend=None, durability=None,
+    admission=None,
 ) -> tuple[str, bool]:
     """(output, should_quit) for one REPL line.  ``backend`` is the
     serving backend: /status surfaces its breaker state and /reset re-arms
     it when it is a ``FailoverBackend`` (the daemon serves the card bare,
-    so only a caller that builds one sees them).  The REPL commands of the
-    reference's unported subsystems answer with its "disabled" text."""
+    so only a caller that builds one sees them); ``durability`` is the
+    DurabilityManager behind /persist and ``admission`` the
+    AdmissionController behind /overload (None when disabled).  The REPL
+    commands of the reference's unported subsystems answer with its
+    "disabled" text."""
     cmd = cmd.strip()
     if not cmd:
         return "", False
@@ -191,9 +201,27 @@ async def handle_command(
             )
         return line, False
     if word in ("/overload", "/ov"):
+        if admission is None:
+            return (
+                "admission control disabled (set [admission] enabled = true "
+                "to get per-client fairness + priority shedding)",
+                False,
+            )
+        s = admission.snapshot()
+        tiers = "+".join(s["admitted_tiers"]) or "none"
         return (
-            "admission control disabled (set [admission] enabled = true "
-            "to get per-client fairness + priority shedding)",
+            f"level={s['level']:.2f}/3 admitting={tiers}"
+            f" clients={s['clients']}/{s['max_clients']}"
+            f" (evicted={s['evictions']})"
+            f" queue={s['queue_depth']}/{s['queue_capacity']}"
+            f" drain={s['drain_rate']:.1f}/s"
+            f" util={s['utilization']:.2f}"
+            f" queue_wait={s['queue_wait_ms']:.1f}ms"
+            f" retry_after={s['retry_after_ms']:.0f}ms"
+            f" admitted={int(s['admitted'])}"
+            f" shed{{client={int(s['shed_per_client'])}"
+            f" priority={int(s['shed_priority'])}"
+            f" global={int(s['shed_global'])}}}",
             False,
         )
     if word in ("/tracez", "/traces", "/tz"):
@@ -250,9 +278,20 @@ async def handle_command(
             False,
         )
     if word in ("/persist", "/wal"):
+        if durability is None or durability.wal is None:
+            return (
+                "durability disabled (set [durability] enabled = true and a "
+                "state_file to get a write-ahead log)",
+                False,
+            )
+        s = durability.status()
+        age = s["snapshot_age_s"]
         return (
-            "durability disabled (set [durability] enabled = true and a "
-            "state_file to get a write-ahead log)",
+            f"wal={s['wal_path']} bytes={s['wal_bytes']} seq={s['wal_seq']}"
+            f" covered_seq={s['covered_seq']} pending={s['pending_appends']}"
+            f" fsync={s['fsync_policy']}"
+            f" last_fsync_age={s['last_fsync_age_s']:.1f}s"
+            f" snapshot_age={'n/a' if age is None else f'{age:.1f}s'}",
             False,
         )
     if word in ("/audit", "/au"):
@@ -329,16 +368,41 @@ def refuse_unported(config: ServerConfig) -> None:
 
 
 async def load_state(config: ServerConfig):
-    """(state, None) for the resolved config: the plain snapshot restore,
-    where a corrupt snapshot quarantines with a loud ERROR and the server
-    boots empty instead of crash-looping on every restart.  (The second
-    item is the reference's durability manager, which is not ported.)"""
+    """(state, durability manager | None) for the resolved config.
+
+    With ``[durability] enabled``: full crash recovery — snapshot load with
+    corrupt-file quarantine, WAL torn-tail truncation + suffix replay, then
+    a fresh covering snapshot so the next boot replays nothing.  It runs
+    before the daemon binds any listener (ops plane or gRPC), so nothing
+    reports ready while replay runs.  Without it: the plain snapshot
+    restore, where a corrupt snapshot quarantines with a loud ERROR and
+    the server boots empty instead of crash-looping on every restart."""
     state = ServerState(
         shards=config.replication.shards,
         max_users=config.server.max_users,
         max_challenges=config.server.max_challenges,
         max_sessions=config.server.max_sessions,
     )
+    if config.durability.enabled:
+        from ..durability import DurabilityManager
+
+        t0 = time.perf_counter()
+        durability = DurabilityManager(state, config.durability, config.state_file)
+        report = await durability.recover()
+        log.info(
+            "durability: %d users / %d sessions from snapshot, %d WAL records "
+            "replayed (%d skipped) up to seq %d in %.3fs",
+            report.users, report.sessions, report.replayed, report.skipped,
+            report.next_seq, time.perf_counter() - t0,
+        )
+        # fold the replayed suffix into a fresh covering snapshot now:
+        # bounds the next boot's replay and arms compaction
+        await durability.checkpoint()
+        # a freshly-recovered million-user graph goes straight into the
+        # collector's frozen set (see cleanup_supervisor for why)
+        gc.collect()
+        gc.freeze()
+        return state, durability
     if config.state_file and os.path.exists(config.state_file):
         try:
             nu, ns = await state.restore(config.state_file)
@@ -409,7 +473,7 @@ async def amain(args, *, device=None) -> None:
     if config.observability.json_logs:
         log.info("structured JSON logging enabled")
 
-    state, _ = await load_state(config)
+    state, durability = await load_state(config)
     limiter = config.rate_limit.build_limiter()
     stop = asyncio.Event()
 
@@ -458,13 +522,23 @@ async def amain(args, *, device=None) -> None:
 
         # the port's serve(backend=None) means the card: ask for the host
         backend, batcher = CpuBackend(), None
+
+    admission = None
+    if config.admission.enabled:
+        from ..admission import AdmissionController
+
+        admission = AdmissionController(config.admission, batcher=batcher)
+        log.info(
+            "admission control enabled (per_client_rpm=%d, max_clients=%d)",
+            config.admission.per_client_rpm, config.admission.max_clients,
+        )
     # the boot graph (restored state, the imported modules, the kernels'
     # plumbing) goes into the collector's frozen set, as after each sweep
     gc.collect()
     gc.freeze()
 
     cleanup_task = asyncio.create_task(
-        cleanup_supervisor(state, stop, config.state_file or None)
+        cleanup_supervisor(state, stop, config.state_file or None, durability)
     )
 
     # ops plane + SLO engine: the remote introspection surface, started
@@ -493,6 +567,8 @@ async def amain(args, *, device=None) -> None:
         state=state,
         batcher=batcher,
         backend=backend,
+        admission=admission,
+        durability=durability,
         slo=slo_engine,
         config_fingerprint=config.fingerprint(),
         role="server",
@@ -521,7 +597,7 @@ async def amain(args, *, device=None) -> None:
     shard_ingest = config.server.ingest_shards > 1
     server, port = await serve(
         state, limiter, host=config.host, port=config.port,
-        backend=backend, batcher=batcher, tls=tls,
+        backend=backend, batcher=batcher, tls=tls, admission=admission,
         stream_window=config.tpu.stream_window,
         stream_entry_deadline_ms=config.tpu.stream_entry_deadline_ms,
         wire=config.server.wire,
@@ -578,7 +654,9 @@ async def amain(args, *, device=None) -> None:
             except (EOFError, KeyboardInterrupt):
                 stop.set()
                 return
-            out, quit_ = await handle_command(line, state, backend)
+            out, quit_ = await handle_command(
+                line, state, backend, durability, admission
+            )
             if out:
                 print(_c("white", out))
             if quit_:
@@ -615,7 +693,13 @@ async def amain(args, *, device=None) -> None:
     cleanup_task.cancel()
     with contextlib.suppress(asyncio.CancelledError):
         await cleanup_task
-    if config.state_file:
+    if durability is not None:
+        await durability.close()  # final snapshot + truncate the covered WAL
+        log.info(
+            "durability: final snapshot written to %s, WAL truncated",
+            config.state_file,
+        )
+    elif config.state_file:
         await state.snapshot(config.state_file)
         log.info("state snapshot written to %s", config.state_file)
     if repl_task is not None:

@@ -8,13 +8,10 @@ package.  Layering: defaults <- TOML file (path from
 ``ServerConfig.validate`` keeps the reference's messages; its ``[tpu]``
 checks are :func:`validate_tpu`, which ``build_backend`` runs too.
 
-Two departures, both defaults:
-
-- ``[tpu] backend`` defaults to ``"tpu"``, the device plane, which in this
-  package is the card.  ``"cpu"`` (in a file, the environment or
-  ``--backend cpu``) is the caller asking for inline host verification.
-- ``[admission] enabled`` defaults to False: the admission controller is
-  not ported yet, and the daemon refuses to boot with it enabled.
+One departure, a default: ``[tpu] backend`` defaults to ``"tpu"``, the
+device plane, which in this package is the card.  ``"cpu"`` (in a file,
+the environment or ``--backend cpu``) is the caller asking for inline host
+verification.
 
 :class:`RateLimiter` and :class:`RateLimitExceeded` are the global token
 bucket the gRPC service admits every RPC through (fractional refill, burst
@@ -414,14 +411,9 @@ class AdmissionSettings:
     """Adaptive overload control (admission subsystem): per-client keyed
     token buckets in an LRU-bounded table, DAGOR-style priority-aware
     shedding driven by live queue signals, and server retry-pushback
-    sizing.  See ``docs/operations.md`` §"Overload & admission".
+    sizing.  See ``docs/operations.md`` §"Overload & admission"."""
 
-    The port's second departure: ``enabled`` defaults to False (the
-    reference's is True).  The admission controller is not ported yet,
-    and the daemon refuses to boot with it enabled, so the default
-    deployment must leave it off."""
-
-    enabled: bool = False
+    enabled: bool = True
     # per-client fair limiting; 0 = DISABLED (the unset state — unlike
     # the global [rate_limit] bucket, where 0 is invalid)
     per_client_rpm: int = 0
@@ -454,13 +446,17 @@ class RetrySettings:
     token_ratio: float = 0.1   # budget refill per success
 
     def build_policy(self):
-        """Resolve to a ``RetryPolicy``: not available yet.  The policy
-        lives in ``resilience/retry.py`` beside the client, and neither is
-        ported; this raises rather than returning a policy that retries
-        nothing."""
-        raise NotImplementedError(
-            "retry policies come with the port's client "
-            "(resilience/retry.py), which is not ported yet"
+        """Resolve to a ``RetryPolicy`` (None when retries are disabled)."""
+        from ..resilience.retry import RetryBudget, RetryPolicy
+
+        if self.budget <= 0 or self.max_attempts <= 1:
+            return None
+        return RetryPolicy(
+            max_attempts=self.max_attempts,
+            initial_backoff_s=self.initial_backoff_ms / 1000.0,
+            max_backoff_s=self.max_backoff_ms / 1000.0,
+            multiplier=self.multiplier,
+            budget=RetryBudget(tokens=self.budget, token_ratio=self.token_ratio),
         )
 
 

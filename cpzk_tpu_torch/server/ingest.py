@@ -15,11 +15,14 @@ single dispatch/state process over a unix-domain socket speaking the
 (:mod:`cpzk_tpu_torch.durability.wal`), where the REAL ``AuthServiceImpl``
 handlers run against the one batcher, state store and card.
 
-Division of labor: the shards own sockets and parse; rate limiting stays
-in the dispatch process, where the batcher's queue signals live and where
-the buckets see every client exactly once no matter which shard its
-connections hashed to.  A request answers with identical verdicts,
-trailers and metrics whether it entered in-process or through any shard.
+Division of labor: the shards own sockets and parse; admission, priority
+shedding and rate limiting stay in the dispatch process, where the
+batcher's queue signals live and where the keyed buckets see every client
+exactly once no matter which shard its connections hashed to (a shard
+forwards each call's metadata and peer, so ``client_key`` sees the
+client, never the shard's socket).  A request answers with identical
+verdicts, trailers and metrics whether it entered in-process or through
+any shard.
 
 A shard never touches the card: it is spawned (never forked from a
 process that holds a CUDA context and the dispatch threads) and its import

@@ -1,10 +1,12 @@
 """gRPC AuthService implementation (asyncio).
 
 A copy of ``cpzk_tpu/server/service.py`` on the port's own state store,
-wire parse and serving plane.  The handlers' ``admission=``, ``replica=``,
-``audit_log=`` and ``fleet=`` branches are the reference's and stay inert
-under ``None``: those packages come with the host control plane, and the
-few symbols of theirs the handlers name are copied in :mod:`.keys`.  Two
+wire parse and serving plane.  The handlers' ``admission=`` branch takes
+the port's :class:`~cpzk_tpu_torch.admission.AdmissionController`; the
+``replica=``, ``audit_log=`` and ``fleet=`` branches are the reference's
+and stay inert under ``None``: those packages come with the host control
+plane, and the few symbols of theirs the handlers name are copied in
+:mod:`.keys`.  Two
 departures of the port hold here too: with no ``backend`` the batch
 verifier means ``TorchBackend()`` on the card (it raises without CUDA; the
 host runs only when passed ``backend=CpuBackend()``), and nothing moves
@@ -40,13 +42,9 @@ from . import batching, metrics
 from . import wire as wire_mod
 from .config import RateLimiter, RateLimitExceeded
 from .dispatch import DispatchLane
-from .keys import (
-    PARTITION_MAP_VERSION_KEY,
-    PARTITION_OWNER_KEY,
-    RETRY_PUSHBACK_KEY,
-    client_key,
-    proof_record,
-)
+from ..admission.limiter import client_key
+from ..resilience.retry import RETRY_PUSHBACK_KEY
+from .keys import PARTITION_MAP_VERSION_KEY, PARTITION_OWNER_KEY, proof_record
 from .proto import SERVICE_NAME, load_pb2, method_types, stream_method_types
 from .state import ServerState, UserData
 from .state import user_id_error as _user_id_error
@@ -445,7 +443,12 @@ class AuthServiceImpl:
             )
         metrics.counter("auth.register_batch.users_count").inc(n)
 
-        results = []
+        # per entry: the failure message, or None while the entry waits
+        # for the state; the valid entries then register in one call with
+        # one journal sync for the batch (answered together, so one fsync
+        # before the response covers every acknowledged registration)
+        messages: list[str | None] = []
+        users: list[UserData] = []
         for i in range(n):
             user_id = request.user_ids[i]
             y1b, y2b = request.y1_values[i], request.y2_values[i]
@@ -458,28 +461,31 @@ class AuthServiceImpl:
                     msg = f"Empty y1 or y2 values for user {i}"
                 elif len(y1b) > MAX_ELEMENT_WIRE or len(y2b) > MAX_ELEMENT_WIRE:
                     msg = f"y1 or y2 values too large for user {i}"
+            if msg is None:
+                try:
+                    statement = self._parse_statement(y1b, y2b)
+                    users.append(UserData(
+                        user_id=user_id,
+                        statement=statement,
+                        registered_at=int(time.time()),
+                    ))
+                except errors.Error as e:
+                    msg = str(e)
+            messages.append(msg)
+
+        outcomes = iter(await self.state.register_users(users))
+        results = []
+        for user_id, msg in zip(request.user_ids, messages):
+            if msg is None:
+                err = next(outcomes)
+                if err is not None:
+                    msg = str(err)
+                    if "already registered" in msg or "capacity" in msg:
+                        msg = f"Registration failed: {msg}"
             if msg is not None:
                 results.append(self.pb2.RegistrationResult(success=False, message=msg))
                 metrics.counter("auth.register_batch.individual_failure").inc()
                 continue
-
-            try:
-                statement = self._parse_statement(y1b, y2b)
-                await self.state.register_user(
-                    UserData(
-                        user_id=user_id,
-                        statement=statement,
-                        registered_at=int(time.time()),
-                    )
-                )
-            except errors.Error as e:
-                text = str(e)
-                if "already registered" in text or "capacity" in text:
-                    text = f"Registration failed: {text}"
-                results.append(self.pb2.RegistrationResult(success=False, message=text))
-                metrics.counter("auth.register_batch.individual_failure").inc()
-                continue
-
             results.append(
                 self.pb2.RegistrationResult(
                     success=True,

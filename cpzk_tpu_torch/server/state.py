@@ -60,7 +60,7 @@ import zlib
 from collections.abc import MutableMapping
 from dataclasses import dataclass, field
 
-from ..errors import InvalidParams, UnsupportedFormat, WrongPartition
+from ..errors import Error, InvalidParams, UnsupportedFormat, WrongPartition
 from ..protocol.gadgets import Statement
 from . import metrics
 
@@ -389,6 +389,13 @@ class ServerState:
         # application order — and fsynced (per policy) before the RPC
         # returns
         self.journal = None
+        # live challenge id -> the journal position (``WriteAheadLog.
+        # position``) of its create_challenge record; 0 for one replayed
+        # at boot, whose place in the recovered log is not tracked.
+        # Snapshots hold no challenges, so DurabilityManager.checkpoint
+        # never compacts past the oldest of these (a departure from the
+        # reference, whose compaction drops them: ROADMAP section C)
+        self._challenge_records: dict[bytes, int] = {}
         # synchronous-replication barrier (async callable(seq) | None):
         # when attached by a sync-mode SegmentShipper, acknowledged
         # mutations additionally wait until the warm standby has applied
@@ -537,6 +544,7 @@ class ServerState:
         self, shard: StateShard, challenge_id: bytes
     ) -> ChallengeData | None:
         data = shard._challenges.pop(challenge_id, None)
+        self._challenge_records.pop(challenge_id, None)
         if data is None:
             return None
         self._n_challenges -= 1
@@ -668,6 +676,12 @@ class ServerState:
         if self.journal is not None:
             self.journal.append(rtype, payload)
 
+    def oldest_challenge_record(self) -> int | None:
+        """The journal position of the oldest live challenge's
+        create_challenge record, or ``None`` when no journaled challenge
+        is live."""
+        return min(self._challenge_records.values(), default=None)
+
     async def _journal_sync(self) -> None:
         """Make appended records durable per the WAL's fsync policy; called
         AFTER the shard lock is released (fsync flushes every earlier
@@ -682,37 +696,176 @@ class ServerState:
         if barrier is not None and wal is not None:
             await barrier(wal.seq)
 
+    # cpzk-lint: disable=LOCK-001 -- boot-time replay runs single-threaded before serving starts
+    def replay_journal_record(self, rec: dict) -> str | None:
+        """Boot-time (and standby-side) replay of one WAL record through
+        the same trust-boundary validators as :meth:`restore` — a tampered
+        log cannot smuggle in what the live RPC would reject.
+        Single-threaded (recovery runs before serving starts; the standby
+        applies segments before it is promoted to serve), so no lock.
+        Returns None when applied, else the skip reason; never raises on
+        malformed input (the fuzz harness holds this as an invariant)."""
+        from ..core.ristretto import Ristretto255
+
+        try:
+            rtype = rec.get("type")
+            if rtype == "register_user":
+                uid = str(rec["user_id"])
+                msg = user_id_error(uid)
+                if msg is not None:
+                    return msg
+                shard = self._shard_for_user(uid)
+                if uid in shard._users:
+                    return "already registered"
+                if self._total_users() >= self.max_users:
+                    return "user capacity cap"
+                y1 = Ristretto255.element_from_bytes(bytes.fromhex(rec["y1"]))
+                y2 = Ristretto255.element_from_bytes(bytes.fromhex(rec["y2"]))
+                if Ristretto255.is_identity(y1) or Ristretto255.is_identity(y2):
+                    return "identity statement element"
+                self._user_insert(shard, UserData(
+                    user_id=uid,
+                    statement=Statement(y1, y2),
+                    registered_at=int(rec["registered_at"]),
+                ))
+                self._persist_dirty = True
+                return None
+            if rtype == "create_session":
+                token, uid = str(rec["token"]), str(rec["user_id"])
+                created, expires = int(rec["created_at"]), int(rec["expires_at"])
+                if expires <= created or expires - created > SESSION_EXPIRY_SECONDS:
+                    return "invalid session expiry"
+                shard = self._shard_for_user(uid)
+                if uid not in shard._users:
+                    return "unregistered user"
+                if self._locate_session(token) is not None:
+                    return "duplicate session token"
+                if self._total_sessions() >= self.max_sessions:
+                    return "session capacity cap"
+                data = SessionData(
+                    token=token, user_id=uid, created_at=created, expires_at=expires
+                )
+                if data.is_expired():
+                    return None  # same silent drop as restore()
+                if len(shard._user_sessions.get(uid, ())) >= MAX_SESSIONS_PER_USER:
+                    return "per-user session cap"
+                self._session_insert(shard, data)
+                shard._user_sessions.setdefault(uid, []).append(token)
+                self._persist_dirty = True
+                return None
+            if rtype == "revoke_session":
+                token = str(rec["token"])
+                idx = self._locate_session(token)
+                if idx is None:
+                    return "session not found"
+                self._session_remove(self._shards[idx], token)
+                self._persist_dirty = True
+                return None
+            if rtype == "expire_sessions":
+                now = int(rec["now"])
+                for shard in self._shards:
+                    for t in [
+                        t for t, d in shard._sessions.items() if d.is_expired(now)
+                    ]:
+                        self._session_remove(shard, t)
+                self._persist_dirty = True
+                return None
+            if rtype == "create_challenge":
+                cid, uid = bytes.fromhex(rec["challenge_id"]), str(rec["user_id"])
+                created, expires = int(rec["created_at"]), int(rec["expires_at"])
+                if (
+                    expires <= created
+                    or expires - created > CHALLENGE_EXPIRY_SECONDS
+                ):
+                    return "invalid challenge expiry"
+                shard = self._shard_for_user(uid)
+                if uid not in shard._users:
+                    return "unregistered user"
+                if self._locate_challenge(cid) is not None:
+                    return "duplicate challenge id"
+                if self._total_challenges() >= self.max_challenges:
+                    return "challenge capacity cap"
+                data = ChallengeData(
+                    challenge_id=cid, user_id=uid,
+                    created_at=created, expires_at=expires,
+                )
+                if data.is_expired():
+                    return None  # stale in-flight login: drop silently
+                if len(shard._user_challenges.get(uid, ())) >= MAX_CHALLENGES_PER_USER:
+                    return "per-user challenge cap"
+                self._challenge_insert(shard, data)
+                shard._user_challenges.setdefault(uid, []).append(cid)
+                # somewhere in the recovered log: pin all of it
+                self._challenge_records[cid] = 0
+                return None
+            if rtype == "consume_challenge":
+                cid = bytes.fromhex(rec["challenge_id"])
+                idx = self._locate_challenge(cid)
+                if idx is None:
+                    return "challenge not found"
+                self._challenge_remove(self._shards[idx], cid)
+                return None
+            return f"unknown record type {rtype!r}"
+        except Exception as e:  # malformed fields are a rejection, not a crash
+            return f"malformed record: {e!r}"
+
     # --- users (state.rs:136-161) ---
 
     async def register_user(self, user_data: UserData) -> None:
-        shard = self._shard_for_user(user_data.user_id)
-        async with shard.lock:
-            # fence BEFORE the duplicate check: post-flip the source may
-            # still hold the user's stale copy, and "already registered"
-            # from a non-owner would mask the redirect
-            self._fence(user_data.user_id)
-            if self._total_users() >= self.max_users:
-                raise InvalidParams(
-                    f"Server has reached maximum user capacity ({self.max_users})"
-                )
-            if user_data.user_id in shard._users:
-                raise InvalidParams(f"User '{user_data.user_id}' already registered")
-            self._user_insert(shard, user_data)
-            self._persist_dirty = True
-            if self.journal is not None:
-                from ..core.ristretto import Ristretto255
+        (err,) = await self.register_users([user_data])
+        if err is not None:
+            raise err
 
-                eb = Ristretto255.element_to_bytes
-                self._journal_append(
-                    "register_user",
-                    {
-                        "user_id": user_data.user_id,
-                        "y1": eb(user_data.statement.y1).hex(),
-                        "y2": eb(user_data.statement.y2).hex(),
-                        "registered_at": user_data.registered_at,
-                    },
-                )
-        await self._journal_sync()
+    async def register_users(self, users: list[UserData]) -> list[Exception | None]:
+        """Register each of ``users`` in order, with ONE journal sync for
+        the whole batch: the ``RegisterBatch`` RPC acknowledges its
+        entries together, so one fsync before it answers makes every
+        acknowledged registration durable (the reference syncs once per
+        entry; ROADMAP section C).  Returns per entry ``None``
+        (registered) or the protocol error its registration raised."""
+        out: list[Exception | None] = []
+        for user_data in users:
+            shard = self._shard_for_user(user_data.user_id)
+            async with shard.lock:
+                try:
+                    self._register_locked(shard, user_data)
+                except Error as e:
+                    out.append(e)
+                    continue
+            out.append(None)
+        if any(r is None for r in out):
+            await self._journal_sync()
+        return out
+
+    # cpzk-lint: disable=LOCK-001 -- callers hold the user's shard lock
+    def _register_locked(self, shard: StateShard, user_data: UserData) -> None:
+        """The insert (and its journal record) of one registration; the
+        caller holds ``shard.lock``."""
+        # fence BEFORE the duplicate check: post-flip the source may
+        # still hold the user's stale copy, and "already registered"
+        # from a non-owner would mask the redirect
+        self._fence(user_data.user_id)
+        if self._total_users() >= self.max_users:
+            raise InvalidParams(
+                f"Server has reached maximum user capacity ({self.max_users})"
+            )
+        if user_data.user_id in shard._users:
+            raise InvalidParams(f"User '{user_data.user_id}' already registered")
+        self._user_insert(shard, user_data)
+        self._persist_dirty = True
+        if self.journal is not None:
+            from ..core.ristretto import Ristretto255
+
+            eb = Ristretto255.element_to_bytes
+            self._journal_append(
+                "register_user",
+                {
+                    "user_id": user_data.user_id,
+                    "y1": eb(user_data.statement.y1).hex(),
+                    "y2": eb(user_data.statement.y2).hex(),
+                    "registered_at": user_data.registered_at,
+                },
+            )
 
     async def get_user(self, user_id: str) -> UserData | None:
         return (await self.get_users([user_id]))[0]
@@ -746,6 +899,8 @@ class ServerState:
             data = ChallengeData(challenge_id=challenge_id, user_id=user_id)
             shard._user_challenges.setdefault(user_id, []).append(challenge_id)
             self._challenge_insert(shard, data)
+            if self.journal is not None:
+                self._challenge_records[challenge_id] = self.journal.position
             # journaled so a crash-reboot (and a promoted standby) does not
             # strand every in-flight login — replayed
             # through the same validators as the other record types

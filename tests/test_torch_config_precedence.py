@@ -3,10 +3,10 @@ config: defaults < TOML < .env < SERVER_* env < CLI flags.
 
 Every case resolves the same files and environment through both packages
 (``cpzk_tpu.server.__main__`` and ``cpzk_tpu_torch.server.__main__``) and
-holds the port to the reference's values, with the port's two departures
-from the defaults: ``[tpu] backend = "tpu"`` (the card) and ``[admission]
-enabled = false`` (not ported yet).  ``RetrySettings.build_policy`` raises
-in the port: the retry policy comes with its client.
+holds the port to the reference's values, with the port's one departure
+from the defaults: ``[tpu] backend = "tpu"`` (the card).  ``[admission]
+enabled`` defaults to true in both, and ``RetrySettings.build_policy``
+builds the same retry policy in both.
 """
 
 import dataclasses
@@ -20,8 +20,7 @@ from cpzk_tpu_torch.server import __main__ as t_main
 from cpzk_tpu_torch.server.config import ServerConfig
 
 #: the port's defaults that differ from the reference's, by design
-DEPARTURES = {("tpu", "backend"): ("cpu", "tpu"),
-              ("admission", "enabled"): (True, False)}
+DEPARTURES = {("tpu", "backend"): ("cpu", "tpu")}
 
 
 @pytest.fixture()
@@ -64,7 +63,7 @@ def test_defaults(clean_env):
     assert cfg.metrics.enabled is False
     assert cfg.tpu.backend == "tpu"     # the port's departure: the card
     assert ref.tpu.backend == "cpu"
-    assert cfg.admission.enabled is False and ref.admission.enabled is True
+    assert cfg.admission.enabled is True and ref.admission.enabled is True
     assert_same(ref, cfg)
     assert set(dataclasses.asdict(cfg)) == set(dataclasses.asdict(JServerConfig()))
 
@@ -81,7 +80,7 @@ def test_toml_layer_survives_argparse(clean_env):
     assert cfg.rate_limit.requests_per_minute == 500
     assert cfg.metrics.enabled is True
     assert (cfg.tpu.backend, cfg.tpu.batch_max) == ("tpu", 128)
-    assert_same(ref, cfg, departures={("admission", "enabled"): (True, False)})
+    assert_same(ref, cfg, departures={})
 
 
 def test_env_overrides_toml(clean_env, monkeypatch):
@@ -152,8 +151,8 @@ def test_empty_primary_env_beats_alias(clean_env, monkeypatch):
 
 def test_resilience_knob_layering(clean_env, monkeypatch):
     """The resilience knobs resolve through the same precedence chain:
-    TOML < env < CLI.  The retry policy itself is not ported: the port's
-    ``build_policy`` raises where the reference builds one."""
+    TOML < env < CLI, and ``build_policy`` builds the reference's policy
+    from them."""
     (clean_env / "server.toml").write_text(
         "[tpu]\nrecovery_after_s = 9.5\nprobe_batch_max = 16\n"
         "shed_expired = false\n"
@@ -172,9 +171,15 @@ def test_resilience_knob_layering(clean_env, monkeypatch):
     assert cfg.retry.initial_backoff_ms == 25.0
     assert_same(ref, cfg)
 
-    assert ref.retry.build_policy().max_attempts == 7
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cfg.retry.build_policy()
+    mine, theirs = cfg.retry.build_policy(), ref.retry.build_policy()
+    assert theirs.max_attempts == 7
+    assert (mine.max_attempts, mine.initial_backoff_s, mine.max_backoff_s,
+            mine.multiplier, mine.retryable_codes, mine.budget.tokens) == (
+        theirs.max_attempts, theirs.initial_backoff_s, theirs.max_backoff_s,
+        theirs.multiplier, theirs.retryable_codes, theirs.budget.tokens)
+    assert type(mine).__module__ == "cpzk_tpu_torch.resilience.retry"
+    cfg.retry.budget = ref.retry.budget = 0  # retries off: no policy
+    assert cfg.retry.build_policy() is None and ref.retry.build_policy() is None
 
 
 def test_resilience_knob_validation(clean_env):

@@ -399,12 +399,26 @@ async def failure_paths_count_and_observe(t):
               m.read_histogram("auth.challenge.duration")[0],
               m.read("rpc.requests", labels=labels))
     t.note(await t.call(t.client.create_challenge("ghost-user")))
-    after = (m.read("auth.challenge.failure"),
-             m.read_histogram("auth.challenge.duration")[0],
-             m.read("rpc.requests", labels=labels))
-    t.note(("deltas", tuple(a - b for a, b in zip(after, before))))
-    t.note(("failed trace", any(tr.name == "CreateChallenge" and tr.status == "failure"
-                                for tr in tracer.completed())))
+
+    def observed():
+        after = (m.read("auth.challenge.failure"),
+                 m.read_histogram("auth.challenge.duration")[0],
+                 m.read("rpc.requests", labels=labels))
+        failed = any(tr.name == "CreateChallenge" and tr.status == "failure"
+                     for tr in tracer.completed())
+        return tuple(a - b for a, b in zip(after, before)), failed
+
+    # the instrument decorator writes these in its ``finally``, which runs
+    # after ``context.abort`` has already sent the status to the client:
+    # wait (bounded) for that block before reading, as the reference's
+    # test reads them only after stopping the server
+    deadline = time.monotonic() + 5.0
+    deltas, failed = observed()
+    while (min(deltas) < 1.0 or not failed) and time.monotonic() < deadline:
+        await asyncio.sleep(0.01)
+        deltas, failed = observed()
+    t.note(("deltas", deltas))
+    t.note(("failed trace", failed))
     tracer.clear()
 
 

@@ -56,6 +56,9 @@ def test_import_pulls_in_neither_jax_nor_cpzk_tpu():
         "import cpzk_tpu_torch.server.service, cpzk_tpu_torch.server.state\n"
         "import cpzk_tpu_torch.server.wire, cpzk_tpu_torch.server.proto\n"
         "import cpzk_tpu_torch.observability.instrument\n"
+        "import cpzk_tpu_torch.admission, cpzk_tpu_torch.resilience.retry\n"
+        "import cpzk_tpu_torch.durability.wal, cpzk_tpu_torch.durability.recovery\n"
+        "from cpzk_tpu_torch.durability import DurabilityManager, WriteAheadLog\n"
         "from cpzk_tpu_torch.server import RateLimiter, ServerState, UserData\n"
         "cpzk_tpu_torch.server.proto.load_pb2(), cpzk_tpu_torch.server.proto.load_health_pb2()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cpzk_tpu')]\n"
@@ -201,16 +204,21 @@ asyncio.run(main())
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cpzk_tpu')]
 assert not bad, bad
 assert "cpzk_tpu_torch.ops.backend" in sys.modules  # it served the card's path
+assert "cpzk_tpu_torch.admission.controller" in sys.modules  # admission on by default
 print("DAEMON-ISOLATED")
 """
 
 
-def test_daemon_boot_pulls_in_neither_jax_nor_cpzk_tpu(tmp_path):
+@pytest.mark.parametrize("durability", [False, True])
+def test_daemon_boot_pulls_in_neither_jax_nor_cpzk_tpu(tmp_path, durability):
     """``cpzk_tpu_torch.server.__main__``, booted on the card's path (the
-    kernels' plain versions here) and stopped, imports no JAX and nothing
+    kernels' plain versions here) with admission on (the default), with
+    and without ``[durability]``, and stopped, imports no JAX and nothing
     of the JAX package."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("SERVER_")}
     env["SERVER_CONFIG_PATH"] = str(tmp_path / "none.toml")
+    if durability:
+        env.update(SERVER_DURABILITY_ENABLED="1", SERVER_STATE_FILE=str(tmp_path / "s.json"))
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     res = subprocess.run([sys.executable, "-c", _DAEMON_SCRIPT], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=120)

@@ -3,8 +3,9 @@
 ``[opsplane]``/``[slo]`` config surface.
 
 Every case but ``test_statusz_e2e_with_replication_and_audit`` is here:
-that one needs durability, replication, admission and the audit trail,
-which the port does not have yet.  The port's metrics live in its own
+that one needs replication and the audit trail, which the port does not
+have yet; its admission and durability blocks are held in
+``test_statusz_e2e_with_admission_and_durability``.  The port's metrics live in its own
 registry, so the exposition tests read only the port's families.  The
 daemon cases boot ``python -m cpzk_tpu_torch.server --backend cpu``; the
 client side of the gRPC cases is the reference's ``AuthClient``.
@@ -300,7 +301,7 @@ def test_start_in_thread_serves_and_stops():
         status, _, body = http_get(port, "/statusz")
         doc = json.loads(body)
         assert doc["role"] == "audit"
-        # the unported subsystems render as null blocks
+        # no subsystem attached: every control-plane block renders null
         for block in ("admission", "replication", "audit", "durability",
                       "fleet", "controller"):
             assert doc[block] is None, block
@@ -308,6 +309,76 @@ def test_start_in_thread_serves_and_stops():
         plane.stop_thread()
     with pytest.raises(OSError):
         http_get(port, "/healthz", timeout=2.0)
+
+
+def test_statusz_e2e_with_admission_and_durability(tmp_path):
+    """The admission and durability half of the reference's
+    ``test_statusz_e2e_with_replication_and_audit``: a daemon-shaped
+    stack (batcher + admission + snapshot/WAL durability) serves real
+    logins, and /statusz fills the admission and durability blocks while
+    the unported subsystems stay null."""
+    from cpzk_tpu_torch.admission import AdmissionController
+    from cpzk_tpu_torch.durability import DurabilityManager
+    from cpzk_tpu_torch.server.batching import DynamicBatcher
+    from cpzk_tpu_torch.server.config import AdmissionSettings, DurabilitySettings
+
+    async def main():
+        state = ServerState()
+        mgr = DurabilityManager(state, DurabilitySettings(enabled=True),
+                                str(tmp_path / "primary.json"))
+        await mgr.recover()
+        batcher = DynamicBatcher(CpuBackend(), max_batch=64, window_ms=5.0)
+        admission = AdmissionController(AdmissionSettings(), batcher=batcher)
+        server, port = await serve(
+            state, RateLimiter(100_000, 100_000), port=0,
+            batcher=batcher, admission=admission,
+        )
+        cfg = ServerConfig()
+        sources = OpsSources(
+            state=state, batcher=batcher, admission=admission, durability=mgr,
+            health=server.health, service=server.auth_service,
+            slo=SloEngine(cfg.slo), config_fingerprint=cfg.fingerprint(),
+        )
+        plane = OpsPlane(sources, port=0)
+        ops_port = await plane.start()
+        try:
+            async with AuthClient(f"127.0.0.1:{port}") as client:
+                provers = {}
+                for i in range(4):
+                    p = J.Prover(params, J.Witness(J.Ristretto255.random_scalar(rng)))
+                    provers[f"ops-u{i}"] = p
+                    resp = await client.register(
+                        f"ops-u{i}", EB(p.statement.y1), EB(p.statement.y2))
+                    assert resp.success
+                for uid, p in provers.items():
+                    ch = await client.create_challenge(uid)
+                    t = J.Transcript()
+                    t.append_context(bytes(ch.challenge_id))
+                    resp = await client.verify_proof(
+                        uid, ch.challenge_id,
+                        p.prove_with_transcript(rng, t).to_bytes())
+                    assert resp.success
+            status, ctype, body = await aget(ops_port, "/statusz")
+            assert status == 200 and "json" in ctype
+            doc = json.loads(body)
+            assert doc["batcher"]["queue_capacity"] == batcher.max_queue
+            assert doc["shards"]["users"] == 4 and doc["shards"]["sessions"] == 4
+            assert doc["dispatch"]["recorded_batches"] >= 1
+            assert doc["admission"]["level"] > 0
+            assert doc["admission"]["admitted_tiers"] == ["verify", "challenge", "register"]
+            # 4 registrations, 4 challenges, 4 consumes, 4 sessions
+            assert doc["durability"]["wal_seq"] == mgr.wal.seq == 16
+            assert doc["durability"]["fsync_policy"] == "always"
+            assert doc["health"] == {"live": True, "ready": True}
+            for block in ("replication", "audit", "fleet", "controller"):
+                assert doc[block] is None, block
+        finally:
+            await plane.stop()
+            await batcher.stop()
+            await server.stop(None)
+            await mgr.close()
+
+    run(main())
 
 
 def test_statusz_reports_active_streams():
@@ -678,5 +749,5 @@ def test_config_fingerprint_stable_and_sensitive():
     # the digest covers the same document as the reference's: equal
     # configs give equal fingerprints across the packages
     ref = JServerConfig()
-    a.tpu.backend, a.admission.enabled = ref.tpu.backend, ref.admission.enabled
+    a.tpu.backend = ref.tpu.backend
     assert a.fingerprint() == ref.fingerprint()

@@ -1,15 +1,14 @@
 """The port's ``VerifyProofStream``: twins of ``tests/test_streaming.py``
-without keyed admission (verdict order and correctness, session minting,
-the inline path without a batcher, single-use challenges, malformed
-chunks, per-entry deadline shedding, a backend raise confined to its chunk,
-a client that disconnects mid-stream, the two client iterators, the
-batcher's settled results, and the refusal on an unpromoted standby).
+(verdict order and correctness, session minting, the inline path without
+a batcher, single-use challenges, malformed chunks, per-entry deadline
+shedding, a backend raise confined to its chunk, a client that disconnects
+mid-stream, the two client iterators, the batcher's settled results, the
+refusal on an unpromoted standby, and keyed admission charged per proof).
 
 Each case runs one seeded scenario against the reference's server and the
 port's with the reference's ``AuthClient`` and requires the verdicts,
 messages, token shapes and the state counts the reference test reads to
-agree exactly.  Waiting for the admission controller (A13):
-``test_hot_streamer_shed_per_proof_with_pushback_stream_survives``.
+agree exactly.
 """
 
 import asyncio
@@ -19,6 +18,7 @@ import grpc
 import pytest
 
 from cpzk_tpu import Parameters, Prover, Transcript, Witness
+from cpzk_tpu.client import AuthClient
 from cpzk_tpu.core.ristretto import Ristretto255
 from torch_grpc_twins import PACKAGES, SeededRng, twin_check
 
@@ -224,6 +224,62 @@ def test_streaming_twin(name):
     scenario, expected = EXPECTED[name]
     obs = twin_check(scenario, seed=53)
     assert expected(obs), obs
+
+
+def test_hot_streamer_shed_per_proof_with_pushback_stream_survives():
+    """A hot streamer blows through its keyed bucket mid-stream: its
+    over-budget entries get NOT-verdicts with a retry delay, the stream's
+    trailers carry ``cpzk-retry-after-ms``, the stream survives, and a
+    client with its own bucket is unaffected — each side with its own
+    package's ``AdmissionController``."""
+
+    async def direct_entries(t, n):
+        # challenges minted straight into the state: the admission config
+        # would shed the setup RPCs themselves
+        out = []
+        for k in range(n):
+            user_id, prover = t.users[k % USERS]
+            cid = t.state.tag_challenge_id(user_id, t.rng.fill_bytes(32))
+            await t.state.create_challenge(user_id, cid)
+            out.append((user_id, cid, t.prove(prover, cid)))
+        return out
+
+    async def scenario(t):
+        adm, config = t.module("admission"), t.module("server.config")
+        batcher = t.pkg.DynamicBatcher(t.pkg.CpuBackend(), max_batch=64, window_ms=1.0)
+        admission = adm.AdmissionController(config.AdmissionSettings(
+            per_client_rpm=60, per_client_burst=10, max_clients=16), batcher=batcher)
+        await t.start(batcher=lambda pkg: batcher, rate=10**9, burst=10**9,
+                      admission=admission)
+        try:
+            t.users = await t.register_batch([f"u{i}" for i in range(USERS)])
+            entries = await direct_entries(t, 16)
+            pb2 = t.client.pb2
+            call = t.client._stream_stub(metadata=(("cpzk-client-id", "hot-streamer"),))
+            await call.write(pb2.StreamVerifyRequest(
+                ids=list(range(16)), user_ids=[e[0] for e in entries],
+                challenge_ids=[e[1] for e in entries], proofs=[e[2] for e in entries]))
+            await call.done_writing()
+            resps = [r async for r in call]
+            flat_ok = [ok for r in resps for ok in r.success]
+            shed = [m for r in resps for ok, m in zip(r.success, r.messages) if not ok]
+            trailing = {str(k): v for k, v in (await call.trailing_metadata() or ())}
+            t.note(("admitted", sum(flat_ok)),
+                   ("shed says rate limit", all("rate limit" in m.lower() for m in shed)),
+                   ("pushback", any(r.retry_after_ms > 0 for r in resps),
+                    float(trailing["cpzk-retry-after-ms"]) > 0),
+                   ("code", (await call.code()).name))
+            entries2 = await direct_entries(t, 4)
+            async with AuthClient(f"127.0.0.1:{t.port}", client_id="polite") as polite:
+                t.note(("polite", tuple([v.ok async for v in
+                                         polite.verify_proof_stream(entries2)])))
+        finally:
+            await t.stop()
+
+    obs = twin_check(scenario, seed=61)
+    assert obs == [("admitted", 10), ("shed says rate limit", True),
+                   ("pushback", True, True), ("code", "OK"),
+                   ("polite", (True,) * 4)]
 
 
 @pytest.mark.parametrize("side", ["reference", "port"])
