@@ -4,13 +4,17 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the CUDA kernels from ``cpzk_tpu_torch/csrc`` and the C++ host
 core from ``cpzk_tpu_torch/native`` (both into the ignored
-``cpzk_tpu_torch/_build``), and prints one JSON line per phase:
+``cpzk_tpu_torch/_build``), and prints one JSON line per phase (each also
+appended to ``chiprun_out/chip_smoke.jsonl``):
 
 1. ``device``  — the card (torch, and ``nvidia-smi`` name / power limit /
    max SM clock);
-2. ``build``   — seconds to build the kernels, and per kernel the
-   compiler's registers and spills (``-Xptxas -v``) and the block size it
-   is launched with at each lane count of phase 3;
+2. ``build``   — seconds to build the kernel library (one ``nvcc`` per
+   source, all started together, then one link), and per kernel (the two
+   point kernels, the two scalar kernels, the two MSM kernels) the
+   compiler's registers and spills (``-Xptxas -v``), and for the point
+   kernels the block size they are launched with at each lane count of
+   phase 3;
    ``host_core`` — seconds to build and load the host core (g++), its
    library name and the threads its pools use; the 256-proof corpus made
    by the port's prover on the core's constant-time comb;
@@ -25,6 +29,17 @@ core from ``cpzk_tpu_torch/native`` (both into the ignored
    in their own radix, so values must be equal after canonicalization
    (tolerance: exact) and output limbs within |9500|; device time per call
    of kernel and plain version (torch.profiler), beside the kernel's bound;
+   then the scalar kernels (``rlc_scalars``, ``scalar_recode``) at n in
+   {1, 127, 4096, 16384} rows of random scalars with 0, 1 and l - 1, at the
+   per-row path's width (windows, corrections at lane n) and the Pippenger
+   path's (digits at c in {4, 11, 13}): exact (``torch.equal``); and the
+   MSM kernels (``msm_bucket``, ``msm_window_reduce``) against the plain
+   MSM at m in {2048, 18432} terms (18,432: the 4096-row check's terms,
+   two chunks at c = 11), with the digits of random scalars, the same with
+   window 1 all +-2^(c-1) (the top bucket), and digits that put every term
+   of a window in one bucket: equal as group elements (the encodings; the order of
+   the adds differs, so the limbs may).  Device times beside the bounds at
+   the 4096- and 16,384-row shapes;
 4. ``serving_parse`` and ``serving_batch`` — 4096 entries tiling the
    corpus, each parsed fresh from wire bytes as a server parses them
    (``Proof.from_bytes_batch``, eager and deferred; statements with
@@ -42,6 +57,17 @@ core from ``cpzk_tpu_torch/native`` (both into the ignored
    lanes with the correction row, two lane chunks) with fresh alphas: True,
    and False with one tampered row; the launches of the valid check are
    reported on their own;
+   ``pippenger`` — this slice's path: ``BatchVerifier(backend=
+   TorchBackend(pippenger_min=2))`` on phase 4's 4096 wire-parsed entries,
+   with ``CPZK_DEVICE_RLC`` off and on: every valid entry accepted, and the
+   mixed batch's results (tampered rows at exactly their indices, exact
+   errors) equal to the per-row backend's; ``verify_combined`` on the
+   16,384 rows (65,538 terms, 5 chunks at c = 11) True and False with one
+   tampered row, with the host and the device scalar plane, and the
+   per-row check with the device scalar plane the same.  The per-row
+   reference runs first; every kernel's launch count is set to 0 just
+   before the Pippenger batches and read just after them, each of the six
+   at least once; each 16,384-row check is counted on its own;
    ``serving_plane`` — ``build_backend`` of the ``[tpu]`` settings on
    cuda:0, which with no fallback must serve ``TorchBackend`` bare; then
    with a counting ``CpuBackend`` passed as the fallback
@@ -100,7 +126,16 @@ core from ``cpzk_tpu_torch/native`` (both into the ignored
    shows this namespace's PIDs).  SIGTERM must exit 0 within the drain plus 30 s with a snapshot;
    a second boot must restore the 4096 users and the sessions and log one
    user in; a third, with ``[server] ingest_shards = 4``, must answer the
-   same logins again through the shards.  Printed: boot and shutdown
+   same logins again through the shards; a fourth, with
+   ``CPZK_PIPPENGER_MIN=2 CPZK_DEVICE_RLC=1`` in the daemon's environment,
+   must answer them with every verdict and the sessions equal to the first
+   boot's and ``/metrics`` showing all six kernels launched by the
+   logins; every batch of that wave holds tampered entries, so its
+   combined check fails and the per-row ladders decide, and the boot then
+   logs in the last 1000 users in one all-valid ``VerifyProofBatch``,
+   which must give every entry a session with the four scalar and MSM
+   kernels launched and no ``point_double_k`` (no per-row ladder): the
+   Pippenger check itself passed.  Printed: boot and shutdown
    seconds, registrations/s, challenges/s, logins/s from the first
    ``VerifyProofBatch`` sent to the last answer, RPC latency p50/p99, the
    flight records' batch sizes and device intervals, the restored counts,
@@ -114,15 +149,18 @@ core from ``cpzk_tpu_torch/native`` (both into the ignored
    ``[durability] enabled = true``, ``fsync = "always"`` and ``[server]
    max_users = 65536``: boot A registers 65,536 users with
    ``RegisterBatch`` (the WAL outgrows ``compact_bytes``, so the 1 s sweep
-   snapshots and compacts), logs 4096 of them in as the ``daemon`` phase
-   does, waits for a compaction, starts 1024 further ``CreateChallenge``
-   calls and SIGKILLs the daemon once 512 are acknowledged (reaped before
-   the next boot); boot B must recover 65,536 users and every
-   acknowledged session (``/statusz``) with nothing quarantined, log in
-   every acknowledged challenge in concurrent ``VerifyProofBatch`` RPCs
-   on the card (42 tampered, 2 undecodable; both kernels launched), refuse
-   a valid proof over a challenge consumed before the kill without a
-   batch, and exit 0 on SIGTERM with the WAL at 0 bytes.  Printed:
+   snapshots and compacts), acknowledges 512 challenges that it holds live
+   (unanswered), logs 4096 users in as the ``daemon`` phase does, waits for
+   a sweep whose compaction is held at the oldest live challenge (it does
+   not wait for a compaction to pass them), starts 1024 further
+   ``CreateChallenge`` calls and SIGKILLs the daemon once 512 are
+   acknowledged (reaped before the next boot); boot B must recover 65,536
+   users and every acknowledged session (``/statusz``) with nothing
+   quarantined, log in every acknowledged challenge, the 512 held and the
+   512 killed ones by id, in concurrent ``VerifyProofBatch`` RPCs on the
+   card (both point kernels launched), refuse a valid proof over a
+   challenge consumed before the kill without a batch, and exit 0 on
+   SIGTERM with the WAL at 0 bytes.  Printed:
    registrations/s, logins/s and ``VerifyProofBatch`` p50/p99 beside the
    ``daemon`` phase's, the WAL's appends, bytes and fsyncs from
    ``/metrics``, the recovery's seconds and counts, the admission blocks
@@ -130,7 +168,12 @@ core from ``cpzk_tpu_torch/native`` (both into the ignored
    filesystem type, and the launches of each wave;
 6. ``profile`` — one 4096-row combined check: wall time unprofiled, then
    device time by kernel under torch.profiler (the table goes to
-   ``chiprun_out/profile_4096.txt``) and the device's idle share.
+   ``chiprun_out/profile_4096.txt``) and the device's idle share;
+   ``pippenger_ab`` — the combined check at 4096 and 16,384 rows as per-row
+   ladders, as a Pippenger MSM, and as one with the device scalar plane,
+   in turns (3 reps after a warm turn): wall time and kernel launches per
+   check; then one 4096-row Pippenger check's device time by kernel and
+   idle share (``chiprun_out/profile_pippenger_4096.txt``).
 
 Then the ``kernels`` line (``launches`` counted over phases 4-5 only,
 ``launches_in_serving_plane`` over the served traffic of phase 5b,
@@ -138,7 +181,11 @@ Then the ``kernels`` line (``launches`` counted over phases 4-5 only,
 ``launches_in_daemon`` and ``launches_in_daemon_sharded`` over the
 daemon's first and third waves of logins, ``launches_in_durable_daemon``
 and ``launches_in_durable_recovery`` over the durable daemon's waves before
-the kill and after the recovery), the
+the kill and after the recovery; for the scalar and MSM kernels
+``launches`` over the ``pippenger`` phase's Pippenger batches, and for
+all six ``launches_in_pippenger`` (the same count) and
+``launches_in_daemon_pippenger``, the daemon's fourth wave, and
+``launches_in_daemon_all_valid_batch``, its all-valid batch), the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when CUDA is
@@ -203,13 +250,53 @@ MAIN_N = 16384
 CHUNK_4096_N = 6144
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_OPS_PER_SM_CLOCK = 64
+#: the kernels of the per-row path (the Pallas kernels' ports), then those of
+#: the device scalar plane and of the Pippenger MSM; together, and in
+#: ``REPLACES`` and ``SOURCES``, they must be the library's kernels
+#: (``point_kernels.kernel_names()``), which ``main`` checks first
+POINT_KERNELS = ("point_add", "point_double_k")
+PIPPENGER_KERNELS = ("rlc_scalars", "scalar_recode", "msm_bucket", "msm_window_reduce")
 REPLACES = {"point_add": "cpzk_tpu/ops/pallas_kernels.py:51",
-            "point_double_k": "cpzk_tpu/ops/pallas_kernels.py:87"}
-SOURCES = ["cpzk_tpu_torch/csrc/point_ops.cu", "cpzk_tpu_torch/csrc/fe25519_w32.cuh"]
+            "point_double_k": "cpzk_tpu/ops/pallas_kernels.py:87",
+            "rlc_scalars": "cpzk_tpu/ops/backend.py:468",
+            "scalar_recode": "cpzk_tpu/ops/backend.py:481",
+            "msm_bucket": "cpzk_tpu/ops/msm.py:103",
+            "msm_window_reduce": "cpzk_tpu/ops/msm.py:135"}
+_CSRC = "cpzk_tpu_torch/csrc/"
+SOURCES = {
+    "point_add": [_CSRC + "point_ops.cu", _CSRC + "fe25519_w32.cuh"],
+    "point_double_k": [_CSRC + "point_ops.cu", _CSRC + "fe25519_w32.cuh"],
+    "rlc_scalars": [_CSRC + "scalar_ops.cu", _CSRC + "sc25519_w32.cuh"],
+    "scalar_recode": [_CSRC + "scalar_ops.cu", _CSRC + "sc25519_w32.cuh"],
+    "msm_bucket": [_CSRC + "msm_ops.cu", _CSRC + "msm_w32.cuh", _CSRC + "fe25519_w32.cuh"],
+    "msm_window_reduce": [_CSRC + "msm_ops.cu", _CSRC + "msm_w32.cuh",
+                          _CSRC + "fe25519_w32.cuh"],
+}
+#: the scalar kernels' checks: row counts, window sizes of the digit recode,
+#: and the row counts timed (the 4096- and 16,384-row checks)
+SCALAR_NS = (1, 127, 4096, 16384)
+SCALAR_CS = (4, 11, 13)
+SCALAR_TIMED_NS = (4096, 16384)
+#: the MSM kernels' checks: term counts (18,432 is the 4096-row check's
+#: 4 x 4096 + 2 terms padded, two chunks), window size, lane chunk
+MSM_MS = (2048, 18432)
+MSM_C = 11
+MSM_CHUNK = 16384
+#: rows of the pippenger phase's A/B, and its reps (turns per config)
+AB_NS = (4096, 16384)
+AB_REPS = 3
+
+
+#: every emitted line is also appended here, so the whole record survives
+#: where only the end of the output is kept
+JSONL_OUT = os.path.join("chiprun_out", "chip_smoke.jsonl")
 
 
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(JSONL_OUT, "a") as f:
+        f.write(line + "\n")
 
 
 class SeededRng:
@@ -238,13 +325,14 @@ def synchronize() -> None:
     torch.cuda.synchronize()
 
 
-def launches_of(fn):
-    """(fn(), kernel launches per wrapper during it)."""
-    from cpzk_tpu_torch.ops import point_kernels as pk
+def launches_of(fn, names=POINT_KERNELS):
+    """(fn(), kernel launches per wrapper of ``names`` during it)."""
+    from cpzk_tpu_torch.ops.point_kernels import all_launches
 
-    before = dict(pk.LAUNCHES)
+    before = all_launches()
     out = fn()
-    return out, {k: pk.LAUNCHES[k] - before[k] for k in before}
+    after = all_launches()
+    return out, {k: after[k] - before[k] for k in names}
 
 
 def profiled(work):
@@ -1404,10 +1492,10 @@ def scraped(text: str, name: str, labels: str = "") -> float:
     return float(m.group(1)) if m else 0.0
 
 
-def kernel_launches(ops_port: int) -> dict:
+def kernel_launches(ops_port: int, names=POINT_KERNELS) -> dict:
     text = http_get(ops_port, "/metrics")
     return {k: int(scraped(text, "tpu_kernel_launches", f'{{kernel="{k}"}}'))
-            for k in REPLACES}
+            for k in names}
 
 
 def flight_records(ops_port: int, after_seq: int) -> list[dict]:
@@ -1624,7 +1712,8 @@ async def daemon_logins(port: int, user_ids, corpus, provers, rpc_max: int, gen,
     if [(r.success, r.message) for r in replay] != [(False, "Authentication failed")] * len(
             requests[0].user_ids):
         raise AssertionError("daemon: the replay was not refused entry for entry")
-    out.update(valid=expected.count("ok"), sessions=sum(bool(r.session_token) for r in results),
+    out.update(verdicts=got, valid=expected.count("ok"),
+               sessions=sum(bool(r.session_token) for r in results),
                tampered=expected.count("Authentication failed"),
                undecodable=expected.count(BAD_POINT), replay_refused=len(replay),
                sheds_by_rpc=dict(sheds), sheds_by_tier=tier_sheds(sheds),
@@ -1654,6 +1743,35 @@ async def daemon_single_login(port: int, uid: str, prover, gen) -> str:
     if not (resp.success and resp.session_token):
         raise AssertionError(f"daemon: the login after the restore failed: {resp.message}")
     return resp.message
+
+
+async def daemon_valid_batch(port: int, user_ids, first: int, provers, gen,
+                             sheds: dict) -> list:
+    """One ``VerifyProofBatch`` of ``user_ids[first:]``, each over a fresh
+    challenge with a valid proof: the results (sheds retried and counted
+    in ``sheds`` by RPC)."""
+    import grpc
+
+    from cpzk_tpu_torch import Transcript
+    from cpzk_tpu_torch._gen import auth_pb2 as pb
+
+    uids = user_ids[first:]
+    async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+        chal = unary_stub(ch, "CreateChallenge", pb.ChallengeRequest, pb.ChallengeResponse)
+        cids = [bytes(r.challenge_id) for r in await asyncio.gather(
+            *[pushback_call(chal, pb.ChallengeRequest(user_id=uid), "CreateChallenge", sheds)
+              for uid in uids])]
+        wires = []
+        for i, cid in enumerate(cids, start=first):
+            t = Transcript()
+            t.append_context(cid)
+            wires.append(provers[i % len(provers)].prove_with_transcript(gen, t).to_bytes())
+        verify = unary_stub(ch, "VerifyProofBatch", pb.BatchVerificationRequest,
+                            pb.BatchVerificationResponse)
+        resp = await pushback_call(
+            verify, pb.BatchVerificationRequest(user_ids=uids, challenge_ids=cids,
+                                                proofs=wires), "VerifyProofBatch", sheds)
+    return list(resp.results)
 
 
 def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
@@ -1693,14 +1811,15 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
         procs.append(proc)
         return proc.wait_listening(DAEMON_BOOT_TIMEOUT_S)
 
-    def served(proc: DaemonProcess, register: bool) -> dict:
-        """A wave of logins with the launch counts and the flight records
-        read just before and just after it."""
+    def served(proc: DaemonProcess, register: bool, kernels=POINT_KERNELS) -> dict:
+        """A wave of logins with the launch counts of ``kernels`` and the
+        flight records read just before and just after it."""
         seq0 = last_flight_seq(proc.ops_port)
-        launches0 = kernel_launches(proc.ops_port)
+        launches0 = kernel_launches(proc.ops_port, kernels)
         wave = asyncio.run(daemon_logins(proc.port, user_ids, corpus, provers, rpc_max, gen,
                                          register))
-        launches = {k: v - launches0[k] for k, v in kernel_launches(proc.ops_port).items()}
+        launches = {k: v - launches0[k]
+                    for k, v in kernel_launches(proc.ops_port, kernels).items()}
         records = flight_records(proc.ops_port, seq0)
         batched = sum(r["batch"] for r in records)
         # the replay's entries fail at the consume, before any batch
@@ -1716,6 +1835,7 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
         if failover:
             raise AssertionError(f"daemon {proc.name}: {failover} failovers")
         wave.pop("acked")
+        verdicts[proc.name] = wave.pop("verdicts")
         wave.update(batches=[r["batch"] for r in records],
                     device_interval_s=[r["device_interval_s"] for r in records],
                     batch_wall_s=[r["wall_s"] for r in records],
@@ -1748,6 +1868,7 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
         return row
 
     apps_before = card_apps() if on_card else []
+    verdicts: dict = {}
     try:
         # 1. boot, register, log in, replay; SIGTERM with a final snapshot
         first = boot("first", ["--port", "0"])
@@ -1807,6 +1928,50 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
         if rc != 0:
             raise AssertionError(f"daemon sharded: exit {rc}")
         out["sharded"] = wave
+
+        # 4. the same logins with the combined check as a Pippenger MSM and
+        # the device scalar plane, from the daemon's environment
+        pip = boot("pippenger", ["--port", "0"],
+                   {"CPZK_PIPPENGER_MIN": "2", "CPZK_DEVICE_RLC": "1"})
+        wave = served(pip, register=False, kernels=POINT_KERNELS + PIPPENGER_KERNELS)
+        if verdicts["pippenger"] != verdicts["first"] or wave["sessions"] != out["first"][
+                "sessions"]:
+            raise AssertionError("daemon pippenger: verdicts or sessions differ from the "
+                                 "first boot's")
+        # every batch of the wave holds tampered entries, so its combined
+        # check fails and the per-row ladders decide; one all-valid batch
+        # must pass the Pippenger check itself: its MSM kernels launched and
+        # no ladder (point_double_k) run, every entry given a session.  The
+        # last rpc_max users: the first has the most sessions already
+        kernels = POINT_KERNELS + PIPPENGER_KERNELS
+        seq0 = last_flight_seq(pip.ops_port)
+        launches0 = kernel_launches(pip.ops_port, kernels)
+        sheds: dict = {}
+        results = asyncio.run(daemon_valid_batch(pip.port, user_ids, n - rpc_max, provers,
+                                                 gen, sheds))
+        launches = {k: v - launches0[k]
+                    for k, v in kernel_launches(pip.ops_port, kernels).items()}
+        records = flight_records(pip.ops_port, seq0)
+        sessions = sum(bool(r.success and r.session_token) for r in results)
+        if len(results) != rpc_max or sessions != rpc_max:
+            raise AssertionError(f"daemon pippenger: the all-valid batch gave {sessions} "
+                                 f"sessions of {rpc_max}: "
+                                 f"{[r.message for r in results if not r.success][:3]}")
+        if on_card and (launches["point_double_k"] != 0
+                        or any(launches[k] < 1 for k in PIPPENGER_KERNELS)):
+            raise AssertionError("daemon pippenger: the all-valid batch did not pass the "
+                                 f"Pippenger check alone: launches {launches}")
+        wave["all_valid_batch"] = {"entries": len(results), "sessions": sessions,
+                                   "sheds_by_rpc": sheds,
+                                   "batches": [r["batch"] for r in records],
+                                   "device_interval_s": [r["device_interval_s"]
+                                                         for r in records],
+                                   "launches": launches}
+        wave["boot_s"] = pip.boot_s
+        rc, wave["shutdown_s"] = pip.terminate(DRAIN_SECONDS + 30)
+        if rc != 0:
+            raise AssertionError(f"daemon pippenger: exit {rc}")
+        out["pippenger"] = wave
     finally:
         for proc in procs:
             proc.kill()
@@ -2125,6 +2290,7 @@ def durable_daemon_phase(corpus, provers, users: int, n: int, rpc_max: int, held
         if on_card and min(launches.values()) < 1:
             raise AssertionError(f"a kernel was never launched by boot A's logins: {launches}")
         acked_a = wave.pop("acked")
+        wave.pop("verdicts")
         wave.update(launches=launches, batches=[r["batch"] for r in records],
                     device_interval_s=[r["device_interval_s"] for r in records])
         # snapshots hold no challenges: a sweep whose snapshot covers the
@@ -2234,6 +2400,331 @@ def durable_daemon_phase(corpus, provers, users: int, n: int, rpc_max: int, held
     return out
 
 
+def bound_of(nbytes: int, ops: int, int32_ops_per_s: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the int32 operations over the int32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / int32_ops_per_s * 1e3
+    return {"bytes": nbytes, "int32_ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def scalar_kernels_vs_plain(dev, ns, cs, timed_ns, int32_ops_per_s: float) -> dict:
+    """Phase 3b: the scalar kernels against their plain versions (exact,
+    ``torch.equal``) at each row count: ``rlc_scalars`` and the window
+    recode at the per-row path's width (pad_lanes(n + 1), corrections at
+    lane n), ``rlc_scalars`` and the digit recode at each c at the
+    Pippenger path's (pow2(n) rows, 4 pow2(n) + 2 terms); random scalars
+    with 0, 1 and l - 1 among them.  Device times at ``timed_ns``."""
+    import random
+
+    import torch
+
+    from cpzk_tpu_torch.core.scalars import L
+    from cpzk_tpu_torch.ops import msm, scalar_kernels as sk, sclimbs as sc
+    from cpzk_tpu_torch.ops.backend import _pad_lanes, _pad_pow2
+
+    rng = random.Random(SEED + 3)
+    rows = {"rlc_scalars": [], "scalar_recode": []}
+
+    def exact(label: str, got, ref) -> None:
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"{label}: kernel and plain version differ")
+
+    for n in ns:
+        pad, pw = _pad_lanes(n + 1), _pad_pow2(n)
+        vals = [[rng.randrange(L) for _ in range(n)] for _ in range(3)]
+        for v in vals:
+            v[:min(n, 3)] = [0, 1, L - 1][:min(n, 3)]
+        al, cl, sl = (torch.from_numpy(sc.ints_to_limbs(v + [0] * (pad - n))).to(dev)
+                      for v in vals)
+        bl = torch.from_numpy(sc.ints_to_limbs([rng.randrange(L)])).to(dev)
+        wide = sk.rlc_scalars(al, cl, sl, bl)
+        synchronize()
+        ref = sk.rlc_scalars_plain(al, cl, sl, bl)
+        exact(f"rlc_scalars n={n} lanes={pad}", wide, ref)
+        groups, corr = (al, *ref[:3]), ref[3:]
+        exact(f"scalar_recode windows n={n}", [sk.rlc_windows(groups, *corr, n)],
+              [sk.rlc_windows_plain(groups, *corr, n)])
+        narrow = tuple(t[:, :pw].contiguous() for t in (al, cl, sl))
+        got = sk.rlc_scalars(*narrow, bl)
+        ref = sk.rlc_scalars_plain(*narrow, bl)
+        exact(f"rlc_scalars n={n} lanes={pw}", got, ref)
+        groups, corr, m = (narrow[0], *ref[:3]), ref[3:], 4 * pw + 2
+        m_pad = m if m <= MSM_CHUNK else _pad_lanes(m)
+        for c in cs:
+            exact(f"scalar_recode digits n={n} c={c}",
+                  [sk.rlc_digits(groups, *corr, n, m_pad, c)],
+                  [sk.rlc_digits_plain(groups, *corr, n, m_pad, c)])
+        if n not in timed_ns:
+            continue
+        row = {"n": n, "lanes": pw, "max_abs_err": 0, "exact_at_c": list(cs),
+               **bound_of(*sk.rlc_scalars_work(pw), int32_ops_per_s)}
+        row.update(device_ms("rlc_scalars", lambda: sk.rlc_scalars(*narrow, bl),
+                             lambda: sk.rlc_scalars_plain(*narrow, bl), 20, 2))
+        rows["rlc_scalars"].append(row)
+        nwin = msm.num_windows(MSM_C)
+        row = {"n": n, "terms": m_pad, "c": MSM_C, "max_abs_err": 0,
+               **bound_of(*sk.scalar_recode_work(m_pad, nwin, 4 * n + 2), int32_ops_per_s)}
+        row.update(device_ms(
+            "scalar_recode", lambda: sk.rlc_digits(groups, *corr, n, m_pad, MSM_C),
+            lambda: sk.rlc_digits_plain(groups, *corr, n, m_pad, MSM_C), 20, 2))
+        wgroups, wcorr = (al, *wide[:3]), wide[3:]
+        windows = device_ms("scalar_recode", lambda: sk.rlc_windows(wgroups, *wcorr, n),
+                            lambda: sk.rlc_windows_plain(wgroups, *wcorr, n), 20, 2)
+        row["windows"] = {"lanes": pad, **windows,
+                          **bound_of(*sk.scalar_recode_work(4 * pad, 64, 4 * pad),
+                                     int32_ops_per_s)}
+        rows["scalar_recode"].append(row)
+    return rows
+
+
+def msm_kernels_vs_plain(dev, ms, c: int, chunk: int, int32_ops_per_s: float) -> dict:
+    """Phase 3c: the MSM kernels against the plain MSM on every lane chunk
+    of m terms: random valid points; digits of random scalars (0, 1, l - 1
+    among them), as the main path makes them; the same with window 1 all
+    +-2^(c-1), the top bucket; and a full-width case where every digit is
+    5, so each window's terms share one bucket.  ``msm_bucket`` against
+    the plain bucket sums, and ``msm_window_reduce`` (on the kernel's
+    buckets and on the plain ones) against the plain reduction, as group
+    elements: the encodings must be equal.  Device times on the first,
+    full chunk of the random digits (the other two cases put one thread's
+    whole window into one bucket, a serial chain of m adds)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from cpzk_tpu_torch.core import edwards
+    from cpzk_tpu_torch.core.scalars import L
+    from cpzk_tpu_torch.ops import curve, msm, msm_kernels as mk, point_kernels as pk
+    from cpzk_tpu_torch.ops.backend import _chunk_bounds, _chunk_point
+
+    rng = random.Random(SEED + 5)
+    np_rng = np.random.default_rng(SEED + 5)
+    base = curve.points_to_device(
+        [edwards.pt_scalar_mul(edwards.BASEPOINT, rng.randrange(L)) for _ in range(256)], dev)
+    half = 1 << (c - 1)
+    rows = {"msm_bucket": [], "msm_window_reduce": []}
+
+    def err(a, b) -> int:
+        return int((curve.encode(a) - curve.encode(b)).abs().max())
+
+    for m in ms:
+        i1 = torch.from_numpy(np_rng.integers(0, 256, m)).to(dev)
+        i2 = torch.from_numpy(np_rng.integers(0, 256, m)).to(dev)
+        pts = pk.point_add_plain(tuple(x[:, i1] for x in base), tuple(x[:, i2] for x in base))
+        vals = [rng.randrange(L) for _ in range(m - 3)] + [0, 1, L - 1]
+        digits = msm.scalars_to_signed_digits(vals, c)
+        top = digits.copy()
+        top[1] = np.where(np.arange(m) % 3 == 0, -half, half)
+        for case, dg in (("random", digits), ("top_bucket", top),
+                         ("one_bucket", np.full_like(digits, 5))):
+            d = torch.from_numpy(dg).to(dev)
+            for lo, hi in _chunk_bounds(m, chunk):
+                p, dd = _chunk_point(pts, lo, hi), d[:, lo:hi].contiguous()
+                buckets = mk.msm_bucket(p, dd, c)
+                out = mk.msm_window_reduce(buckets, c)
+                synchronize()
+                ref_buckets = msm.bucket_sums_plain(p, dd, c)
+                ref = msm.window_reduce_plain(ref_buckets, c)
+                errs = {"msm_bucket": err(buckets, ref_buckets),
+                        "msm_window_reduce": max(err(out, ref),
+                                                 err(mk.msm_window_reduce(ref_buckets, c), ref))}
+                if any(errs.values()):
+                    raise AssertionError(f"MSM kernels m={m} {case} chunk {lo}:{hi}: "
+                                         f"encodings differ by {errs}")
+                timed = case == "random" and lo == 0 and hi - lo == chunk
+                for name, e in errs.items():
+                    row = {"m": m, "case": case, "chunk": [lo, hi], "c": c, "max_abs_err": e}
+                    if timed and name == "msm_bucket":
+                        row.update(bound_of(*mk.msm_bucket_work(dd, c), int32_ops_per_s))
+                        row["nonzero_digits"] = int((dd != 0).sum())
+                        row.update(device_ms(name, lambda: mk.msm_bucket(p, dd, c),
+                                             lambda: msm.bucket_sums_plain(p, dd, c), 5, 1))
+                    elif timed:
+                        row.update(bound_of(*mk.msm_window_reduce_work(dd.shape[0], c),
+                                            int32_ops_per_s))
+                        row.update(device_ms(name, lambda: mk.msm_window_reduce(buckets, c),
+                                             lambda: msm.window_reduce_plain(buckets, c), 5, 1))
+                    rows[name].append(row)
+    return rows
+
+
+def batch_verdicts(backend, params, corpus, n: int) -> dict:
+    """Phase 4's n entries through ``BatchVerifier`` on ``backend``: the
+    all-valid batch (eager parse) and the mixed one (deferred), each as
+    (per-entry result text, seconds of ``verify``)."""
+    from cpzk_tpu_torch import BatchVerifier, SecureRng
+
+    valid, mixed, _, _ = serving_wires(params, corpus, n)
+    out = {}
+    for label, entries, deferred in (("valid", valid, False), ("mixed", mixed, True)):
+        proofs, statements, _, _ = parse_entries(entries, deferred)
+        bv = BatchVerifier(backend=backend, max_size=n)
+        for (_, _, _, ctx), pr, st in zip(entries, proofs, statements):
+            bv.add_with_context(params, st, pr, ctx)
+        t0 = time.perf_counter()
+        results = bv.verify(SecureRng())
+        synchronize()
+        out[label] = ([None if r is None else (type(r).__name__, str(r)) for r in results],
+                      time.perf_counter() - t0)
+    return out
+
+
+@contextlib.contextmanager
+def device_rlc(on: bool):
+    """``CPZK_DEVICE_RLC`` set to 1 (or unset) for the block."""
+    saved = os.environ.pop("CPZK_DEVICE_RLC", None)
+    if on:
+        os.environ["CPZK_DEVICE_RLC"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("CPZK_DEVICE_RLC", None)
+        if saved is not None:
+            os.environ["CPZK_DEVICE_RLC"] = saved
+
+
+def pippenger_phase(params, corpus, rows, beta, n: int, chunk: int,
+                    on_card: bool = True) -> dict:
+    """The ``pippenger`` phase, this slice's main path: the combined check
+    as one Pippenger MSM (``TorchBackend(pippenger_min=2)``) through
+    ``BatchVerifier`` on phase 4's n wire-parsed entries, with the host and
+    the device scalar plane (``CPZK_DEVICE_RLC``): every valid entry
+    accepted, the mixed batch's results equal to the per-row backend's
+    (exact rows, exact errors); ``verify_combined`` on all rows (16,384:
+    5 chunks of terms) True, and False with one tampered row; the per-row
+    check with the device scalar plane the same.  The per-row reference
+    runs first; every kernel's launch count is set to 0 just before the
+    Pippenger batches and read just after them (``launches``, each of the
+    six at least once); each check on all rows is counted on its own (a
+    rehearsal on the CPU passes ``on_card=False``: the plain versions
+    launch nothing)."""
+    from cpzk_tpu_torch.core.ristretto import Scalar
+    from cpzk_tpu_torch.ops import msm
+    from cpzk_tpu_torch.ops.backend import TorchBackend, _pad_lanes, _pad_pow2
+    from cpzk_tpu_torch.ops.point_kernels import all_launches, reset_all_launches
+    from cpzk_tpu_torch.protocol.batch import BatchRow
+
+    per_row = TorchBackend(lane_chunk=chunk)
+    pip = TorchBackend(lane_chunk=chunk, pippenger_min=2)
+    # the reference verdicts, on the per-row route, outside the count
+    ref = batch_verdicts(per_row, params, corpus, n)
+    _, _, bad, undecodable = serving_wires(params, corpus, n)
+    flagged = [i for i, r in enumerate(ref["mixed"][0]) if r is not None]
+    if flagged != sorted([*bad, *undecodable]):
+        raise AssertionError(f"per-row backend flagged {flagged}")
+    out = {"n": n, "tampered": len(bad), "undecodable": len(undecodable),
+           "tolerance": "exact", "per_row_s": {k: v[1] for k, v in ref.items()},
+           "launches_by_scalar_plane": {}}
+    reset_all_launches()
+    for label, on in (("host_rlc", False), ("device_rlc", True)):
+        with device_rlc(on):
+            got, out["launches_by_scalar_plane"][label] = launches_of(
+                lambda: batch_verdicts(pip, params, corpus, n),
+                POINT_KERNELS + PIPPENGER_KERNELS)
+        if got["valid"][0] != [None] * n:
+            raise AssertionError(f"pippenger ({label}): a valid entry was rejected")
+        if got["mixed"][0] != ref["mixed"][0]:
+            raise AssertionError(f"pippenger ({label}): mixed results differ from per-row")
+        out[f"pippenger_{label}_s"] = {k: v[1] for k, v in got.items()}
+    out["launches"] = all_launches()
+    for name in PIPPENGER_KERNELS + POINT_KERNELS:
+        if on_card and out["launches"][name] < 1:
+            raise AssertionError(f"{name} was never launched on the pippenger path")
+
+    big = len(rows)
+    m = 4 * _pad_pow2(big) + 2
+    m_pad = m if m <= chunk else _pad_lanes(m, chunk)
+    bad_rows = list(rows)
+    k = (7 * big) // 15
+    r = bad_rows[k]
+    bad_rows[k] = BatchRow(r.g, r.h, r.y1, r.y2, r.r1, r.r2, Scalar(r.s.value + 1), r.c,
+                           r.alpha)
+    checks = {}
+    for label, backend, on in (("pippenger_host_rlc", pip, False),
+                               ("pippenger_device_rlc", pip, True),
+                               ("per_row_device_rlc", per_row, True)):
+        with device_rlc(on):
+            ok, launches = launches_of(lambda b=backend: b.verify_combined(rows, beta),
+                                       POINT_KERNELS + PIPPENGER_KERNELS)
+            ok_bad = backend.verify_combined(bad_rows, beta)
+        if ok is not True or ok_bad is not False:
+            raise AssertionError(f"{label}: {big}-row check gave {ok}, tampered {ok_bad}")
+        checks[label] = launches
+    chunks = checks["pippenger_host_rlc"]["msm_bucket"]
+    if on_card and chunks != -(-m_pad // chunk):
+        raise AssertionError(f"{big}-row Pippenger check ran {chunks} chunks")
+    out["big_check"] = {"rows": big, "terms": m_pad, "c": msm.pick_window(min(m, chunk)),
+                        "chunks": chunks, "launches": checks}
+    return out
+
+
+def pippenger_ab(rows, beta, ns, reps: int) -> dict:
+    """The A/B of the combined check at each row count, in turns on one
+    card: per-row ladders, Pippenger, Pippenger with the device scalar
+    plane; wall time (host clock to a synchronise) and kernel launches per
+    check.  Then one 4096-row Pippenger check under torch.profiler: device
+    time by kernel and the idle share (table in
+    ``chiprun_out/profile_pippenger_4096.txt``)."""
+    from cpzk_tpu_torch.ops.backend import TorchBackend
+
+    configs = {"per_row": (TorchBackend(), False),
+               "pippenger": (TorchBackend(pippenger_min=2), False),
+               "pippenger_device_rlc": (TorchBackend(pippenger_min=2), True)}
+    out = {}
+    for n in ns:
+        sub = rows[:n]
+        res = {name: {"wall_ms": [], "launches": None} for name in configs}
+        order = list(configs)
+        for rep in range(reps + 1):  # the first turn warms each config
+            for name in (order if rep % 2 == 0 else order[::-1]):
+                backend, on = configs[name]
+                with device_rlc(on):
+                    synchronize()
+                    t0 = time.perf_counter()
+                    ok, launches = launches_of(lambda: backend.verify_combined(sub, beta),
+                                               POINT_KERNELS + PIPPENGER_KERNELS)
+                    synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                if ok is not True:
+                    raise AssertionError(f"A/B {name} n={n}: the check rejected")
+                if rep:
+                    res[name]["wall_ms"].append(wall)
+                res[name]["launches"] = sum(launches.values())
+        out[n] = res
+    pip = configs["pippenger"][0]
+    sub = rows[:4096]
+    pip.verify_combined(sub, beta)
+    synchronize()
+    t0 = time.perf_counter()
+    pip.verify_combined(sub, beta)
+    synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {key: (us / 1e3, count) for key, us, count in
+                 profiled(lambda: pip.verify_combined(sub, beta))}
+    busy_ms = sum(v[0] for v in by_kernel.values())
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "profile_pippenger_4096.txt"), "w") as f:
+        for key, (ms, count) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0]):
+            f.write(f"{ms:10.3f} ms {count:6d}  {key}\n")
+    ours = {name: v for k, v in by_kernel.items()
+            for name in POINT_KERNELS + PIPPENGER_KERNELS if f"::{name}_kernel(" in k}
+    out["profile_4096"] = {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms,
+        "kernels_ms": {k: v[0] for k, v in ours.items()},
+        "kernel_launches": {k: v[1] for k, v in ours.items()},
+        "other_device_ms": busy_ms - sum(v[0] for v in ours.values()),
+        "other_launches": sum(v[1] for v in by_kernel.values()) - sum(
+            v[1] for v in ours.values()),
+        "top": [[k[:100], v[0], v[1]] for k, v in
+                sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]],
+    }
+    return out
+
+
 def profile_combined(backend, rows, beta) -> dict:
     """Phase 6: wall time of one combined check, then its device time by
     kernel under the profiler."""
@@ -2282,8 +2773,18 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 1
 
+    names = set(pk.kernel_names())
+    for table, keys in (("POINT_KERNELS + PIPPENGER_KERNELS",
+                         POINT_KERNELS + PIPPENGER_KERNELS),
+                        ("REPLACES", REPLACES), ("SOURCES", SOURCES)):
+        if set(keys) != names:
+            raise AssertionError(f"{table} lists {sorted(keys)}, the library's kernels "
+                                 f"are {sorted(names)}")
+
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    os.makedirs(os.path.dirname(JSONL_OUT), exist_ok=True)
+    open(JSONL_OUT, "w").close()
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -2301,7 +2802,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in report.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     per_kernel = pk.ptxas_report(report)
-    for name in REPLACES:
+    for name in POINT_KERNELS:
         per_kernel.setdefault(name, {})["block_threads"] = {
             n: pk.block_threads(n, dev) for n in KERNEL_NS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -2317,6 +2818,15 @@ def main() -> int:
     kernel_rows = kernels_vs_plain(dev, KERNEL_NS, int32_ops_per_s, gen)
     emit({"phase": "kernels_vs_plain", "tolerance": "exact after canonicalization", **card,
           "results": kernel_rows})
+    scalar_rows = scalar_kernels_vs_plain(dev, SCALAR_NS, SCALAR_CS, SCALAR_TIMED_NS,
+                                          int32_ops_per_s)
+    emit({"phase": "kernels_vs_plain", "kernels": "scalar", "tolerance": "exact (torch.equal)",
+          **card, "results": scalar_rows})
+    msm_rows = msm_kernels_vs_plain(dev, MSM_MS, MSM_C, MSM_CHUNK, int32_ops_per_s)
+    emit({"phase": "kernels_vs_plain", "kernels": "msm",
+          "tolerance": "equal as group elements (encodings)", **card, "results": msm_rows})
+    kernel_rows.update(scalar_rows)
+    kernel_rows.update(msm_rows)
 
     rows, beta = north_star_rows(params, corpus, NORTH_STAR_N, SecureRng())
 
@@ -2332,6 +2842,12 @@ def main() -> int:
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"{name} was never launched on the main path")
+
+    # 5a. this slice's path: the combined check as a Pippenger MSM, with the
+    # host and the device scalar plane (every count set to 0 inside just
+    # before it and read just after)
+    pip = pippenger_phase(params, corpus, rows, beta, SERVING_N, MSM_CHUNK)
+    emit({"phase": "pippenger", **pip, **card})
 
     # 5b. the serving plane (its own launch counts, reset inside just before
     # the served traffic and read just after)
@@ -2368,14 +2884,17 @@ def main() -> int:
     # 6. where the time goes
     prof = profile_combined(backend, rows[:SERVING_N], beta)
     emit({"phase": "profile", **prof, **card})
+    ab = pippenger_ab(rows, beta, AB_NS, AB_REPS)
+    emit({"phase": "pippenger_ab", **ab, **card})
 
     kernels = []
-    for name, results in kernel_rows.items():
+    for name in POINT_KERNELS:
+        results = kernel_rows[name]
         main_row = next(r for r in results if r["n"] == MAIN_N)
         chunk_row = next(r for r in results if r["n"] == CHUNK_4096_N)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": SOURCES[0], "sources": SOURCES,
+            "source": SOURCES[name][0], "sources": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in results),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -2392,6 +2911,35 @@ def main() -> int:
             "launches_in_daemon_sharded": served["sharded"]["launches"][name],
             "launches_in_durable_daemon": durable["boot_a"]["logins"]["launches"][name],
             "launches_in_durable_recovery": durable["boot_b"]["logins"]["launches"][name],
+            "launches_in_pippenger": pip["launches"][name],
+            "launches_in_daemon_pippenger": served["pippenger"]["launches"][name],
+            "launches_in_daemon_all_valid_batch":
+                served["pippenger"]["all_valid_batch"]["launches"][name],
+        })
+    for name in PIPPENGER_KERNELS:
+        results = kernel_rows[name]
+        timed = [r for r in results if "ms" in r]
+        # the 4096-row Pippenger check's shapes: its rows, and one full chunk
+        main_row = next(r for r in timed if r.get("n", SERVING_N) == SERVING_N)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": SOURCES[name][0], "sources": SOURCES[name],
+            "replaces": REPLACES[name], "launches": pip["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": None,
+            "shape": {k: main_row[k] for k in ("n", "lanes", "terms", "m", "chunk", "c")
+                      if k in main_row},
+            "timed": [{k: r[k] for k in ("n", "m", "ms", "plain_ms", "bound_ms", "bound_by")
+                       if k in r} for r in timed],
+            "registers": per_kernel[name].get("registers"),
+            "spill_bytes": per_kernel[name].get("spill_store_bytes"),
+            "launches_in_pippenger": pip["launches"][name],
+            "launches_per_16384_check": pip["big_check"]["launches"]["pippenger_device_rlc"][name],
+            "launches_in_daemon_pippenger": served["pippenger"]["launches"][name],
+            "launches_in_daemon_all_valid_batch":
+                served["pippenger"]["all_valid_batch"]["launches"][name],
         })
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -1,8 +1,9 @@
 """Device time per launch of the two point kernels, for one or more builds
-of their sources, in one run on one card.
+of their sources, in one run on one card; then the scalar and MSM kernels
+against their plain versions.
 
     python -m cpzk_tpu_torch.bench_kernels [--ns 1,6144,16384] [--reps 50]
-        [--rounds 4] [--sass] [NAME=CSRC_DIR ...]
+        [--rounds 4] [--sass] [--no-pippenger] [NAME=CSRC_DIR ...]
 
 Each ``NAME=CSRC_DIR`` names a directory holding a ``point_ops.cu`` with the
 C launch interface of ``cpzk_tpu_torch/csrc/point_ops.cu``, for example an
@@ -16,8 +17,18 @@ after a traced warm-up step, for the kernel's own device time per launch
 where it saw none is traced again).
 With ``--sass``, also the static instruction count of each kernel and its
 most frequent opcodes, read from ``cuobjdump -sass`` of the build.  Prints
-one JSON line per build, then the card's ``nvidia-smi`` name and power
-limit.  Needs a CUDA device.
+one JSON line per build.
+
+Unless ``--no-pippenger``, then the A/B of the package's four kernels of the
+Pippenger path against their plain versions, at the main path's shapes (a
+4096-row Pippenger check: ``rlc_scalars`` on 4096 rows, ``scalar_recode``
+into the digits of 18,432 terms at c = 11, ``msm_bucket`` and
+``msm_window_reduce`` on a 16,384-term chunk at c = 11): each first checked
+(exact, or equal encodings for the MSM), then timed with CUDA events in
+turns (plain, kernel, kernel, plain per round): ``reps`` launches of the
+kernel, or one call of the plain version, between two events.  One JSON
+line, then the card's ``nvidia-smi`` name and power limit.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -123,12 +134,84 @@ def sass_counts(lib_path: Path) -> dict:
             for k, c in ops.items()}
 
 
+def _event_ms(fn, calls: int) -> float:
+    """Milliseconds per call of ``calls`` back-to-back calls of ``fn``,
+    between two CUDA events on the current stream."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()  # warm
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def pippenger_kernels(dev: torch.device, reps: int, rounds: int) -> dict:
+    """The four kernels of the Pippenger path against their plain versions
+    at a 4096-row check's shapes (see the module docstring)."""
+    import random
+
+    from .core import edwards
+    from .core.scalars import L
+    from .ops import curve, msm, msm_kernels as mk, scalar_kernels as sk, sclimbs as sc
+
+    rng = random.Random(9)
+    n, c, chunk = 4096, 11, 16384
+    al, cl, sl = (torch.from_numpy(sc.ints_to_limbs([rng.randrange(L) for _ in range(n)]))
+                  .to(dev) for _ in range(3))
+    bl = torch.from_numpy(sc.ints_to_limbs([rng.randrange(L)])).to(dev)
+    ac, ba, bac, corr0, corr1 = sk.rlc_scalars_plain(al, cl, sl, bl)
+    groups, m = (al, ac, ba, bac), 18432
+    base = curve.points_to_device(
+        [edwards.pt_scalar_mul(edwards.BASEPOINT, rng.randrange(L)) for _ in range(64)], dev)
+    idx = torch.from_numpy(np.random.default_rng(9).integers(0, 64, (2, chunk))).to(dev)
+    pts = pk.point_add_plain(tuple(x[:, idx[0]] for x in base),
+                             tuple(x[:, idx[1]] for x in base))
+    digits = torch.from_numpy(msm.scalars_to_signed_digits(
+        [rng.randrange(L) for _ in range(chunk)], c)).to(dev)
+    buckets = msm.bucket_sums_plain(pts, digits, c)
+    cases = {
+        "rlc_scalars": (lambda: sk.rlc_scalars(al, cl, sl, bl),
+                        lambda: sk.rlc_scalars_plain(al, cl, sl, bl)),
+        "scalar_recode": (lambda: sk.rlc_digits(groups, corr0, corr1, n, m, c),
+                          lambda: sk.rlc_digits_plain(groups, corr0, corr1, n, m, c)),
+        "msm_bucket": (lambda: mk.msm_bucket(pts, digits, c),
+                       lambda: msm.bucket_sums_plain(pts, digits, c)),
+        "msm_window_reduce": (lambda: mk.msm_window_reduce(buckets, c),
+                              lambda: msm.window_reduce_plain(buckets, c)),
+    }
+    out = {}
+    for name, (kernel, plain) in cases.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if name.startswith("msm"):
+            ok = torch.equal(curve.encode(got), curve.encode(ref))
+        else:
+            ok = torch.equal(got, ref) if isinstance(got, torch.Tensor) else all(
+                torch.equal(g, r) for g, r in zip(got, ref))
+        if not ok:
+            raise AssertionError(f"{name}: kernel and plain version differ")
+        k_ms, p_ms = [], []
+        for _ in range(rounds):
+            p_ms.append(_event_ms(plain, 1))
+            k_ms.append(_event_ms(kernel, reps))
+            k_ms.append(_event_ms(kernel, reps))
+            p_ms.append(_event_ms(plain, 1))
+        out[name] = {"kernel_ms": statistics.median(k_ms), "plain_ms": statistics.median(p_ms),
+                     "kernel_runs": k_ms, "plain_runs": p_ms}
+    return {"pippenger_kernels": out, "rows": n, "terms": m, "chunk": chunk, "c": c,
+            "reps": reps, "rounds": rounds}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ns", default="1,6144,16384")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--no-pippenger", action="store_true")
     ap.add_argument("builds", nargs="*", metavar="NAME=CSRC_DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -185,6 +268,8 @@ def main(argv: list[str] | None = None) -> int:
                                       "launches_seen": b["seen"][k][n]}
                                   for n, v in b["us"][k].items()} for k in KERNELS},
         }), flush=True)
+    if not args.no_pippenger:
+        print(json.dumps(pippenger_kernels(dev, args.reps, args.rounds)), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

@@ -1,7 +1,8 @@
-// Test-only host build of fe25519_w32.cuh: a C interface over limb-major
-// [20, n] int32 arrays, looping over lanes on the CPU, so the tests can hold
-// the kernels' field and point arithmetic against the plain PyTorch version
-// with a host C++ compiler:
+// Test-only host build of fe25519_w32.cuh, sc25519_w32.cuh and msm_w32.cuh:
+// a C interface over limb-major [20, n] int32 arrays, looping over lanes on
+// the CPU, so the tests can hold the kernels' field, point and scalar
+// arithmetic and the Pippenger thread bodies against the plain PyTorch
+// versions with a host C++ compiler:
 //
 //   g++ -std=c++17 -O2 -shared -fPIC host_shim.cpp -o libfe25519_host.so
 //
@@ -10,13 +11,18 @@
 // this library.
 #include <stdint.h>
 
+#include <vector>
+
 #include "fe25519_w32.cuh"
+#include "msm_w32.cuh"
+#include "sc25519_w32.cuh"
 
 namespace {
 
 using cpzk::Fe;
 using cpzk::NL;
 using cpzk::NW;
+using cpzk::Sc;
 
 void load_fe(Fe& out, const int32_t* src, int n, int j) {
   int32_t l[NL];
@@ -27,6 +33,18 @@ void load_fe(Fe& out, const int32_t* src, int n, int j) {
 void store_fe(int32_t* dst, const Fe& v, int n, int j) {
   int32_t l[NL];
   cpzk::fe_to_limbs(l, v);
+  for (int i = 0; i < NL; ++i) dst[(long)i * n + j] = l[i];
+}
+
+void load_sc(Sc& out, const int32_t* src, int n, int j) {
+  int32_t l[NL];
+  for (int i = 0; i < NL; ++i) l[i] = src[(long)i * n + j];
+  cpzk::sc_from_limbs(out, l);
+}
+
+void store_sc(int32_t* dst, const Sc& v, int n, int j) {
+  int32_t l[NL];
+  cpzk::sc_to_limbs(l, v);
   for (int i = 0; i < NL; ++i) dst[(long)i * n + j] = l[i];
 }
 
@@ -105,6 +123,105 @@ void host_point_double_k(const int32_t* x, const int32_t* y, const int32_t* z,
     store_fe(oz, p[2], n, j);
     store_fe(ot, p[3], n, j);
   }
+}
+
+// Scalars mod l.  op: 0 mul, 1 add, 2 neg (b unused), 3 the conversion
+// round trip (b unused).
+void host_sc_op(int op, const int32_t* a, const int32_t* b, int32_t* out, int n) {
+  for (int j = 0; j < n; ++j) {
+    Sc x, y, z;
+    load_sc(x, a, n, j);
+    if (op < 2) load_sc(y, b, n, j);
+    switch (op) {
+      case 0: cpzk::sc_mul(z, x, y); break;
+      case 1: cpzk::sc_add(z, x, y); break;
+      case 2: cpzk::sc_neg(z, x); break;
+      default: z = x; break;
+    }
+    store_sc(out, z, n, j);
+  }
+}
+
+// [40, n] canonical limbs of values below 2^512 -> [20, n] limbs mod l.
+void host_sc_reduce_wide(const int32_t* x, int32_t* out, int n) {
+  for (int j = 0; j < n; ++j) {
+    uint32_t w[2 * NW] = {0};
+    for (int i = 0; i < 2 * NL; ++i) {
+      const int bit = cpzk::LIMB_BITS * i, wd = bit >> 5, sh = bit & 31;
+      const uint32_t v = (uint32_t)x[(long)i * n + j];
+      if (wd < 2 * NW) w[wd] |= v << sh;
+      if (sh > 32 - cpzk::LIMB_BITS && wd + 1 < 2 * NW) w[wd + 1] |= v >> (32 - sh);
+    }
+    Sc r;
+    cpzk::sc_reduce_wide(r, w);
+    store_sc(out, r, n, j);
+  }
+}
+
+// [20, n] scalars -> [64, n] 4-bit windows (MSB first).
+void host_sc_windows(const int32_t* a, int32_t* out, int n) {
+  for (int j = 0; j < n; ++j) {
+    Sc x;
+    load_sc(x, a, n, j);
+    cpzk::sc_windows4(out + j, n, x);
+  }
+}
+
+// [20, n] scalars -> [nwin, n] signed c-bit digits (LSB first).
+void host_sc_signed_digits(const int32_t* a, int c, int nwin, int32_t* out, int n) {
+  for (int j = 0; j < n; ++j) {
+    Sc x;
+    load_sc(x, a, n, j);
+    cpzk::sc_signed_digits(out + j, n, x, c, nwin);
+  }
+}
+
+// msm_bucket_kernel's thread body over every (window w, bucket j): points
+// [20, m] x 4, digits [k, m] -> buckets [20, k 2^(c-1)] x 4, bucket j of
+// window w at lane w 2^(c-1) + j - 1; the whole row is one tile, and the
+// pending list holds cap entries.
+void host_msm_bucket(const int32_t* x, const int32_t* y, const int32_t* z,
+                     const int32_t* t, const int32_t* digits, int32_t* ox, int32_t* oy,
+                     int32_t* oz, int32_t* ot, int m, int k, int c, int cap) {
+  const int nb = 1 << (c - 1);
+  const int32_t* const coords[4] = {x, y, z, t};
+  int32_t* const out[4] = {ox, oy, oz, ot};
+  int32_t pend[64];
+  for (int w = 0; w < k; ++w) {
+    for (int j = 1; j <= nb; ++j) {
+      Fe acc[4];
+      cpzk::pt_identity(acc);
+      cpzk::msm_bucket_tile(acc, digits + (long)w * m, m, 0, j, coords, m, pend, 1, cap);
+      cpzk::store_point(out, (long)k * nb, (long)w * nb + j - 1, acc);
+    }
+  }
+}
+
+// msm_window_reduce_kernel's thread bodies: buckets [20, k 2^(c-1)] x 4 ->
+// the [20, 1] result, with `segments` segments per window (a power of two
+// dividing 2^(c-1), at most 32).
+void host_msm_window_reduce(const int32_t* bx, const int32_t* by, const int32_t* bz,
+                            const int32_t* bt, int32_t* ox, int32_t* oy, int32_t* oz,
+                            int32_t* ot, int k, int c, int segments) {
+  const int nb = 1 << (c - 1);
+  int log_s = 0;
+  while ((segments << log_s) < nb) ++log_s;
+  const int32_t* const coords[4] = {bx, by, bz, bt};
+  const long lanes = (long)k * nb;
+  std::vector<uint32_t> totals((long)k * 4 * NW);
+  for (int w = 0; w < k; ++w) {
+    Fe run[32][4], tot[32][4], total[4];
+    for (int s = 0; s < segments; ++s) {
+      cpzk::msm_segment(run[s], tot[s], s << log_s, (s + 1) << log_s, coords, lanes,
+                        (long)w * nb);
+    }
+    cpzk::msm_join(total, run, tot, segments, log_s);
+    cpzk::store_total(&totals[(long)w * 4 * NW], total);
+  }
+  Fe acc[4];
+  cpzk::msm_horner(acc, k, c, totals.data());
+  int32_t* const out[4] = {ox, oy, oz, ot};
+  cpzk::store_point(out, 1, 0, acc);
 }
 
 }  // extern "C"

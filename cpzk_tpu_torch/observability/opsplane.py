@@ -58,6 +58,9 @@ ENDPOINTS = (
 
 #: Schema tag of the ``/statusz`` payload.
 STATUSZ_SCHEMA = "cpzk-statusz/1"
+#: the package whose kernel modules (each with a ``LAUNCHES`` dict of its
+#: kernels' launch counts) ``tpu.kernel.launches{kernel}`` exports
+KERNEL_PACKAGE = "cpzk_tpu_torch.ops."
 
 _MAX_REQUEST_BYTES = 16384
 _READ_TIMEOUT_S = 10.0
@@ -99,13 +102,15 @@ class OpsSources:
         state = self.state
         if state is not None and hasattr(state, "export_shard_gauges"):
             state.export_shard_gauges()
-        # read, never imported here: the ingest shards and the host-only
-        # daemon must not import torch for a scrape
-        kernels = sys.modules.get("cpzk_tpu_torch.ops.point_kernels")
-        if kernels is not None:
-            gauge = metrics.gauge("tpu.kernel.launches", labelnames=("kernel",))
-            for name, count in kernels.LAUNCHES.items():
-                gauge.labels(kernel=name).set(count)
+        # read from the loaded kernel modules, never imported here: the
+        # ingest shards and the host-only daemon must not import torch for a
+        # scrape
+        for module_name, module in list(sys.modules.items()):
+            launches = getattr(module, "LAUNCHES", None)
+            if module_name.startswith(KERNEL_PACKAGE) and isinstance(launches, dict):
+                gauge = metrics.gauge("tpu.kernel.launches", labelnames=("kernel",))
+                for name, count in launches.items():
+                    gauge.labels(kernel=name).set(count)
 
     # -- statusz -------------------------------------------------------------
 

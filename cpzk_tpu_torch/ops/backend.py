@@ -2,13 +2,27 @@
 :class:`cpzk_tpu_torch.protocol.batch.BatchVerifier`.
 
 Port of the single-device path of ``cpzk_tpu/ops/backend.py``.  Host side:
-scalar arithmetic mod l (Python ints), window decomposition, and SoA limb
-marshalling of the row points from their wire bytes (the host core's
-batch decode, :func:`.curve.wires_to_device`).  Device side: the verification ladders of
-:mod:`.verify`, whose point adds and doublings are the CUDA kernels of
-:mod:`.point_kernels`.  The combined RLC check runs per lane chunk; if it
-fails, ``verify_each`` decides per row, so accept/reject is per-proof
-ground truth.
+SoA limb marshalling of the row points from their wire bytes (the host
+core's batch decode, :func:`.curve.wires_to_device`) and, by default, the
+RLC scalar products mod l (Python ints) with their window or digit
+decomposition.  Device side: the verification ladders of :mod:`.verify`,
+whose point adds and doublings are the CUDA kernels of
+:mod:`.point_kernels`; if it fails, ``verify_each`` decides per row, so
+accept/reject is per-proof ground truth.
+
+The combined RLC check takes one of two routes, as in the reference:
+
+- below ``pippenger_min`` rows (:data:`PIPPENGER_MIN_ROWS`, by default
+  never reached), the per-row ladders over n + 1 lanes (the correction row
+  last), per lane chunk (:func:`chunked_combined_identity`);
+- from ``pippenger_min`` rows on, one signed-digit Pippenger MSM over the
+  4n + 2 terms (:func:`chunked_msm_identity`, the kernels of
+  :mod:`.msm_kernels`), per lane chunk of terms.
+
+With ``CPZK_DEVICE_RLC=1`` (read per call) the scalar products, the
+corrections and their window or digit recode run on the device instead
+(the kernels of :mod:`.scalar_kernels`, the reference's device scalar
+plane); the host marshals the a, c, s limbs only.
 
 Serving-plane hooks (as in the reference): each call reports its padded
 lanes (``tpu.batch.pad_waste``, :func:`.flightrec.note_lanes`), its host
@@ -21,12 +35,14 @@ runs one combined check at each serving width before a server reports
 ready.
 
 Not ported (single-device GPU path only): the jit/AOT caches, buffer
-donation, mesh sharding, Pippenger routing and the device RLC scalar plane.
+donation and mesh sharding (which always routes through the MSM).  Scratch
+is allocated per call, so one instance serves concurrent batches.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -38,7 +54,8 @@ from ..core.scalars import L
 from ..observability import flightrec
 from ..protocol.batch import BatchRow, VerifierBackend
 from ..server import metrics
-from . import curve, point_kernels, verify
+from . import curve, msm, point_kernels, scalar_kernels, verify
+from . import sclimbs as sc
 
 #: Lane-chunk size and lane-pad quantum.  These are the JAX package's
 #: values, chosen on a TPU (the chunk sidesteps a TPU compiler defect on
@@ -46,6 +63,14 @@ from . import curve, point_kernels, verify
 #: they are not yet measured on the H100.
 LANE_CHUNK = 16384
 LANE_QUANTUM = 2048
+
+#: Row count at or above which the combined check runs the Pippenger MSM
+#: instead of the per-row ladders: ``CPZK_PIPPENGER_MIN`` at import, else
+#: the reference's value, 1 << 62 (never), which it chose from A/Bs on a
+#: TPU.  Not measured on the H100: ``chip_smoke.py``'s ``pippenger`` phase
+#: reports the A/B there.  ``TorchBackend(pippenger_min=...)`` overrides it
+#: per instance.
+PIPPENGER_MIN_ROWS = int(os.environ.get("CPZK_PIPPENGER_MIN", str(1 << 62)))
 
 #: Default LRU bound on ``TorchBackend._gh_cache``: device-resident
 #: generator-pair points keyed by generator bytes.  Real deployments share
@@ -123,6 +148,84 @@ def chunked_combined_identity(pad: int, chunk: int, r1, y1, r2, y2,
     return bool(curve.is_identity(curve.tree_sum(stacked, axis=-1)))
 
 
+def chunked_msm_identity(c: int, pts: curve.Point, digits: torch.Tensor,
+                         chunk: int) -> bool:
+    """The chunked MSM == identity check: one partial point per chunk of
+    terms (zero-digit padded terms contribute nothing), then one tree-sum
+    and identity test over the partials."""
+    m_pad = digits.shape[-1]
+    if m_pad <= chunk:
+        return bool(msm.msm_is_identity_kernel(pts, digits, c))
+    parts = [msm.msm_kernel(_chunk_point(pts, lo, hi), digits[:, lo:hi], c)
+             for lo, hi in _chunk_bounds(m_pad, chunk)]
+    stacked = tuple(torch.cat([p[k] for p in parts], dim=-1) for k in range(4))
+    return bool(curve.is_identity(curve.tree_sum(stacked, axis=-1)))
+
+
+# -- the device scalar plane (CPZK_DEVICE_RLC=1) ----------------------------
+
+def _marshal_scalar_limbs(rows: list[BatchRow], beta: Scalar, pad: int, device):
+    """The a, c, s limbs of the rows (zero past row n) as ``[20, pad]`` and
+    beta as ``[20, 1]`` canonical limb tensors on ``device``."""
+    zeros = [0] * (pad - len(rows))
+
+    def limbs(values):
+        return torch.from_numpy(sc.ints_to_limbs(values)).to(device)
+
+    return (limbs([r.alpha.value for r in rows] + zeros),
+            limbs([r.c.value for r in rows] + zeros),
+            limbs([r.s.value for r in rows] + zeros),
+            limbs([beta.value]))
+
+
+def _rlc_scalar_groups(al, cl, sl, bl):
+    """(a c, b a, b a c, -sum(a s), -b sum(a s)) mod l on the device."""
+    return scalar_kernels.rlc_scalars(al, cl, sl, bl)
+
+
+def _rlc_products(n: int, al, cl, sl, bl):
+    """The four window columns of the per-row combined check (a, a c, b a,
+    b a c, each ``[64, pad]``) with the corrections at lane n, the place of
+    the host path's correction row."""
+    ac, ba, bac, corr0, corr1 = _rlc_scalar_groups(al, cl, sl, bl)
+    return tuple(scalar_kernels.rlc_windows((al, ac, ba, bac), corr0, corr1, n))
+
+
+def _rlc_windows_device(rows: list[BatchRow], beta: Scalar, pad: int, device):
+    """Device window columns for the per-row combined kernel."""
+    return _rlc_products(len(rows), *_marshal_scalar_limbs(rows, beta, pad, device))
+
+
+def _signed_digits(c: int, n: int, m: int, al, groups) -> torch.Tensor:
+    """``[K, m]`` digits of the terms a | a c | b a | b a c | corr_G |
+    corr_H | zeros from the scalar groups of :func:`_rlc_scalar_groups`."""
+    ac, ba, bac, corr0, corr1 = groups
+    return scalar_kernels.rlc_digits((al, ac, ba, bac), corr0, corr1, n, m, c)
+
+
+def _pippenger_digits_device(rows: list[BatchRow], beta: Scalar, m: int, c: int,
+                             device) -> torch.Tensor:
+    """``[K, m]`` signed digits for the 4n + 2-term MSM, scalar products and
+    recode on the device; the term order matches
+    :meth:`TorchBackend._combined_pippenger`'s point layout."""
+    n = len(rows)
+    al, cl, sl, bl = _marshal_scalar_limbs(rows, beta, _pad_pow2(n), device)
+    return _signed_digits(c, n, m, al, _rlc_scalar_groups(al, cl, sl, bl))
+
+
+def _host_rlc_scalars(rows: list[BatchRow], beta: Scalar):
+    """(a, a c, b a, b a c, -sum(a s), -b sum(a s)) mod l as Python ints."""
+    b = beta.value
+    a = [r.alpha.value for r in rows]
+    c = [r.c.value for r in rows]
+    s = [r.s.value for r in rows]
+    ac = [x * y % L for x, y in zip(a, c)]
+    ba = [b * x % L for x in a]
+    bac = [b * x % L for x in ac]
+    sum_as = sum(x * y for x, y in zip(a, s)) % L
+    return a, ac, ba, bac, (L - sum_as) % L, (L - b * sum_as % L) % L
+
+
 class TorchBackend(VerifierBackend):
     """Vectorized GPU backend.
 
@@ -131,12 +234,14 @@ class TorchBackend(VerifierBackend):
     used only when asked for (``device="cpu"``, as the tests do), and then
     the kernels' plain PyTorch versions run.  ``lane_chunk`` overrides
     :data:`LANE_CHUNK` for this instance (below the quantum, or a multiple
-    of it); ``gh_cache_max`` overrides :data:`GH_CACHE_MAX`."""
+    of it); ``gh_cache_max`` overrides :data:`GH_CACHE_MAX`;
+    ``pippenger_min`` overrides :data:`PIPPENGER_MIN_ROWS`, the row count
+    from which the combined check runs the Pippenger MSM."""
 
     prefers_combined = True
 
     def __init__(self, device=None, lane_chunk: int | None = None,
-                 gh_cache_max: int | None = None):
+                 gh_cache_max: int | None = None, pippenger_min: int | None = None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -152,6 +257,8 @@ class TorchBackend(VerifierBackend):
                 f"lane_chunk={chunk} must be positive and, above "
                 f"{LANE_QUANTUM}, a multiple of it")
         self.lane_chunk = chunk
+        self.pippenger_min = (
+            PIPPENGER_MIN_ROWS if pippenger_min is None else pippenger_min)
         # LRU-bounded generator-pair cache, guarded: concurrent batches
         # from worker threads must marshal a cold pair once
         self._gh_cache: OrderedDict[
@@ -220,6 +327,9 @@ class TorchBackend(VerifierBackend):
 
     def _verify_combined(self, rows: list[BatchRow], beta: Scalar) -> bool:
         n = len(rows)
+        device_rlc = os.environ.get("CPZK_DEVICE_RLC") == "1"
+        if n >= self.pippenger_min:
+            return self._combined_pippenger(rows, beta, device_rlc)
         dev = self.device
         t0 = time.perf_counter()
         # correction row: G in slot r1 with -sum(a s), H in slot y1 with
@@ -230,22 +340,52 @@ class TorchBackend(VerifierBackend):
         y1 = _elems_soa([r.y1 for r in rows] + [rows[0].h], pad, dev)
         r2 = _elems_soa([r.r2 for r in rows], pad, dev)
         y2 = _elems_soa([r.y2 for r in rows], pad, dev)
-        b = beta.value
-        a = [r.alpha.value for r in rows]
-        c = [r.c.value for r in rows]
-        s = [r.s.value for r in rows]
-        ac = [x * y % L for x, y in zip(a, c)]
-        ba = [b * x % L for x in a]
-        bac = [b * x % L for x in ac]
-        sum_as = sum(x * y for x, y in zip(a, s)) % L
-        w_a = curve.scalar_windows(a + [(L - sum_as) % L], pad, dev)
-        w_ac = curve.scalar_windows(ac + [(L - b * sum_as % L) % L], pad, dev)
-        w_ba = curve.scalar_windows(ba, pad, dev)
-        w_bac = curve.scalar_windows(bac, pad, dev)
+        if device_rlc:
+            scalars = _marshal_scalar_limbs(rows, beta, pad, dev)
+        else:
+            a, ac, ba, bac, corr0, corr1 = _host_rlc_scalars(rows, beta)
+            windows = (curve.scalar_windows(a + [corr0], pad, dev),
+                       curve.scalar_windows(ac + [corr1], pad, dev),
+                       curve.scalar_windows(ba, pad, dev),
+                       curve.scalar_windows(bac, pad, dev))
         flightrec.note_marshal(time.perf_counter() - t0)
         with self._device_work():
+            if device_rlc:
+                windows = _rlc_products(n, *scalars)
             return chunked_combined_identity(
-                pad, self.lane_chunk, r1, y1, r2, y2, w_a, w_ac, w_ba, w_bac)
+                pad, self.lane_chunk, r1, y1, r2, y2, *windows)
+
+    def _combined_pippenger(self, rows: list[BatchRow], beta: Scalar,
+                            device_rlc: bool) -> bool:
+        """One MSM over all 4n + 2 (point, scalar) terms == identity.
+
+        The row count, not the term count, is padded to a power of two
+        (m = 4 pow2(n) + 2), so padding stays small at power-of-two batch
+        sizes; past the chunk, quantum padding keeps the waste under one
+        quantum of identity terms.  The window size is per chunk of terms,
+        so the cost model sees the chunk length."""
+        n = len(rows)
+        dev = self.device
+        t0 = time.perf_counter()
+        elems = ([r.r1 for r in rows] + [r.y1 for r in rows] + [r.r2 for r in rows]
+                 + [r.y2 for r in rows] + [rows[0].g, rows[0].h])
+        m = 4 * _pad_pow2(n) + 2
+        c = msm.pick_window(min(m, self.lane_chunk))
+        m_pad = m if m <= self.lane_chunk else _pad_lanes(m, self.lane_chunk)
+        _note_pad_waste(4 * n + 2, m_pad)
+        pts = _elems_soa(elems, m_pad, dev)
+        if device_rlc:
+            scalars = _marshal_scalar_limbs(rows, beta, _pad_pow2(n), dev)
+        else:
+            a, ac, ba, bac, corr0, corr1 = _host_rlc_scalars(rows, beta)
+            terms = a + ac + ba + bac + [corr0, corr1]
+            digits = torch.from_numpy(msm.scalars_to_signed_digits(
+                terms + [0] * (m_pad - len(terms)), c)).to(dev)
+        flightrec.note_marshal(time.perf_counter() - t0)
+        with self._device_work():
+            if device_rlc:
+                digits = _signed_digits(c, n, m_pad, scalars[0], _rlc_scalar_groups(*scalars))
+            return chunked_msm_identity(c, pts, digits, self.lane_chunk)
 
     def verify_each(self, rows: list[BatchRow]) -> list[bool]:
         with self._scope():
@@ -297,8 +437,9 @@ def _generator_rows(n: int) -> tuple[list[BatchRow], Scalar]:
 
 
 def prewarm(quanta, device=None) -> dict[str, float]:
-    """Build the CUDA kernels (on a card) and run one combined check at
-    each quantum's padded width (``quantum`` rows plus the correction row)
+    """Build the CUDA kernels (on a card: the whole library, the point,
+    scalar and MSM kernels) and run one combined check at each quantum's
+    padded width (``quantum`` rows plus the correction row)
     on valid rows made from the generators; the serving plane's
     replacement for the reference's ahead-of-time compile.  Returns the
     seconds each step took, keyed ``"build"`` and ``"combined/<lanes>"``.

@@ -10,9 +10,12 @@ kernel                 replaces
 
 Sources: ``csrc/fe25519_w32.cuh`` (field and point arithmetic for one lane,
 ``__host__ __device__``) and ``csrc/point_ops.cu`` (the ``__global__``
-kernels, their block size and a plain C launch interface), built with
-``nvcc`` for ``sm_90a`` into a shared library at first use (:func:`build`)
-and loaded with ``ctypes``.
+kernels, their block size and a plain C launch interface).  This module
+also builds the kernel library of the whole package: every ``csrc/*.cu``
+(these kernels, :mod:`.scalar_kernels`' and :mod:`.msm_kernels`') compiled
+with ``nvcc`` for ``sm_90a``, in parallel, and linked into one shared
+library at first use (:func:`build`, :func:`library`), loaded with
+``ctypes``.
 
 Design.  One thread per lane (batch column) of the limb-major ``[20, n]``
 layout, so a warp's load of one limb is 32 consecutive words.  The thread
@@ -53,6 +56,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -66,10 +70,13 @@ Point = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: build output (listed in .gitignore); one library per source hash
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+#: flags of each source's compile (``-Xptxas -v``: registers and spills)
+#: and of the link of their objects into one shared library
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernel and nowhere else.
@@ -191,40 +198,90 @@ def _nvcc() -> str:
 
 
 def build(csrc: Path = CSRC) -> tuple[Path, str]:
-    """Compile ``point_ops.cu`` of ``csrc`` (by default the package's own
-    sources) into ``_build/`` unless a library for those sources already
-    exists.  Returns the library path and the compiler's report
-    (``-Xptxas -v``: registers and spills per kernel), kept beside the
-    library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    """Compile every ``*.cu`` of ``csrc`` (by default the package's own
+    sources: the point, scalar and MSM kernels) into ``_build/`` unless a
+    library for those sources already exists: one ``nvcc -c`` per source,
+    all started together, then one link into a shared library.  Returns the
+    library path and the compiler's report (``-Xptxas -v``: registers and
+    spills per kernel), kept beside the library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(csrc.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    out = BUILD_DIR / f"libcpzk_points_{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"libcpzk_kernels_{h.hexdigest()[:16]}.so"
     report = out.with_suffix(".ptxas.txt")
     if out.exists() and report.exists():
         return out, report.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / "point_ops.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
-    report.write_text(res.stderr)
+    nvcc = _nvcc()
+    sources = sorted(csrc.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                         for src, o in zip(sources, objs))]
+    stderr = []
+    try:
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+            stderr.append(err)
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for o in objs:
+            o.unlink(missing_ok=True)
+    text = "".join(stderr)
+    report.write_text(text)
     os.replace(tmp, out)
-    return out, res.stderr
+    return out, text
+
+
+def kernel_modules() -> tuple:
+    """The modules of the library's kernels: this one, :mod:`.scalar_kernels`
+    and :mod:`.msm_kernels`.  The one registry of the kernels: each module's
+    ``LAUNCHES`` keys are its kernels' wrapper names."""
+    from . import msm_kernels, scalar_kernels
+
+    return (sys.modules[__name__], scalar_kernels, msm_kernels)
+
+
+def kernel_names() -> tuple[str, ...]:
+    """Every kernel of the library, by wrapper name."""
+    return tuple(name for module in kernel_modules() for name in module.LAUNCHES)
+
+
+def all_launches() -> dict[str, int]:
+    """Every kernel wrapper's launch count."""
+    return {name: count for module in kernel_modules() for name, count in
+            module.LAUNCHES.items()}
+
+
+def reset_all_launches() -> None:
+    for module in kernel_modules():
+        module.reset_launches()
 
 
 def ptxas_report(report: str) -> dict[str, dict[str, int]]:
     """Registers and stack and spill bytes per kernel (keyed by wrapper
     name) from the ``-Xptxas -v`` report that :func:`build` returns."""
     out: dict[str, dict[str, int]] = {}
+    names = kernel_names()
     current = None
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            current = next((k for k in LAUNCHES if f"{k}_kernel" in m.group(1)), None)
+            current = next((k for k in names if f"{k}_kernel" in m.group(1)), None)
             continue
         if current is None:
             continue
@@ -240,14 +297,31 @@ def ptxas_report(report: str) -> dict[str, dict[str, int]]:
     return out
 
 
+#: the C entry points of the library and their arguments: pointers (and
+#: the stream) as ``c_void_p``, ints as ``c_int``
+_I = ctypes.c_int
+ENTRY_POINTS = {
+    "cpzk_point_add": [_P] * 12 + [_I, _P],
+    "cpzk_point_double_k": [_P] * 7 + [_I] * 2 + [_P],
+    "cpzk_block_threads": [_I],
+    "cpzk_rlc_scalars": [_P] * 11 + [_I, _P],
+    "cpzk_rlc_scalars_blocks": [_I],
+    "cpzk_scalar_recode": [_P] * 6 + [_I] * 6 + [_P] * 2,
+    "cpzk_msm_bucket": [_P] * 9 + [_I] * 3 + [_P],
+    "cpzk_msm_window_reduce": [_P] * 9 + [_I] * 2 + [_P],
+    "cpzk_msm_segments": [_I],
+}
+
+
 def load(path: Path) -> ctypes.CDLL:
-    """Load a library built from ``point_ops.cu`` and declare its two launch
-    entry points."""
+    """Load a library built by :func:`build` and declare the entry points it
+    has (a build of an older ``csrc`` may lack the later kernels)."""
     lib = ctypes.CDLL(str(path))
-    lib.cpzk_point_add.argtypes = [_P] * 12 + [ctypes.c_int, _P]
-    lib.cpzk_point_add.restype = ctypes.c_int
-    lib.cpzk_point_double_k.argtypes = [_P] * 7 + [ctypes.c_int] * 2 + [_P]
-    lib.cpzk_point_double_k.restype = ctypes.c_int
+    for name, argtypes in ENTRY_POINTS.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -258,10 +332,7 @@ def library() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is None:
             path, _ = build()
-            lib = load(path)
-            lib.cpzk_block_threads.argtypes = [ctypes.c_int]
-            lib.cpzk_block_threads.restype = ctypes.c_int
-            _LIB = lib
+            _LIB = load(path)
         return _LIB
 
 
@@ -298,13 +369,22 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def on_card(name: str, device: torch.device) -> bool:
+    """How a wrapper routes a tensor on ``device``: True to launch its
+    kernel (CUDA), False for its plain version (CPU); any other device
+    raises."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    return True
+
+
 def point_add(p: Point, q: Point) -> Point:
     """p + q per lane; operands broadcast to a common ``[20, ...]`` shape."""
     device = p[0].device
-    if device.type == "cpu":
+    if not on_card("point_add", device):
         return point_add_plain(p, q)
-    if device.type != "cuda":
-        raise ValueError(f"point_add: unsupported device {device}")
     flat, shape = _lanes(list(p) + list(q), device)
     n = flat[0].shape[1]
     out = [torch.empty((NLIMBS, n), dtype=torch.int32, device=device) for _ in range(4)]
@@ -323,10 +403,8 @@ def point_double_k(p: Point, k: int) -> Point:
     if k < 1:
         raise ValueError("point_double_k needs k >= 1")
     device = p[0].device
-    if device.type == "cpu":
+    if not on_card("point_double_k", device):
         return point_double_k_plain(p, k)
-    if device.type != "cuda":
-        raise ValueError(f"point_double_k: unsupported device {device}")
     flat, shape = _lanes(list(p[:3]), device)
     n = flat[0].shape[1]
     out = [torch.empty((NLIMBS, n), dtype=torch.int32, device=device) for _ in range(4)]

@@ -7,12 +7,25 @@ identical.  On the CPU the port runs its kernels' plain versions."""
 
 import numpy as np
 import pytest
+import torch
 
 import cpzk_tpu as J
 import cpzk_tpu_torch as T
 from cpzk_tpu.protocol.batch import CpuBackend as JaxCpuBackend
 from cpzk_tpu_torch import convert
 from cpzk_tpu_torch.ops.backend import TorchBackend, _chunk_bounds, _pad_lanes
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for this module: its plain point and scalar
+    arithmetic runs many small tensor ops, and a full thread team each,
+    beside the test suite's other workers, oversubscribes the host's
+    cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 class SeededRng:
@@ -200,3 +213,54 @@ def test_gh_cache_lru_bounded_telemetry():
     assert port[:4] == [(1, 1.0, 0.0), (2, 2.0, 0.0), (2, 2.0, 1.0), (2, 2.0, 2.0)]
     assert port[4] == [wires[2], wires[0]]
     assert port[5] == 3.0
+
+
+# -- the Pippenger route and the device scalar plane, across lane chunks ------
+# Twins of the Pippenger and device-RLC cases of tests/test_chunking.py,
+# chunked through the constructor's ``lane_chunk`` (no module reload).
+
+def test_pippenger_min_defaults_to_the_reference_value(monkeypatch):
+    from cpzk_tpu_torch.ops import backend as backend_mod
+
+    assert backend_mod.PIPPENGER_MIN_ROWS == 1 << 62  # never, as the reference
+    assert TorchBackend(device="cpu").pippenger_min == 1 << 62
+    monkeypatch.setattr(backend_mod, "PIPPENGER_MIN_ROWS", 3)
+    assert TorchBackend(device="cpu").pippenger_min == 3
+    assert TorchBackend(device="cpu", pippenger_min=7).pippenger_min == 7
+
+
+def test_chunked_pippenger_accepts_valid_batch():
+    # m = 4 * pad_pow2(20) + 2 = 130 terms -> 5 chunks of 32 through msm_kernel
+    be = TorchBackend(device="cpu", lane_chunk=32, pippenger_min=2)
+    port, ref = results_both(make_entries(41, 20), be)
+    assert port == ref == [None] * 20
+
+
+def test_chunked_pippenger_mixed_matches_oracle():
+    entries = make_entries(42, 12)
+    params = entries[3][0]
+    wrong = T.Statement.from_witness(params, T.Witness(T.Scalar(987654321)))
+    entries[3] = (params, wrong, entries[3][2])
+    be = TorchBackend(device="cpu", lane_chunk=32, pippenger_min=2)
+    port, ref = results_both(entries, be)
+    assert port == ref
+    assert [r is None for r in port] == [i != 3 for i in range(12)]
+
+
+def test_chunked_pippenger_device_rlc(monkeypatch):
+    monkeypatch.setenv("CPZK_DEVICE_RLC", "1")
+    be = TorchBackend(device="cpu", lane_chunk=32, pippenger_min=2)
+    port, ref = results_both(make_entries(43, 10), be)
+    assert port == ref == [None] * 10
+
+
+def test_chunked_rowcombined_device_rlc(monkeypatch):
+    """Device-RLC windows are built full-width (correction spliced at lane
+    n, possibly inside a middle chunk) and then chunk-sliced: the layout
+    must survive the tiling."""
+    monkeypatch.setenv("CPZK_DEVICE_RLC", "1")
+    be = TorchBackend(device="cpu", lane_chunk=8)
+    port, ref = results_both(make_entries(44, 20), be)  # lane 20: chunk 3 of 3
+    assert port == ref == [None] * 20
+    port, ref = results_both(make_entries(45, 11), be)  # lane 11: chunk 2 of 2
+    assert port == ref == [None] * 11

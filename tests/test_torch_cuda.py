@@ -1,16 +1,23 @@
-"""The CUDA point kernels on the card, against their plain PyTorch versions
-on the same CUDA tensors (equal after canonicalization, every output limb
-within the loose bound: the kernels compute in their own radix), the launch
-counters and the block size.  Needs an NVIDIA GPU
+"""The CUDA kernels on the card, against their plain PyTorch versions on the
+same CUDA tensors: the point kernels equal after canonicalization with every
+output limb within the loose bound (they compute in their own radix); the
+scalar kernels exact (``torch.equal``: both canonical); the MSM kernels
+equal as group elements (the encodings: the order of the adds differs).
+Also the launch counters and the block size.  Needs an NVIDIA GPU
 with nvcc: marked ``cuda`` and skipped elsewhere.  On the machine with the
 card (no JAX there, so without tests/conftest.py):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q``."""
+
+import random
 
 import numpy as np
 import pytest
 import torch
 
-from cpzk_tpu_torch.ops import limbs, point_kernels as pk
+from cpzk_tpu_torch.core import edwards as he
+from cpzk_tpu_torch.core.scalars import L
+from cpzk_tpu_torch.ops import curve, limbs, msm, msm_kernels as mk, point_kernels as pk
+from cpzk_tpu_torch.ops import scalar_kernels as sk, sclimbs as sc
 
 pytestmark = pytest.mark.cuda
 
@@ -55,3 +62,64 @@ def test_block_size_covers_every_sm(dev):
         assert threads % 32 == 0 and 32 <= threads <= 256
         if n >= 32 * sms:
             assert -(-n // threads) >= sms
+
+
+def scalars(dev, n, seed):
+    rng = random.Random(seed)
+    vals = [rng.randrange(L) for _ in range(n)]
+    vals[: min(n, 3)] = [0, 1, L - 1][: min(n, 3)]
+    return torch.from_numpy(sc.ints_to_limbs(vals)).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 127, 4096])
+def test_scalar_kernels_match_plain_on_card(dev, n):
+    al, cl, sl = (scalars(dev, n, n + k) for k in range(3))
+    bl = scalars(dev, 1, 7 * n)
+    sk.reset_launches()
+    got = sk.rlc_scalars(al, cl, sl, bl)
+    torch.cuda.synchronize()
+    ref = sk.rlc_scalars_plain(al, cl, sl, bl)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    groups = (al, *ref[:3])
+    lane = n // 2
+    assert torch.equal(sk.rlc_windows(groups, ref[3], ref[4], lane),
+                       sk.rlc_windows_plain(groups, ref[3], ref[4], lane))
+    for c in (4, 11, 13):
+        m = 4 * n + 5
+        assert torch.equal(sk.rlc_digits(groups, ref[3], ref[4], n, m, c),
+                           sk.rlc_digits_plain(groups, ref[3], ref[4], n, m, c))
+    assert sk.LAUNCHES == {"rlc_scalars": 1, "scalar_recode": 4}
+
+
+def msm_case(dev, m, c, seed):
+    """m valid points (sums of two of 64 random points) and [K, m] digits of
+    random scalars with 0, 1, l - 1; window 1 all +-2^(c-1) (the top
+    bucket), window 2 all 3 (one crowded bucket)."""
+    rng = random.Random(seed)
+    base = curve.points_to_device(
+        [he.pt_scalar_mul(he.BASEPOINT, rng.randrange(L)) for _ in range(64)], dev)
+    i1 = torch.tensor([rng.randrange(64) for _ in range(m)], device=dev)
+    i2 = torch.tensor([rng.randrange(64) for _ in range(m)], device=dev)
+    pts = pk.point_add_plain(tuple(x[:, i1] for x in base), tuple(x[:, i2] for x in base))
+    vals = [rng.randrange(L) for _ in range(m - 3)] + [0, 1, L - 1]
+    digits = msm.scalars_to_signed_digits(vals, c)
+    half = 1 << (c - 1)
+    digits[1] = [half if i % 3 else -half for i in range(m)]
+    digits[2] = 3
+    return pts, torch.from_numpy(digits).to(dev)
+
+
+@pytest.mark.parametrize("m,c", [(64, 5), (2048, 11)])
+def test_msm_kernels_match_plain_on_card(dev, m, c):
+    pts, digits = msm_case(dev, m, c, m + c)
+    mk.reset_launches()
+    buckets = mk.msm_bucket(pts, digits, c)
+    out = mk.msm_window_reduce(buckets, c)
+    torch.cuda.synchronize()
+    ref_buckets = msm.bucket_sums_plain(pts, digits, c)
+    assert torch.equal(curve.encode(buckets), curve.encode(ref_buckets))
+    assert torch.equal(curve.encode(out), curve.encode(msm.window_reduce_plain(ref_buckets, c)))
+    assert mk.LAUNCHES == {"msm_bucket": 1, "msm_window_reduce": 1}
+    # msm_kernel routes a CUDA tensor to the two kernels
+    assert torch.equal(curve.encode(msm.msm_kernel(pts, digits, c)), curve.encode(out))
+    assert mk.LAUNCHES == {"msm_bucket": 2, "msm_window_reduce": 2}

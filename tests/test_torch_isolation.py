@@ -49,6 +49,8 @@ def test_import_pulls_in_neither_jax_nor_cpzk_tpu():
         "import sys\n"
         "import cpzk_tpu_torch, cpzk_tpu_torch.convert\n"
         "import cpzk_tpu_torch.ops.backend, cpzk_tpu_torch.ops.verify\n"
+        "import cpzk_tpu_torch.ops.sclimbs, cpzk_tpu_torch.ops.scalar_kernels\n"
+        "import cpzk_tpu_torch.ops.msm, cpzk_tpu_torch.ops.msm_kernels\n"
         "import cpzk_tpu_torch.server, cpzk_tpu_torch.server.plane\n"
         "import cpzk_tpu_torch.observability, cpzk_tpu_torch.resilience.faults\n"
         "import cpzk_tpu_torch.parallel\n"

@@ -5,9 +5,18 @@ on random limbs, the +-9500 adversarial patterns and edge values (0, p - 1,
 values >= p and above 2^256, negative values).  The kernels compute in
 8 x 32-bit words, their own radix, so outputs must equal the plain
 versions' after ``limbs.canonical`` (tolerance: exact) and every output
-limb must lie within ``limbs.BOUND``.  Skips where g++ is missing."""
+limb must lie within ``limbs.BOUND``.
+
+The same build holds the scalar arithmetic mod l (``csrc/sc25519_w32.cuh``)
+against :mod:`cpzk_tpu_torch.ops.sclimbs` limb for limb (both canonical;
+tolerance: exact) at random scalars and 0, 1, l - 1, and the Pippenger
+thread bodies (``csrc/msm_w32.cuh``), run over every (window, bucket) the
+top bucket |d| = 2^(c-1) included, against :mod:`cpzk_tpu_torch.ops.msm`'s
+plain version as group elements (equal encodings: the order of the adds
+differs).  Skips where g++ is missing."""
 
 import ctypes
+import random
 import shutil
 import subprocess
 
@@ -15,11 +24,25 @@ import numpy as np
 import pytest
 import torch
 
-from cpzk_tpu_torch.ops import limbs, point_kernels as pk
+from cpzk_tpu_torch.core import edwards as he
+from cpzk_tpu_torch.core.scalars import L
+from cpzk_tpu_torch.ops import curve, limbs, msm, point_kernels as pk, sclimbs as sc
 
 N = 96
 BOUND = limbs.BOUND
 P = limbs.P
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for this module: its plain point and scalar
+    arithmetic runs many small tensor ops, and a full thread team each,
+    beside the test suite's other workers, oversubscribes the host's
+    cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 #: values the word representation treats specially: 0 and p - 1, p and its
 #: multiples, the 2^255 and 2^256 boundaries (the folds by 19 and 38), the
@@ -48,8 +71,16 @@ def host_lib(tmp_path_factory):
     lib.host_fe_op.argtypes = [I, P_, P_, P_, I]
     lib.host_point_add.argtypes = [P_] * 12 + [I]
     lib.host_point_double_k.argtypes = [P_] * 7 + [I, I]
+    lib.host_sc_op.argtypes = [I, P_, P_, P_, I]
+    lib.host_sc_reduce_wide.argtypes = [P_, P_, I]
+    lib.host_sc_windows.argtypes = [P_, P_, I]
+    lib.host_sc_signed_digits.argtypes = [P_, I, I, P_, I]
+    lib.host_msm_bucket.argtypes = [P_] * 9 + [I] * 4
+    lib.host_msm_window_reduce.argtypes = [P_] * 8 + [I] * 3
     for fn in (lib.host_d2, lib.host_to_words, lib.host_fe_op, lib.host_point_add,
-               lib.host_point_double_k):
+               lib.host_point_double_k, lib.host_sc_op, lib.host_sc_reduce_wide,
+               lib.host_sc_windows, lib.host_sc_signed_digits, lib.host_msm_bucket,
+               lib.host_msm_window_reduce):
         fn.restype = None
     return lib
 
@@ -175,3 +206,124 @@ def test_point_double_k_matches_plain(host_lib, k):
     ref = pk.point_double_k_plain(tuple(coords) + (coords[0],), k)
     for o, r in zip(outs, ref):
         assert_canonical_equal(o, r)
+
+
+# -- scalars mod l (sc25519_w32.cuh) ----------------------------------------
+
+SC_EDGES = [0, 1, 2, L - 1, L - 2, L // 2, 2**252, 2**252 - 1, 2**32 - 1, 2**224]
+
+
+def sc_inputs(seed, count, n=64):
+    """count [20, n] canonical scalar limb tensors: random below l, the edge
+    values in the first lanes (rolled between tensors)."""
+    rng = random.Random(seed)
+    out = []
+    for k in range(count):
+        vals = [rng.randrange(L) for _ in range(n)]
+        vals[:len(SC_EDGES)] = SC_EDGES[k:] + SC_EDGES[:k]
+        out.append(torch.from_numpy(sc.ints_to_limbs(vals)))
+    return out
+
+
+def sc_op(lib, code, a, b=None):
+    out = empty(a.shape[1])
+    lib.host_sc_op(code, ptr(a), ptr(a if b is None else b), ptr(out), a.shape[1])
+    return out
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "neg", "round_trip"])
+def test_scalar_ops_match_plain(host_lib, op):
+    a, b = sc_inputs(11, 2)
+    code, plain = {
+        "mul": (0, lambda: sc.mul(a, b)),
+        "add": (1, lambda: sc.add(a, b)),
+        "neg": (2, lambda: sc.neg(a)),
+        "round_trip": (3, lambda: a),
+    }[op]
+    assert torch.equal(sc_op(host_lib, code, a, b), plain())
+
+
+def test_scalar_wide_reduction_matches_plain(host_lib):
+    rng = np.random.default_rng(12)
+    blobs = rng.integers(0, 256, size=(40, 64), dtype=np.uint8)
+    blobs[0] = 0xFF   # the largest 512-bit value
+    blobs[1] = 0      # zero
+    wide = torch.from_numpy(sc.bytes_wide_to_limbs(blobs))
+    out = empty(40)
+    host_lib.host_sc_reduce_wide(ptr(wide), ptr(out), 40)
+    assert torch.equal(out, sc.reduce_wide(wide))
+    assert sc.limbs_to_ints(out) == [int.from_bytes(b.tobytes(), "little") % L for b in blobs]
+
+
+@pytest.mark.parametrize("c", [4, 11, 13, 16])
+def test_scalar_recodes_match_plain(host_lib, c):
+    a, = sc_inputs(13, 1)
+    n = a.shape[1]
+    wins = torch.empty((64, n), dtype=torch.int32)
+    host_lib.host_sc_windows(ptr(a), ptr(wins), n)
+    assert torch.equal(wins, sc.to_windows(a))
+    nwin = msm.num_windows(c)
+    digits = torch.empty((nwin, n), dtype=torch.int32)
+    host_lib.host_sc_signed_digits(ptr(a), c, nwin, ptr(digits), n)
+    assert torch.equal(digits, sc.to_signed_digits(a, c))
+
+
+# -- the Pippenger thread bodies (msm_w32.cuh) -------------------------------
+
+def msm_inputs(seed, m, c):
+    """m random valid points (one the identity) and [K, m] digits from
+    random scalars with 0, 1 and l - 1 among them; window 1's digits set to
+    +-2^(c-1) (the top bucket), window 2's all equal (one crowded bucket)."""
+    rng = random.Random(seed)
+    pts = [he.pt_scalar_mul(he.BASEPOINT, rng.randrange(L)) for _ in range(m - 1)]
+    pts.append(he.IDENTITY)
+    scalars = [rng.randrange(L) for _ in range(m - 3)] + [0, 1, L - 1]
+    digits = msm.scalars_to_signed_digits(scalars, c)
+    half = 1 << (c - 1)
+    digits[1] = [half if i % 3 else -half for i in range(m)]
+    digits[2] = 3
+    return curve.points_to_device(pts, "cpu"), torch.from_numpy(digits)
+
+
+def group_equal(p, q):
+    return torch.equal(curve.encode(p), curve.encode(q))
+
+
+@pytest.mark.parametrize("c,cap", [(4, 8), (5, 1)])
+def test_msm_bucket_body_matches_plain(host_lib, c, cap):
+    """Every (window, bucket) of msm_bucket_kernel's thread body, the top
+    bucket included; cap = 1 empties the pending list at every match."""
+    m = 12
+    points, digits = msm_inputs(14 + c, m, c)
+    k, nb = digits.shape[0], 1 << (c - 1)
+    outs = [empty(k * nb) for _ in range(4)]
+    host_lib.host_msm_bucket(*(ptr(p) for p in points), ptr(digits),
+                             *(ptr(o) for o in outs), m, k, c, cap)
+    ref = msm.bucket_sums_plain(points, digits, c)
+    got = tuple(o.reshape(20, k, nb) for o in outs)
+    assert group_equal(got, ref)
+    # the top bucket of window 1 holds every term, signs applied
+    assert not bool(curve.is_identity(tuple(g[:, 1, nb - 1:] for g in got)))
+
+
+@pytest.mark.parametrize("c,segments", [(4, 1), (4, 8), (5, 4)])
+def test_msm_window_reduce_body_matches_plain(host_lib, c, segments):
+    """msm_window_reduce_kernel's segments, join and Horner on the plain
+    bucket sums, against the plain window reduction and the host oracle."""
+    m = 10
+    points, digits = msm_inputs(20 + c + segments, m, c)
+    buckets = msm.bucket_sums_plain(points, digits, c)
+    k = digits.shape[0]
+    outs = [empty(1) for _ in range(4)]
+    flat = [b.reshape(20, -1).contiguous() for b in buckets]
+    host_lib.host_msm_window_reduce(*(ptr(b) for b in flat), *(ptr(o) for o in outs),
+                                    k, c, segments)
+    ref = msm.window_reduce_plain(buckets, c)
+    assert group_equal(tuple(outs), ref)
+    host_pts = curve.points_from_device(points)
+    want = he.IDENTITY
+    for j, p in enumerate(host_pts):
+        s = sum(int(digits[w, j]) << (c * w) for w in range(k))
+        want = he.pt_add(want, he.pt_scalar_mul(p, s % L))
+    got = tuple(v % he.P for v in curve.points_from_device(tuple(outs))[0])
+    assert he.pt_eq(got, want)

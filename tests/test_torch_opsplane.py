@@ -186,6 +186,42 @@ def test_kernel_launch_counts_exposed_when_loaded():
         pk.LAUNCHES.update(saved)
 
 
+def test_scalar_and_msm_kernel_launch_counts_exposed_when_loaded():
+    """The scrape reads every kernel module's counts (the scalar and MSM
+    kernels too), each from ``sys.modules`` only."""
+    from cpzk_tpu_torch.ops import msm_kernels as mk, scalar_kernels as sk
+
+    saved = dict(sk.LAUNCHES), dict(mk.LAUNCHES)
+    try:
+        sk.LAUNCHES.update(rlc_scalars=2, scalar_recode=5)
+        mk.LAUNCHES.update(msm_bucket=11, msm_window_reduce=13)
+        OpsSources().refresh_gauges()
+        for name, count in (("rlc_scalars", 2), ("scalar_recode", 5), ("msm_bucket", 11),
+                            ("msm_window_reduce", 13)):
+            assert metrics.read("tpu.kernel.launches", "g", labels={"kernel": name}) == count
+        assert 'tpu_kernel_launches{kernel="msm_bucket"} 11.0' in metrics.render_exposition()
+    finally:
+        sk.LAUNCHES.update(saved[0])
+        mk.LAUNCHES.update(saved[1])
+
+
+def test_kernel_launch_gauge_reads_any_loaded_kernel_module(monkeypatch):
+    """Which modules the scrape exports is not a list: any loaded module of
+    the ``ops`` package with a ``LAUNCHES`` dict, and no module outside
+    it."""
+    import types
+
+    inside = types.ModuleType("cpzk_tpu_torch.ops.later_kernels")
+    inside.LAUNCHES = {"later_kernel": 17}
+    outside = types.ModuleType("elsewhere_kernels")
+    outside.LAUNCHES = {"elsewhere_kernel": 19}
+    monkeypatch.setitem(sys.modules, inside.__name__, inside)
+    monkeypatch.setitem(sys.modules, outside.__name__, outside)
+    OpsSources().refresh_gauges()
+    assert metrics.read("tpu.kernel.launches", "g", labels={"kernel": "later_kernel"}) == 17
+    assert 'kernel="elsewhere_kernel"' not in metrics.render_exposition()
+
+
 # --- one serializer for REPL / HTTP / SIGUSR2 ----------------------------------
 
 

@@ -90,6 +90,42 @@ def test_wrapper_broadcasts_and_rejects(pts):
         pk._lanes([tp[0][:19]], tp[0].device)
 
 
+def test_kernel_registry_names_every_kernel_and_routes_one_way():
+    """The registry: the six kernels, named by their modules' ``LAUNCHES``
+    keys, counted and reset together, each found in a build report; and
+    the one routing rule of every wrapper (CPU plain, CUDA kernel, any
+    other device raises)."""
+    import torch
+
+    from cpzk_tpu_torch.ops import msm_kernels as mk, scalar_kernels as sk
+
+    names = ("point_add", "point_double_k", "rlc_scalars", "scalar_recode",
+             "msm_bucket", "msm_window_reduce")
+    assert pk.kernel_modules() == (pk, sk, mk)
+    assert pk.kernel_names() == names
+    saved = pk.all_launches()
+    try:
+        for module in pk.kernel_modules():
+            for name in module.LAUNCHES:
+                module.LAUNCHES[name] = 3
+        assert pk.all_launches() == dict.fromkeys(names, 3)
+        pk.reset_all_launches()
+        assert pk.all_launches() == dict.fromkeys(names, 0)
+    finally:
+        for module in pk.kernel_modules():
+            module.LAUNCHES.update({k: saved[k] for k in module.LAUNCHES})
+    report = "\n".join(
+        f"ptxas info    : Compiling entry function '_Z{len(name) + 7}{name}_kernelPKi' "
+        f"for 'sm_90a'\nptxas info    : Used {40 + k} registers, used 1 barriers"
+        for k, name in enumerate(names))
+    assert pk.ptxas_report(report) == {name: {"registers": 40 + k}
+                                       for k, name in enumerate(names)}
+    assert pk.on_card("x", torch.device("cpu")) is False
+    assert pk.on_card("x", torch.device("cuda", 0)) is True
+    with pytest.raises(ValueError, match="x: unsupported device meta"):
+        pk.on_card("x", torch.device("meta"))
+
+
 def test_ptxas_report_and_operation_counts():
     """The build report chip_smoke.py prints per kernel, parsed from an
     ``nvcc -Xptxas -v`` report; and the bound counts the fewer operations
