@@ -5,13 +5,15 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the CUDA kernels from ``cpzk_tpu_torch/csrc`` and the C++ host
 core from ``cpzk_tpu_torch/native`` (both into the ignored
 ``cpzk_tpu_torch/_build``), and prints one JSON line per phase (each also
-appended to ``chiprun_out/chip_smoke.jsonl``):
+appended to ``chiprun_out/chip_smoke.jsonl``, with ``elapsed_s``, the
+seconds since the script started):
 
 1. ``device``  — the card (torch, and ``nvidia-smi`` name / power limit /
    max SM clock);
 2. ``build``   — seconds to build the kernel library (one ``nvcc`` per
    source, all started together, then one link), and per kernel (the two
-   point kernels, the two scalar kernels, the two MSM kernels) the
+   point kernels, the three scalar kernels, the two MSM kernels, the
+   Keccak chain and the prover's two kernels) the
    compiler's registers and spills (``-Xptxas -v``), and for the point
    kernels the block size they are launched with at each lane count of
    phase 3;
@@ -39,7 +41,13 @@ appended to ``chiprun_out/chip_smoke.jsonl``):
    window 1 all +-2^(c-1) (the top bucket), and digits that put every term
    of a window in one bucket: equal as group elements (the encodings; the order of
    the adds differs, so the limbs may).  Device times beside the bounds at
-   the 4096- and 16,384-row shapes;
+   the 4096- and 16,384-row shapes; and the batch prover's and the device
+   challenges' kernels: ``comb_tables`` for G and H (tables equal to the
+   plain ones after canonicalization), ``commitments`` at n in {1, 127,
+   4096, 16,384} lanes (bytes identical, and equal to the host core's comb
+   on a sample), ``keccak_chain`` with 3 masks (a state per row and one
+   shared) and ``reduce_wide`` of random 64-byte values: exact; device
+   times at 4096 and 16,384;
 4. ``serving_parse`` and ``serving_batch`` — 4096 entries tiling the
    corpus, each parsed fresh from wire bytes as a server parses them
    (``Proof.from_bytes_batch``, eager and deferred; statements with
@@ -68,6 +76,34 @@ appended to ``chiprun_out/chip_smoke.jsonl``):
    reference runs first; every kernel's launch count is set to 0 just
    before the Pippenger batches and read just after them, each of the six
    at least once; each 16,384-row check is counted on its own;
+   ``batch_prove`` — the bulk prover on the card (``BatchProver()``, 16,384
+   lanes a launch): two ``comb_tables`` launches build the tables (equal to
+   the plain prover's after canonicalization); ``statements()`` of 65,536
+   witnesses (4 chunks), every (y1, y2) byte-equal to the host core's
+   comb; ``prove()`` of 20,480 witnesses with their own 32-byte contexts
+   (a full chunk and 4096); ``BatchVerifier(TorchBackend())`` accepts
+   them all in one combined check on the card, and rejects a copy with
+   one bit of s flipped in every 100th proof at exactly those rows; the
+   host ``Verifier`` checks a sample of 64; the plain prover
+   (``device="cpu"``) gives the card's bytes for the same nonces on 64
+   witnesses.  Counts set to 0 just before the prover is built and read
+   after ``prove()``.  Printed: statements/s, proofs/s, ``prove()``'s steps
+   one by one (nonces, windows, digits upload, the commitments with their
+   device ms from CUDA events, download, challenges, responses, framing),
+   the card's interval and idle share in one ``prove()`` (CUDA events
+   around the prover's work on the card, which it reports as the serving
+   plane's batches do), and the point kernels' launches in the
+   verification;
+   ``device_challenges`` — the 20,480 proofs' columns through
+   ``derive_challenges_device`` on the card (every row's 64 bytes equal to
+   the host core's) and ``sclimbs.reduce_wide`` on the card (equal to the
+   plain version and to the host's scalars), counted on their own; then
+   ``keccak_chain`` on those rows' masks against its plain version
+   (exact), and both kernels timed at these shapes, which the kernels line
+   reports for them; then at
+   4096 and 16,384 rows, 3 turns after a warm one, the whole call and its
+   parts (host mask placement, upload, the kernel by CUDA events,
+   download) against the host core's ``derive_challenges_batch``;
    ``serving_plane`` — ``build_backend`` of the ``[tpu]`` settings on
    cuda:0, which with no fallback must serve ``TorchBackend`` bare; then
    with a counting ``CpuBackend`` passed as the fallback
@@ -185,7 +221,11 @@ the kill and after the recovery; for the scalar and MSM kernels
 ``launches`` over the ``pippenger`` phase's Pippenger batches, and for
 all six ``launches_in_pippenger`` (the same count) and
 ``launches_in_daemon_pippenger``, the daemon's fourth wave, and
-``launches_in_daemon_all_valid_batch``, its all-valid batch), the
+``launches_in_daemon_all_valid_batch``, its all-valid batch; for the
+prover's kernels ``launches`` over ``batch_prove``'s path and for
+``keccak_chain`` and ``reduce_wide`` over ``device_challenges``', both
+also as ``launches_in_batch_prove`` and ``launches_in_device_challenges``,
+and for the point kernels ``launches_in_batch_prove_verify``), the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when CUDA is
@@ -256,12 +296,19 @@ INT32_OPS_PER_SM_CLOCK = 64
 #: (``point_kernels.kernel_names()``), which ``main`` checks first
 POINT_KERNELS = ("point_add", "point_double_k")
 PIPPENGER_KERNELS = ("rlc_scalars", "scalar_recode", "msm_bucket", "msm_window_reduce")
+#: the batch prover's kernels, then the device challenges'
+PROVER_KERNELS = ("comb_tables", "commitments")
+CHALLENGE_KERNELS = ("keccak_chain", "reduce_wide")
 REPLACES = {"point_add": "cpzk_tpu/ops/pallas_kernels.py:51",
             "point_double_k": "cpzk_tpu/ops/pallas_kernels.py:87",
             "rlc_scalars": "cpzk_tpu/ops/backend.py:468",
             "scalar_recode": "cpzk_tpu/ops/backend.py:481",
             "msm_bucket": "cpzk_tpu/ops/msm.py:103",
-            "msm_window_reduce": "cpzk_tpu/ops/msm.py:135"}
+            "msm_window_reduce": "cpzk_tpu/ops/msm.py:135",
+            "comb_tables": "cpzk_tpu/ops/prove.py:38",
+            "commitments": "cpzk_tpu/ops/prove.py:63",
+            "keccak_chain": "cpzk_tpu/ops/challenge.py:159",
+            "reduce_wide": "cpzk_tpu/ops/sclimbs.py:136"}
 _CSRC = "cpzk_tpu_torch/csrc/"
 SOURCES = {
     "point_add": [_CSRC + "point_ops.cu", _CSRC + "fe25519_w32.cuh"],
@@ -271,6 +318,11 @@ SOURCES = {
     "msm_bucket": [_CSRC + "msm_ops.cu", _CSRC + "msm_w32.cuh", _CSRC + "fe25519_w32.cuh"],
     "msm_window_reduce": [_CSRC + "msm_ops.cu", _CSRC + "msm_w32.cuh",
                           _CSRC + "fe25519_w32.cuh"],
+    "comb_tables": [_CSRC + "prove_ops.cu", _CSRC + "prove_w32.cuh", _CSRC + "fe25519_w32.cuh"],
+    "commitments": [_CSRC + "prove_ops.cu", _CSRC + "prove_w32.cuh",
+                    _CSRC + "ristretto_w32.cuh", _CSRC + "fe25519_w32.cuh"],
+    "keccak_chain": [_CSRC + "keccak_ops.cu", _CSRC + "keccak_u64.cuh"],
+    "reduce_wide": [_CSRC + "scalar_ops.cu", _CSRC + "sc25519_w32.cuh"],
 }
 #: the scalar kernels' checks: row counts, window sizes of the digit recode,
 #: and the row counts timed (the 4096- and 16,384-row checks)
@@ -285,6 +337,24 @@ MSM_CHUNK = 16384
 #: rows of the pippenger phase's A/B, and its reps (turns per config)
 AB_NS = (4096, 16384)
 AB_REPS = 3
+#: the prover's and the challenges' kernels against their plain versions:
+#: lane counts, those timed, and the masks of one transcript (a 32-byte
+#: context and six points absorb into three permutations)
+PROVE_KERNEL_NS = (1, 127, 4096, 16384)
+PROVE_TIMED_NS = (4096, 16384)
+CHALLENGE_MASKS = 3
+#: the batch_prove phase: statements (the durable daemon's users, 4
+#: chunks), proofs (one full chunk and 4096), tampered share, the sample
+#: the host Verifier checks, the width where the plain prover on the CPU
+#: and the card must give the same bytes
+PROVE_STATEMENTS = 65536
+PROVE_PROOFS = 20480
+PROVE_TAMPER_EVERY = 100
+PROVE_HOST_SAMPLE = 64
+PROVE_PLAIN_N = 64
+#: the device_challenges phase's timed row counts and turns
+CHALLENGE_NS = (4096, 16384)
+CHALLENGE_REPS = 3
 
 
 #: every emitted line is also appended here, so the whole record survives
@@ -292,7 +362,13 @@ AB_REPS = 3
 JSONL_OUT = os.path.join("chiprun_out", "chip_smoke.jsonl")
 
 
+#: the script's start, for each phase line's ``elapsed_s``
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     line = json.dumps(obj)
     print(line, flush=True)
     with open(JSONL_OUT, "a") as f:
@@ -392,6 +468,31 @@ def device_ms(name: str, kernel, plain, reps: int, plain_reps: int) -> dict:
     return {"ms": ours_us / 1e3 / ours_count, "plain_ms": other_us / 1e3 / plain_reps,
             "profiled_launches": ours_count, "expected_launches": reps,
             "plain_kernel_launches_per_call": other_count / plain_reps}
+
+
+def kernel_ms(kernel, plain, reps: int, turns: int = 3) -> dict:
+    """Time per launch of a kernel on the card's timeline, and of one call
+    of its plain version, by ``bench_kernels.event_ms``.  The kernel:
+    ``reps`` launches held behind a spin kernel until the host has enqueued
+    them all, so they run back to back, between two CUDA events; the median
+    of ``turns`` such runs.  The plain version: CUDA events around one call
+    after a warm one (its launches are host-bound, so the idle stretches
+    between them are in it); ``plain`` may instead be the milliseconds of a
+    call already timed so.  (torch.profiler takes minutes over a plain
+    version of hundreds of thousands of launches, and on the H100 it saw
+    none of a few short launches traced alone.)"""
+    import statistics
+
+    from cpzk_tpu_torch.bench_kernels import event_ms
+
+    kernel()
+    runs = [event_ms(kernel, reps, hold=True) for _ in range(turns)]
+    if callable(plain):
+        plain()
+        plain = event_ms(plain)
+    return {"ms": statistics.median(runs), "ms_runs": runs, "reps": reps,
+            "timed_by": "CUDA events around launches held behind a spin kernel",
+            "plain_ms": plain, "plain_timed_by": "CUDA events around one call"}
 
 
 def kernels_vs_plain(dev, ns, int32_ops_per_s: float, gen) -> dict:
@@ -2756,6 +2857,461 @@ def profile_combined(backend, rows, beta) -> dict:
     }
 
 
+def prover_kernels_vs_plain(dev, ns, timed_ns, k: int, int32_ops_per_s: float) -> dict:
+    """Phase 3d: the batch prover's and the device challenges' kernels
+    against their plain versions on the card.  ``comb_tables`` for G and H:
+    tables equal after canonicalization; ``commitments`` at each lane count
+    (digits of random scalars with 0, 1 and l - 1, both tables): bytes
+    identical, and equal to the host core's comb on a sample;
+    ``keccak_chain`` (random states, one a row and one shared, k random
+    masks) and ``reduce_wide`` (random 64-byte values, the largest
+    included): exact (``torch.equal``).  Device times at ``timed_ns``."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from cpzk_tpu_torch import Parameters, Ristretto255, Scalar
+    from cpzk_tpu_torch.bench_kernels import event_ms
+    from cpzk_tpu_torch.core.scalars import L
+    from cpzk_tpu_torch.ops import curve, keccak_kernels as kk, limbs
+    from cpzk_tpu_torch.ops import prove_kernels as pvk, scalar_kernels as sk, sclimbs as sc
+    from cpzk_tpu_torch.ops.prove import _windows_lsb
+
+    rng = random.Random(SEED + 7)
+    np_rng = np.random.default_rng(SEED + 7)
+    rows = {name: [] for name in PROVER_KERNELS + CHALLENGE_KERNELS}
+    params = Parameters.new()
+    tables = {}
+    for gen_name, elem in (("H", params.generator_h), ("G", params.generator_g)):
+        p = curve.points_to_device([elem.point], dev)
+        got = pvk.comb_tables(p)
+        synchronize()
+        # the plain tables take ~700k launches: this one call is also the
+        # plain version's time (H's call warms the allocator for G's)
+        box = []
+        plain_ms = event_ms(lambda p=p: box.append(pvk.comb_tables_plain(p)))
+        ref = box[0]
+        err = max(int((limbs.canonical(a[..., 0].movedim(-1, 0))
+                       - limbs.canonical(b[..., 0].movedim(-1, 0))).abs().max())
+                  for a, b in zip(pvk.table_limbs(got), ref))
+        if err:
+            raise AssertionError(f"comb_tables {gen_name}: canonical error {err}")
+        row = {"generator": gen_name, "max_abs_err": err}
+        if gen_name == "G":
+            row.update(bound_of(*pvk.comb_tables_work(), int32_ops_per_s))
+            row.update(kernel_ms(lambda: pvk.comb_tables(p), plain_ms, 3))
+        rows["comb_tables"].append(row)
+        tables[gen_name] = got
+    tg, th = tables["G"], tables["H"]
+    plain_tables = pvk.table_limbs(tg), pvk.table_limbs(th)
+
+    def ints(shape):
+        return torch.from_numpy(np_rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    for n in ns:
+        vals = [rng.randrange(L) for _ in range(n)]
+        vals[:min(n, 3)] = [0, 1, L - 1][:min(n, 3)]
+        digits = torch.from_numpy(_windows_lsb(vals)).to(dev)
+        got = pvk.commitments(tg, th, digits)
+        synchronize()
+        ref = pvk.commitments_plain(*plain_tables, digits)
+        err = max(int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+                  for a, b in zip(got, ref))
+        if err:
+            raise AssertionError(f"commitments n={n}: bytes differ by {err}")
+        cols = [np.ascontiguousarray(g.cpu().numpy().T) for g in got]
+        for j in range(0, n, max(1, n // 16)):
+            y1, y2 = Ristretto255.double_base_mul(params.generator_g, params.generator_h,
+                                                  Scalar(vals[j]))
+            if (cols[0][j].tobytes(), cols[1][j].tobytes()) != (y1.wire(), y2.wire()):
+                raise AssertionError(f"commitments n={n} lane {j}: not the host core's comb")
+        row = {"n": n, "max_abs_err": err, "host_comb_sample": len(range(0, n, max(1, n // 16)))}
+        if n in timed_ns:
+            row.update(bound_of(*pvk.commitments_work(n), int32_ops_per_s))
+            row.update(kernel_ms(lambda: pvk.commitments(tg, th, digits),
+                                 lambda: pvk.commitments_plain(*plain_tables, digits), 5))
+        rows["commitments"].append(row)
+
+        for shared in (False, True):
+            width = 1 if shared else n
+            s_hi, s_lo, m_hi, m_lo = ints((25, width)), ints((25, width)), \
+                ints((k, 25, n)), ints((k, 25, n))
+            got = kk.keccak_chain(s_hi, s_lo, m_hi, m_lo)
+            synchronize()
+            ref = kk.keccak_chain_plain(s_hi, s_lo, m_hi, m_lo)
+            if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                raise AssertionError(f"keccak_chain n={n} shared={shared}: words differ")
+            row = {"n": n, "k": k, "shared_state": shared, "max_abs_err": 0}
+            if n in timed_ns and shared:
+                row.update(bound_of(*kk.keccak_chain_work(n, k, shared), int32_ops_per_s))
+                row.update(kernel_ms(
+                    lambda: kk.keccak_chain(s_hi, s_lo, m_hi, m_lo),
+                    lambda: kk.keccak_chain_plain(s_hi, s_lo, m_hi, m_lo), 20))
+            rows["keccak_chain"].append(row)
+
+        blobs = np_rng.integers(0, 256, size=(n, 64), dtype=np.uint8)
+        blobs[0] = 0xFF
+        wide = torch.from_numpy(sc.bytes_wide_to_limbs(blobs)).to(dev)
+        got = sc.reduce_wide(wide)
+        synchronize()
+        if not torch.equal(got, sc.reduce_wide_plain(wide)):
+            raise AssertionError(f"reduce_wide n={n}: limbs differ")
+        sample = list(range(0, n, max(1, n // 64)))
+        want = [int.from_bytes(blobs[j].tobytes(), "little") % L for j in sample]
+        if [sc.limbs_to_ints(got[:, j:j + 1])[0] for j in sample] != want:
+            raise AssertionError(f"reduce_wide n={n}: not the host's value mod l")
+        row = {"n": n, "rows": 40, "max_abs_err": 0}
+        if n in timed_ns:
+            row.update(bound_of(*sk.reduce_wide_work(40, n), int32_ops_per_s))
+            row.update(kernel_ms(lambda: sc.reduce_wide(wide),
+                                 lambda: sc.reduce_wide_plain(wide), 20))
+        rows["reduce_wide"].append(row)
+    return rows
+
+
+def commitment_columns(wires: list[bytes]):
+    """(r1, r2) [n, 32] uint8 columns of n 109-byte proof wires."""
+    import numpy as np
+
+    raw = np.frombuffer(b"".join(wires), dtype=np.uint8).reshape(len(wires), 109)
+    return np.ascontiguousarray(raw[:, 5:37]), np.ascontiguousarray(raw[:, 41:73])
+
+
+def batch_prove_phase(params, n_statements: int, n_proofs: int, plain_n: int,
+                      tamper_every: int, host_sample: int, on_card: bool = True) -> dict:
+    """The ``batch_prove`` phase: ``BatchProver()`` on cuda:0 (two
+    ``comb_tables`` launches; its tables equal the plain prover's after
+    canonicalization), ``statements()`` of ``n_statements`` witnesses
+    (byte-equal to the host core's comb), ``prove()`` of ``n_proofs``
+    witnesses with their own 32-byte contexts (accepted by
+    ``BatchVerifier(TorchBackend())`` in one combined check on the card; a
+    copy with one byte of s changed in every ``tamper_every``-th proof
+    rejected at exactly those rows; a sample checked by the host
+    ``Verifier``), and the plain prover (``device="cpu"``) giving the card's
+    bytes for the same nonces on ``plain_n`` witnesses.  Every count is set
+    to 0 just before the prover is built and read just after ``prove()``;
+    the verification is counted on its own.  Then the time of ``prove()``
+    split by stage, and the card's interval and idle share in one
+    ``prove()``, as the prover reports them (a rehearsal on the CPU passes
+    ``on_card=False``).  Returns the report
+    and (statements, proof wires, contexts) of the proofs."""
+    import numpy as np
+    import torch
+
+    from cpzk_tpu_torch import (
+        BatchVerifier, InvalidParams, Proof, Ristretto255, SecureRng, Statement, Transcript,
+        Verifier)
+    from cpzk_tpu_torch.core.scalars import L
+    from cpzk_tpu_torch.core.transcript import derive_challenges_batch
+    from cpzk_tpu_torch.observability import flightrec
+    from cpzk_tpu_torch.ops import backend as backend_mod, limbs, prove_kernels as pvk
+    from cpzk_tpu_torch.ops.backend import TorchBackend
+    from cpzk_tpu_torch.ops.point_kernels import all_launches, reset_all_launches
+    from cpzk_tpu_torch.ops.prove import BatchProver, _columns, _windows_lsb
+    from cpzk_tpu_torch.protocol.gadgets import PROTOCOL_VERSION, frame_fields
+
+    gen = SeededRng(SEED + 11)
+    out = {"statements": n_statements, "proofs": n_proofs, "lane_chunk": backend_mod.LANE_CHUNK,
+           "tolerance": "exact (bytes)"}
+    witnesses = Ristretto255.random_scalars(gen, n_statements)
+    contexts = [gen.fill_bytes(32) for _ in range(n_proofs)]
+
+    # the main path: every count set to 0 just before, read just after
+    reset_all_launches()
+    synchronize()
+    t0 = time.perf_counter()
+    bp = BatchProver(params)
+    synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["launches_init"] = all_launches()
+    t0 = time.perf_counter()
+    statements = bp.statements(witnesses)
+    out["statements_s"] = time.perf_counter() - t0
+    out["statements_per_s"] = n_statements / out["statements_s"]
+    ws = witnesses[:n_proofs]
+    t0 = time.perf_counter()
+    st_p, proofs = bp.prove(ws, contexts, SeededRng(SEED + 12))
+    out["prove_s"] = time.perf_counter() - t0
+    out["proofs_per_s"] = n_proofs / out["prove_s"]
+    out["launches"] = all_launches()
+    for name in PROVER_KERNELS:
+        if on_card and out["launches"][name] < 1:
+            raise AssertionError(f"{name} was never launched on the batch_prove path")
+
+    # tables against the plain prover's; its bytes against the card's
+    t0 = time.perf_counter()
+    plain = BatchProver(params, device="cpu")
+    out["plain_init_s"] = time.perf_counter() - t0
+    for mine, ref in ((bp._tg, plain._tg), (bp._th, plain._th)):
+        for a, b in zip(pvk.table_limbs(mine), ref):
+            if not torch.equal(limbs.canonical(a[..., 0].movedim(-1, 0)).cpu(),
+                               limbs.canonical(b[..., 0].movedim(-1, 0))):
+                raise AssertionError("comb tables differ from the plain prover's")
+    small = witnesses[:plain_n]
+    small_ctx = contexts[:plain_n]
+    if plain.prove(small, small_ctx, SeededRng(SEED + 13)) != bp.prove(
+            small, small_ctx, SeededRng(SEED + 13)):
+        raise AssertionError("the plain prover and the card give different bytes")
+    out["plain_equal_n"] = plain_n
+
+    # statements: the host core's comb, every one
+    t0 = time.perf_counter()
+    for w, (y1b, y2b) in zip(witnesses, statements):
+        y1, y2 = Ristretto255.double_base_mul(params.generator_g, params.generator_h, w)
+        if (y1b, y2b) != (y1.wire(), y2.wire()):
+            raise AssertionError("a statement differs from the host core's comb")
+    out["host_comb_check_s"] = time.perf_counter() - t0
+    if st_p != statements[:n_proofs]:
+        raise AssertionError("prove() recomputed different statements")
+
+    # proofs: the card's BatchVerifier, all valid then 1% tampered
+    parsed = [Statement(Ristretto255.element_from_bytes(a), Ristretto255.element_from_bytes(b))
+              for a, b in statements[:n_proofs]]
+    tampered = list(range(tamper_every // 2, n_proofs, tamper_every))
+    bad = list(proofs)
+    for i in tampered:
+        s = int.from_bytes(bad[i][77:], "little") ^ 1
+        if s % L == 0 or s >= L:
+            raise AssertionError(f"tampering proof {i} left no valid scalar")
+        bad[i] = bad[i][:77] + s.to_bytes(32, "little")
+    verdicts = {}
+    for label, wires in (("valid", proofs), ("tampered", bad)):
+        recorder = RecordingBackend(TorchBackend())
+        bv = BatchVerifier(backend=recorder, max_size=n_proofs)
+        for st, wire, ctx in zip(parsed, wires, contexts):
+            bv.add_with_context(params, st, Proof.from_bytes(wire), ctx)
+        synchronize()
+        t0 = time.perf_counter()
+        results, launches = launches_of(lambda: bv.verify(SecureRng()), POINT_KERNELS)
+        synchronize()
+        verdicts[label] = {"s": time.perf_counter() - t0, "backend_calls": recorder.calls,
+                           "launches": launches}
+        rejected = [i for i, r in enumerate(results) if r is not None]
+        want = [] if label == "valid" else tampered
+        if rejected != want:
+            raise AssertionError(f"{label} proofs: rejected {rejected[:8]}..., "
+                                 f"expected {want[:8]}...")
+        if any(not isinstance(results[i], InvalidParams) for i in rejected):
+            raise AssertionError(f"{label} proofs: a rejection is not InvalidParams")
+    if verdicts["valid"]["backend_calls"] != [n_proofs]:
+        raise AssertionError(f"valid proofs: not one combined check "
+                             f"({verdicts['valid']['backend_calls']})")
+    if on_card and min(verdicts["valid"]["launches"].values()) < 1:
+        raise AssertionError("the verification launched no point kernel")
+    out["verify"] = verdicts
+    out["tampered"] = len(tampered)
+    for i in range(0, n_proofs, max(1, n_proofs // host_sample)):
+        t = Transcript()
+        t.append_context(contexts[i])
+        Verifier(params, parsed[i]).verify_with_transcript(Proof.from_bytes(proofs[i]), t)
+    out["host_verifier_sample"] = len(range(0, n_proofs, max(1, n_proofs // host_sample)))
+
+    # where prove()'s time goes: its steps one by one, on the same nonces
+    stages = {}
+    synchronize()
+    t0 = time.perf_counter()
+    rng = SeededRng(SEED + 12)
+    ks = [Ristretto255.random_scalar(rng).value for _ in range(n_proofs)]
+    stages["nonces_s"] = time.perf_counter() - t0
+    chunk = backend_mod.LANE_CHUNK
+    pad = backend_mod._pad_lanes(n_proofs, chunk)
+    t0 = time.perf_counter()
+    win = _windows_lsb(ks + [0] * (pad - n_proofs))
+    stages["windows_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    digits = torch.from_numpy(win).to(bp.device)
+    synchronize()
+    stages["digits_upload_s"] = time.perf_counter() - t0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
+    t0 = time.perf_counter()
+    if events:
+        events[0].record()
+    parts = [pvk.commitments(bp._tg, bp._th, digits[:, lo:hi])
+             for lo, hi in backend_mod._chunk_bounds(pad, chunk)]
+    if events:
+        events[1].record()
+    b1 = torch.cat([q[0] for q in parts], dim=-1)
+    b2 = torch.cat([q[1] for q in parts], dim=-1)
+    synchronize()
+    stages["commitments_s"] = time.perf_counter() - t0
+    if events:
+        stages["commitments_device_ms"] = events[0].elapsed_time(events[1])
+    t0 = time.perf_counter()
+    r1s, r2s = _columns(b1, n_proofs), _columns(b2, n_proofs)
+    stages["download_columns_s"] = time.perf_counter() - t0
+    gb, hb = params.generator_g.wire(), params.generator_h.wire()
+    t0 = time.perf_counter()
+    challenges = derive_challenges_batch(contexts, [gb] * n_proofs, [hb] * n_proofs,
+                                         [st[0] for st in st_p], [st[1] for st in st_p],
+                                         r1s, r2s)
+    stages["challenges_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xs = [w.value for w in ws]
+    responses = [((k + c.value * x) % L).to_bytes(32, "little")
+                 for k, c, x in zip(ks, challenges, xs)]
+    stages["responses_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    framed = [frame_fields(PROTOCOL_VERSION, a, b, r) for a, b, r in zip(r1s, r2s, responses)]
+    stages["framing_s"] = time.perf_counter() - t0
+    if framed != proofs:
+        raise AssertionError("prove()'s stages, run one by one, give other bytes")
+    out["prove_stages_without_statements"] = stages
+
+    # the card's interval and idle share in one prove() (statements given, as
+    # a caller holding registered statements runs it): the prover reports the
+    # interval of its work on the card (CUDA events around the digits'
+    # upload, the launches and the download), as the serving plane's batches
+    # report theirs
+    sink, token = flightrec.install_sink()
+    try:
+        synchronize()
+        t0 = time.perf_counter()
+        bp.prove(ws, contexts, SeededRng(SEED + 14), statements=st_p)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        flightrec.uninstall_sink(token)
+    interval_ms = sink.device_interval_s * 1e3
+    if not 0 < interval_ms < wall_ms:
+        raise AssertionError(f"prove(): device interval {interval_ms} ms of {wall_ms} ms")
+    out["prove_device_interval"] = {
+        "wall_ms": wall_ms, "device_interval_ms": interval_ms,
+        "device_interval_share": interval_ms / wall_ms,
+        "device_idle_share": 1 - interval_ms / wall_ms,
+        "timed_by": "CUDA events around the prover's upload, launches and download",
+        # the commitments' own time (CUDA events around the launches of the
+        # stage run above): the idle share cannot be larger than this leaves
+        "idle_share_at_most": 1 - stages.get("commitments_device_ms", 0.0) / wall_ms}
+    return out, (st_p, proofs, contexts)
+
+
+def device_challenges_phase(params, proofs_out, ns, reps: int, int32_ops_per_s: float,
+                            on_card: bool = True) -> dict:
+    """The ``device_challenges`` phase: the batch_prove phase's proofs'
+    columns through ``derive_challenges_device`` on the card (every row's 64
+    bytes equal to the host core's ``challenge_batch``), and those bytes
+    reduced mod l by ``sclimbs.reduce_wide`` on the card (equal to the plain
+    version and to the host's scalars); counts set to 0 just before and read
+    just after.  Then ``keccak_chain`` on the same rows' masks against its
+    plain version (exact), and both kernels timed at these shapes beside
+    their bounds.  Then, at each of ``ns`` rows, in turns: the whole call
+    and its parts (host mask placement, upload, the kernel by CUDA events,
+    download) against the host core's ``derive_challenges_batch``."""
+    import numpy as np
+    import torch
+
+    from cpzk_tpu_torch.core import _native
+    from cpzk_tpu_torch.core.transcript import derive_challenges_batch
+    from cpzk_tpu_torch.ops import challenge, keccak, keccak_kernels as kk
+    from cpzk_tpu_torch.ops import scalar_kernels as sk, sclimbs as sc
+    from cpzk_tpu_torch.ops.point_kernels import all_launches, reset_all_launches
+
+    statements, proofs, contexts = proofs_out
+    n = len(proofs)
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    r1, r2 = commitment_columns(proofs)
+    as_cols = lambda xs: np.frombuffer(b"".join(xs), dtype=np.uint8).reshape(len(xs), -1)  # noqa: E731
+    gw, hw = params.generator_g.wire(), params.generator_h.wire()
+    cols = (as_cols(contexts), as_cols([gw] * n), as_cols([hw] * n),
+            as_cols([s[0] for s in statements]), as_cols([s[1] for s in statements]), r1, r2)
+    host_lists = (contexts, [gw] * n, [hw] * n, [s[0] for s in statements],
+                  [s[1] for s in statements], [bytes(x) for x in r1], [bytes(x) for x in r2])
+
+    reset_all_launches()
+    chal = challenge.derive_challenges_device(*cols, device=None if on_card else "cpu")
+    wide = torch.from_numpy(sc.bytes_wide_to_limbs(chal)).to(dev)
+    scalars = sc.reduce_wide(wide)
+    synchronize()
+    launches = all_launches()
+    for name in CHALLENGE_KERNELS:
+        if on_card and launches[name] < 1:
+            raise AssertionError(f"{name} was never launched on the device_challenges path")
+    def host_raw(lists) -> bytes:
+        return _native.challenge_batch(lists[0], *(b"".join(c) for c in lists[1:]))
+
+    if chal.tobytes() != host_raw(host_lists):
+        raise AssertionError("device challenges differ from the host core's")
+    if not torch.equal(scalars, sc.reduce_wide_plain(wide)):
+        raise AssertionError("reduce_wide differs from its plain version")
+    want = [c.value for c in derive_challenges_batch(*host_lists)]
+    if sc.limbs_to_ints(scalars) != want:
+        raise AssertionError("reduced challenges differ from the host's scalars")
+
+    # both kernels at the main path's shapes (these rows' shared state and
+    # masks; their wide values) against their plain versions on the same
+    # tensors, and timed there (these launches are not counted above)
+    (s_hi, s_lo), (m_hi, m_lo) = challenge.challenge_masks(*cols)
+    tensors = [torch.from_numpy(a).to(dev) for a in (s_hi, s_lo, m_hi, m_lo)]
+    got = kk.keccak_chain(*tensors)
+    synchronize()
+    ref = kk.keccak_chain_plain(*tensors)
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError("keccak_chain differs from its plain version on the path's masks")
+    k, shared = m_hi.shape[0], s_hi.shape[-1] == 1
+    main_rows = {"keccak_chain": {"n": n, "k": k, "shared_state": shared, "max_abs_err": 0},
+                 "reduce_wide": {"n": n, "rows": wide.shape[0], "max_abs_err": 0}}
+    if on_card:
+        main_rows["keccak_chain"].update(bound_of(*kk.keccak_chain_work(n, k, shared),
+                                                  int32_ops_per_s))
+        main_rows["keccak_chain"].update(kernel_ms(lambda: kk.keccak_chain(*tensors),
+                                                   lambda: kk.keccak_chain_plain(*tensors), 20))
+        main_rows["reduce_wide"].update(bound_of(*sk.reduce_wide_work(wide.shape[0], n),
+                                                 int32_ops_per_s))
+        main_rows["reduce_wide"].update(kernel_ms(lambda: sc.reduce_wide(wide),
+                                                  lambda: sc.reduce_wide_plain(wide), 20))
+    out = {"rows": n, "tolerance": "exact (bytes, words, limbs)", "launches": launches,
+           "masks": k, "kernels_at_path_shape": main_rows}
+
+    timed = {}
+    for m in ns:
+        sub = tuple(c[:m] for c in cols)
+        lists = tuple(x[:m] for x in host_lists)
+        res = {k: [] for k in ("device_call_ms", "masks_ms", "upload_ms", "kernel_ms",
+                               "download_ms", "host_batch_ms", "host_raw_ms")}
+        for rep in range(reps + 1):  # the first turn warms both
+            turn = {}
+            synchronize()
+            t0 = time.perf_counter()
+            challenge.derive_challenges_device(*sub, device=None if on_card else "cpu")
+            turn["device_call_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            derive_challenges_batch(*lists)
+            turn["host_batch_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            host_raw(lists)
+            turn["host_raw_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            (s_hi, s_lo), (m_hi, m_lo) = challenge.challenge_masks(*sub)
+            turn["masks_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            tensors = [torch.from_numpy(a).to(dev) for a in (s_hi, s_lo, m_hi, m_lo)]
+            synchronize()
+            turn["upload_ms"] = (time.perf_counter() - t0) * 1e3
+            if on_card:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                state = kk.keccak_chain(*tensors)
+                ev[1].record()
+                ev[1].synchronize()
+                turn["kernel_ms"] = ev[0].elapsed_time(ev[1])
+            else:
+                state = kk.keccak_chain(*tensors)
+                turn["kernel_ms"] = 0.0
+            t0 = time.perf_counter()
+            keccak.state_to_lanes(state)
+            turn["download_ms"] = (time.perf_counter() - t0) * 1e3
+            if rep:
+                for k2, v in turn.items():
+                    res[k2].append(v)
+        res["device_kchal_per_s"] = [m / v for v in res["device_call_ms"]]
+        res["host_kchal_per_s"] = [m / v for v in res["host_batch_ms"]]
+        timed[m] = res
+    out["timed"] = timed
+    out["host_threads"] = _native.default_threads()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2774,8 +3330,10 @@ def main() -> int:
         return 1
 
     names = set(pk.kernel_names())
-    for table, keys in (("POINT_KERNELS + PIPPENGER_KERNELS",
-                         POINT_KERNELS + PIPPENGER_KERNELS),
+    for table, keys in (("POINT_KERNELS + PIPPENGER_KERNELS + PROVER_KERNELS + "
+                         "CHALLENGE_KERNELS",
+                         POINT_KERNELS + PIPPENGER_KERNELS + PROVER_KERNELS
+                         + CHALLENGE_KERNELS),
                         ("REPLACES", REPLACES), ("SOURCES", SOURCES)):
         if set(keys) != names:
             raise AssertionError(f"{table} lists {sorted(keys)}, the library's kernels "
@@ -2825,8 +3383,14 @@ def main() -> int:
     msm_rows = msm_kernels_vs_plain(dev, MSM_MS, MSM_C, MSM_CHUNK, int32_ops_per_s)
     emit({"phase": "kernels_vs_plain", "kernels": "msm",
           "tolerance": "equal as group elements (encodings)", **card, "results": msm_rows})
+    prover_rows = prover_kernels_vs_plain(dev, PROVE_KERNEL_NS, PROVE_TIMED_NS,
+                                          CHALLENGE_MASKS, int32_ops_per_s)
+    emit({"phase": "kernels_vs_plain", "kernels": "prover and challenges",
+          "tolerance": "exact (bytes, words, limbs; tables after canonicalization)", **card,
+          "results": prover_rows})
     kernel_rows.update(scalar_rows)
     kernel_rows.update(msm_rows)
+    kernel_rows.update(prover_rows)
 
     rows, beta = north_star_rows(params, corpus, NORTH_STAR_N, SecureRng())
 
@@ -2848,6 +3412,16 @@ def main() -> int:
     # before it and read just after)
     pip = pippenger_phase(params, corpus, rows, beta, SERVING_N, MSM_CHUNK)
     emit({"phase": "pippenger", **pip, **card})
+
+    # 5a'. this slice's paths: bulk proving on the card, then the device
+    # Fiat-Shamir derivation of its proofs (every count set to 0 inside just
+    # before each and read just after)
+    proved, proofs_out = batch_prove_phase(params, PROVE_STATEMENTS, PROVE_PROOFS,
+                                           PROVE_PLAIN_N, PROVE_TAMPER_EVERY, PROVE_HOST_SAMPLE)
+    emit({"phase": "batch_prove", **proved, **card})
+    chal = device_challenges_phase(params, proofs_out, CHALLENGE_NS, CHALLENGE_REPS,
+                                   int32_ops_per_s)
+    emit({"phase": "device_challenges", **chal, **card})
 
     # 5b. the serving plane (its own launch counts, reset inside just before
     # the served traffic and read just after)
@@ -2941,6 +3515,36 @@ def main() -> int:
             "launches_in_daemon_all_valid_batch":
                 served["pippenger"]["all_valid_batch"]["launches"][name],
         })
+    # the prover's and the challenges' kernels: launches over their phase's
+    # path; times at the shapes that path launches (the prover's 16,384-lane
+    # tiles and its tables; the device challenges' 20,480 rows at once)
+    for name in PROVER_KERNELS + CHALLENGE_KERNELS:
+        results = kernel_rows[name]
+        if name in CHALLENGE_KERNELS:
+            main_row = chal["kernels_at_path_shape"][name]
+            results = results + [main_row]
+        else:
+            main_row = next(r for r in results if "ms" in r and r.get("n", MAIN_N) == MAIN_N)
+        launches_in = proved["launches"] if name in PROVER_KERNELS else chal["launches"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": SOURCES[name][0], "sources": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches_in[name],
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": None,
+            "shape": {k: main_row[k] for k in ("n", "k", "rows", "generator") if k in main_row},
+            "timed": [{k: r[k] for k in ("n", "ms", "plain_ms", "bound_ms", "bound_by")
+                       if k in r} for r in results if "ms" in r],
+            "registers": per_kernel[name].get("registers"),
+            "spill_bytes": per_kernel[name].get("spill_store_bytes"),
+            "launches_in_batch_prove": proved["launches"][name],
+            "launches_in_device_challenges": chal["launches"][name],
+        })
+    for entry in kernels[:len(POINT_KERNELS)]:
+        entry["launches_in_batch_prove_verify"] = \
+            proved["verify"]["valid"]["launches"][entry["name"]]
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

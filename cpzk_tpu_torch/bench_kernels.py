@@ -27,8 +27,22 @@ into the digits of 18,432 terms at c = 11, ``msm_bucket`` and
 (exact, or equal encodings for the MSM), then timed with CUDA events in
 turns (plain, kernel, kernel, plain per round): ``reps`` launches of the
 kernel, or one call of the plain version, between two events.  One JSON
-line, then the card's ``nvidia-smi`` name and power limit.  Needs a CUDA
-device.
+line.
+
+Then the A/B of the batch prover's and the device challenges' kernels
+against their plain versions at the main path's shapes (``comb_tables`` of
+G; ``commitments``, ``keccak_chain`` with three masks and ``reduce_wide``
+at 16,384 lanes), checked the same way and timed with CUDA events, each
+kernel's ``reps`` launches held behind a spin kernel (:func:`event_ms`)
+so that they run back to back, in the same turns (the plain comb tables,
+some 700k launches, once); and the twins of the reference's challenge
+benchmark (``benches/bench_kernels.py``'s ``challenge_native_cpp``,
+``challenge_device`` and ``challenge_device_reduced``): thousands of
+challenges a second of the host core's ``challenge_batch``, of
+``derive_challenges_device`` on the card, and of the same with the bytes
+reduced mod l on the card, best of ``rounds`` at each of 4096 and 16,384
+rows.  One JSON line, then the card's ``nvidia-smi`` name and power limit.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -134,12 +148,21 @@ def sass_counts(lib_path: Path) -> dict:
             for k, c in ops.items()}
 
 
-def _event_ms(fn, calls: int) -> float:
+#: cycles of ``torch.cuda._sleep`` that hold the stream while the host
+#: enqueues a timed run of launches (about 10 ms at 1980 MHz)
+SPIN_CYCLES = 20_000_000
+
+
+def event_ms(fn, calls: int = 1, hold: bool = False) -> float:
     """Milliseconds per call of ``calls`` back-to-back calls of ``fn``,
-    between two CUDA events on the current stream."""
+    between two CUDA events on the current stream (the caller warms ``fn``
+    first).  With ``hold``, a spin kernel (``torch.cuda._sleep``) holds the
+    stream until the host has enqueued every call, so that launches shorter
+    than their host-side cost still run back to back on the card."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    fn()  # warm
     torch.cuda.synchronize()
+    if hold:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(calls):
         fn()
@@ -195,14 +218,117 @@ def pippenger_kernels(dev: torch.device, reps: int, rounds: int) -> dict:
             raise AssertionError(f"{name}: kernel and plain version differ")
         k_ms, p_ms = [], []
         for _ in range(rounds):
-            p_ms.append(_event_ms(plain, 1))
-            k_ms.append(_event_ms(kernel, reps))
-            k_ms.append(_event_ms(kernel, reps))
-            p_ms.append(_event_ms(plain, 1))
+            p_ms.append(event_ms(plain))
+            k_ms.append(event_ms(kernel, reps))
+            k_ms.append(event_ms(kernel, reps))
+            p_ms.append(event_ms(plain))
         out[name] = {"kernel_ms": statistics.median(k_ms), "plain_ms": statistics.median(p_ms),
                      "kernel_runs": k_ms, "plain_runs": p_ms}
     return {"pippenger_kernels": out, "rows": n, "terms": m, "chunk": chunk, "c": c,
             "reps": reps, "rounds": rounds}
+
+
+def prover_kernels(dev: torch.device, reps: int, rounds: int) -> dict:
+    """The batch prover's and the device challenges' kernels against their
+    plain versions, and the challenge benchmark's twins (see the module
+    docstring)."""
+    import random
+    import time
+
+    from .core import _native
+    from .core.scalars import L
+    from .ops import challenge, curve, keccak_kernels as kk, prove_kernels as pvk
+    from .ops import sclimbs as sc
+    from .ops.prove import _windows_lsb
+    from .protocol.gadgets import Parameters
+
+    rng = random.Random(10)
+    np_rng = np.random.default_rng(10)
+    n = 16384
+    params = Parameters.new()
+    g = curve.points_to_device([params.generator_g.point], dev)
+    h = curve.points_to_device([params.generator_h.point], dev)
+    tg, th = pvk.comb_tables(g), pvk.comb_tables(h)
+    plain_tables = pvk.table_limbs(tg), pvk.table_limbs(th)
+    digits = torch.from_numpy(_windows_lsb([rng.randrange(L) for _ in range(n)])).to(dev)
+
+    def ints(shape):
+        return torch.from_numpy(np_rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    state, masks = (ints((25, 1)), ints((25, 1))), (ints((3, 25, n)), ints((3, 25, n)))
+    wide = torch.from_numpy(sc.bytes_wide_to_limbs(
+        np_rng.integers(0, 256, (n, 64), dtype=np.uint8))).to(dev)
+    cases = {
+        "comb_tables": (lambda: pvk.comb_tables(g), lambda: pvk.comb_tables_plain(g)),
+        "commitments": (lambda: pvk.commitments(tg, th, digits),
+                        lambda: pvk.commitments_plain(*plain_tables, digits)),
+        "keccak_chain": (lambda: kk.keccak_chain(*state, *masks),
+                         lambda: kk.keccak_chain_plain(*state, *masks)),
+        "reduce_wide": (lambda: sc.reduce_wide(wide), lambda: sc.reduce_wide_plain(wide)),
+    }
+    out = {}
+    for name, (kernel, plain) in cases.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if name == "comb_tables":
+            ok = all(torch.equal(limbs.canonical(a[..., 0].movedim(-1, 0)),
+                                 limbs.canonical(b[..., 0].movedim(-1, 0)))
+                     for a, b in zip(pvk.table_limbs(got), ref))
+        else:
+            ok = torch.equal(got, ref) if isinstance(got, torch.Tensor) else all(
+                torch.equal(a, b) for a, b in zip(got, ref))
+        if not ok:
+            raise AssertionError(f"{name}: kernel and plain version differ")
+        # the plain comb tables take ~10 s a call: timed once
+        once = name == "comb_tables"
+        k_ms, p_ms = [], []
+        for r in range(rounds):
+            if r == 0 or not once:
+                p_ms.append(event_ms(plain))
+            k_ms.append(event_ms(kernel, reps, hold=True))
+            k_ms.append(event_ms(kernel, reps, hold=True))
+            if not once:
+                p_ms.append(event_ms(plain))
+        out[name] = {"kernel_ms": statistics.median(k_ms), "plain_ms": statistics.median(p_ms),
+                     "kernel_runs": k_ms, "plain_runs": p_ms}
+
+    rates = {}
+    gw, hw = params.generator_g.wire(), params.generator_h.wire()
+    for m in (4096, 16384):
+        cols = [np.frombuffer(np_rng.bytes(32 * m), dtype=np.uint8).reshape(m, 32)
+                for _ in range(4)]
+        args = (None, np.frombuffer(gw * m, dtype=np.uint8).reshape(m, 32),
+                np.frombuffer(hw * m, dtype=np.uint8).reshape(m, 32), *cols)
+        blobs = [gw * m, hw * m] + [c.tobytes() for c in cols]
+
+        def native():
+            return _native.challenge_batch([None] * m, *blobs)
+
+        def device():
+            return challenge.derive_challenges_device(*args, device=dev)
+
+        def reduced():
+            chal = device()
+            out_ = sc.reduce_wide(torch.from_numpy(sc.bytes_wide_to_limbs(chal)).to(dev))
+            torch.cuda.synchronize()
+            return out_
+
+        if device().tobytes() != native():
+            raise AssertionError(f"device challenges at {m} rows differ from the host core's")
+        best = {}
+        for label, fn in (("challenge_native_cpp", native), ("challenge_device", device),
+                          ("challenge_device_reduced", reduced)):
+            fn()
+            times = []
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            best[label] = m / min(times) / 1e3
+        rates[m] = {"kchal_per_s": best}
+    return {"prover_kernels": out, "lanes": n, "masks": 3, "reps": reps, "rounds": rounds,
+            "challenges": rates}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -270,6 +396,7 @@ def main(argv: list[str] | None = None) -> int:
         }), flush=True)
     if not args.no_pippenger:
         print(json.dumps(pippenger_kernels(dev, args.reps, args.rounds)), flush=True)
+    print(json.dumps(prover_kernels(dev, args.reps, args.rounds)), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

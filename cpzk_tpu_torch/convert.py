@@ -31,6 +31,17 @@ def point(coords, device) -> Point:
     return tuple(tensor(c, device) for c in coords)
 
 
+def comb_tables(arrays, device) -> tuple[torch.Tensor, ...]:
+    """The four ``[64, 16, 20, 1]`` limb arrays of a comb table (``np.asarray``
+    of each coordinate of the JAX ``_comb_tables_kernel``'s output) -> the
+    port's plain table layout on ``device`` (:mod:`.ops.prove_kernels`;
+    ``table_words`` gives the kernel's)."""
+    coords = tuple(tensor(a, device) for a in arrays)
+    if len(coords) != 4 or any(c.shape != (64, 16, 20, 1) for c in coords):
+        raise ValueError("comb_tables: four [64, 16, 20, 1] limb arrays")
+    return coords
+
+
 def to_numpy(x) -> np.ndarray | tuple[np.ndarray, ...]:
     """A tensor, or a tuple of them (a point), -> numpy on the host."""
     if isinstance(x, torch.Tensor):

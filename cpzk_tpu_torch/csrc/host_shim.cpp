@@ -1,7 +1,9 @@
-// Test-only host build of fe25519_w32.cuh, sc25519_w32.cuh and msm_w32.cuh:
+// Test-only host build of fe25519_w32.cuh, sc25519_w32.cuh, msm_w32.cuh,
+// ristretto_w32.cuh, prove_w32.cuh and keccak_u64.cuh:
 // a C interface over limb-major [20, n] int32 arrays, looping over lanes on
 // the CPU, so the tests can hold the kernels' field, point and scalar
-// arithmetic and the Pippenger thread bodies against the plain PyTorch
+// arithmetic, the Pippenger thread bodies, ristretto encode, the prover's
+// comb and walk bodies and the Keccak chain against the plain PyTorch
 // versions with a host C++ compiler:
 //
 //   g++ -std=c++17 -O2 -shared -fPIC host_shim.cpp -o libfe25519_host.so
@@ -14,7 +16,10 @@
 #include <vector>
 
 #include "fe25519_w32.cuh"
+#include "keccak_u64.cuh"
 #include "msm_w32.cuh"
+#include "prove_w32.cuh"
+#include "ristretto_w32.cuh"
 #include "sc25519_w32.cuh"
 
 namespace {
@@ -68,7 +73,8 @@ void host_to_words(const int32_t* a, uint32_t* out, int n) {
 }
 
 // op: 0 mul, 1 add, 2 sub, 3 mul2 (b unused), 4 square (b unused),
-// 5 the conversion round trip (b unused)
+// 5 the conversion round trip, 6 canonical, 7 pow_p58, 8 neg, 9 abs
+// (b unused from 3 on)
 void host_fe_op(int op, const int32_t* a, const int32_t* b, int32_t* out,
                 int n) {
   for (int j = 0; j < n; ++j) {
@@ -81,6 +87,10 @@ void host_fe_op(int op, const int32_t* a, const int32_t* b, int32_t* out,
       case 2: cpzk::fe_sub(z, x, y); break;
       case 3: cpzk::fe_mul2(z, x); break;
       case 4: cpzk::fe_sq(z, x); break;
+      case 6: cpzk::fe_canonical(z, x); break;
+      case 7: cpzk::fe_pow_p58(z, x); break;
+      case 8: cpzk::fe_neg(z, x); break;
+      case 9: cpzk::fe_abs(z, x); break;
       default: z = x; break;
     }
     store_fe(out, z, n, j);
@@ -125,6 +135,89 @@ void host_point_double_k(const int32_t* x, const int32_t* y, const int32_t* z,
   }
 }
 
+// [20, n] limbs -> is_negative per lane (0 or 1)
+void host_fe_is_negative(const int32_t* a, int32_t* out, int n) {
+  for (int j = 0; j < n; ++j) {
+    Fe x;
+    load_fe(x, a, n, j);
+    out[j] = (int32_t)cpzk::fe_is_negative(x);
+  }
+}
+
+// sqrt_ratio_m1(u, v) per lane: the root [20, n] and was_square [n]
+void host_fe_sqrt_ratio_m1(const int32_t* u, const int32_t* v, int32_t* r,
+                           int32_t* was_square, int n) {
+  for (int j = 0; j < n; ++j) {
+    Fe x, y, z;
+    load_fe(x, u, n, j);
+    load_fe(y, v, n, j);
+    was_square[j] = (int32_t)cpzk::fe_sqrt_ratio_m1(z, x, y);
+    store_fe(r, z, n, j);
+  }
+}
+
+// ristretto ENCODE of [20, n] x 4 points -> [32, n] bytes
+void host_ristretto_encode(const int32_t* x, const int32_t* y, const int32_t* z,
+                           const int32_t* t, uint8_t* out, int n) {
+  for (int j = 0; j < n; ++j) {
+    Fe p[4];
+    load_fe(p[0], x, n, j);
+    load_fe(p[1], y, n, j);
+    load_fe(p[2], z, n, j);
+    load_fe(p[3], t, n, j);
+    uint8_t b[32];
+    cpzk::ristretto_encode(b, p);
+    for (int i = 0; i < 32; ++i) out[(long)i * n + j] = b[i];
+  }
+}
+
+// comb_tables_kernel's thread w: window w of the table of the [20, 1] point
+// p, into out (512 words)
+void host_comb_window(const int32_t* x, const int32_t* y, const int32_t* z,
+                      const int32_t* t, int w, uint32_t* out) {
+  Fe p[4];
+  load_fe(p[0], x, 1, 0);
+  load_fe(p[1], y, 1, 0);
+  load_fe(p[2], z, 1, 0);
+  load_fe(p[3], t, 1, 0);
+  cpzk::comb_window(out, p, w);
+}
+
+// commitments_kernel's thread body for every lane j < n, reading the
+// tables' windows in place: [64, n] digits -> two [32, n] encodings
+void host_commitments(const uint32_t* tg, const uint32_t* th, const int32_t* digits,
+                      uint8_t* r1, uint8_t* r2, int n) {
+  for (int j = 0; j < n; ++j) {
+    for (int g = 0; g < 2; ++g) {
+      const uint32_t* table = g == 0 ? tg : th;
+      Fe acc[4];
+      cpzk::pt_set_identity(acc);
+      for (int w = 0; w < cpzk::COMB_WINDOWS; ++w) {
+        cpzk::comb_step(acc, table + (long)w * cpzk::COMB_WINDOW_WORDS,
+                        (uint32_t)digits[(long)w * n + j]);
+      }
+      uint8_t b[32];
+      cpzk::ristretto_encode(b, acc);
+      uint8_t* out = g == 0 ? r1 : r2;
+      for (int i = 0; i < 32; ++i) out[(long)i * n + j] = b[i];
+    }
+  }
+}
+
+// keccak_chain_kernel's thread body for every lane j < n
+void host_keccak_chain(const uint32_t* s_hi, const uint32_t* s_lo, int shared,
+                       const uint32_t* m_hi, const uint32_t* m_lo, int k, int n,
+                       uint32_t* o_hi, uint32_t* o_lo) {
+  for (int j = 0; j < n; ++j) {
+    uint64_t a[cpzk::KECCAK_LANES];
+    cpzk::keccak_chain_lane(a, s_hi, s_lo, shared != 0, m_hi, m_lo, k, n, j);
+    for (int i = 0; i < cpzk::KECCAK_LANES; ++i) {
+      o_hi[(long)i * n + j] = (uint32_t)(a[i] >> 32);
+      o_lo[(long)i * n + j] = (uint32_t)a[i];
+    }
+  }
+}
+
 // Scalars mod l.  op: 0 mul, 1 add, 2 neg (b unused), 3 the conversion
 // round trip (b unused).
 void host_sc_op(int op, const int32_t* a, const int32_t* b, int32_t* out, int n) {
@@ -145,13 +238,10 @@ void host_sc_op(int op, const int32_t* a, const int32_t* b, int32_t* out, int n)
 // [40, n] canonical limbs of values below 2^512 -> [20, n] limbs mod l.
 void host_sc_reduce_wide(const int32_t* x, int32_t* out, int n) {
   for (int j = 0; j < n; ++j) {
-    uint32_t w[2 * NW] = {0};
-    for (int i = 0; i < 2 * NL; ++i) {
-      const int bit = cpzk::LIMB_BITS * i, wd = bit >> 5, sh = bit & 31;
-      const uint32_t v = (uint32_t)x[(long)i * n + j];
-      if (wd < 2 * NW) w[wd] |= v << sh;
-      if (sh > 32 - cpzk::LIMB_BITS && wd + 1 < 2 * NW) w[wd + 1] |= v >> (32 - sh);
-    }
+    int32_t l[2 * NL];
+    for (int i = 0; i < 2 * NL; ++i) l[i] = x[(long)i * n + j];
+    uint32_t w[2 * NW];
+    cpzk::sc_wide_from_limbs(w, l);
     Sc r;
     cpzk::sc_reduce_wide(r, w);
     store_sc(out, r, n, j);

@@ -147,6 +147,21 @@ FE_FN void sc_reduce_wide(Sc& out, const uint32_t x[2 * NW]) {
   for (int i = 0; i < NW; ++i) out.w[i] = r[i];
 }
 
+// Canonical 13-bit limbs l[0 .. 40) of a value below 2^512 (the layout of
+// cpzk_tpu/ops/sclimbs.py::bytes_wide_to_limbs; unused high limbs 0) -> 16
+// words, the input of sc_reduce_wide.
+FE_FN void sc_wide_from_limbs(uint32_t x[2 * NW], const int32_t l[2 * NL]) {
+#pragma unroll
+  for (int i = 0; i < 2 * NW; ++i) x[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 2 * NL; ++i) {
+    const int bit = LIMB_BITS * i, wd = bit >> 5, sh = bit & 31;
+    const uint32_t v = (uint32_t)l[i];
+    if (wd < 2 * NW) x[wd] |= v << sh;
+    if (sh > 32 - LIMB_BITS && wd + 1 < 2 * NW) x[wd + 1] |= v >> (32 - sh);
+  }
+}
+
 // out = a b mod l.  out may alias a or b.
 FE_FN void sc_mul(Sc& out, const Sc& a, const Sc& b) {
   uint32_t r[2 * NW];

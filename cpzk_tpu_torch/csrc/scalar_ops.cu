@@ -1,6 +1,6 @@
-// The two scalar kernels of the combined check's device scalar plane, for
-// Hopper (sm_90a), with a plain C launch interface loaded through ctypes by
-// cpzk_tpu_torch/ops/scalar_kernels.py.
+// The scalar kernels of the combined check's device scalar plane and of the
+// device challenge reduction, for Hopper (sm_90a), with a plain C launch
+// interface loaded through ctypes by cpzk_tpu_torch/ops/scalar_kernels.py.
 //
 //   rlc_scalars_kernel    replaces the products and the corrections of
 //                         cpzk_tpu/ops/backend.py::_rlc_products and
@@ -10,6 +10,8 @@
 //                         the recode of ::_rlc_products (sclimbs.to_windows)
 //                         and ::_pippenger_digits_device / _signed_digits_jit
 //                         (sclimbs.to_signed_digits)
+//   reduce_wide_kernel    replaces cpzk_tpu/ops/sclimbs.py::reduce_wide on
+//                         the 64-byte challenges (40 limbs in, 20 out)
 //
 // Layout: scalars are limb-major [20, pad] int32 arrays of canonical 13-bit
 // limbs, limb i of lane j at i * pad + j; windows are [64, pad] (MSB first),
@@ -23,7 +25,9 @@
 // one thread's four dependent Barrett products.  The sum of a s over all
 // rows is exact in any order (addition mod l), so it is reduced per block in
 // shared memory and then by the last block to finish (an atomic ticket), in
-// one launch.  scalar_recode moves 80 bytes in and 256 (windows) or 4 nwin
+// one launch.  reduce_wide moves 160 + 80 bytes a lane and needs about 300
+// int32 operations (one Barrett reduction), so it is bound by bytes.
+// scalar_recode moves 80 bytes in and 256 (windows) or 4 nwin
 // (digits) out a lane and does a few shifts per output word: bound by bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,6 +42,7 @@ using cpzk::Sc;
 
 constexpr int kRlcThreads = 128;
 constexpr int kRecodeThreads = 256;
+constexpr int kReduceThreads = 128;
 
 __device__ __forceinline__ void load_sc(Sc& out, const int32_t* __restrict__ src,
                                         long stride, long j) {
@@ -167,6 +172,23 @@ scalar_recode_kernel(const int32_t* __restrict__ g0, const int32_t* __restrict__
   cpzk::sc_signed_digits(out + t, m, v, c, nwin);
 }
 
+// Lane j < n: the W <= 40 canonical 13-bit limbs of x (limb i at i n + j,
+// a value below 2^512) reduced mod l into out's 20 limbs.
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_wide_kernel(const int32_t* __restrict__ x, int rows, int32_t* __restrict__ out,
+                   int n) {
+  const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  int32_t l[2 * NL];
+#pragma unroll
+  for (int i = 0; i < 2 * NL; ++i) l[i] = i < rows ? x[(long)i * n + j] : 0;
+  uint32_t w[2 * NW];
+  cpzk::sc_wide_from_limbs(w, l);
+  Sc r;
+  cpzk::sc_reduce_wide(r, w);
+  store_sc(out, r, n, j);
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` (a cudaStream_t), does not
@@ -204,5 +226,13 @@ extern "C" int cpzk_scalar_recode(const void* g0, const void* g1, const void* g2
       (const int32_t*)g0, (const int32_t*)g1, (const int32_t*)g2, (const int32_t*)g3,
       (const int32_t*)corr0, (const int32_t*)corr1, n, pad, mode, c, nwin, m,
       (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cpzk_reduce_wide(const void* x, int rows, void* out, int n, void* stream) {
+  if (n < 1 || rows < 1 || rows > 2 * NL) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kReduceThreads - 1) / kReduceThreads;
+  reduce_wide_kernel<<<blocks, kReduceThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, rows, (int32_t*)out, n);
   return (int)cudaGetLastError();
 }

@@ -105,6 +105,29 @@ def _chunk_bounds(pad: int, chunk: int = LANE_CHUNK):
         lo = hi
 
 
+@contextlib.contextmanager
+def device_work(device: torch.device):
+    """Report the interval the device ran the block's work
+    (:func:`.flightrec.note_device`).  On a card it is timed with CUDA
+    events recorded on the device's current stream around the block and
+    ends where the host has synchronised with the end event; on the CPU
+    the host clock times it."""
+    if device.type == "cuda":
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        yield
+        end.record(stream)
+        end.synchronize()
+        t1 = time.monotonic()
+        flightrec.note_device(t1 - start.elapsed_time(end) / 1e3, t1)
+    else:
+        t0 = time.monotonic()
+        yield
+        flightrec.note_device(t0, time.monotonic())
+
+
 def _chunk_point(pt: curve.Point, lo: int, hi: int) -> curve.Point:
     return tuple(c[..., lo:hi] for c in pt)
 
@@ -275,26 +298,9 @@ class TorchBackend(VerifierBackend):
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
 
-    @contextlib.contextmanager
     def _device_work(self):
-        """Report the interval the device ran the block's work
-        (:func:`.flightrec.note_device`).  On a card it is timed with CUDA
-        events recorded on the current stream around the block and ends
-        where the host has synchronised with the end event; on the CPU the
-        host clock times it."""
-        if self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-            end.synchronize()
-            t1 = time.monotonic()
-            flightrec.note_device(t1 - start.elapsed_time(end) / 1e3, t1)
-        else:
-            t0 = time.monotonic()
-            yield
-            flightrec.note_device(t0, time.monotonic())
+        """:func:`device_work` on this instance's card."""
+        return device_work(self.device)
 
     def _gh(self, row: BatchRow) -> tuple[curve.Point, curve.Point]:
         key = (

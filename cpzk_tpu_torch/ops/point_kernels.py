@@ -12,7 +12,8 @@ Sources: ``csrc/fe25519_w32.cuh`` (field and point arithmetic for one lane,
 ``__host__ __device__``) and ``csrc/point_ops.cu`` (the ``__global__``
 kernels, their block size and a plain C launch interface).  This module
 also builds the kernel library of the whole package: every ``csrc/*.cu``
-(these kernels, :mod:`.scalar_kernels`' and :mod:`.msm_kernels`') compiled
+(these kernels, :mod:`.scalar_kernels`', :mod:`.msm_kernels`',
+:mod:`.keccak_kernels`' and :mod:`.prove_kernels`') compiled
 with ``nvcc`` for ``sm_90a``, in parallel, and linked into one shared
 library at first use (:func:`build`, :func:`library`), loaded with
 ``ctypes``.
@@ -199,11 +200,12 @@ def _nvcc() -> str:
 
 def build(csrc: Path = CSRC) -> tuple[Path, str]:
     """Compile every ``*.cu`` of ``csrc`` (by default the package's own
-    sources: the point, scalar and MSM kernels) into ``_build/`` unless a
-    library for those sources already exists: one ``nvcc -c`` per source,
-    all started together, then one link into a shared library.  Returns the
-    library path and the compiler's report (``-Xptxas -v``: registers and
-    spills per kernel), kept beside the library."""
+    sources: the point, scalar, MSM, Keccak and prover kernels) into
+    ``_build/`` unless a library for those sources already exists: one
+    ``nvcc -c`` per source, all started together, then one link into a
+    shared library.  Returns the library path and the compiler's report
+    (``-Xptxas -v``: registers and spills per kernel), kept beside the
+    library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(csrc.glob("*.cu*")):
         h.update(src.name.encode())
@@ -248,12 +250,14 @@ def build(csrc: Path = CSRC) -> tuple[Path, str]:
 
 
 def kernel_modules() -> tuple:
-    """The modules of the library's kernels: this one, :mod:`.scalar_kernels`
-    and :mod:`.msm_kernels`.  The one registry of the kernels: each module's
-    ``LAUNCHES`` keys are its kernels' wrapper names."""
-    from . import msm_kernels, scalar_kernels
+    """The modules of the library's kernels: this one, :mod:`.scalar_kernels`,
+    :mod:`.msm_kernels`, :mod:`.keccak_kernels` and :mod:`.prove_kernels`.
+    The one registry of the kernels: each module's ``LAUNCHES`` keys are its
+    kernels' wrapper names."""
+    from . import keccak_kernels, msm_kernels, prove_kernels, scalar_kernels
 
-    return (sys.modules[__name__], scalar_kernels, msm_kernels)
+    return (sys.modules[__name__], scalar_kernels, msm_kernels, keccak_kernels,
+            prove_kernels)
 
 
 def kernel_names() -> tuple[str, ...]:
@@ -310,6 +314,10 @@ ENTRY_POINTS = {
     "cpzk_msm_bucket": [_P] * 9 + [_I] * 3 + [_P],
     "cpzk_msm_window_reduce": [_P] * 9 + [_I] * 2 + [_P],
     "cpzk_msm_segments": [_I],
+    "cpzk_reduce_wide": [_P, _I, _P, _I, _P],
+    "cpzk_keccak_chain": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
+    "cpzk_comb_tables": [_P] * 6,
+    "cpzk_commitments": [_P] * 5 + [_I, _P],
 }
 
 
@@ -367,6 +375,17 @@ def _lanes(coords, device: torch.device) -> tuple[list[torch.Tensor], tuple[int,
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def resolve_device(name: str, device) -> torch.device:
+    """An entry point's device: ``None`` means ``cuda:0`` and raises without
+    CUDA; anything else (``"cpu"`` for the plain versions) as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{name}: CUDA is not available (pass device='cpu' "
+                               "to run the plain PyTorch versions on the CPU)")
+        return torch.device("cuda", 0)
+    return torch.device(device)
 
 
 def on_card(name: str, device: torch.device) -> bool:

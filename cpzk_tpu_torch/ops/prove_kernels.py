@@ -1,0 +1,244 @@
+"""The two hand-written CUDA kernels of the batch prover, their wrappers,
+their plain PyTorch versions and their launch counters.
+
+======================  ======================================================
+kernel                  replaces
+======================  ======================================================
+``comb_tables``         ``cpzk_tpu/ops/prove.py::_comb_tables_kernel``
+``commitments``         ``cpzk_tpu/ops/prove.py::_commitments_kernel`` (two
+                        ``::_fixed_base_kernel`` walks and two
+                        ``cpzk_tpu/ops/curve.py::encode``, fused)
+======================  ======================================================
+
+Sources: ``csrc/prove_w32.cuh`` (a comb window's build and a walk step for
+one thread), ``csrc/ristretto_w32.cuh`` (ENCODE on 8 x 32-bit words),
+``csrc/fe25519_w32.cuh`` (field and point arithmetic), all
+``__host__ __device__``, and ``csrc/prove_ops.cu`` (the kernels and their C
+launch interface), built into the package's kernel library by
+:func:`.point_kernels.library`.
+
+Tables.  A fixed-base comb table of P holds T_w[j] = j 16^w P for 64
+windows of 16 entries.  The plain version keeps the reference's layout,
+four ``[64, 16, 20, 1]`` int32 limb tensors (X, Y, Z, T); the kernel its
+own, one ``[64, 16, 4, 8]`` int32 tensor of 32-bit words (a value below
+2^256, not reduced below p; ``csrc/prove_w32.cuh``).  :func:`table_limbs`
+and :func:`table_words` turn either into the other's layout, so tables of
+the two compare after :func:`.limbs.canonical`.
+
+Design.  ``comb_tables`` runs once per generator: one block, thread w
+builds window w.  ``commitments`` runs one thread per lane: it walks the G
+table over the lane's 64 digits, encodes, then walks the H table and
+encodes, keeping one accumulator; each window of the current table is
+staged in shared memory and an entry is selected by reading all 16 with a
+mask (the digits are nibbles of secret scalars: no address depends on one).
+What bounds them on an H100: :func:`comb_tables_work` and
+:func:`commitments_work` count the bytes and int32 operations (both are
+bound by operations); ``PERF.md`` holds the measured times.
+
+Routing: each wrapper runs the plain version for tensors on the CPU and
+launches its kernel for CUDA tensors; any other device raises, and a failed
+launch raises.  There is no fallback from a CUDA tensor to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import curve, limbs
+from .limbs import NLIMBS
+from .point_kernels import (
+    ADD_OPS_PER_LANE, W32_MUL_OPS, W32_SQ_OPS, _check, double_k_ops_per_lane, library,
+    on_card, point_add_plain, point_double_k_plain,
+)
+
+Point = curve.Point
+#: the reference's layout: four [64, 16, 20, 1] limb tensors
+LimbTable = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+NWINDOWS = curve.NWINDOWS
+TABLE = curve.TABLE
+#: the kernel's layout: [window, entry, coordinate, word]
+WORDS_SHAPE = (NWINDOWS, TABLE, 4, 8)
+
+#: Kernel launches per wrapper since the last :func:`reset_launches`.  A
+#: wrapper adds one where it launches its kernel and nowhere else.
+LAUNCHES = {"comb_tables": 0, "commitments": 0}
+
+#: int32 operations of one ristretto ENCODE on 8 x 32-bit words
+#: (``csrc/ristretto_w32.cuh``): SQRT_RATIO_M1 is 254 squarings (251 of them
+#: in the a^((p-5)/8) chain) and 19 multiplies, and the rest of ENCODE 1
+#: squaring and 13 multiplies.  The canonical reductions, selects and byte
+#: stores are not counted.
+ENCODE_OPS = 255 * W32_SQ_OPS + 32 * W32_MUL_OPS
+#: a lane of ``commitments``: 64 point additions and one ENCODE a generator.
+#: The constant-time selects (every entry read, a mask each) are not
+#: counted: a walk needs the additions, and the count is of the least work.
+COMMIT_OPS_PER_LANE = 2 * (NWINDOWS * ADD_OPS_PER_LANE + ENCODE_OPS)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def comb_tables_work() -> tuple[int, int]:
+    """(bytes, int32 operations) of one ``comb_tables``: the point read
+    once (4 x 80 bytes), the table written once (128 KiB); the least work
+    is the reference's: 63 x 4 doublings between window bases and 14
+    additions a window."""
+    ops = double_k_ops_per_lane(4) * (NWINDOWS - 1) + 14 * NWINDOWS * ADD_OPS_PER_LANE
+    return 4 * NLIMBS * 4 + NWINDOWS * TABLE * 4 * 8 * 4, ops
+
+
+def commitments_work(n: int) -> tuple[int, int]:
+    """(bytes, int32 operations) of one ``commitments`` over n lanes: the two
+    tables read once (128 KiB each), 64 int32 digits read and 2 x 32 bytes
+    written a lane, :data:`COMMIT_OPS_PER_LANE` a lane."""
+    return 2 * NWINDOWS * TABLE * 4 * 8 * 4 + 64 * 4 * n + 64 * n, COMMIT_OPS_PER_LANE * n
+
+
+# ---------------------------------------------------------------------------
+# table layouts
+# ---------------------------------------------------------------------------
+
+def table_limbs(table) -> LimbTable:
+    """Either layout -> the reference's four ``[64, 16, 20, 1]`` limb
+    tensors (kernel words become digits in [0, 2^13) of the same value)."""
+    if not isinstance(table, torch.Tensor):
+        return tuple(table)
+    w = table.reshape(WORDS_SHAPE).to(torch.int64) & 0xFFFFFFFF  # [64, 16, 4, 8]
+    out = []
+    for i in range(NLIMBS):
+        bit = limbs.LIMB_BITS * i
+        wd, sh = bit >> 5, bit & 31
+        v = w[..., wd] >> sh
+        if sh > 32 - limbs.LIMB_BITS and wd + 1 < 8:
+            v = v | (w[..., wd + 1] << (32 - sh))
+        out.append((v & limbs.LIMB_MASK).to(torch.int32))
+    lim = torch.stack(out, dim=-1)  # [64, 16, 4, 20]
+    return tuple(lim[:, :, c, :, None].contiguous() for c in range(4))
+
+
+def table_words(table) -> torch.Tensor:
+    """Either layout -> the kernel's ``[64, 16, 4, 8]`` int32 words (limbs
+    are canonicalized first, so the words hold the value below p)."""
+    if isinstance(table, torch.Tensor):
+        return table.reshape(WORDS_SHAPE)
+    lim = torch.stack([limbs.canonical(c[..., 0].movedim(-1, 0)).movedim(0, -1)
+                       for c in table], dim=2).to(torch.int64)  # [64, 16, 4, 20]
+    words = []
+    for k in range(8):
+        acc = torch.zeros(lim.shape[:-1], dtype=torch.int64, device=lim.device)
+        for i in range(NLIMBS):
+            shift = limbs.LIMB_BITS * i - 32 * k
+            if -limbs.LIMB_BITS < shift < 32:
+                part = lim[..., i] << shift if shift >= 0 else lim[..., i] >> -shift
+                acc = acc | part
+        acc = acc & 0xFFFFFFFF
+        words.append(acc - ((acc >> 31) << 32))
+    return torch.stack(words, dim=-1).to(torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (transcriptions of the reference's XLA programs)
+# ---------------------------------------------------------------------------
+
+def _build_table_plain(p: Point) -> LimbTable:
+    """[0..15] p as stacked coords, 4 x [16, 20, ...]: ``curve.build_table``
+    on the plain point addition."""
+    rows = [curve.identity(tuple(p[0].shape[1:]), p[0].device), p]
+    acc = p
+    for _ in range(TABLE - 2):
+        acc = point_add_plain(acc, p)
+        rows.append(acc)
+    return tuple(torch.stack([r[i] for r in rows], dim=0) for i in range(4))
+
+
+def comb_tables_plain(p: Point) -> LimbTable:
+    """Four ``[64, 16, 20, 1]`` tables T_w[j] = j 16^w P of a ``[20, 1]``
+    point, as ``_comb_tables_kernel`` computes them: window w's table, then
+    four doublings to the next window's base."""
+    base = p
+    windows = []
+    for _ in range(NWINDOWS):
+        windows.append(_build_table_plain(base))
+        base = point_double_k_plain(base, 4)
+    return tuple(torch.stack([t[i] for t in windows], dim=0) for i in range(4))
+
+
+def fixed_base_plain(table, digits: torch.Tensor) -> Point:
+    """sum_w T_w[d_w] per lane, ``digits`` ``[64, n]`` LSB window first, as
+    ``_fixed_base_kernel`` computes it (``curve.table_gather``'s select tree
+    on the plain addition)."""
+    table = table_limbs(table)
+    acc = curve.identity((digits.shape[-1],), digits.device)
+    for w in range(NWINDOWS):
+        entry = curve.table_gather(tuple(t[w] for t in table), digits[w])
+        acc = point_add_plain(acc, entry)
+    return acc
+
+
+def commitments_plain(tg, th, digits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(encode(sum_w TG_w[d_w]), encode(sum_w TH_w[d_w])) as two ``[32, n]``
+    uint8 tensors, as ``_commitments_kernel`` computes them."""
+    return tuple(curve.encode(fixed_base_plain(t, digits)).to(torch.uint8)
+                 for t in (tg, th))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def comb_tables(p: Point):
+    """The comb table of a ``[20, 1]`` point: the kernel's ``[64, 16, 4, 8]``
+    words for a point on the card, the plain limb tables on the CPU."""
+    device = p[0].device
+    for c in p:
+        if c.dtype != torch.int32 or c.shape != (NLIMBS, 1) or c.device != device:
+            raise ValueError(f"comb_tables: a [20, 1] int32 point on one device, got "
+                             f"{c.dtype} {tuple(c.shape)} on {c.device}")
+    if not on_card("comb_tables", device):
+        return comb_tables_plain(p)
+    coords = [c.contiguous() for c in p]
+    out = torch.empty(WORDS_SHAPE, dtype=torch.int32, device=device)
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.cpzk_comb_tables(*(c.data_ptr() for c in coords), out.data_ptr(), stream)
+    _check(rc, "comb_tables")
+    LAUNCHES["comb_tables"] += 1
+    return out
+
+
+def commitments(tg, th, digits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two ``[32, n]`` uint8 encodings of sum_w T_w[d_w] over the G and
+    the H table, ``digits`` ``[64, n]`` int32 in 0..15 (LSB window first);
+    on the card the tables are the kernel's ``[64, 16, 4, 8]`` words (as
+    :func:`comb_tables` gives them there), on the CPU the plain limb
+    tables."""
+    if digits.dtype != torch.int32 or digits.ndim != 2 or digits.shape[0] != NWINDOWS:
+        raise ValueError(f"commitments: digits must be [64, n] int32, got "
+                         f"{digits.dtype} {tuple(digits.shape)}")
+    device = digits.device
+    if not on_card("commitments", device):
+        return commitments_plain(tg, th, digits)
+    for t in (tg, th):
+        if (not isinstance(t, torch.Tensor) or tuple(t.shape) != WORDS_SHAPE
+                or t.device != device or t.dtype != torch.int32):
+            raise ValueError(f"commitments: tables must be [64, 16, 4, 8] int32 words on "
+                             f"{device} (table_words gives them from limb tables)")
+    n = digits.shape[1]
+    if n < 1:
+        raise ValueError("commitments needs at least one lane")
+    digits = digits.contiguous()
+    out = [torch.empty((32, n), dtype=torch.uint8, device=device) for _ in range(2)]
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.cpzk_commitments(tg.contiguous().data_ptr(), th.contiguous().data_ptr(),
+                                  digits.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                                  n, stream)
+    _check(rc, "commitments")
+    LAUNCHES["commitments"] += 1
+    return out[0], out[1]

@@ -1,6 +1,6 @@
-"""The two hand-written CUDA scalar kernels of the combined check's device
-scalar plane, their wrappers, their plain PyTorch versions and their launch
-counters.
+"""The hand-written CUDA scalar kernels of the combined check's device
+scalar plane and of the device challenge reduction, their wrappers, their
+plain PyTorch versions and their launch counters.
 
 =================  ===========================================================
 kernel             replaces
@@ -13,6 +13,9 @@ kernel             replaces
                    ``::_rlc_products``; the term concatenation and
                    ``sclimbs.to_signed_digits`` of
                    ``::_pippenger_digits_device`` / ``::_signed_digits_jit``
+``reduce_wide``    ``cpzk_tpu/ops/sclimbs.py::reduce_wide`` on the 64-byte
+                   challenges (``benches/bench_kernels.py``'s device
+                   challenge reduction)
 =================  ===========================================================
 
 Sources: ``csrc/sc25519_w32.cuh`` (arithmetic mod l on 8 x 32-bit words,
@@ -48,7 +51,7 @@ NLIMBS = sc.NLIMBS
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernel and nowhere else.
-LAUNCHES = {"rlc_scalars": 0, "scalar_recode": 0}
+LAUNCHES = {"rlc_scalars": 0, "scalar_recode": 0, "reduce_wide": 0}
 
 #: int32 operations of one product mod l on 8 x 32-bit words
 #: (``sc25519_w32.cuh``): a word product is 2 (the low and the high
@@ -57,6 +60,9 @@ LAUNCHES = {"rlc_scalars": 0, "scalar_recode": 0}
 #: the low words of q3 l, a 9-word subtraction, and two conditional
 #: subtractions of l (a 9-word compare and a 9-word subtract each).
 SC_MUL_OPS = (64 * 2 + 8) + (81 * 2 + 9) + (44 * 2 + 1) + 9 + 2 * (9 + 9)
+#: one Barrett reduction of a 16-word value (the product's ops of
+#: :data:`SC_MUL_OPS` less the 64 word products and their 8 carries)
+SC_REDUCE_OPS = SC_MUL_OPS - (64 * 2 + 8)
 #: an 8-word add, a 9-word compare and a 9-word subtract
 SC_ADD_OPS = 8 + 9 + 9
 #: a row of ``rlc_scalars``: a c, b a, b a c and a s, and a s into the sum
@@ -73,6 +79,13 @@ def rlc_scalars_work(pad: int) -> tuple[int, int]:
     scalars read and three products written a row, beta read and the two
     corrections written once."""
     return 6 * NLIMBS * 4 * pad + 3 * NLIMBS * 4, RLC_OPS_PER_ROW * pad
+
+
+def reduce_wide_work(rows: int, n: int) -> tuple[int, int]:
+    """(bytes, int32 operations) of one ``reduce_wide`` over n lanes of
+    ``rows`` limbs: the limbs read once, 20 limbs written a lane, one
+    Barrett reduction a lane."""
+    return 4 * rows * n + 4 * NLIMBS * n, SC_REDUCE_OPS * n
 
 
 def scalar_recode_work(lanes: int, outputs_per_lane: int, reads: int) -> tuple[int, int]:
@@ -219,3 +232,26 @@ def rlc_digits(groups, corr0, corr1, n: int, m: int, c: int) -> torch.Tensor:
     nwin = num_windows(c)
     out = torch.empty((nwin, m), dtype=torch.int32, device=groups[0].device)
     return _recode(groups, corr0, corr1, n, 1, c, nwin, m, out)
+
+
+def reduce_wide(x: torch.Tensor) -> torch.Tensor:
+    """x mod l for ``[W, n]`` int32 canonical 13-bit limbs of values below
+    2^512 (W <= 40; the 64-byte challenges of
+    ``sclimbs.bytes_wide_to_limbs``) -> canonical ``[20, n]`` limbs."""
+    if x.dtype != torch.int32 or x.ndim != 2 or not 1 <= x.shape[0] <= 2 * NLIMBS:
+        raise ValueError(f"reduce_wide: limbs must be [W <= 40, n] int32, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if not on_card("reduce_wide", x.device):
+        return sc.reduce_wide_plain(x)
+    n = x.shape[1]
+    if n < 1:
+        raise ValueError("reduce_wide needs at least one lane")
+    x = x.contiguous()
+    out = torch.empty((NLIMBS, n), dtype=torch.int32, device=x.device)
+    lib = library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.cpzk_reduce_wide(x.data_ptr(), x.shape[0], out.data_ptr(), n, stream)
+    _check(rc, "reduce_wide")
+    LAUNCHES["reduce_wide"] += 1
+    return out

@@ -16,7 +16,9 @@ they are ops over ``[20, n]`` int32 tensors in the limb-major layout of the
 rest of the data plane.  These are the plain versions of the scalar kernels
 in :mod:`.scalar_kernels` (``CPZK_DEVICE_RLC=1`` in :mod:`.backend`).
 ``reduce_wide`` and ``bytes_wide_to_limbs`` also give the 64-byte wide
-challenge reduction; the serving path reduces challenges on the host.
+challenge reduction (a CUDA tensor goes to the hand-written
+``reduce_wide`` kernel of :mod:`.scalar_kernels`); the serving path reduces
+challenges on the host.
 
 Representation: values < 2^260 as 20x13-bit limbs (leading limb axis).  All
 outputs are fully reduced (< l): the digit and window decompositions need
@@ -146,6 +148,17 @@ def _cond_sub_l(x: torch.Tensor) -> torch.Tensor:
 
 
 def reduce_wide(x: torch.Tensor) -> torch.Tensor:
+    """x mod l for [W, ...] canonical limbs (W <= 2K, value < b^(2K)) ->
+    canonical [20, ...] limbs: the hand-written kernel
+    :func:`.scalar_kernels.reduce_wide` for a CUDA tensor, the plain
+    :func:`reduce_wide_plain` for a CPU tensor."""
+    from . import scalar_kernels
+
+    out = scalar_kernels.reduce_wide(x.reshape(x.shape[0], -1))
+    return out.reshape((NLIMBS,) + tuple(x.shape[1:]))
+
+
+def reduce_wide_plain(x: torch.Tensor) -> torch.Tensor:
     """Barrett: [W, ...] limbs (W <= 2K, value < b^(2K)) -> canonical
     [20, ...] limbs of x mod l.
 
@@ -170,7 +183,7 @@ def reduce_wide(x: torch.Tensor) -> torch.Tensor:
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Canonical [20, ...] x [20, ...] -> canonical [20, ...] mod l."""
-    return reduce_wide(_mul_raw(a, b, NLIMBS, NLIMBS))
+    return reduce_wide_plain(_mul_raw(a, b, NLIMBS, NLIMBS))
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -203,7 +216,7 @@ def sum_mod_l(a: torch.Tensor) -> torch.Tensor:
         parts = _carry_strip(parts, 2 * K)
         s = parts.sum(dim=-1, keepdim=True, dtype=I32)
     s = _carry_strip(s, 2 * K)
-    return reduce_wide(s)
+    return reduce_wide_plain(s)
 
 
 def _bits(a: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,9 @@ same CUDA tensors: the point kernels equal after canonicalization with every
 output limb within the loose bound (they compute in their own radix); the
 scalar kernels exact (``torch.equal``: both canonical); the MSM kernels
 equal as group elements (the encodings: the order of the adds differs).
-Also the launch counters and the block size.  Needs an NVIDIA GPU
+The Keccak chain and the wide reduction exact; the comb tables equal
+after canonicalization; the commitments' bytes identical (and equal to the
+host core's comb).  Also the launch counters and the block size.  Needs an NVIDIA GPU
 with nvcc: marked ``cuda`` and skipped elsewhere.  On the machine with the
 card (no JAX there, so without tests/conftest.py):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q``."""
@@ -18,6 +20,7 @@ from cpzk_tpu_torch.core import edwards as he
 from cpzk_tpu_torch.core.scalars import L
 from cpzk_tpu_torch.ops import curve, limbs, msm, msm_kernels as mk, point_kernels as pk
 from cpzk_tpu_torch.ops import scalar_kernels as sk, sclimbs as sc
+from cpzk_tpu_torch.ops import keccak_kernels as kk, prove_kernels as pvk
 
 pytestmark = pytest.mark.cuda
 
@@ -88,7 +91,7 @@ def test_scalar_kernels_match_plain_on_card(dev, n):
         m = 4 * n + 5
         assert torch.equal(sk.rlc_digits(groups, ref[3], ref[4], n, m, c),
                            sk.rlc_digits_plain(groups, ref[3], ref[4], n, m, c))
-    assert sk.LAUNCHES == {"rlc_scalars": 1, "scalar_recode": 4}
+    assert sk.LAUNCHES == {"rlc_scalars": 1, "scalar_recode": 4, "reduce_wide": 0}
 
 
 def msm_case(dev, m, c, seed):
@@ -123,3 +126,65 @@ def test_msm_kernels_match_plain_on_card(dev, m, c):
     # msm_kernel routes a CUDA tensor to the two kernels
     assert torch.equal(curve.encode(msm.msm_kernel(pts, digits, c)), curve.encode(out))
     assert mk.LAUNCHES == {"msm_bucket": 2, "msm_window_reduce": 2}
+
+
+@pytest.mark.parametrize("n", [1, 127, 4096])
+def test_keccak_chain_matches_plain_on_card(dev, n):
+    rng = np.random.default_rng(n)
+    ints = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).to(dev)
+    kk.reset_launches()
+    for width, k in ((n, 3), (1, 3), (n, 1)):
+        s_hi, s_lo, m_hi, m_lo = ints((25, width)), ints((25, width)), ints((k, 25, n)), \
+            ints((k, 25, n))
+        got = kk.keccak_chain(s_hi, s_lo, m_hi, m_lo)
+        torch.cuda.synchronize()
+        ref = kk.keccak_chain_plain(s_hi, s_lo, m_hi, m_lo)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert kk.LAUNCHES == {"keccak_chain": 3}
+
+
+@pytest.mark.parametrize("n", [1, 127, 4096])
+def test_reduce_wide_matches_plain_on_card(dev, n):
+    rng = np.random.default_rng(n + 1)
+    blobs = rng.integers(0, 256, size=(n, 64), dtype=np.uint8)
+    blobs[0] = 0xFF
+    wide = torch.from_numpy(sc.bytes_wide_to_limbs(blobs)).to(dev)
+    sk.reset_launches()
+    got = sc.reduce_wide(wide)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc.reduce_wide_plain(wide))
+    assert sk.LAUNCHES["reduce_wide"] == 1
+
+
+def test_prover_kernels_match_plain_on_card(dev):
+    from cpzk_tpu_torch import Parameters, Ristretto255, Scalar
+
+    params = Parameters.new()
+    g = curve.points_to_device([params.generator_g.point], dev)
+    h = curve.points_to_device([params.generator_h.point], dev)
+    pvk.reset_launches()
+    tg, th = pvk.comb_tables(g), pvk.comb_tables(h)
+    torch.cuda.synchronize()
+    for got, table in ((tg, pvk.comb_tables_plain(g)), (th, pvk.comb_tables_plain(h))):
+        for a, b in zip(pvk.table_limbs(got), table):
+            assert torch.equal(limbs.canonical(a[..., 0].movedim(-1, 0)),
+                               limbs.canonical(b[..., 0].movedim(-1, 0)))
+    rng = random.Random(5)
+    for n in (1, 127, 4096):
+        vals = [rng.randrange(L) for _ in range(n)]
+        vals[: min(n, 3)] = [0, 1, L - 1][: min(n, 3)]
+        digits = torch.from_numpy(np.ascontiguousarray(
+            curve.scalars_to_windows(vals)[::-1])).to(dev)
+        r1, r2 = pvk.commitments(tg, th, digits)
+        torch.cuda.synchronize()
+        ref = pvk.commitments_plain(pvk.table_limbs(tg), pvk.table_limbs(th), digits)
+        assert torch.equal(r1, ref[0]) and torch.equal(r2, ref[1])
+        for j in range(min(n, 4)):
+            y1, y2 = Ristretto255.double_base_mul(params.generator_g, params.generator_h,
+                                                  Scalar(vals[j]))
+            assert bytes(r1[:, j].tolist()) == y1.wire() and bytes(r2[:, j].tolist()) == y2.wire()
+    assert pvk.LAUNCHES == {"comb_tables": 2, "commitments": 3}
+    with pytest.raises(ValueError, match="words"):
+        pvk.commitments(pvk.table_limbs(tg), th, digits)
+    assert pvk.LAUNCHES["commitments"] == 3

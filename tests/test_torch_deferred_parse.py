@@ -7,6 +7,7 @@ non-gRPC cases of ``test_deferred_parse.py``.
 Tolerance: exact (error types and messages, wire bytes)."""
 
 import numpy as np
+import pytest
 
 import cpzk_tpu as J
 import cpzk_tpu_torch as T
@@ -14,6 +15,15 @@ from cpzk_tpu.protocol.batch import BatchVerifier as JBatchVerifier
 from cpzk_tpu.protocol.batch import CpuBackend as JCpuBackend
 from cpzk_tpu.protocol.gadgets import Proof as JProof
 from cpzk_tpu_torch.protocol.gadgets import PROOF_WIRE_SIZE
+import torch_reference_core
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_core():
+    """The reference's host core, built under a lock (see
+    ``tests/torch_reference_core.py``) and loaded in this worker."""
+    return torch_reference_core.require()
+
 
 BAD_POINT_MSG = "Bytes do not represent a valid Ristretto point"
 L = 2**252 + 27742317777372353535851937790883648493

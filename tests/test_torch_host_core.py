@@ -21,6 +21,15 @@ from cpzk_tpu.core import _native as jnative
 from cpzk_tpu_torch.core import _native, edwards
 from cpzk_tpu_torch.ops import curve
 from cpzk_tpu_torch.ops.backend import TorchBackend
+import torch_reference_core
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_core():
+    """The reference's host core, built under a lock (see
+    ``tests/torch_reference_core.py``) and loaded in this worker."""
+    return torch_reference_core.require()
+
 
 BAD_POINT_MSG = "Bytes do not represent a valid Ristretto point"
 

@@ -51,6 +51,9 @@ def test_import_pulls_in_neither_jax_nor_cpzk_tpu():
         "import cpzk_tpu_torch.ops.backend, cpzk_tpu_torch.ops.verify\n"
         "import cpzk_tpu_torch.ops.sclimbs, cpzk_tpu_torch.ops.scalar_kernels\n"
         "import cpzk_tpu_torch.ops.msm, cpzk_tpu_torch.ops.msm_kernels\n"
+        "import cpzk_tpu_torch.ops.prove, cpzk_tpu_torch.ops.prove_kernels\n"
+        "import cpzk_tpu_torch.ops.keccak, cpzk_tpu_torch.ops.keccak_kernels\n"
+        "import cpzk_tpu_torch.ops.challenge\n"
         "import cpzk_tpu_torch.server, cpzk_tpu_torch.server.plane\n"
         "import cpzk_tpu_torch.observability, cpzk_tpu_torch.resilience.faults\n"
         "import cpzk_tpu_torch.parallel\n"
@@ -82,6 +85,24 @@ def test_torch_backend_needs_cuda_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TorchBackend()
     assert TorchBackend(device="cpu").device == torch.device("cpu")
+
+
+def test_prover_and_device_challenges_need_cuda_unless_asked_for_cpu(monkeypatch):
+    """``BatchProver`` and ``derive_challenges_device`` run on cuda:0 by
+    default and raise without CUDA; the plain versions run only when the
+    caller passes ``device="cpu"``."""
+    import numpy as np
+
+    from cpzk_tpu_torch.ops.challenge import derive_challenges_device
+    from cpzk_tpu_torch.ops.prove import BatchProver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BatchProver()
+    cols = [np.zeros((1, 32), dtype=np.uint8)] * 6
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        derive_challenges_device(None, *cols)
+    assert derive_challenges_device(None, *cols, device="cpu").shape == (1, 64)
 
 
 def test_batch_verifier_defaults_to_the_card(monkeypatch):

@@ -13,7 +13,19 @@ tolerance: exact) at random scalars and 0, 1, l - 1, and the Pippenger
 thread bodies (``csrc/msm_w32.cuh``), run over every (window, bucket) the
 top bucket |d| = 2^(c-1) included, against :mod:`cpzk_tpu_torch.ops.msm`'s
 plain version as group elements (equal encodings: the order of the adds
-differs).  Skips where g++ is missing."""
+differs).
+
+The batch prover's headers too: ``csrc/ristretto_w32.cuh`` (canonical form,
+sign, a^((p-5)/8), SQRT_RATIO_M1 with its non-square case, and ENCODE of the
+identity, of points on both branches of the rotation by sqrt(-1) and of
+coordinates at or above p) against :mod:`cpzk_tpu_torch.ops.limbs` and
+``curve.encode`` (canonical limbs exact, bytes identical);
+``csrc/prove_w32.cuh``'s window build of ``comb_tables_kernel`` against the
+plain tables after canonicalization, and ``commitments_kernel``'s lane body
+(walk and encode) against the plain commitments and the host core's comb
+(bytes identical); and ``csrc/keccak_u64.cuh``'s absorb chain of
+``keccak_chain_kernel`` against the plain int32-pair Keccak (words
+identical).  Skips where g++ is missing."""
 
 import ctypes
 import random
@@ -27,6 +39,7 @@ import torch
 from cpzk_tpu_torch.core import edwards as he
 from cpzk_tpu_torch.core.scalars import L
 from cpzk_tpu_torch.ops import curve, limbs, msm, point_kernels as pk, sclimbs as sc
+from cpzk_tpu_torch.ops import keccak, keccak_kernels as kk, prove_kernels as pvk
 
 N = 96
 BOUND = limbs.BOUND
@@ -77,10 +90,18 @@ def host_lib(tmp_path_factory):
     lib.host_sc_signed_digits.argtypes = [P_, I, I, P_, I]
     lib.host_msm_bucket.argtypes = [P_] * 9 + [I] * 4
     lib.host_msm_window_reduce.argtypes = [P_] * 8 + [I] * 3
+    lib.host_fe_is_negative.argtypes = [P_, P_, I]
+    lib.host_fe_sqrt_ratio_m1.argtypes = [P_] * 4 + [I]
+    lib.host_ristretto_encode.argtypes = [P_] * 5 + [I]
+    lib.host_comb_window.argtypes = [P_] * 4 + [I, P_]
+    lib.host_commitments.argtypes = [P_] * 5 + [I]
+    lib.host_keccak_chain.argtypes = [P_, P_, I, P_, P_, I, I, P_, P_]
     for fn in (lib.host_d2, lib.host_to_words, lib.host_fe_op, lib.host_point_add,
                lib.host_point_double_k, lib.host_sc_op, lib.host_sc_reduce_wide,
                lib.host_sc_windows, lib.host_sc_signed_digits, lib.host_msm_bucket,
-               lib.host_msm_window_reduce):
+               lib.host_msm_window_reduce, lib.host_fe_is_negative,
+               lib.host_fe_sqrt_ratio_m1, lib.host_ristretto_encode, lib.host_comb_window,
+               lib.host_commitments, lib.host_keccak_chain):
         fn.restype = None
     return lib
 
@@ -327,3 +348,175 @@ def test_msm_window_reduce_body_matches_plain(host_lib, c, segments):
         want = he.pt_add(want, he.pt_scalar_mul(p, s % L))
     got = tuple(v % he.P for v in curve.points_from_device(tuple(outs))[0])
     assert he.pt_eq(got, want)
+
+
+# -- ristretto encode (ristretto_w32.cuh) ------------------------------------
+
+def test_canonical_sign_neg_abs_pow_match_plain(host_lib):
+    """fe_canonical returns the representative below p (limbs identical to
+    ``limbs.canonical``, the edge values p - 1, p, 2^255 - 1 and above
+    included); the sign, negation, |a| and a^((p-5)/8) agree with the
+    plain versions after canonicalization."""
+    a, = limb_inputs(30, 1)
+    assert torch.equal(fe_op(host_lib, 6, a), limbs.canonical(a))
+    sign = torch.empty(N, dtype=torch.int32)
+    host_lib.host_fe_is_negative(ptr(a), ptr(sign), N)
+    assert torch.equal(sign.bool(), limbs.is_negative(a))
+    assert_canonical_equal(fe_op(host_lib, 8, a), limbs.neg(a))
+    assert_canonical_equal(fe_op(host_lib, 9, a), limbs.fabs(a))
+    assert_canonical_equal(fe_op(host_lib, 7, a), limbs._pow_p58(a))
+
+
+def test_sqrt_ratio_m1_matches_plain(host_lib):
+    """Random (u, v) pairs (about half of u / v are non-squares), squares
+    u = v w^2, u = 0, v = 0 and u = v = 0: root and was_square equal the
+    plain version's."""
+    u, v = limb_inputs(31, 2)
+    rng = random.Random(31)
+    w = [rng.randrange(P) for _ in range(8)]
+    vs = [rng.randrange(1, P) for _ in range(8)]
+    u[:, :8] = torch.from_numpy(limbs.ints_to_limbs([x * x * y % P for x, y in zip(w, vs)]))
+    v[:, :8] = torch.from_numpy(limbs.ints_to_limbs(vs))
+    u[:, 8] = 0
+    v[:, 9] = 0
+    u[:, 10] = 0
+    v[:, 10] = 0
+    r = empty()
+    ok = torch.empty(N, dtype=torch.int32)
+    host_lib.host_fe_sqrt_ratio_m1(ptr(u), ptr(v), ptr(r), ptr(ok), N)
+    ref_ok, ref_r = limbs.sqrt_ratio_m1(u, v)
+    assert torch.equal(ok.bool(), ref_ok)
+    assert_canonical_equal(r, ref_r)
+    assert bool(ok[:8].all()) and not bool(ok.all())  # both cases were met
+
+
+def encode_points(seed, n):
+    """n points: the identity, random multiples of the base point, and the
+    same points in other projective representations (scaled by a random
+    factor, and with coordinates lifted to value + p, at or above p)."""
+    rng = random.Random(seed)
+    pts = [he.IDENTITY] + [he.pt_scalar_mul(he.BASEPOINT, rng.randrange(L))
+                           for _ in range(n // 2 - 1)]
+    scaled = []
+    for p in pts:
+        lam = rng.randrange(1, P)
+        scaled.append(tuple(c * lam % P for c in p))
+    coords = [[int(c) for c in col] for col in zip(*(pts + scaled))]
+    for col in coords:  # coordinates below 2^256 - p lifted by p
+        for j in range(0, len(col), 3):
+            if col[j] + P < 2**256:
+                col[j] += P
+    return tuple(torch.from_numpy(np.stack([value_limbs(v) for v in col], axis=-1))
+                 for col in coords)
+
+
+def test_encode_matches_plain(host_lib):
+    pts = encode_points(32, 40)
+    n = pts[0].shape[1]
+    out = torch.empty((32, n), dtype=torch.uint8)
+    host_lib.host_ristretto_encode(*(ptr(c) for c in pts), ptr(out), n)
+    ref = curve.encode(pts)
+    assert torch.equal(out.to(torch.int32), ref)
+    assert not bool(out[:, 0].any())  # the identity: 32 zero bytes
+    assert torch.equal(out[:, :n // 2], out[:, n // 2:])  # representation-free
+    # both branches of the rotation by sqrt(-1) were taken
+    X0, Y0, Z0, T0 = pts
+    u1 = limbs.mul(limbs.add(Z0, Y0), limbs.sub(Z0, Y0))
+    u2 = limbs.mul(X0, Y0)
+    _, inv = limbs.sqrt_ratio_m1(limbs.on(limbs.ONE, "cpu"), limbs.mul(u1, limbs.square(u2)))
+    z_inv = limbs.mul(limbs.mul(limbs.mul(inv, u1), limbs.mul(inv, u2)), T0)
+    rotate = limbs.is_negative(limbs.mul(T0, z_inv))
+    assert bool(rotate.any()) and not bool(rotate.all())
+
+
+# -- the batch prover's thread bodies (prove_w32.cuh) ------------------------
+
+@pytest.fixture(scope="module")
+def g_tables():
+    """The base point's plain comb tables and its [20, 1] coordinates."""
+    g = curve.points_to_device([he.BASEPOINT], "cpu")
+    return g, pvk.comb_tables_plain(g)
+
+
+def host_table(lib, g):
+    words = torch.empty(pvk.WORDS_SHAPE, dtype=torch.int32)
+    flat = words.reshape(64, -1)
+    for w in range(64):
+        lib.host_comb_window(*(ptr(c) for c in g), w, ptr(flat[w]))
+    return words
+
+
+def test_comb_window_matches_plain(host_lib, g_tables):
+    """comb_tables_kernel's thread w, for every window w (4 w doublings
+    then 14 additions), against the plain tables after canonicalization."""
+    g, ref = g_tables
+    got = pvk.table_limbs(host_table(host_lib, g))
+    for a, b in zip(got, ref):
+        assert torch.equal(limbs.canonical(a[..., 0].movedim(-1, 0)),
+                           limbs.canonical(b[..., 0].movedim(-1, 0)))
+    # the layouts' conversions are inverse to each other
+    words = pvk.table_words(ref)
+    assert torch.equal(pvk.table_words(pvk.table_limbs(words)), words)
+
+
+def test_commitments_lane_matches_plain(host_lib, g_tables):
+    """commitments_kernel's lane body (64 constant-time selects and
+    additions, then ENCODE, per table) on the host-built G table and on the
+    plain H table's words: bytes identical to the plain commitments and to
+    the host core's constant-time comb (scalars 0, 1, l - 1, 2^252 and
+    random ones)."""
+    from cpzk_tpu_torch import Parameters, Ristretto255, Scalar
+
+    g, tg = g_tables
+    params = Parameters.new()
+    assert Ristretto255.element_to_bytes(params.generator_g) == bytes(
+        curve.encode(g).to(torch.uint8)[:, 0].tolist())
+    h = curve.points_to_device([params.generator_h.point], "cpu")
+    th = pvk.comb_tables_plain(h)
+    rng = random.Random(33)
+    scalars = [0, 1, L - 1, 2**252] + [rng.randrange(L) for _ in range(6)]
+    digits = torch.from_numpy(np.ascontiguousarray(curve.scalars_to_windows(scalars)[::-1]))
+    n = len(scalars)
+    r1, r2 = (torch.empty((32, n), dtype=torch.uint8) for _ in range(2))
+    gw, hw = host_table(host_lib, g), pvk.table_words(th)
+    host_lib.host_commitments(ptr(gw), ptr(hw), ptr(digits), ptr(r1), ptr(r2), n)
+    ref = pvk.commitments_plain(tg, th, digits)
+    assert torch.equal(r1, ref[0]) and torch.equal(r2, ref[1])
+    for j, k in enumerate(scalars):
+        y1, y2 = Ristretto255.double_base_mul(params.generator_g, params.generator_h,
+                                              Scalar(k))
+        assert bytes(r1[:, j].tolist()) == y1.wire()
+        assert bytes(r2[:, j].tolist()) == y2.wire()
+
+
+# -- the Keccak chain (keccak_u64.cuh) ---------------------------------------
+
+@pytest.mark.parametrize("k,shared", [(1, False), (3, True), (3, False)])
+def test_keccak_chain_matches_plain(host_lib, k, shared):
+    """keccak_chain_kernel's thread body: random states (one shared by
+    every row, or one a row) and k random masks, against the plain
+    int32-pair chain (words identical); k = 1 with a zero mask is one
+    permutation, held against the host oracle."""
+    rng = np.random.default_rng(34 + k)
+    n = 9
+    width = 1 if shared else n
+    s_hi, s_lo = (torch.from_numpy(rng.integers(-2**31, 2**31, (25, width), dtype=np.int64)
+                                   .astype(np.int32)) for _ in range(2))
+    m_hi, m_lo = (torch.from_numpy(rng.integers(-2**31, 2**31, (k, 25, n), dtype=np.int64)
+                                   .astype(np.int32)) for _ in range(2))
+    if k == 1:
+        m_hi.zero_()
+        m_lo.zero_()
+    o_hi, o_lo = (torch.empty((25, n), dtype=torch.int32) for _ in range(2))
+    host_lib.host_keccak_chain(ptr(s_hi), ptr(s_lo), int(shared), ptr(m_hi), ptr(m_lo), k, n,
+                               ptr(o_hi), ptr(o_lo))
+    ref = kk.keccak_chain_plain(s_hi, s_lo, m_hi, m_lo)
+    assert torch.equal(o_hi, ref[0]) and torch.equal(o_lo, ref[1])
+    if k == 1:
+        from cpzk_tpu_torch.core import keccak as host_keccak
+
+        lanes = keccak.state_to_lanes((s_hi.expand(25, n), s_lo.expand(25, n)))
+        got = keccak.state_to_lanes((o_hi, o_lo))
+        for j in range(n):
+            assert [int(v) for v in got[j]] == host_keccak.keccak_f1600(
+                [int(v) for v in lanes[j]])

@@ -30,6 +30,15 @@ from cpzk_tpu_torch.core.transcript import (
     derive_challenges_batch_pure,
 )
 from cpzk_tpu_torch.protocol.batch import BatchRow, CpuBackend
+import torch_reference_core
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_core():
+    """The reference's host core, built under a lock (see
+    ``tests/torch_reference_core.py``) and loaded in this worker."""
+    return torch_reference_core.require()
+
 
 L = scalars.L
 

@@ -205,6 +205,28 @@ def test_scalar_and_msm_kernel_launch_counts_exposed_when_loaded():
         mk.LAUNCHES.update(saved[1])
 
 
+def test_prover_and_keccak_kernel_launch_counts_exposed_when_loaded():
+    """The batch prover's, the Keccak chain's and the wide reduction's
+    counts reach the scrape like every other kernel's."""
+    from cpzk_tpu_torch.ops import keccak_kernels as kk, prove_kernels as pvk
+    from cpzk_tpu_torch.ops import scalar_kernels as sk
+
+    saved = dict(kk.LAUNCHES), dict(pvk.LAUNCHES), dict(sk.LAUNCHES)
+    try:
+        kk.LAUNCHES.update(keccak_chain=3)
+        pvk.LAUNCHES.update(comb_tables=2, commitments=7)
+        sk.LAUNCHES.update(reduce_wide=5)
+        OpsSources().refresh_gauges()
+        for name, count in (("keccak_chain", 3), ("comb_tables", 2), ("commitments", 7),
+                            ("reduce_wide", 5)):
+            assert metrics.read("tpu.kernel.launches", "g", labels={"kernel": name}) == count
+        assert 'tpu_kernel_launches{kernel="commitments"} 7.0' in metrics.render_exposition()
+    finally:
+        kk.LAUNCHES.update(saved[0])
+        pvk.LAUNCHES.update(saved[1])
+        sk.LAUNCHES.update(saved[2])
+
+
 def test_kernel_launch_gauge_reads_any_loaded_kernel_module(monkeypatch):
     """Which modules the scrape exports is not a list: any loaded module of
     the ``ops`` package with a ``LAUNCHES`` dict, and no module outside

@@ -97,11 +97,12 @@ def test_kernel_registry_names_every_kernel_and_routes_one_way():
     other device raises)."""
     import torch
 
-    from cpzk_tpu_torch.ops import msm_kernels as mk, scalar_kernels as sk
+    from cpzk_tpu_torch.ops import keccak_kernels as kk, msm_kernels as mk
+    from cpzk_tpu_torch.ops import prove_kernels as pvk, scalar_kernels as sk
 
-    names = ("point_add", "point_double_k", "rlc_scalars", "scalar_recode",
-             "msm_bucket", "msm_window_reduce")
-    assert pk.kernel_modules() == (pk, sk, mk)
+    names = ("point_add", "point_double_k", "rlc_scalars", "scalar_recode", "reduce_wide",
+             "msm_bucket", "msm_window_reduce", "keccak_chain", "comb_tables", "commitments")
+    assert pk.kernel_modules() == (pk, sk, mk, kk, pvk)
     assert pk.kernel_names() == names
     saved = pk.all_launches()
     try:
