@@ -48,6 +48,13 @@ seconds since the script started):
    on a sample), ``keccak_chain`` with 3 masks (a state per row and one
    shared) and ``reduce_wide`` of random 64-byte values: exact; device
    times at 4096 and 16,384;
+   ``vectors`` — the pinned vectors of ``tests/vectors`` on the card:
+   ``commitments`` (with ``comb_tables`` of G and H) gives the 8
+   ``scalarmult_base`` points of ``sodium_vectors.json`` (libsodium's),
+   ``derive_challenges_device`` then ``reduce_wide`` the 4 protocol-layer
+   challenges of ``transcript_vectors.json``, and ``TorchBackend`` accepts
+   the 4 accepted rows of ``proof_vectors.json`` and rejects
+   ``vector-wrong-context``: exact;
 4. ``serving_parse`` and ``serving_batch`` — 4096 entries tiling the
    corpus, each parsed fresh from wire bytes as a server parses them
    (``Proof.from_bytes_batch``, eager and deferred; statements with
@@ -202,6 +209,26 @@ seconds since the script started):
    ``/metrics``, the recovery's seconds and counts, the admission blocks
    and sheds by tier, the compute apps after the kill, the workdir's
    filesystem type, and the launches of each wave;
+   ``audit`` — the audit trail end to end: the daemon with
+   ``SERVER_AUDIT_ENABLED=1`` (its proof log sealing a segment every 2 MiB)
+   driven only by the port's client — ``python -m cpzk_tpu_torch.client
+   stream --users 64 --proofs 8192`` (0 rejected), ``verify_proof_batch``
+   over 4096 logins tampered as in ``daemon``, and 4 unary ``verify_proof``
+   calls (one tampered); SIGTERM must log "audit trail closed at seq N"
+   with N the verdicts received; the trail directory replays in process
+   through ``run_audit(..., backend="tpu")`` on the card to N records,
+   none mismatched, the planted tampers rejected, both point kernels
+   launched (counts set to 0 just before, read just after).  Then ``python
+   -m cpzk_tpu_torch.audit generate`` writes 16,384 records (1% rejects,
+   0.5% lying verdicts), replayed at quantum 4096: A on the card in
+   process (the liars mismatched); B by the CLI on the card, SIGKILLed
+   once its cursor exists and resumed from it, byte-identical to A; C on
+   the host (``--backend cpu``), equal to A in totals and digest; D on the
+   card with ``CPZK_PIPPENGER_MIN=2 CPZK_DEVICE_RLC=1``, byte-identical to
+   A; ``verify-report`` answers 0 on every report and 1 on A with one
+   byte flipped.  Printed: records/s of the generation, of A and of C,
+   the trail's bytes and segments, the replays' card interval and idle
+   share, and the phase's seconds;
 6. ``profile`` — one 4096-row combined check: wall time unprofiled, then
    device time by kernel under torch.profiler (the table goes to
    ``chiprun_out/profile_4096.txt``) and the device's idle share;
@@ -225,7 +252,9 @@ all six ``launches_in_pippenger`` (the same count) and
 prover's kernels ``launches`` over ``batch_prove``'s path and for
 ``keccak_chain`` and ``reduce_wide`` over ``device_challenges``', both
 also as ``launches_in_batch_prove`` and ``launches_in_device_challenges``,
-and for the point kernels ``launches_in_batch_prove_verify``), the
+and for the point kernels ``launches_in_batch_prove_verify`` and
+``launches_in_audit_trail_replay`` / ``launches_in_audit_synthetic_replay``,
+the audit phase's replays of the daemon's trail and of A), the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when CUDA is
@@ -355,6 +384,20 @@ PROVE_PLAIN_N = 64
 #: the device_challenges phase's timed row counts and turns
 CHALLENGE_NS = (4096, 16384)
 CHALLENGE_REPS = 3
+#: the audit phase: the client's stream subcommand (users, proofs), the
+#: unary logins after the batch wave (the last one tampered), the size at
+#: which the daemon's proof log seals a segment (a record is ~520 bytes, so
+#: the ~12,300-record trail seals several), the synthetic log (records,
+#: users, reject and lying-verdict shares) and the replay quantum
+AUDIT_STREAM_USERS = 64
+AUDIT_STREAM_PROOFS = 8192
+AUDIT_UNARY = 4
+AUDIT_SEGMENT_BYTES = 2 << 20
+AUDIT_SYNTH_N = 16384
+AUDIT_SYNTH_USERS = 64
+AUDIT_REJECT_FRAC = 0.01
+AUDIT_MISMATCH_FRAC = 0.005
+AUDIT_QUANTUM = 4096
 
 
 #: every emitted line is also appended here, so the whole record survives
@@ -3312,6 +3355,398 @@ def device_challenges_phase(params, proofs_out, ns, reps: int, int32_ops_per_s: 
     return out
 
 
+def vectors_check(dev) -> dict:
+    """The ``vectors`` check: the pinned vectors of ``tests/vectors`` on
+    the card.  ``commitments`` (with ``comb_tables`` of G and H) gives
+    k·G equal to the 8 ``scalarmult_base`` entries of libsodium's
+    ``sodium_vectors.json``; ``derive_challenges_device`` then
+    ``reduce_wide`` give the 4 protocol-layer challenges of
+    ``transcript_vectors.json``; ``TorchBackend`` accepts the 4 accepted
+    rows of ``proof_vectors.json`` and rejects ``vector-wrong-context``.
+    Exact, every one."""
+    import numpy as np
+    import torch
+
+    from cpzk_tpu_torch import BatchVerifier, Parameters, Proof, Ristretto255, Statement
+    from cpzk_tpu_torch.ops import challenge, curve, prove_kernels as pvk, sclimbs as sc
+    from cpzk_tpu_torch.ops.backend import TorchBackend
+    from cpzk_tpu_torch.ops.prove import _windows_lsb
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "vectors")
+
+    def load(name: str) -> dict:
+        with open(os.path.join(root, name), encoding="utf-8") as f:
+            return json.load(f)
+
+    params = Parameters.new()
+    out = {"tolerance": "exact"}
+    device = dev if dev.type == "cuda" else "cpu"
+
+    sodium = load("sodium_vectors.json")["scalarmult_base"]
+    tg, th = (pvk.comb_tables(curve.points_to_device([e.point], dev))
+              for e in (params.generator_g, params.generator_h))
+    ks = [int.from_bytes(bytes.fromhex(v["scalar_le_hex"]), "little") for v in sodium]
+    digits = torch.from_numpy(_windows_lsb(ks)).to(dev)
+    kg, _ = pvk.commitments(tg, th, digits)
+    got = [bytes(col) for col in np.ascontiguousarray(kg.cpu().numpy().T)]
+    want = [bytes.fromhex(v["point_hex"]) for v in sodium]
+    if got != want:
+        raise AssertionError(f"vectors: commitments k*G differ at "
+                             f"{[i for i, (a, b) in enumerate(zip(got, want)) if a != b]}")
+    out["scalarmult_base"] = len(want)
+
+    g, h = params.generator_g.wire(), params.generator_h.wire()
+    one = lambda b: np.frombuffer(b, dtype=np.uint8).reshape(1, -1)  # noqa: E731
+    protocol = [v for v in load("transcript_vectors.json")["vectors"]
+                if v["kind"] == "protocol"]
+    for v in protocol:
+        ctx = None if v["context"] is None else one(bytes.fromhex(v["context"]))
+        wide_bytes = challenge.derive_challenges_device(
+            ctx, one(g), one(h), one(g), one(h), one(h), one(g), device=device)
+        scalar = sc.reduce_wide(torch.from_numpy(sc.bytes_wide_to_limbs(wide_bytes)).to(dev))
+        if "%064x" % sc.limbs_to_ints(scalar)[0] != v["challenge_scalar"]:
+            raise AssertionError(f"vectors: device challenge {v['name']} differs")
+    out["protocol_challenges"] = [v["name"] for v in protocol]
+
+    proofs = load("proof_vectors.json")["vectors"]
+    bv = BatchVerifier(backend=TorchBackend(device=dev), max_size=len(proofs))
+    for v in proofs:
+        statement = Statement(Ristretto255.element_from_bytes(bytes.fromhex(v["y1"])),
+                              Ristretto255.element_from_bytes(bytes.fromhex(v["y2"])))
+        proof = Proof.from_bytes(bytes.fromhex(v["proof"]))
+        if v["context"]:
+            bv.add_with_context(params, statement, proof, bytes.fromhex(v["context"]))
+        else:
+            bv.add(params, statement, proof)
+    verdicts = [r is None for r in bv.verify(SeededRng(SEED + 11))]
+    if verdicts != [bool(v["accept"]) for v in proofs]:
+        raise AssertionError(f"vectors: TorchBackend verdicts {verdicts}")
+    out["proof_vectors"] = {v["name"]: ok for v, ok in zip(proofs, verdicts)}
+    if out["proof_vectors"].get("vector-wrong-context") is not False:
+        raise AssertionError("vectors: vector-wrong-context was not rejected")
+    return out
+
+
+async def audit_client_logins(port: int, user_ids, corpus, provers, rpc_max: int, gen,
+                              unary: int) -> dict:
+    """The audit phase's logins through the port's ``AuthClient``:
+    ``RegisterBatch``, one challenge per user, the logins in concurrent
+    ``VerifyProofBatch`` RPCs of ``rpc_max`` entries (about 1% tampered and
+    2 undecodable, ``tamper_logins``), then ``unary`` ``VerifyProof``
+    logins of the first users, the last one with a wrong s.  Sheds of the
+    retry-safe RPCs are retried after their pushback by the client's
+    policy.  Every verdict must equal its expectation."""
+    import grpc
+
+    from cpzk_tpu_torch import Transcript
+    from cpzk_tpu_torch.client import AuthClient
+    from cpzk_tpu_torch.core.scalars import L
+    from cpzk_tpu_torch.resilience.retry import RetryBudget, RetryPolicy
+
+    n, m = len(user_ids), len(corpus)
+    bounds = [(lo, min(lo + rpc_max, n)) for lo in range(0, n, rpc_max)]
+    policy = RetryPolicy(max_attempts=PUSHBACK_TRIES, budget=RetryBudget(tokens=1e9))
+    out = {}
+    async with AuthClient(f"127.0.0.1:{port}", retry=policy) as client:
+        regs = await asyncio.gather(*[client.register_batch(
+            user_ids[lo:hi], [corpus[i % m][0].y1.wire() for i in range(lo, hi)],
+            [corpus[i % m][0].y2.wire() for i in range(lo, hi)]) for lo, hi in bounds])
+        bad = [r.message for resp in regs for r in resp.results if not r.success]
+        if bad:
+            raise AssertionError(f"audit: registration failed: {bad[:3]}")
+        cids = [bytes(r.challenge_id) for r in await asyncio.gather(
+            *[client.create_challenge(uid) for uid in user_ids])]
+        wires = []
+        for i, cid in enumerate(cids):
+            t = Transcript()
+            t.append_context(cid)
+            wires.append(provers[i % m].prove_with_transcript(gen, t).to_bytes())
+        expected = tamper_logins(wires, cids, provers, m, gen)
+        t0 = time.perf_counter()
+        resps = await asyncio.gather(*[client.verify_proof_batch(
+            user_ids[lo:hi], cids[lo:hi], wires[lo:hi]) for lo, hi in bounds])
+        out["batch_logins_s"] = time.perf_counter() - t0
+        got = ["ok" if r.success else r.message for resp in resps for r in resp.results]
+        wrong = [i for i, (a, b) in enumerate(zip(got, expected)) if a != b]
+        if len(got) != n or wrong:
+            raise AssertionError(f"audit: {len(got)} batch verdicts, wrong at {wrong[:5]}")
+        unary_got = []
+        for k in range(unary):
+            cid = bytes((await client.create_challenge(user_ids[k])).challenge_id)
+            t = Transcript()
+            t.append_context(cid)
+            wire = provers[k % m].prove_with_transcript(gen, t).to_bytes()
+            if k == unary - 1:
+                sc = int.from_bytes(wire[77:], "little") + 1
+                wire = wire[:77] + ((sc % L) or 1).to_bytes(32, "little")
+            try:
+                unary_got.append((await client.verify_proof(user_ids[k], cid, wire)).success)
+            except grpc.aio.AioRpcError as err:
+                if err.code() != grpc.StatusCode.PERMISSION_DENIED:
+                    raise
+                unary_got.append(False)
+        if unary_got != [True] * (unary - 1) + [False]:
+            raise AssertionError(f"audit: unary verdicts {unary_got}")
+    out.update(batch_verdicts=n, unary_verdicts=unary, valid=expected.count("ok"),
+               tampered=expected.count("Authentication failed"),
+               undecodable=expected.count(BAD_POINT),
+               planted=n - expected.count("ok") + 1)
+    return out
+
+
+def audit_phase(corpus, provers, n: int, rpc_max: int, stream_users: int = AUDIT_STREAM_USERS,
+                stream_proofs: int = AUDIT_STREAM_PROOFS, unary: int = AUDIT_UNARY,
+                segment_bytes: int = AUDIT_SEGMENT_BYTES, synth_n: int = AUDIT_SYNTH_N,
+                quantum: int = AUDIT_QUANTUM, launcher: list | None = None,
+                on_card: bool = True) -> dict:
+    """The ``audit`` phase: the proof-log audit trail from the daemon to a
+    signed replay on the card.
+
+    The port's daemon (``python -m cpzk_tpu_torch.server`` on cuda:0, or
+    ``launcher``) boots with ``SERVER_AUDIT_ENABLED=1``, its proof log in a
+    scratch directory sealing a segment every ``segment_bytes``.  Only the
+    port's client drives it: ``python -m cpzk_tpu_torch.client stream``
+    (``stream_users`` ephemeral users, ``stream_proofs`` proofs; its JSON
+    line must show 0 rejected), ``AuthClient.verify_proof_batch`` over
+    ``n`` logins (about 1% tampered) and ``unary`` ``verify_proof`` calls:
+    the three verify paths.  SIGTERM must log "audit trail closed at seq N"
+    with N the verdicts the clients received.  The trail directory (sealed
+    segments and the active tail) replays in process through
+    ``run_audit(..., backend="tpu")``: N records, none mismatched, the
+    planted tampers rejected, both point kernels launched (counts set to 0
+    just before, read just after), records/s and the card's interval and
+    idle share from a flight-recorder device sink.
+
+    Then a synthetic log of ``synth_n`` records (``python -m
+    cpzk_tpu_torch.audit generate``, 1% rejects, 0.5% lying verdicts) is
+    replayed four times at ``quantum``: A on the card in process (the
+    liars mismatched, the rejects rejected); B by ``python -m
+    cpzk_tpu_torch.audit run`` on the card, SIGKILLed once its cursor file
+    exists and run again from that cursor (offset above 0), its report
+    byte-identical to A's; C with ``--backend cpu`` in process, equal to A
+    in totals and digest (``engine.backend`` differs); D on the card with
+    ``CPZK_PIPPENGER_MIN=2 CPZK_DEVICE_RLC=1`` in the subprocess's
+    environment, byte-identical to A.  ``verify-report`` must answer 0 on
+    every report and 1 on A with one byte flipped.  ``on_card=False`` (a
+    rehearsal on the CPU with a ``launcher`` giving ``amain``
+    ``device="cpu"``) runs A on the plain versions, and B and D with
+    ``--backend cpu``, held against C."""
+    import io
+    from contextlib import redirect_stdout
+
+    from cpzk_tpu_torch.audit import run_audit
+    from cpzk_tpu_torch.audit.__main__ import main as audit_main
+    from cpzk_tpu_torch.observability import flightrec
+    from cpzk_tpu_torch.ops.point_kernels import all_launches, reset_all_launches
+    from cpzk_tpu_torch.server.__main__ import DRAIN_SECONDS
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.mkdtemp(prefix="cpzk-audit-")
+    trail = os.path.join(workdir, "trail")
+    os.makedirs(trail)
+    config = os.path.join(workdir, "server.toml")
+    with open(config, "w") as f:
+        f.write(f'[tpu]\nbackend = "tpu"\nbatch_max = {n}\nprewarm_quanta = "{n}"\n'
+                "[rate_limit]\nrequests_per_minute = 100000000\nburst = 1000000\n"
+                "[opsplane]\nenabled = true\nport = 0\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SERVER_")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    daemon_env = dict(env, SERVER_CONFIG_PATH=config, SERVER_AUDIT_ENABLED="1",
+                      SERVER_AUDIT_LOG_PATH=os.path.join(trail, "proofs.log"),
+                      SERVER_AUDIT_SEGMENT_BYTES=str(segment_bytes))
+    # the client's retry policy from [retry]: sheds of CreateChallenge after
+    # a verify wave are retried after their pushback, as the other phases'
+    # client does
+    client_env = dict(env, SERVER_RETRY_MAX_ATTEMPTS=str(PUSHBACK_TRIES),
+                      SERVER_RETRY_BUDGET="1000000000")
+    argv = (launcher or [sys.executable, "-m", "cpzk_tpu_torch.server"]) + ["--no-repl",
+                                                                          "--port", "0"]
+    device = None if on_card else "cpu"
+    cli_backend = [] if on_card else ["--backend", "cpu"]
+    user_ids = [f"audit-{i:05d}" for i in range(n)]
+    gen = SeededRng(SEED + 13)
+    out = {"n": n, "stream_proofs": stream_proofs, "unary": unary, "quantum": quantum,
+           "segment_bytes": segment_bytes, "tolerance": "exact"}
+    daemon = None
+
+    def audit_cli(*args, extra_env=None, **kw):
+        return subprocess.run([sys.executable, "-m", "cpzk_tpu_torch.audit", *args],
+                              cwd=workdir, env=dict(env, **(extra_env or {})),
+                              capture_output=True, text=True, **kw)
+
+    def replay(log: str, name: str, backend: str = "tpu") -> tuple[dict, dict]:
+        """One in-process replay with the kernel counts set to 0 just
+        before and read just after, and the card's interval in it."""
+        report_path = os.path.join(workdir, f"{name}.json")
+        sink, token = flightrec.install_sink()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        try:
+            report = run_audit(log, report_path, key_path=key, quantum=quantum,
+                               backend=backend, device=device if backend == "tpu" else None)
+            if on_card:
+                synchronize()
+        finally:
+            flightrec.uninstall_sink(token)
+        wall = time.perf_counter() - t0
+        launches = {k: all_launches()[k] for k in POINT_KERNELS}
+        row = {"records": report["totals"]["records"], "seconds": wall,
+               "records_per_s": report["totals"]["records"] / wall,
+               "launches": launches, "totals": report["totals"], "digest": report["digest"]}
+        if backend == "tpu":
+            row.update(device_interval_s=sink.device_interval_s,
+                       device_idle_share=1 - sink.device_interval_s / wall)
+            if on_card and any(c < 1 for c in launches.values()):
+                raise AssertionError(f"audit {name}: point kernels not launched: {launches}")
+        return report, row
+
+    key = os.path.join(workdir, "audit.key")
+    try:
+        # 1. the daemon with [audit], driven by the port's client only
+        daemon = DaemonProcess("audit", argv, workdir, daemon_env)
+        daemon.wait_listening(DAEMON_BOOT_TIMEOUT_S)
+        out["boot_s"] = daemon.boot_s
+        addr = f"127.0.0.1:{daemon.port}"
+        t0 = time.perf_counter()
+        stream = subprocess.run(
+            [sys.executable, "-m", "cpzk_tpu_torch.client", "-s", addr, "stream",
+             "--users", str(stream_users), "--proofs", str(stream_proofs)],
+            cwd=workdir, env=client_env, capture_output=True, text=True, timeout=900)
+        if stream.returncode != 0:
+            raise AssertionError(f"audit: client stream exited {stream.returncode}:\n"
+                                 f"{stream.stdout[-2000:]}{stream.stderr[-2000:]}")
+        streamed = json.loads(stream.stdout.strip().splitlines()[-1])
+        streamed["wall_s"] = time.perf_counter() - t0
+        if streamed["rejected"] != 0 or streamed["verified"] + streamed["shed"] != stream_proofs:
+            raise AssertionError(f"audit: client stream {streamed}")
+        out["stream"] = streamed
+        out["logins"] = asyncio.run(audit_client_logins(daemon.port, user_ids, corpus, provers,
+                                                        rpc_max, gen, unary))
+        received = streamed["verified"] + streamed["rejected"] + n + unary
+        rc, out["shutdown_s"] = daemon.terminate(DRAIN_SECONDS + 30)
+        m = re.search(r"audit trail closed at seq (\d+)", daemon.text())
+        if rc != 0 or not m or int(m.group(1)) != received:
+            raise AssertionError(f"audit: daemon exit {rc}, closing seq "
+                                 f"{m and m.group(1)}, verdicts received {received}:\n"
+                                 f"{daemon.text()[-3000:]}")
+        files = sorted(os.listdir(trail))
+        segments = [f for f in files if f.endswith(".seg")]
+        out["trail"] = {"records": received, "files": files, "segments": len(segments),
+                        "bytes": sum(os.path.getsize(os.path.join(trail, f)) for f in files)}
+        if len(segments) < 2:
+            raise AssertionError(f"audit: the trail sealed {len(segments)} segments: {files}")
+
+        # 2. the trail replayed on the card
+        report, row = replay(trail, "trail")
+        planted = out["logins"]["planted"]
+        t = report["totals"]
+        if (t["records"] != received or t["mismatched"] != 0 or t["rejected"] != planted
+                or t["skipped"] != 0):
+            raise AssertionError(f"audit trail replay: totals {t}, {received} received, "
+                                 f"{planted} planted tampers")
+        out["trail_replay"] = row
+
+        # 3. the synthetic log, four replays
+        synth = os.path.join(workdir, "synth.log")
+        done = audit_cli("generate", "--n", str(synth_n), "--users", str(AUDIT_SYNTH_USERS),
+                         "--reject-frac", str(AUDIT_REJECT_FRAC), "--mismatch-frac",
+                         str(AUDIT_MISMATCH_FRAC), "--out", synth, timeout=600)
+        if done.returncode != 0:
+            raise AssertionError(f"audit generate exited {done.returncode}: {done.stderr}")
+        out["generate"] = json.loads(done.stdout.strip().splitlines()[-1])
+        liars, rejects = out["generate"]["mismatches"], out["generate"]["rejects"]
+
+        a_report, out["A"] = replay(synth, "A")
+        if (a_report["totals"]["mismatched"] != liars
+                or a_report["totals"]["rejected"] != rejects
+                or a_report["totals"]["records"] != synth_n):
+            raise AssertionError(f"audit A: totals {a_report['totals']}, planted {liars} "
+                                 f"liars and {rejects} rejects")
+        c_report, out["C"] = replay(synth, "C", backend="cpu")
+        if (c_report["totals"], c_report["digest"]) != (a_report["totals"],
+                                                        a_report["digest"]):
+            raise AssertionError("audit C: totals or digest differ from A's")
+        # B and D are held against the in-process report of their backend
+        same = os.path.join(workdir, "A.json" if on_card else "C.json")
+        with open(same, "rb") as f:
+            same_bytes = f.read()
+
+        b_path = os.path.join(workdir, "B.json")
+        run_argv = ["run", "--log", synth, "--report", b_path, "--key", key, "--quantum",
+                    str(quantum), "--quiet", *cli_backend]
+        proc = subprocess.Popen([sys.executable, "-m", "cpzk_tpu_torch.audit", *run_argv],
+                                cwd=workdir, env=env, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True, start_new_session=True)
+        cursor = b_path + ".cursor"
+        deadline = time.perf_counter() + 600
+        while not os.path.exists(cursor):
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                proc.kill()
+                raise AssertionError(f"audit B: no cursor before exit {proc.poll()}: "
+                                     f"{proc.stderr.read()[-2000:]}")
+            time.sleep(0.002)
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        proc.stderr.close()
+        if os.path.exists(b_path):
+            raise AssertionError("audit B: the run finished before it was killed")
+        with open(cursor) as f:
+            resumed_from = json.load(f)
+        if resumed_from["offset"] <= 0:
+            raise AssertionError(f"audit B: cursor at offset {resumed_from['offset']}")
+        t0 = time.perf_counter()
+        done = audit_cli(*run_argv, timeout=900)
+        out["B"] = {"killed_exit": proc.returncode, "cursor_offset": resumed_from["offset"],
+                    "cursor_records": resumed_from["records"], "exit": done.returncode,
+                    "resumed_s": time.perf_counter() - t0}
+        with open(b_path, "rb") as f:
+            b_bytes = f.read()
+        if done.returncode != 3 or b_bytes != same_bytes:
+            raise AssertionError(f"audit B: exit {done.returncode}, bytes equal "
+                                 f"{b_bytes == same_bytes}: {done.stderr[-2000:]}")
+
+        d_path = os.path.join(workdir, "D.json")
+        t0 = time.perf_counter()
+        done = audit_cli("run", "--log", synth, "--report", d_path, "--key", key,
+                         "--quantum", str(quantum), "--quiet", *cli_backend,
+                         extra_env={"CPZK_PIPPENGER_MIN": "2", "CPZK_DEVICE_RLC": "1"},
+                         timeout=900)
+        out["D"] = {"exit": done.returncode, "seconds": time.perf_counter() - t0}
+        with open(d_path, "rb") as f:
+            d_bytes = f.read()
+        if done.returncode != 3 or d_bytes != same_bytes:
+            raise AssertionError(f"audit D: exit {done.returncode}, bytes equal "
+                                 f"{d_bytes == same_bytes}: {done.stderr[-2000:]}")
+
+        # 4. every report checks offline; a flipped byte does not
+        def verify_report(path: str) -> int:
+            with redirect_stdout(io.StringIO()):
+                return audit_main(["verify-report", "--report", path])
+
+        flipped = os.path.join(workdir, "A-flipped.json")
+        with open(os.path.join(workdir, "A.json"), "rb") as f:
+            blob = bytearray(f.read())
+        pos = blob.find(b'"digest"') + 12
+        blob[pos] ^= 0x01
+        with open(flipped, "wb") as f:
+            f.write(bytes(blob))
+        codes = {name: verify_report(os.path.join(workdir, f"{name}.json"))
+                 for name in ("trail", "A", "B", "C", "D")}
+        codes["A-flipped"] = verify_report(flipped)
+        if codes != {"trail": 0, "A": 0, "B": 0, "C": 0, "D": 0, "A-flipped": 1}:
+            raise AssertionError(f"audit verify-report: {codes}")
+        out["verify_report"] = codes
+        out["engine"] = {"A": a_report["engine"], "C": c_report["engine"]}
+        out["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        if daemon is not None:
+            daemon.kill()
+            daemon.save_log()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3391,6 +3826,8 @@ def main() -> int:
     kernel_rows.update(scalar_rows)
     kernel_rows.update(msm_rows)
     kernel_rows.update(prover_rows)
+    # 3e. the pinned vectors of tests/vectors on the card
+    emit({"phase": "vectors", **vectors_check(dev), **card})
 
     rows, beta = north_star_rows(params, corpus, NORTH_STAR_N, SecureRng())
 
@@ -3455,6 +3892,12 @@ def main() -> int:
                              "durable_daemon": wave["challenges_per_s"]}}
     emit({"phase": "durable_daemon", **durable, **card})
 
+    # 5f. the audit trail: the daemon's proof log written through the port's
+    # client, replayed on the card (counts set to 0 inside just before each
+    # replay and read just after), and a synthetic log's four replays
+    audited = audit_phase(corpus, provers, SERVING_N, LOGIN_RPC_MAX)
+    emit({"phase": "audit", **audited, **card})
+
     # 6. where the time goes
     prof = profile_combined(backend, rows[:SERVING_N], beta)
     emit({"phase": "profile", **prof, **card})
@@ -3489,6 +3932,8 @@ def main() -> int:
             "launches_in_daemon_pippenger": served["pippenger"]["launches"][name],
             "launches_in_daemon_all_valid_batch":
                 served["pippenger"]["all_valid_batch"]["launches"][name],
+            "launches_in_audit_trail_replay": audited["trail_replay"]["launches"][name],
+            "launches_in_audit_synthetic_replay": audited["A"]["launches"][name],
         })
     for name in PIPPENGER_KERNELS:
         results = kernel_rows[name]

@@ -13,10 +13,10 @@ listener, serving:
 - ``GET /statusz``  — one JSON snapshot of the whole box: batcher depth/
   drain rate, dispatch-lane stage percentiles from the flight ring,
   per-shard registry sizes + sampled lock wait, breaker state, ingest
-  shards, active streams, uptime, config fingerprint, and the admission
-  and durability blocks when the daemon runs them.  The replication,
-  audit, fleet and controller blocks are ``null``: those subsystems are
-  not ported yet, and the daemon refuses to boot with them enabled;
+  shards, active streams, uptime, config fingerprint, and the admission,
+  durability and audit blocks when the daemon runs them.  The
+  replication, fleet and controller blocks are ``null``: those subsystems
+  are not ported yet, and the daemon refuses to boot with them enabled;
 - ``GET /tracez``, ``GET /flightrec`` — the ring dumps as JSON, the
   EXACT payloads the REPL renders and SIGUSR2 writes (one serializer,
   one schema: ``Tracer.payload`` / ``FlightRecorder.payload``);
@@ -75,9 +75,9 @@ class OpsSources:
     state: object | None = None        # ServerState
     batcher: object | None = None      # DynamicBatcher
     backend: object | None = None      # TorchBackend | FailoverBackend
-    # the reference's host control plane: the daemon fills admission and
-    # durability; replication, audit, fleet and controller are not ported
-    # yet, so it leaves them None
+    # the reference's host control plane: the daemon fills admission,
+    # durability and audit_log; replication, fleet and controller are not
+    # ported yet, so it leaves them None
     admission: object | None = None    # AdmissionController
     replication: object | None = None  # SegmentShipper | StandbyReplica
     audit_log: object | None = None    # ProofLogWriter

@@ -5,12 +5,15 @@ validation, crash recovery (``[durability]``: snapshot + write-ahead log
 replay before anything listens), the background cleanup task under a
 restart-on-crash supervisor, optional Prometheus exporter, admission
 control (``[admission]``, on by default as in the reference), the ops
-plane and SLO engine, gRPC health, an admin REPL (/status /overload
-/tracez /flightrec /profile /persist /users /sessions /challenges
-/cleanup /reset /help /quit), and graceful shutdown: health flips to
-NOT_SERVING, a 2 s drain, the ingest shards and the batcher stop, the
-listener stops, background tasks are awaited, and the final snapshot
-lands (with durability: the covered write-ahead log is truncated).
+plane and SLO engine, the proof-log audit trail (``[audit]``: one record
+per verdict served, for ``python -m cpzk_tpu_torch.audit run``), gRPC
+health, an admin REPL (/status /overload /tracez /flightrec /profile
+/persist /audit /users /sessions /challenges /cleanup /reset /help
+/quit), and graceful shutdown: health flips to NOT_SERVING, a 2 s drain,
+the ingest shards and the batcher stop, the listener stops, the proof
+log closes (every acknowledged verdict in it), background tasks are
+awaited, and the final snapshot lands (with durability: the covered
+write-ahead log is truncated).
 
 With ``[tpu] backend = "tpu"`` (this package's default) the daemon serves
 the card bare: ``plane.build_backend`` builds the CUDA kernels and
@@ -19,9 +22,9 @@ its batch; there is no host failover.  Without CUDA it stops at boot.
 ``backend = "cpu"`` (or ``--backend cpu``) verifies inline on the host.
 
 The rest of the reference's host control plane — ``[replication]``,
-``[audit]``, ``[fleet]`` and ``[controller]`` — is not ported yet: a
-config that enables any of them stops the daemon at boot with an error
-naming the section.
+``[fleet]`` and ``[controller]`` — is not ported yet: a config that
+enables any of them stops the daemon at boot with an error naming the
+section.
 
 Run: ``python -m cpzk_tpu_torch.server --host 127.0.0.1 --port 50051``
 """
@@ -51,7 +54,7 @@ DRAIN_SECONDS = 2
 
 #: config sections of the reference's host control plane that the port
 #: does not have yet: enabling one stops the daemon at boot
-UNPORTED_SECTIONS = ("replication", "audit", "fleet", "controller")
+UNPORTED_SECTIONS = ("replication", "fleet", "controller")
 
 log = logging.getLogger("cpzk_tpu_torch.server")
 
@@ -153,7 +156,7 @@ HELP = """Available commands:
                       work interval
   /profile S [DIR]    capture S seconds of torch.profiler (Chrome trace)
   /persist     (/wal) durability status: WAL size, fsync age, covered seq
-  /audit       (/au)  proof-log status (not ported yet: disabled)
+  /audit       (/au)  proof-log status: path, bytes, seq, fsync policy
   /replication (/repl) replication status (not ported yet: disabled)
   /promote            promote this standby to primary (no replication)
   /handover           coordinated primary→standby handover (no replication)
@@ -170,14 +173,15 @@ HELP = """Available commands:
 
 async def handle_command(
     cmd: str, state: ServerState, backend=None, durability=None,
-    admission=None,
+    admission=None, *, audit_log=None,
 ) -> tuple[str, bool]:
     """(output, should_quit) for one REPL line.  ``backend`` is the
     serving backend: /status surfaces its breaker state and /reset re-arms
     it when it is a ``FailoverBackend`` (the daemon serves the card bare,
     so only a caller that builds one sees them); ``durability`` is the
-    DurabilityManager behind /persist and ``admission`` the
-    AdmissionController behind /overload (None when disabled).  The REPL
+    DurabilityManager behind /persist, ``admission`` the
+    AdmissionController behind /overload and ``audit_log`` the
+    ProofLogWriter behind /audit (None when disabled).  The REPL
     commands of the reference's unported subsystems answer with its
     "disabled" text."""
     cmd = cmd.strip()
@@ -295,9 +299,19 @@ async def handle_command(
             False,
         )
     if word in ("/audit", "/au"):
+        if audit_log is None:
+            return (
+                "audit trail disabled (set [audit] enabled = true and a "
+                "log_path to record verified proofs for offline replay)",
+                False,
+            )
+        s = audit_log.status()
         return (
-            "audit trail disabled (set [audit] enabled = true and a "
-            "log_path to record verified proofs for offline replay)",
+            f"log={s['path']} bytes={s['bytes']} seq={s['seq']}"
+            f" this_boot={s['records_this_boot']}"
+            f" pending={s['pending_appends']} fsync={s['fsync_policy']}"
+            f" — replay with: python -m cpzk_tpu_torch.audit run --log"
+            f" {s['path']} --report <out.json>",
             False,
         )
     if word in ("/replication", "/repl"):
@@ -532,6 +546,22 @@ async def amain(args, *, device=None) -> None:
             "admission control enabled (per_client_rpm=%d, max_clients=%d)",
             config.admission.per_client_rpm, config.admission.max_clients,
         )
+    audit_log = None
+    if config.audit.enabled:
+        from ..audit import ProofLogWriter
+
+        audit_log = ProofLogWriter(
+            config.audit.log_path,
+            fsync=config.audit.fsync,
+            fsync_interval_ms=config.audit.fsync_interval_ms,
+            segment_bytes=config.audit.segment_bytes,
+        )
+        log.info(
+            "audit trail enabled: proof log at %s (fsync=%s, seq=%d, "
+            "segment_bytes=%d)",
+            config.audit.log_path, config.audit.fsync, audit_log.seq,
+            config.audit.segment_bytes,
+        )
     # the boot graph (restored state, the imported modules, the kernels'
     # plumbing) goes into the collector's frozen set, as after each sweep
     gc.collect()
@@ -569,6 +599,7 @@ async def amain(args, *, device=None) -> None:
         backend=backend,
         admission=admission,
         durability=durability,
+        audit_log=audit_log,
         slo=slo_engine,
         config_fingerprint=config.fingerprint(),
         role="server",
@@ -598,6 +629,7 @@ async def amain(args, *, device=None) -> None:
     server, port = await serve(
         state, limiter, host=config.host, port=config.port,
         backend=backend, batcher=batcher, tls=tls, admission=admission,
+        audit_log=audit_log,
         stream_window=config.tpu.stream_window,
         stream_entry_deadline_ms=config.tpu.stream_entry_deadline_ms,
         wire=config.server.wire,
@@ -655,7 +687,8 @@ async def amain(args, *, device=None) -> None:
                 stop.set()
                 return
             out, quit_ = await handle_command(
-                line, state, backend, durability, admission
+                line, state, backend, durability, admission,
+                audit_log=audit_log,
             )
             if out:
                 print(_c("white", out))
@@ -681,6 +714,16 @@ async def amain(args, *, device=None) -> None:
     if batcher is not None:
         await batcher.stop()  # drain queued verifications before the listener
     await server.stop(grace=5)
+    if audit_log is not None:
+        # after the drain and the listener: every verdict a client was
+        # answered is appended (the handlers append before they answer);
+        # the pending fsync tasks finish before the writer closes
+        for res in await asyncio.gather(
+                *server.auth_service._audit_flushes, return_exceptions=True):
+            if isinstance(res, BaseException):
+                log.error("audit trail: a pending fsync failed: %r", res)
+        await asyncio.to_thread(audit_log.close)
+        log.info("audit trail closed at seq %d", audit_log.seq)
     # the ops plane outlives the gRPC listener (it watched the drain);
     # stop it after so the last /statusz of a shutdown is observable
     if ops_plane is not None:

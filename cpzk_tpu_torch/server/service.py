@@ -2,11 +2,13 @@
 
 A copy of ``cpzk_tpu/server/service.py`` on the port's own state store,
 wire parse and serving plane.  The handlers' ``admission=`` branch takes
-the port's :class:`~cpzk_tpu_torch.admission.AdmissionController`; the
-``replica=``, ``audit_log=`` and ``fleet=`` branches are the reference's
-and stay inert under ``None``: those packages come with the host control
-plane, and the few symbols of theirs the handlers name are copied in
-:mod:`.keys`.  Two
+the port's :class:`~cpzk_tpu_torch.admission.AdmissionController` and
+the ``audit_log=`` branch the port's
+:class:`~cpzk_tpu_torch.audit.ProofLogWriter`; the ``replica=`` and
+``fleet=`` branches are the reference's and stay inert under ``None``:
+those packages come with the host control plane (the handlers name only
+the partition map's redirect trailers, from
+:mod:`cpzk_tpu_torch.fleet.partition_map`).  Two
 departures of the port hold here too: with no ``backend`` the batch
 verifier means ``TorchBackend()`` on the card (it raises without CUDA; the
 host runs only when passed ``backend=CpuBackend()``), and nothing moves
@@ -44,7 +46,8 @@ from .config import RateLimiter, RateLimitExceeded
 from .dispatch import DispatchLane
 from ..admission.limiter import client_key
 from ..resilience.retry import RETRY_PUSHBACK_KEY
-from .keys import PARTITION_MAP_VERSION_KEY, PARTITION_OWNER_KEY, proof_record
+from ..audit.log import proof_record
+from ..fleet.partition_map import PARTITION_MAP_VERSION_KEY, PARTITION_OWNER_KEY
 from .proto import SERVICE_NAME, load_pb2, method_types, stream_method_types
 from .state import ServerState, UserData
 from .state import user_id_error as _user_id_error
@@ -1317,8 +1320,9 @@ async def serve(
     one, since ``None`` means ``TorchBackend()`` on the card.
     ``admission``, ``replica``, ``audit_log`` and ``fleet`` are the
     reference's host control plane seams (admission control, a replication
-    standby, the proof log, partition ownership); the port has none of
-    those packages yet and passes ``None``.  ``stream_window`` /
+    standby, the proof log, partition ownership); the daemon passes the
+    first and the third, and ``None`` for the two whose packages the port
+    does not have yet.  ``stream_window`` /
     ``stream_entry_deadline_ms`` are the VerifyProofStream flow-control
     knobs (``[tpu]`` config).  ``wire`` selects the transport parse path
     ("native" = the C++ wire scanner, with the protobuf runtime for

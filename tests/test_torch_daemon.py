@@ -527,7 +527,6 @@ def test_verify_proof_trace_repl_and_json_log():
     ("replication", {"SERVER_DURABILITY_ENABLED": "1", "SERVER_STATE_FILE": "s.json",
                      "SERVER_REPLICATION_ENABLED": "1",
                      "SERVER_REPLICATION_PEER": "127.0.0.1:1"}),
-    ("audit", {"SERVER_AUDIT_ENABLED": "1", "SERVER_AUDIT_LOG_PATH": "p.log"}),
     ("fleet", {"SERVER_FLEET_ENABLED": "1", "SERVER_FLEET_MAP_PATH": "m.json"}),
     ("controller", {"SERVER_CONTROLLER_ENABLED": "1"}),
 ])

@@ -8,9 +8,8 @@ port, on the same seeded statements (numpy), each in a directory of its
 own, and requires equal observations; the reference test's assertions
 hold inside the scenario on both sides.  The WAL files the two packages
 write from the same mutations are compared byte for byte where the
-records carry no wall-clock time.  The one reference case not twinned is
-``TestFormatVersionStamps::test_proof_log_stamped_and_refuses_newer``: it
-needs the audit trail's proof log, which the port does not have yet.
+records carry no wall-clock time; so are the proof logs of
+``TestFormatVersionStamps::test_proof_log_stamped_and_refuses_newer``.
 
 Beyond the twins: a log and snapshot written by either package recover in
 the other to the same users, sessions and challenges; the port's daemon
@@ -63,6 +62,7 @@ def _pkg(name, top, dur, wal, faults, metrics, state, config, main, service_mod,
         Ristretto255=top.Ristretto255, Transcript=top.Transcript, dur=dur, wal=wal,
         FaultPlan=faults.FaultPlan, CrashPoint=faults.CrashPoint, metrics=metrics,
         st=state, cfg=config, main=main, service=service_mod, serve_kw=serve_kw,
+        top_name=top.__name__,
     )
 
 
@@ -1160,6 +1160,38 @@ class TestFormatVersionStamps:
             assert doc["version"] == pkg.st.ServerState.SNAPSHOT_VERSION
             mgr.wal.close()
             return pkg.dur.WAL_FORMAT_VERSION, doc["version"], records
+
+        twin(scenario, tmp_path)
+
+    def test_proof_log_stamped_and_refuses_newer(self, tmp_path):
+        def scenario(pkg, d):
+            writer_cls = __import__(f"{pkg.top_name}.audit.log",
+                                    fromlist=["ProofLogWriter"]).ProofLogWriter
+            path = str(d / "proofs.log")
+            w = writer_cls(path)
+            w.append_proofs([{"user_id": "a", "ok": True}])
+            w.close()
+            with open(path, "rb") as f:
+                raw = f.read()
+            records, _ = pkg.dur.iter_frames(raw)
+            assert records[0]["fmt"] == pkg.dur.WAL_FORMAT_VERSION
+            # reopening over a record from a newer build refuses at init
+            with open(path, "ab") as f:
+                f.write(pkg.dur.encode_record({
+                    "seq": 2, "type": "proof",
+                    "fmt": pkg.dur.WAL_FORMAT_VERSION + 1, "user_id": "b",
+                }))
+            with pytest.raises(pkg.dur.NewerFormatError) as exc:
+                writer_cls(path)
+            msg = str(exc.value)
+            assert "proof log" in msg
+            assert f"format version {pkg.dur.WAL_FORMAT_VERSION + 1}" in msg
+            # the unstamped/older prefix alone reopens fine
+            w2 = writer_cls(str(d / "other.log"))
+            w2.append_proofs([{"user_id": "c", "ok": False}])
+            w2.close()
+            assert writer_cls(str(d / "other.log")).seq == 1
+            return raw, msg.replace(str(d), "<dir>")
 
         twin(scenario, tmp_path)
 

@@ -3,9 +3,10 @@
 ``[opsplane]``/``[slo]`` config surface.
 
 Every case but ``test_statusz_e2e_with_replication_and_audit`` is here:
-that one needs replication and the audit trail, which the port does not
-have yet; its admission and durability blocks are held in
-``test_statusz_e2e_with_admission_and_durability``.  The port's metrics live in its own
+that one needs replication, which the port does not have yet; its
+admission and durability blocks are held in
+``test_statusz_e2e_with_admission_and_durability`` and its audit block in
+``test_statusz_e2e_with_audit`` (driven by the port's client).  The port's metrics live in its own
 registry, so the exposition tests read only the port's families.  The
 daemon cases boot ``python -m cpzk_tpu_torch.server --backend cpu``; the
 client side of the gRPC cases is the reference's ``AuthClient``.
@@ -435,6 +436,74 @@ def test_statusz_e2e_with_admission_and_durability(tmp_path):
             await batcher.stop()
             await server.stop(None)
             await mgr.close()
+
+    run(main())
+
+
+def test_statusz_e2e_with_audit(tmp_path):
+    """The audit half of the reference's
+    ``test_statusz_e2e_with_replication_and_audit``: a daemon-shaped stack
+    (batcher + admission + the proof log) serves real logins through the
+    port's client, and /statusz fills the audit block (one record per
+    verify) while /metrics carries the proof-log families."""
+    from cpzk_tpu_torch.admission import AdmissionController
+    from cpzk_tpu_torch.audit import ProofLogWriter
+    from cpzk_tpu_torch.client import AuthClient as TAuthClient
+    from cpzk_tpu_torch.server.batching import DynamicBatcher
+    from cpzk_tpu_torch.server.config import AdmissionSettings
+
+    async def main():
+        state = ServerState()
+        batcher = DynamicBatcher(CpuBackend(), max_batch=64, window_ms=5.0)
+        admission = AdmissionController(AdmissionSettings(), batcher=batcher)
+        audit_log = ProofLogWriter(str(tmp_path / "proofs.log"))
+        appends0 = metrics.read("audit.log.appends")
+        server, port = await serve(
+            state, RateLimiter(100_000, 100_000), port=0,
+            batcher=batcher, admission=admission, audit_log=audit_log,
+        )
+        cfg = ServerConfig()
+        sources = OpsSources(
+            state=state, batcher=batcher, admission=admission, audit_log=audit_log,
+            health=server.health, service=server.auth_service,
+            slo=SloEngine(cfg.slo), config_fingerprint=cfg.fingerprint(),
+        )
+        plane = OpsPlane(sources, port=0)
+        ops_port = await plane.start()
+        try:
+            async with TAuthClient(f"127.0.0.1:{port}") as client:
+                provers = {}
+                for i in range(4):
+                    p = J.Prover(params, J.Witness(J.Ristretto255.random_scalar(rng)))
+                    provers[f"ops-u{i}"] = p
+                    resp = await client.register(
+                        f"ops-u{i}", EB(p.statement.y1), EB(p.statement.y2))
+                    assert resp.success
+                for uid, p in provers.items():
+                    ch = await client.create_challenge(uid)
+                    t = J.Transcript()
+                    t.append_context(bytes(ch.challenge_id))
+                    resp = await client.verify_proof(
+                        uid, ch.challenge_id,
+                        p.prove_with_transcript(rng, t).to_bytes())
+                    assert resp.success
+            status, _, body = await aget(ops_port, "/statusz")
+            assert status == 200
+            doc = json.loads(body)
+            # audit block: one record per verify
+            assert doc["audit"]["seq"] == 4
+            assert doc["audit"]["bytes"] > 0
+            assert doc["audit"]["records_this_boot"] == 4
+            for block in ("replication", "fleet", "controller"):
+                assert doc[block] is None, block
+            assert metrics.read("audit.log.appends") - appends0 == 4
+            status, _, body = await aget(ops_port, "/metrics")
+            assert status == 200 and b"audit_log_appends_total" in body
+        finally:
+            await plane.stop()
+            await batcher.stop()
+            await server.stop(None)
+            audit_log.close()
 
     run(main())
 

@@ -1,10 +1,13 @@
 """Harness of the port's gRPC twin tests (``tests/test_torch_*.py``).
 
-One client, two servers: every twin runs the same scenario against the
+Two clients, two servers: every twin runs the same scenario against the
 reference's in-process server (``cpzk_tpu.server.service.serve``) and the
 port's (``cpzk_tpu_torch.server.service.serve``), both driven by the
 reference's ``cpzk_tpu.client.AuthClient``, and compares what came back
-response by response.  A scenario records observations with
+response by response.  ``twin_check(..., clients=CLIENTS)`` also drives
+both servers with the port's ``cpzk_tpu_torch.client.AuthClient`` and
+requires all four runs to agree: the wire and metadata contract holds in
+both directions.  A scenario records observations with
 :meth:`Twin.note`; :func:`run_twins` returns both sides' records and the
 caller asserts them equal (and, where the reference test asserted a
 value, that value).
@@ -42,6 +45,7 @@ import cpzk_tpu_torch.protocol.batch as t_batch
 import cpzk_tpu_torch.server.batching as t_batching
 import cpzk_tpu_torch.server.state as t_state
 from cpzk_tpu.client import AuthClient
+from cpzk_tpu_torch.client import AuthClient as TAuthClient
 from cpzk_tpu.server import metrics as j_metrics
 from cpzk_tpu.server import service as j_service
 from cpzk_tpu.server.config import RateLimiter as JRateLimiter
@@ -50,6 +54,9 @@ from cpzk_tpu_torch.server import service as t_service
 from cpzk_tpu_torch.server.config import RateLimiter as TRateLimiter
 
 SIDES = ("reference", "port")
+
+#: The client packages a scenario's ``twin.client`` can come from.
+CLIENTS = {"reference": AuthClient, "port": TAuthClient}
 
 #: Wall-clock bound of one side of a scenario: a hung server fails the
 #: test instead of holding its worker.
@@ -152,16 +159,19 @@ class Twin:
     """One side of a scenario: its package, server, state, client and the
     observations it records."""
 
-    def __init__(self, side: str, seed: int):
+    def __init__(self, side: str, seed: int, client_side: str = "reference"):
         self.side = side
         self.pkg = PACKAGES[side]
+        #: the package whose ``AuthClient`` the scenario drives the server with
+        self.client_side = client_side
+        self.AuthClient = CLIENTS[client_side]
         self.rng = SeededRng(seed)
         self.params = J.Parameters.new()
         self.log: list = []
         self.state = None
         self.server = None
         self.port = None
-        self.client: AuthClient | None = None
+        self.client = None
         self.batcher = None
 
     def module(self, name: str):
@@ -195,7 +205,7 @@ class Twin:
             self.state, pkg.RateLimiter(rate, burst), host="127.0.0.1",
             port=0, backend=backend, batcher=self.batcher, **serve_kw)
         if client:
-            self.client = AuthClient(f"127.0.0.1:{self.port}")
+            self.client = self.AuthClient(f"127.0.0.1:{self.port}")
         return self
 
     async def stop(self) -> None:
@@ -258,14 +268,15 @@ class Twin:
         return cids[0], proofs[0]
 
 
-def run_twins(scenario, seed: int = 0, sides=SIDES, timeout_s: float = SCENARIO_TIMEOUT_S):
+def run_twins(scenario, seed: int = 0, sides=SIDES, timeout_s: float = SCENARIO_TIMEOUT_S,
+              client: str = "reference"):
     """Run ``scenario(twin)`` (a coroutine function) once per side, each in
-    its own event loop; returns ``{side: twin}``.  The scenario starts and
-    stops its own server (use :meth:`Twin.start` inside ``try``/``finally``
-    with :meth:`Twin.stop`)."""
+    its own event loop, with ``client``'s ``AuthClient``; returns ``{side:
+    twin}``.  The scenario starts and stops its own server (use
+    :meth:`Twin.start` inside ``try``/``finally`` with :meth:`Twin.stop`)."""
     out = {}
     for side in sides:
-        twin = Twin(side, seed)
+        twin = Twin(side, seed, client)
 
         async def main(twin=twin):
             await asyncio.wait_for(scenario(twin), timeout_s)
@@ -284,9 +295,20 @@ def assert_twins_agree(twins: dict) -> list:
     return ref
 
 
-def twin_check(scenario, seed: int = 0) -> list:
-    """:func:`run_twins` then :func:`assert_twins_agree`."""
-    return assert_twins_agree(run_twins(scenario, seed))
+def twin_check(scenario, seed: int = 0, clients=("reference",)) -> list:
+    """:func:`run_twins` then :func:`assert_twins_agree`, once per client
+    package in ``clients``; every client's observations must equal the
+    first's.  Returns them."""
+    first = None
+    for client in clients:
+        obs = assert_twins_agree(run_twins(scenario, seed, client=client))
+        if first is None:
+            first = obs
+            continue
+        assert len(obs) == len(first), (clients[0], len(first), client, len(obs))
+        for i, (a, b) in enumerate(zip(first, obs)):
+            assert a == b, f"observation {i}: {clients[0]} client {a!r} != {client} client {b!r}"
+    return first
 
 
 def serving(scenario_body, backend="cpu", batcher=None, **start_kw):
