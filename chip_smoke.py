@@ -229,6 +229,31 @@ seconds since the script started):
    byte flipped.  Printed: records/s of the generation, of A and of C,
    the trail's bytes and segments, the replays' card interval and idle
    share, and the phase's seconds;
+   ``replication`` — a two-partition fleet of four daemons on the card,
+   each on a TOML of its own (``[tpu] backend = "tpu"`` at ``batch_max``
+   and ``prewarm_quanta`` 4096, ``fsync = "always"``, ``[replication] mode
+   = "sync"`` with ``lease_ms`` 3000 and ``renew_interval_ms`` 500,
+   ``[audit]``, ``[fleet]`` on a map from ``python -m cpzk_tpu_torch.fleet
+   init`` and ``set-standby``): partition 0 is the pair A→B, partition 1
+   C→D.  The port's ``AuthClient`` with the map registers 65,536 users and
+   logs 4096 in (about 1% tampered): every verdict exact, a client holding
+   a one-partition map converges in one redirect, B and D refuse auth RPCs
+   ("standby replica: not promoted"), each standby's ``applied_seq`` equal
+   to its primary's WAL seq.  SIGTERM to A hands partition 0 over (B at
+   epoch 2, A exits 0, every user and session A acknowledged at B, A's
+   sealed proof-log segments at B byte for byte); 1024 ``CreateChallenge``
+   calls at C with a SIGKILL once 512 are acknowledged, D promoting after
+   the lease and logging every acknowledged challenge in; then B and D
+   answer a 4096-login wave each with exact verdicts, both point kernels
+   launched by those logins (their ``/metrics``) and no failover; each of
+   the four daemons holds a CUDA context of its own.  Printed: boot
+   seconds, registrations/s, logins/s at the primaries and at the promoted
+   standbys, the handover's milliseconds and SIGTERM to the first write at
+   B, the kill to the promotion and to the first session at D, the card
+   memory in use (``nvidia-smi``) before the boot, after it and at the end,
+   each daemon's allocator share of it (its ``/metrics``), and the
+   launches; the daemons'
+   output goes to ``chiprun_out/daemon_repl_*.log``;
 6. ``profile`` — one 4096-row combined check: wall time unprofiled, then
    device time by kernel under torch.profiler (the table goes to
    ``chiprun_out/profile_4096.txt``) and the device's idle share;
@@ -254,7 +279,10 @@ prover's kernels ``launches`` over ``batch_prove``'s path and for
 also as ``launches_in_batch_prove`` and ``launches_in_device_challenges``,
 and for the point kernels ``launches_in_batch_prove_verify`` and
 ``launches_in_audit_trail_replay`` / ``launches_in_audit_synthetic_replay``,
-the audit phase's replays of the daemon's trail and of A), the
+the audit phase's replays of the daemon's trail and of A, and
+``launches_in_replication_primaries`` / ``launches_in_replication_promoted_b``
+/ ``_d``, the replication phase's first wave at A and C and the promoted
+standbys' waves), the
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when CUDA is
@@ -398,6 +426,23 @@ AUDIT_SYNTH_USERS = 64
 AUDIT_REJECT_FRAC = 0.01
 AUDIT_MISMATCH_FRAC = 0.005
 AUDIT_QUANTUM = 4096
+#: the replication phase: users registered across the two-partition fleet,
+#: the CreateChallenge calls started at partition 1's primary before its
+#: SIGKILL and how many of them must be acknowledged first, the lease and
+#: renewal of ``[replication]`` (the reference's defaults), and the size at
+#: which each primary's proof log seals a segment (its ~2,000 login
+#: records seal several, which ship to its standby)
+REPL_USERS = 65536
+REPL_FURTHER = 1024
+REPL_KILL_AFTER = 512
+REPL_LEASE_MS = 3000.0
+REPL_RENEW_MS = 500.0
+REPL_AUDIT_SEGMENT_BYTES = 1 << 18
+#: the registration calls in flight at once.  Each call's acknowledgement
+#: waits for its standby within the 1 s ``sync_timeout_ms``, so a wider
+#: window can time out; the width at which ``RegisterBatch`` starts to
+#: fail is not measured, and 4 stands for no user's traffic
+REPL_REGISTER_IN_FLIGHT = 4
 
 
 #: every emitted line is also appended here, so the whole record survives
@@ -3747,6 +3792,514 @@ def audit_phase(corpus, provers, n: int, rpc_max: int, stream_users: int = AUDIT
     return out
 
 
+def card_memory_mib() -> float:
+    """The memory in use on the card, all processes (``nvidia-smi
+    --query-gpu=memory.used``; its per-app rows name no process in a PID
+    namespace it cannot map)."""
+    return float(nvidia_smi("memory.used").split()[0])
+
+
+def daemon_card_memory(ops_port: int) -> float:
+    """The card memory a daemon's PyTorch allocator holds, from its
+    ``/metrics`` (``tpu.device.memory_reserved_bytes``), in MiB."""
+    text = http_get(ops_port, "/metrics")
+    return scraped(text, "tpu_device_memory_reserved_bytes") / (1 << 20)
+
+
+def fleet_client(pmap, **kw):
+    """The port's ``AuthClient`` routing by ``pmap``, retrying sheds of the
+    retry-safe RPCs after their pushback."""
+    from cpzk_tpu_torch.client import AuthClient
+    from cpzk_tpu_torch.resilience.retry import RetryBudget, RetryPolicy
+
+    policy = RetryPolicy(max_attempts=PUSHBACK_TRIES, budget=RetryBudget(tokens=1e9))
+    return AuthClient(partition_map=pmap, retry=policy, **kw)
+
+
+async def fleet_register(pmap, user_ids, index: dict, corpus, rpc_max: int) -> dict:
+    """``RegisterBatch`` of ``user_ids`` through the port's ``AuthClient``
+    holding the partition map (it splits each call by partition), in calls
+    of ``rpc_max`` entries, ``REPL_REGISTER_IN_FLIGHT`` at a time; user
+    ``u`` registers corpus statement ``index[u]``.  Every entry must be
+    acknowledged."""
+    n, m = len(user_ids), len(corpus)
+    bounds = [(lo, min(lo + rpc_max, n)) for lo in range(0, n, rpc_max)]
+    window = asyncio.Semaphore(REPL_REGISTER_IN_FLIGHT)
+    async with fleet_client(pmap) as client:
+        async def call(lo: int, hi: int):
+            async with window:
+                uids = user_ids[lo:hi]
+                return await client.register_batch(
+                    uids, [corpus[index[u] % m][0].y1.wire() for u in uids],
+                    [corpus[index[u] % m][0].y2.wire() for u in uids])
+
+        t0 = time.perf_counter()
+        resps = await asyncio.gather(*[call(lo, hi) for lo, hi in bounds])
+        wall = time.perf_counter() - t0
+        redirects = client.redirects
+    bad = [r.message for resp in resps for r in resp.results if not r.success]
+    if bad or sum(len(resp.results) for resp in resps) != n:
+        raise AssertionError(f"replication: {len(bad)} registrations failed: {bad[:3]}")
+    return {"users": n, "calls": len(bounds), "in_flight": REPL_REGISTER_IN_FLIGHT,
+            "register_s": wall,
+            "registrations_per_s": n / wall, "redirects": redirects}
+
+
+async def fleet_logins(pmap, user_ids, index: dict, provers, rpc_max: int, gen) -> dict:
+    """One login wave through the port's ``AuthClient`` holding the map:
+    one ``CreateChallenge`` per user, proofs by prover ``index[u]``, about
+    1% tampered and 2 undecodable (``tamper_logins``), then the logins in
+    concurrent ``VerifyProofBatch`` calls of ``rpc_max`` entries, which the
+    client splits by partition.  Every verdict must equal its expectation,
+    with one session per valid entry."""
+    from cpzk_tpu_torch import Transcript
+
+    n, m = len(user_ids), len(provers)
+    bounds = [(lo, min(lo + rpc_max, n)) for lo in range(0, n, rpc_max)]
+    async with fleet_client(pmap) as client:
+        t0 = time.perf_counter()
+        cids = [bytes(r.challenge_id) for r in await asyncio.gather(
+            *[client.create_challenge(uid) for uid in user_ids])]
+        challenge_s = time.perf_counter() - t0
+        wires = []
+        for uid, cid in zip(user_ids, cids):
+            t = Transcript()
+            t.append_context(cid)
+            wires.append(provers[index[uid] % m].prove_with_transcript(gen, t).to_bytes())
+        expected = tamper_logins(wires, cids, provers, m, gen)
+        t0 = time.perf_counter()
+        resps = await asyncio.gather(*[client.verify_proof_batch(
+            user_ids[lo:hi], cids[lo:hi], wires[lo:hi]) for lo, hi in bounds])
+        wall = time.perf_counter() - t0
+        redirects = client.redirects
+    results = [r for resp in resps for r in resp.results]
+    got = ["ok" if r.success else r.message for r in results]
+    wrong = [i for i, (g, e) in enumerate(zip(got, expected)) if g != e]
+    if len(results) != n or wrong:
+        raise AssertionError(f"replication: {len(results)} verdicts, wrong at {wrong[:5]}: "
+                             f"{[(got[i], expected[i]) for i in wrong[:5]]}")
+    if any(r.success != bool(r.session_token) for r in results):
+        raise AssertionError("replication: not one session per valid entry")
+    return {"entries": n, "rpc_calls": len(bounds), "challenge_s": challenge_s,
+            "challenges_per_s": n / challenge_s, "login_wall_s": wall,
+            "logins_per_s": n / wall, "valid": expected.count("ok"),
+            "sessions": sum(bool(r.session_token) for r in results),
+            "tampered": expected.count("Authentication failed"),
+            "undecodable": expected.count(BAD_POINT), "redirects": redirects}
+
+
+async def stale_map_login(pmap, stale_address: str, uid: str, prover, gen) -> dict:
+    """A login of ``uid`` by a client holding a one-partition map (every
+    user at ``stale_address``) that refreshes to ``pmap`` on a redirect."""
+    from cpzk_tpu_torch import Transcript
+    from cpzk_tpu_torch.fleet import PartitionMap
+
+    stale = PartitionMap.uniform([stale_address])
+    async with fleet_client(stale, map_refresh=lambda: pmap) as client:
+        cid = bytes((await client.create_challenge(uid)).challenge_id)
+        t = Transcript()
+        t.append_context(cid)
+        resp = await client.verify_proof(uid, cid, prover.prove_with_transcript(gen, t).to_bytes())
+        return {"success": resp.success and bool(resp.session_token),
+                "redirects": client.redirects, "map_version": client.partition_map.version}
+
+
+async def standby_refusal(port: int) -> tuple[str, str]:
+    """What a ``CreateChallenge`` at ``port`` is answered: (code, details)."""
+    import grpc
+
+    from cpzk_tpu_torch.client import AuthClient
+
+    async with AuthClient(f"127.0.0.1:{port}") as client:
+        try:
+            await client.create_challenge("anyone")
+        except grpc.aio.AioRpcError as err:
+            return err.code().name, err.details()
+    return "OK", ""
+
+
+async def until_promoted(port: int, call, t0: float, timeout: float):
+    """(seconds from ``t0``, answer) of the first ``call(channel)`` at
+    ``port`` that is not refused UNAVAILABLE, the answer of a standby not
+    yet promoted (its state untouched); it is asked again every 5 ms."""
+    import grpc
+
+    async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+        while time.perf_counter() - t0 < timeout:
+            try:
+                resp = await call(ch)
+                return time.perf_counter() - t0, resp
+            except grpc.aio.AioRpcError as err:
+                if err.code() != grpc.StatusCode.UNAVAILABLE:
+                    raise
+            await asyncio.sleep(0.005)
+    raise AssertionError(f"replication: :{port} still unavailable after {timeout} s")
+
+
+def create_challenge_call(uid: str):
+    """A ``CreateChallenge`` of ``uid`` for :func:`until_promoted`."""
+    from cpzk_tpu_torch._gen import auth_pb2 as pb
+
+    return lambda ch: unary_stub(ch, "CreateChallenge", pb.ChallengeRequest,
+                                 pb.ChallengeResponse)(pb.ChallengeRequest(user_id=uid))
+
+
+def verify_proof_call(uid: str, cid: bytes, prover, gen):
+    """A ``VerifyProof`` of a valid proof over the challenge ``cid`` for
+    :func:`until_promoted`."""
+    from cpzk_tpu_torch import Transcript
+    from cpzk_tpu_torch._gen import auth_pb2 as pb
+
+    t = Transcript()
+    t.append_context(cid)
+    request = pb.VerificationRequest(user_id=uid, challenge_id=cid,
+                                     proof=prover.prove_with_transcript(gen, t).to_bytes())
+    return lambda ch: unary_stub(ch, "VerifyProof", pb.VerificationRequest,
+                                 pb.VerificationResponse)(request)
+
+
+PROMOTED_AUDIT_LINE = re.compile(r"PROMOTED to primary .*audit_seq=(\d+)")
+HANDOVER_LINE = re.compile(r"handover complete: standby promoted at epoch (\d+) in (\d+)ms")
+
+
+def replication_phase(corpus, provers, users: int, n: int, rpc_max: int, further: int,
+                      kill_after: int, lease_ms: float = REPL_LEASE_MS,
+                      renew_ms: float = REPL_RENEW_MS,
+                      audit_segment_bytes: int = REPL_AUDIT_SEGMENT_BYTES,
+                      sync_timeout_ms: float | None = None,
+                      launcher: list | None = None, on_card: bool = True) -> dict:
+    """The ``replication`` phase: a two-partition fleet of four port
+    daemons on the card, failing over and handing over.
+
+    Each daemon is ``python -m cpzk_tpu_torch.server`` (or ``launcher``) on
+    a TOML of its own: ``[tpu] backend = "tpu"`` with ``batch_max`` and
+    ``prewarm_quanta`` ``n``, ``[durability]`` with ``fsync = "always"``,
+    ``[replication] mode = "sync"`` with ``lease_ms`` and
+    ``renew_interval_ms``, ``[audit]`` (each proof log sealing a segment
+    every ``audit_segment_bytes``; a standby stores the ones its primary
+    ships) and ``[fleet]`` on a map from ``python -m cpzk_tpu_torch.fleet
+    init`` and ``set-standby``: partition 0 is the pair A→B, partition 1
+    C→D.  Steps:
+
+    1. the port's ``AuthClient`` with the map registers ``users`` users
+       (``RegisterBatch``) and logs ``n`` in (``VerifyProofBatch``, about
+       1% tampered): every verdict exact; a client holding a one-partition
+       map converges in one redirect; B and D refuse auth RPCs; each
+       standby's ``applied_seq`` equals its primary's WAL seq;
+    2. SIGTERM to A (``handover_on_term``): B promoted at epoch 2, A exits
+       0, every user and session A acknowledged at B; A's sealed proof-log
+       segments at B byte for byte;
+    3. ``further`` ``CreateChallenge`` calls at C, SIGKILLed once
+       ``kill_after`` are acknowledged: D promotes after the lease and
+       every acknowledged challenge logs in at D;
+    4. B and D answer an ``n``-login wave each (exact verdicts), their
+       ``/metrics`` showing both point kernels launched by those logins
+       and no failover; each of the four daemons held a CUDA context;
+    5. each promoted standby's proof-log directory replays on the card
+       (``run_audit``) as one whole log from seq 1: its primary's shipped
+       segments, then every verdict it served itself, none mismatched.
+
+    ``launcher`` and ``on_card`` are the daemon phase's; ``sync_timeout_ms``
+    replaces the reference default (a rehearsal on shared CPU cores)."""
+    from cpzk_tpu_torch.audit import run_audit
+    from cpzk_tpu_torch.fleet import PartitionMap
+    from cpzk_tpu_torch.server.__main__ import DRAIN_SECONDS
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.mkdtemp(prefix="cpzk-repl-")
+    names = ("a", "b", "c", "d")
+    ports = {k: free_port() for k in names}
+    addr = {k: f"127.0.0.1:{ports[k]}" for k in names}
+    dirs = {k: os.path.join(workdir, k) for k in names}
+    for d in dirs.values():
+        os.makedirs(d)
+    map_path = os.path.join(workdir, "map.json")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SERVER_")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    argv = (launcher or [sys.executable, "-m", "cpzk_tpu_torch.server"]) + ["--no-repl"]
+    gen = SeededRng(SEED + 17)
+    out = {"users": users, "n": n, "rpc_entries": rpc_max, "further": further,
+           "kill_after": kill_after, "lease_ms": lease_ms, "renew_interval_ms": renew_ms,
+           "audit_segment_bytes": audit_segment_bytes, "tolerance": "exact"}
+    procs: dict = {}
+    sheds: dict = {}
+
+    def fleet_cli(*args) -> str:
+        done = subprocess.run([sys.executable, "-m", "cpzk_tpu_torch.fleet", *args],
+                              cwd=workdir, env=env, capture_output=True, text=True, timeout=120)
+        if done.returncode != 0:
+            raise AssertionError(f"fleet {args[0]} exited {done.returncode}: {done.stderr}")
+        return done.stdout
+
+    def config(name: str, role: str, peer: str, partition: int) -> str:
+        d = dirs[name]
+        audit = (f'[audit]\nenabled = true\nlog_path = "{d}/proofs.log"\n'
+                 f"segment_bytes = {audit_segment_bytes}\n")
+        path = os.path.join(d, "server.toml")
+        with open(path, "w") as f:
+            f.write(f'state_file = "{d}/state.json"\n[server]\nmax_users = {users}\n'
+                    f'[tpu]\nbackend = "tpu"\nbatch_max = {n}\nprewarm_quanta = "{n}"\n'
+                    "[rate_limit]\nrequests_per_minute = 100000000\nburst = 1000000\n"
+                    "[opsplane]\nenabled = true\nport = 0\n"
+                    '[durability]\nenabled = true\nfsync = "always"\n'
+                    f'[replication]\nenabled = true\nrole = "{role}"\npeer = "{peer}"\n'
+                    f'mode = "sync"\nlease_ms = {lease_ms}\nrenew_interval_ms = {renew_ms}\n'
+                    + (f"sync_timeout_ms = {sync_timeout_ms}\n" if sync_timeout_ms else "")
+                    + audit
+                    + f'[fleet]\nenabled = true\nmap_path = "{map_path}"\n'
+                      f"partition = {partition}\n")
+        return path
+
+    def statusz(name: str) -> dict:
+        return json.loads(http_get(procs[name].ops_port, "/statusz"))
+
+    def wait_until(what: str, check, timeout: float = 30.0) -> float:
+        t0 = time.perf_counter()
+        while not check():
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"replication: {what} not reached in {timeout} s")
+            time.sleep(0.02)
+        return time.perf_counter() - t0
+
+    try:
+        # the map: partition 0 is A (standby B), partition 1 is C (standby D)
+        fleet_cli("init", "--addresses", f"{addr['a']},{addr['c']}", "--out", map_path)
+        fleet_cli("set-standby", "--map", map_path, "--partition", "0", "--standby", addr["b"])
+        fleet_cli("set-standby", "--map", map_path, "--partition", "1", "--standby", addr["d"])
+        pmap = PartitionMap.load(map_path)
+        out["map"] = {"version": pmap.version, "digest": pmap.short_digest()}
+        roles = {"a": ("primary", addr["b"], 0), "b": ("standby", "", 0),
+                 "c": ("primary", addr["d"], 1), "d": ("standby", "", 1)}
+        apps_before = card_apps() if on_card else []
+        memory_before = card_memory_mib() if on_card else None
+        for name in ("b", "d", "a", "c"):
+            role, peer, partition = roles[name]
+            procs[name] = DaemonProcess(
+                f"repl_{name}", argv + ["--port", str(ports[name])], dirs[name],
+                dict(env, SERVER_CONFIG_PATH=config(name, role, peer, partition)))
+        for proc in procs.values():
+            proc.wait_listening(DAEMON_BOOT_TIMEOUT_S)
+        out["boot_s"] = {k: procs[k].boot_s for k in names}
+        # each primary's shipper has reached its standby (the lease is armed
+        # at the first contact) before the first acknowledged write
+        out["pairs_connected_s"] = {k: wait_until(
+            f"{k}'s first contact", lambda k=k: statusz(k)["replication"]["lease_remaining_s"]
+            is not None) for k in ("b", "d")}
+        if on_card:
+            # each daemon holds a CUDA context of its own on the one card
+            holding = {k: maps_libcuda(procs[k].proc.pid) for k in names}
+            apps = card_apps()
+            out["cuda_contexts"] = {"libcuda_mapped": holding, "apps_before": apps_before,
+                                    "apps": apps}
+            out["card_memory_mib"] = {
+                "card_before_boot": memory_before, "card_booted": card_memory_mib(),
+                "allocator_booted": {k: daemon_card_memory(procs[k].ops_port)
+                                     for k in names}}
+            if not all(holding.values()) or len(apps) != len(apps_before) + 4:
+                raise AssertionError(f"replication: CUDA contexts {out['cuda_contexts']}")
+
+        # 1. the wave through the map
+        user_ids = [f"repl-{i:05d}" for i in range(users)]
+        part: dict = {0: [], 1: []}
+        for uid in user_ids:
+            part[pmap.partition_for(uid).index].append(uid)
+        index = {uid: j for members in part.values() for j, uid in enumerate(members)}
+        out["partition_users"] = {k: len(v) for k, v in part.items()}
+        launches0 = {k: kernel_launches(procs[k].ops_port) for k in ("a", "c")}
+        out["register"] = asyncio.run(fleet_register(pmap, user_ids, index, corpus, rpc_max))
+        wave_users = user_ids[:n]
+        wave = asyncio.run(fleet_logins(pmap, wave_users, index, provers, rpc_max, gen))
+        wave["launches"] = {k: {name: v - launches0[k][name] for name, v in
+                                kernel_launches(procs[k].ops_port).items()} for k in ("a", "c")}
+        if on_card and min(min(v.values()) for v in wave["launches"].values()) < 1:
+            raise AssertionError(f"replication: a kernel was not launched by the primaries' "
+                                 f"logins: {wave['launches']}")
+        out["wave"] = wave
+        stale_uid = part[1][-1]
+        stale = asyncio.run(stale_map_login(pmap, addr["a"], stale_uid,
+                                            provers[index[stale_uid] % len(provers)], gen))
+        if not stale["success"] or stale["redirects"] != 1 or stale["map_version"] != pmap.version:
+            raise AssertionError(f"replication: the one-partition client {stale}")
+        out["stale_map_client"] = stale
+        refusals = {k: asyncio.run(standby_refusal(ports[k])) for k in ("b", "d")}
+        want = ("UNAVAILABLE", "standby replica: not promoted (writes go to the primary)")
+        if any(r != want for r in refusals.values()):
+            raise AssertionError(f"replication: the standbys answered {refusals}")
+        out["standby_refusals"] = {k: list(v) for k, v in refusals.items()}
+        applied = {}
+        for primary, standby in (("a", "b"), ("c", "d")):
+            wait_until(f"{standby} applied {primary}'s log", lambda p=primary, s=standby: (
+                statusz(s)["replication"]["applied_seq"]
+                == statusz(p)["replication"]["wal_seq"]), timeout=30.0)
+            p_doc, s_doc = statusz(primary), statusz(standby)
+            applied[primary + standby] = {
+                "wal_seq": p_doc["replication"]["wal_seq"],
+                "acked_seq": p_doc["replication"]["acked_seq"],
+                "applied_seq": s_doc["replication"]["applied_seq"],
+                "segments_shipped": p_doc["replication"]["segments_shipped"],
+                "primary_users": p_doc["shards"]["users"],
+                "standby_users": s_doc["shards"]["users"]}
+        out["applied"] = applied
+        if (applied["ab"]["primary_users"], applied["cd"]["primary_users"]) != (
+                len(part[0]), len(part[1])):
+            raise AssertionError(f"replication: partitions hold {applied}, the map "
+                                 f"{out['partition_users']}")
+
+        # 2. planned: SIGTERM to A hands partition 0 over to B
+        a_segments = sorted(f for f in os.listdir(dirs["a"]) if f.endswith(".seg"))
+        wait_until("A's sealed proof-log segments shipped",
+                   lambda: statusz("a")["replication"]["audit_segments_shipped"]
+                   >= len(a_segments))
+        a_doc = statusz("a")
+        t0 = time.perf_counter()
+        procs["a"].proc.send_signal(signal.SIGTERM)
+        first_write, _ = asyncio.run(until_promoted(
+            ports["b"], create_challenge_call(part[0][0]), t0, 60.0))
+        rc = procs["a"].proc.wait(timeout=DRAIN_SECONDS + 60)
+        for t in procs["a"].readers:
+            t.join(timeout=5)
+        m = HANDOVER_LINE.search(procs["a"].text())
+        b_doc = statusz("b")
+        planned = {"exit_code": rc, "shutdown_s": time.perf_counter() - t0,
+                   "handover_ms": int(m.group(2)) if m else None,
+                   "sigterm_to_first_write_at_b_s": first_write,
+                   "b_role": b_doc["replication"]["role"], "b_epoch": b_doc["replication"]["epoch"],
+                   "a_acknowledged": {k: a_doc["shards"][k] for k in ("users", "sessions")},
+                   "b_holds": {k: b_doc["shards"][k] for k in ("users", "sessions")}}
+        b_segments = sorted(f for f in os.listdir(dirs["b"]) if f.endswith(".seg"))
+        equal = [f for f in a_segments if f in b_segments and open(
+            os.path.join(dirs["a"], f), "rb").read() == open(os.path.join(dirs["b"], f),
+                                                             "rb").read()]
+        planned["audit_segments"] = {"a": len(a_segments), "b": len(b_segments),
+                                     "byte_equal": len(equal)}
+        out["planned"] = planned
+        if (rc != 0 or m is None or int(m.group(1)) != 2 or planned["b_role"] != "primary"
+                or planned["b_epoch"] != 2
+                or planned["b_holds"] != planned["a_acknowledged"]
+                or planned["a_acknowledged"]["users"] != len(part[0])):
+            raise AssertionError(f"replication: the handover {planned}:\n"
+                                 f"{procs['a'].text()[-3000:]}")
+        if not a_segments or b_segments != a_segments or len(equal) != len(a_segments):
+            raise AssertionError(f"replication: A's sealed segments {a_segments}, at B "
+                                 f"{b_segments}, byte-equal {len(equal)}")
+
+        # 3. unplanned: SIGKILL C with CreateChallenge calls in flight
+        wave_set = set(wave_users)
+        kill_users = [u for u in part[1] if u not in wave_set][:further]
+        c_doc = statusz("c")
+        kill_t: list = []
+
+        def kill() -> None:
+            kill_t.append(time.perf_counter())
+            procs["c"].kill()
+
+        kw = asyncio.run(challenges_until_kill(ports["c"], kill_users, kill_after, kill, sheds))
+        acked = kw.pop("acked")
+        if procs["c"].proc.returncode != -signal.SIGKILL:
+            raise AssertionError(f"replication: C ended {procs['c'].proc.returncode}")
+        uid0, cid0 = acked[0]
+        first_s, first = asyncio.run(until_promoted(
+            ports["d"], verify_proof_call(uid0, cid0, provers[index[uid0] % len(provers)], gen),
+            kill_t[0], lease_ms / 1000.0 + 60.0))
+        if not (first.success and first.session_token):
+            raise AssertionError(f"replication: the first login at D failed: {first.message}")
+        promoted_at = procs["d"].seconds_to("PROMOTED to primary")
+        logins = asyncio.run(recovered_logins(ports["d"], acked[1:], index, provers, rpc_max,
+                                              gen, sheds))
+        d_doc = statusz("d")
+        unplanned = {**kw, "acked": len(acked), "exit_code": procs["c"].proc.returncode,
+                     "kill_to_promotion_s": (promoted_at - (kill_t[0] - procs["d"].t0)
+                                             if promoted_at is not None else None),
+                     "kill_to_first_session_s": first_s,
+                     "promotion_to_first_session_s": (
+                         first_s - (promoted_at - (kill_t[0] - procs["d"].t0))
+                         if promoted_at is not None else None),
+                     "logins": logins,
+                     "d_role": d_doc["replication"]["role"],
+                     "d_epoch": d_doc["replication"]["epoch"],
+                     "c_users_before_kill": c_doc["shards"]["users"],
+                     "d_users": d_doc["shards"]["users"]}
+        out["unplanned"] = unplanned
+        if (unplanned["d_role"] != "primary" or unplanned["d_epoch"] != 2
+                or unplanned["d_users"] != len(part[1]) or promoted_at is None
+                or logins["sessions"] != len(acked) - 1):
+            raise AssertionError(f"replication: the failover {unplanned}")
+
+        # 4. the promoted standbys serve logins on the card
+        promoted = {}
+        for name, members in (("b", part[0]), ("d", part[1])):
+            proc = procs[name]
+            seq0, launches0 = last_flight_seq(proc.ops_port), kernel_launches(proc.ops_port)
+            login_wave = asyncio.run(daemon_logins(proc.port, members[:n], corpus, provers,
+                                                   rpc_max, gen, register=False, sheds=sheds))
+            launches = {k: v - launches0[k] for k, v in kernel_launches(proc.ops_port).items()}
+            records = flight_records(proc.ops_port, seq0)
+            metrics_text = http_get(proc.ops_port, "/metrics")
+            failover = scraped(metrics_text, "tpu_backend_failover_total")
+            if on_card and min(launches.values()) < 1:
+                raise AssertionError(f"replication: a kernel was not launched by {name}'s "
+                                     f"logins: {launches}")
+            if failover:
+                raise AssertionError(f"replication: {name} failed over {failover} times")
+            for key in ("verdicts", "acked"):
+                login_wave.pop(key)
+            promoted[name] = {**login_wave, "launches": launches, "failover": failover,
+                              "batches": [r["batch"] for r in records],
+                              "device_interval_s": [r["device_interval_s"] for r in records],
+                              "audit": statusz(name)["audit"]}
+        out["promoted"] = promoted
+        if on_card:
+            out["card_memory_mib"].update(
+                card_end=card_memory_mib(),
+                allocator_end={k: daemon_card_memory(procs[k].ops_port) for k in ("b", "d")})
+        for name in ("b", "d"):
+            rc, _ = procs[name].terminate(DRAIN_SECONDS + 60)
+            if rc != 0:
+                raise AssertionError(f"replication: {name} exited {rc}:\n"
+                                     f"{procs[name].text()[-3000:]}")
+        out["sheds_by_rpc"], out["sheds_by_tier"] = dict(sheds), tier_sheds(sheds)
+        if out["sheds_by_tier"]["verify"]:
+            raise AssertionError(f"replication: tier-0 (verify) RPCs were shed: {sheds}")
+
+        # 5. each promoted standby's proof log continues its primary's
+        # shipped segments: its directory replays as one whole log
+        trails = {}
+        a_last = int(a_segments[-1].rsplit("-", 1)[1].split(".")[0])
+        for name in ("b", "d"):
+            m = PROMOTED_AUDIT_LINE.search(procs[name].text())
+            shipped_last = int(m.group(1)) if m else None
+            status = promoted[name]["audit"]
+            t0 = time.perf_counter()
+            report = run_audit(dirs[name], os.path.join(workdir, f"trail_{name}.json"),
+                               backend="tpu", device=None if on_card else "cpu")
+            replay_s = time.perf_counter() - t0
+            log_doc, totals = report["log"], report["totals"]
+            trails[name] = {"shipped_last_seq": shipped_last, "own_records":
+                            status["records_this_boot"], "seq": status["seq"],
+                            "first_seq": log_doc["first_seq"], "last_seq": log_doc["last_seq"],
+                            "whole": log_doc["valid_bytes"] == log_doc["file_bytes"],
+                            "totals": totals, "replay_s": replay_s}
+            own_verdicts = promoted[name]["valid"] + promoted[name]["tampered"]
+            if (shipped_last is None or shipped_last < 1
+                    or (name == "b" and shipped_last != a_last)
+                    or not trails[name]["whole"]
+                    or (log_doc["first_seq"], log_doc["last_seq"]) != (1, status["seq"])
+                    or status["seq"] != shipped_last + status["records_this_boot"]
+                    or status["records_this_boot"] < own_verdicts
+                    or totals["records"] != totals["audited"] or totals["records"] != status["seq"]
+                    or totals["mismatched"] or totals["skipped"]):
+                raise AssertionError(f"replication: {name}'s audit trail {trails[name]}")
+        out["promoted_trails"] = trails
+        out["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.save_log()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3898,6 +4451,14 @@ def main() -> int:
     audited = audit_phase(corpus, provers, SERVING_N, LOGIN_RPC_MAX)
     emit({"phase": "audit", **audited, **card})
 
+    # 5g. replication and the fleet: two primary/standby pairs of daemons
+    # on the card, a planned handover and a SIGKILL failover (launch counts
+    # read from each daemon's ops plane just before and just after each
+    # wave of logins)
+    replicated = replication_phase(corpus, provers, REPL_USERS, SERVING_N, LOGIN_RPC_MAX,
+                                   REPL_FURTHER, REPL_KILL_AFTER)
+    emit({"phase": "replication", **replicated, **card})
+
     # 6. where the time goes
     prof = profile_combined(backend, rows[:SERVING_N], beta)
     emit({"phase": "profile", **prof, **card})
@@ -3934,6 +4495,10 @@ def main() -> int:
                 served["pippenger"]["all_valid_batch"]["launches"][name],
             "launches_in_audit_trail_replay": audited["trail_replay"]["launches"][name],
             "launches_in_audit_synthetic_replay": audited["A"]["launches"][name],
+            "launches_in_replication_primaries":
+                sum(w[name] for w in replicated["wave"]["launches"].values()),
+            "launches_in_replication_promoted_b": replicated["promoted"]["b"]["launches"][name],
+            "launches_in_replication_promoted_d": replicated["promoted"]["d"]["launches"][name],
         })
     for name in PIPPENGER_KERNELS:
         results = kernel_rows[name]

@@ -309,6 +309,25 @@ class ProofLogWriter:
         restarts — it is a directory scan, not in-memory state)."""
         return sealed_segments(self.path)
 
+    def resume_past_sealed(self) -> int:
+        """Move the numbering past every sealed segment now beside the
+        log, those a primary shipped in since this writer opened
+        included; returns the last assigned seq.  A replication standby's
+        writer opens at boot, before the shipments, and appends nothing
+        until its promotion, which calls this first: the promoted node's
+        records then continue the primary's trail instead of numbering
+        from the seq the writer opened at."""
+        with self._lock:
+            last = max(
+                (_segment_seq_range(s)[1] for s in self.sealed_segments()),
+                default=0,
+            )
+            if last > self.seq:
+                self.seq = last
+                if self.size == 0:
+                    self.file_first_seq = last + 1
+            return self.seq
+
     def needs_sync(self) -> bool:
         """Whether :meth:`sync` would fsync right now under the policy —
         lets the async caller skip the worker-thread hop entirely."""

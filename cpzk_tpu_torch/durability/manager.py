@@ -2,8 +2,9 @@
 
 A copy of ``cpzk_tpu/durability/manager.py``.
 :meth:`DurabilityManager.attach_shipper` is the seam the replication
-shipper fills; replication is not ported yet, so the daemon never
-attaches one.
+shipper fills on a ``[replication]`` primary: compaction then stops at
+the smaller of the standby's acknowledged offset and the oldest live
+challenge's record.
 
 Owns the whole persistence lifecycle the daemon wires up when
 ``[durability] enabled = true``:

@@ -1,10 +1,10 @@
 """Versioned partition map: the fleet's routing contract.
 
-A copy of ``cpzk_tpu/fleet/partition_map.py`` up to ``FleetRouter``
-(the daemon-side ownership check comes with the fleet layer): the map
-document, its validation, routing and the split/standby operations.  The
-client (:mod:`cpzk_tpu_torch.client.rpc`) routes by it, and the auth
-service names its redirect trailers.
+A copy of ``cpzk_tpu/fleet/partition_map.py``: the map document, its
+validation, routing, the split/standby operations and
+:class:`FleetRouter`, the daemon-side ownership check.  The client
+(:mod:`cpzk_tpu_torch.client.rpc`) routes by the map, the auth service
+enforces it through the router and names its redirect trailers.
 
 A **partition map** is a static consistent hash of the ``user_id``
 keyspace onto N partitions, serialized with a monotonically increasing
@@ -28,7 +28,9 @@ Range-based rather than ring-based on purpose: a **split**
 (:meth:`PartitionMap.split`) is then a pure map operation — halve the
 source partition's largest range, hand the upper half to a new
 partition, bump the version — and "the users that moved" is exactly "the
-ids whose hash lands in the moved ranges".
+ids whose hash lands in the moved ranges", which is what the live split
+flow (:mod:`cpzk_tpu_torch.fleet.split`) snapshots and replays over the
+WAL replication plane.
 
 Versioning and the redirect contract
 ------------------------------------
@@ -419,3 +421,86 @@ def _validate(version: int, partitions: list[Partition]) -> None:
             f"partition ranges end at {cursor}, not {HASH_SPACE} (gap at "
             "the top of the hash space)"
         )
+
+
+class FleetRouter:
+    """One daemon's view of the map: *this* partition's index plus the
+    loaded :class:`PartitionMap`, with the ownership check the service
+    layer runs on every auth RPC.
+
+    The N=1 fast path is structural: a single-partition map makes
+    :meth:`owns` a constant ``True`` with **no hash computed** — a daemon
+    with fleet routing on a one-partition map pays nothing on the hot
+    path.
+    """
+
+    def __init__(self, pmap: PartitionMap, self_index: int,
+                 map_path: str = ""):
+        if not 0 <= self_index < len(pmap.partitions):
+            raise ValueError(
+                f"partition index {self_index} is not in map "
+                f"v{pmap.version} ({len(pmap.partitions)} partitions)"
+            )
+        self.map = pmap
+        self.self_index = self_index
+        self.map_path = map_path
+        self.redirects = 0  # process-lifetime count behind /statusz
+        self._single = len(pmap.partitions) == 1
+        self._export_gauges()
+
+    def _export_gauges(self) -> None:
+        from ..server import metrics
+
+        metrics.gauge("fleet.partition").set(float(self.self_index))
+        metrics.gauge("fleet.map_version").set(float(self.map.version))
+
+    # -- the ownership check (the service's hot path) ----------------------
+
+    def owns(self, user_id: str) -> bool:
+        """Whether this partition owns ``user_id``.  Single-partition
+        maps short-circuit before hashing (the N=1 fast path)."""
+        if self._single:
+            return True
+        return self.map.partition_for(user_id).index == self.self_index
+
+    def owner(self, user_id: str) -> Partition:
+        return self.map.partition_for(user_id)
+
+    # -- reload (operator REPL / split runbook) ----------------------------
+
+    def reload(self) -> bool:
+        """Re-read the map file; adopt it when its version is strictly
+        newer (a split flipped it).  Returns whether the map changed.
+        The self partition keeps its index — a reload that drops this
+        partition from the map raises rather than silently serving an
+        unowned keyspace."""
+        if not self.map_path:
+            return False
+        pmap = PartitionMap.load(self.map_path)
+        if pmap.version <= self.map.version:
+            return False
+        if self.self_index >= len(pmap.partitions):
+            raise ValueError(
+                f"map v{pmap.version} has {len(pmap.partitions)} "
+                f"partitions; this daemon is partition {self.self_index}"
+            )
+        self.map = pmap
+        self._single = len(pmap.partitions) == 1
+        self._export_gauges()
+        return True
+
+    # -- introspection (/statusz fleet block) ------------------------------
+
+    def status(self) -> dict:
+        me = self.map.partitions[self.self_index]
+        return {
+            "partition": self.self_index,
+            "partitions": len(self.map.partitions),
+            "map_version": self.map.version,
+            "map_digest": self.map.short_digest(),
+            "address": me.address,
+            "standby": me.standby,
+            "owned_ranges": [[lo, hi] for lo, hi in me.ranges],
+            "owned_span_fraction": round(me.span() / HASH_SPACE, 6),
+            "redirects": self.redirects,
+        }

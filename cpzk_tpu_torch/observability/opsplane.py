@@ -9,14 +9,19 @@ listener, serving:
   facade's own registry (:func:`cpzk_tpu_torch.server.metrics.render_exposition`),
   identical family set on the prometheus and no-prometheus backings;
   ``tpu.kernel.launches{kernel}`` is refreshed at scrape time from the
-  CUDA kernels' launch counts, so another process can read them;
+  CUDA kernels' launch counts, so another process can read them, and so
+  is ``tpu.device.memory_reserved_bytes``, the card memory this process's
+  PyTorch allocator holds;
 - ``GET /statusz``  — one JSON snapshot of the whole box: batcher depth/
   drain rate, dispatch-lane stage percentiles from the flight ring,
   per-shard registry sizes + sampled lock wait, breaker state, ingest
   shards, active streams, uptime, config fingerprint, and the admission,
-  durability and audit blocks when the daemon runs them.  The
-  replication, fleet and controller blocks are ``null``: those subsystems
-  are not ported yet, and the daemon refuses to boot with them enabled;
+  durability, audit, replication (with the primary's handover block)
+  and fleet blocks when the daemon runs them.  The controller block is
+  ``null``: the fleet controller is not ported yet, and the daemon
+  refuses to boot with it enabled;
+- ``GET /partitionmap`` — the fleet's partition map (404 without
+  ``[fleet]``);
 - ``GET /tracez``, ``GET /flightrec`` — the ring dumps as JSON, the
   EXACT payloads the REPL renders and SIGUSR2 writes (one serializer,
   one schema: ``Tracer.payload`` / ``FlightRecorder.payload``);
@@ -76,8 +81,8 @@ class OpsSources:
     batcher: object | None = None      # DynamicBatcher
     backend: object | None = None      # TorchBackend | FailoverBackend
     # the reference's host control plane: the daemon fills admission,
-    # durability and audit_log; replication, fleet and controller are not
-    # ported yet, so it leaves them None
+    # durability, audit_log, replication and fleet when their sections are
+    # enabled; the controller is not ported yet, so it leaves it None
     admission: object | None = None    # AdmissionController
     replication: object | None = None  # SegmentShipper | StandbyReplica
     audit_log: object | None = None    # ProofLogWriter
@@ -96,9 +101,10 @@ class OpsSources:
 
     def refresh_gauges(self) -> None:
         """Update the pull-style gauges (per-shard sizes, and the CUDA
-        kernels' launch counts when this process has loaded them; queue
-        depth is push-maintained already) right before an exposition
-        render, so a scrape never reads stale values."""
+        kernels' launch counts and the card memory PyTorch's allocator
+        holds when this process has loaded them; queue depth is
+        push-maintained already) right before an exposition render, so a
+        scrape never reads stale values."""
         state = self.state
         if state is not None and hasattr(state, "export_shard_gauges"):
             state.export_shard_gauges()
@@ -111,6 +117,12 @@ class OpsSources:
                 gauge = metrics.gauge("tpu.kernel.launches", labelnames=("kernel",))
                 for name, count in launches.items():
                     gauge.labels(kernel=name).set(count)
+        # this process's share of the card: several daemons on one card
+        # (a replication pair, a fleet) each report their own
+        torch = sys.modules.get("torch")
+        if torch is not None and torch.cuda.is_initialized():
+            metrics.gauge("tpu.device.memory_reserved_bytes").set(
+                float(torch.cuda.memory_reserved()))
 
     # -- statusz -------------------------------------------------------------
 

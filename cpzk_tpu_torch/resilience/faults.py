@@ -5,18 +5,18 @@ A copy of the backend and write-ahead-log half of
 declarative schedule of device faults, and :class:`FaultInjectionBackend`
 applies it to any :class:`~cpzk_tpu_torch.protocol.batch.VerifierBackend`
 (raise-after-N-batches, intermittent flapping, per-batch latency spikes);
-the WAL crash points (:meth:`FaultPlan.crash_on`) schedule deterministic
-process-death stand-ins at exact write sites inside
+the crash points (:meth:`FaultPlan.crash_on`) schedule deterministic
+process-death stand-ins at exact sites: the write sites inside
 :class:`~cpzk_tpu_torch.durability.wal.WriteAheadLog` (``pre_append`` /
 ``mid_frame`` / ``post_append_pre_fsync`` / ``pre_rename`` / ``pre_seal``
-/ ``pre_unlink``).  Everything is reproducible from the plan alone — same
-plan, same faults, same batch indexes — so the chaos and durability tests
-assert exact outcomes instead of sampling flaky timing windows.
+/ ``pre_unlink``), the replication plane's shipping and promotion, each
+stage of a fleet split and of a coordinated handover.  Everything is
+reproducible from the plan alone — same plan, same faults, same batch
+indexes — so the chaos, durability and replication tests assert exact
+outcomes instead of sampling flaky timing windows.
 
-The reference's other crash points (replication, fleet split, handover)
-and its snapshot-write injector belong to layers the port has not taken
-yet; they come with those layers.  The snapshot-error budget is kept,
-since the plan's builder API carries it.
+The reference's snapshot-write injector is not carried; the
+snapshot-error budget is kept, since the plan's builder API carries it.
 
 Example::
 
@@ -36,6 +36,46 @@ import time
 
 from ..durability.wal import WAL_CRASH_POINTS, CrashPoint  # noqa: F401 (re-export)
 from ..protocol.batch import VerifierBackend
+
+
+#: Replication-plane crash sites: ``pre_ship`` (primary dies before a
+#: segment leaves), ``mid_segment`` (primary dies mid-transfer — the
+#: standby receives a torn segment and must reject it whole), and
+#: ``pre_promote`` (standby dies at the promotion decision; a retried
+#: promote must succeed).  Consulted by ``SegmentShipper`` and
+#: ``StandbyReplica`` the same way the WAL sites are by ``WriteAheadLog``.
+REPLICATION_CRASH_POINTS = ("pre_ship", "mid_segment", "pre_promote")
+
+#: Fleet-split crash sites (one per split stage — see
+#: ``cpzk_tpu_torch/fleet/split.py`` SPLIT_CRASH_POINTS for the exact file
+#: state each leaves behind).  Consulted by ``run_split(..., faults=)``.
+FLEET_CRASH_POINTS = (
+    "pre_manifest", "pre_copy", "mid_copy",
+    "pre_flip", "pre_drain", "pre_finish",
+)
+
+#: Coordinated-handover crash sites, one per protocol stage.  Primary
+#: side (``SegmentShipper.run_handover``): ``pre_handover_fence`` (nothing
+#: armed yet), ``post_handover_fence`` (write fence armed, tail not
+#: shipped), ``pre_handover_promote`` (tail acked at the fence watermark,
+#: promote instruction never sent), ``post_handover_promote`` (standby
+#: promoted, deposed-redirect mode not entered).  Standby side
+#: (``StandbyReplica.handover``): ``pre_handover_ack`` (promote
+#: instruction received, nothing done).  A crash at ANY of these must
+#: degrade to ordinary lease failover — handover is an optimization of
+#: the failure path, never a second consistency protocol.
+HANDOVER_CRASH_POINTS = (
+    "pre_handover_fence",
+    "post_handover_fence",
+    "pre_handover_promote",
+    "post_handover_promote",
+    "pre_handover_ack",
+)
+
+ALL_CRASH_POINTS = (
+    WAL_CRASH_POINTS + REPLICATION_CRASH_POINTS + FLEET_CRASH_POINTS
+    + HANDOVER_CRASH_POINTS
+)
 
 
 class InjectedFault(RuntimeError):
@@ -119,13 +159,21 @@ class FaultPlan:
         ``post_append_pre_fsync`` count once per append, in that order;
         ``pre_rename`` once per single-file compaction, ``pre_seal`` once
         per segment seal, ``pre_unlink`` once per covered-segment unlink
-        under segmented compaction) — the deterministic stand-in for the
-        process dying at exactly that instruction.  Pass the plan as
-        ``WriteAheadLog(..., faults=plan)`` /
-        ``DurabilityManager(..., faults=plan)`` to arm it."""
-        if point not in WAL_CRASH_POINTS:
+        under segmented compaction) or a replication site
+        (``pre_ship`` / ``mid_segment`` once per shipped segment,
+        ``pre_promote`` once per promotion attempt) or a handover stage
+        (``HANDOVER_CRASH_POINTS`` — once per visit of that stage in
+        ``SegmentShipper.run_handover`` / ``StandbyReplica.handover``) or
+        a fleet-split stage (``FLEET_CRASH_POINTS``, once per run) — the
+        deterministic stand-in for the process dying at exactly that
+        instruction.  Pass the plan as ``WriteAheadLog(..., faults=plan)``
+        / ``DurabilityManager(..., faults=plan)`` /
+        ``SegmentShipper(..., faults=plan)`` /
+        ``StandbyReplica(..., faults=plan)`` /
+        ``run_split(..., faults=plan)`` to arm it."""
+        if point not in ALL_CRASH_POINTS:
             raise ValueError(
-                f"unknown crash point {point!r}; one of {WAL_CRASH_POINTS}"
+                f"unknown crash point {point!r}; one of {ALL_CRASH_POINTS}"
             )
         if occurrence < 0:
             raise ValueError("crash_on occurrence must be >= 0")

@@ -6,24 +6,34 @@ replay before anything listens), the background cleanup task under a
 restart-on-crash supervisor, optional Prometheus exporter, admission
 control (``[admission]``, on by default as in the reference), the ops
 plane and SLO engine, the proof-log audit trail (``[audit]``: one record
-per verdict served, for ``python -m cpzk_tpu_torch.audit run``), gRPC
-health, an admin REPL (/status /overload /tracez /flightrec /profile
-/persist /audit /users /sessions /challenges /cleanup /reset /help
-/quit), and graceful shutdown: health flips to NOT_SERVING, a 2 s drain,
-the ingest shards and the batcher stop, the listener stops, the proof
-log closes (every acknowledged verdict in it), background tasks are
-awaited, and the final snapshot lands (with durability: the covered
-write-ahead log is truncated).
+per verdict served, for ``python -m cpzk_tpu_torch.audit run``), WAL
+replication to a warm standby (``[replication]``: a primary ships its
+log and sealed proof-log segments, a standby applies them, refuses auth
+RPCs and promotes on lease expiry), partition ownership
+(``[fleet]``: wrong-partition RPCs redirect to the owner named by the
+map), gRPC health, an admin REPL (/status /overload /tracez /flightrec
+/profile /persist /audit /replication /promote /handover /fleet /users
+/sessions /challenges /cleanup /reset /help /quit), and graceful
+shutdown: on SIGTERM a replication primary with ``handover_on_term``
+first hands its partition over to the standby, then health flips to
+NOT_SERVING, a 2 s drain, the ingest shards and the batcher stop, the
+listener stops, the proof log closes (every acknowledged verdict in it),
+the shipper's final flush ships its last sealed segment, background
+tasks are awaited, and the final snapshot lands (with durability: the
+covered write-ahead log is truncated).
 
 With ``[tpu] backend = "tpu"`` (this package's default) the daemon serves
 the card bare: ``plane.build_backend`` builds the CUDA kernels and
 prewarms them before the listener binds, and a kernel or CUDA fault fails
 its batch; there is no host failover.  Without CUDA it stops at boot.
 ``backend = "cpu"`` (or ``--backend cpu``) verifies inline on the host.
+A replication standby builds and prewarms the card's backend at boot as
+a primary does, so its promotion pays no kernel load.  With ``[audit]
+enabled`` its promotion moves the proof log's numbering past the segments
+the primary shipped, so its own verdicts continue that trail.
 
-The rest of the reference's host control plane — ``[replication]``,
-``[fleet]`` and ``[controller]`` — is not ported yet: a config that
-enables any of them stops the daemon at boot with an error naming the
+The reference's fleet controller (``[controller]``) is not ported yet: a
+config that enables it stops the daemon at boot with an error naming the
 section.
 
 Run: ``python -m cpzk_tpu_torch.server --host 127.0.0.1 --port 50051``
@@ -54,7 +64,7 @@ DRAIN_SECONDS = 2
 
 #: config sections of the reference's host control plane that the port
 #: does not have yet: enabling one stops the daemon at boot
-UNPORTED_SECTIONS = ("replication", "fleet", "controller")
+UNPORTED_SECTIONS = ("controller",)
 
 log = logging.getLogger("cpzk_tpu_torch.server")
 
@@ -103,11 +113,17 @@ async def cleanup_supervisor(
     stop: asyncio.Event,
     state_file: str | None = None,
     durability=None,
+    replica=None,
 ) -> None:
     """Periodic expiry sweeps under a restart-on-crash supervisor; with
     --state-file, each sweep also checkpoints — through the
     :class:`~cpzk_tpu_torch.durability.DurabilityManager` (snapshot + WAL
-    fsync/compaction) when durability is enabled."""
+    fsync/compaction) when durability is enabled.  An unpromoted
+    replication standby only checkpoints: a local expiry sweep would
+    journal records into the standby's WAL and fork its sequence numbers
+    away from the primary's stream (expired entries are inert anyway —
+    validation rejects them lazily and the primary's own sweep records
+    replay the removals).  Full sweeps resume once promoted."""
 
     async def sweep_loop():
         while not stop.is_set():
@@ -116,10 +132,11 @@ async def cleanup_supervisor(
                 return
             except asyncio.TimeoutError:
                 pass
-            nc = await state.cleanup_expired_challenges()
-            ns = await state.cleanup_expired_sessions()
-            if nc or ns:
-                log.info("cleanup: %d challenges, %d sessions expired", nc, ns)
+            if replica is None or replica.role == "primary":
+                nc = await state.cleanup_expired_challenges()
+                ns = await state.cleanup_expired_sessions()
+                if nc or ns:
+                    log.info("cleanup: %d challenges, %d sessions expired", nc, ns)
             if durability is not None:
                 await durability.checkpoint()
             elif state_file:
@@ -157,10 +174,10 @@ HELP = """Available commands:
   /profile S [DIR]    capture S seconds of torch.profiler (Chrome trace)
   /persist     (/wal) durability status: WAL size, fsync age, covered seq
   /audit       (/au)  proof-log status: path, bytes, seq, fsync policy
-  /replication (/repl) replication status (not ported yet: disabled)
-  /promote            promote this standby to primary (no replication)
-  /handover           coordinated primary→standby handover (no replication)
-  /fleet [reload] (/fl) partition-map status (not ported yet: disabled)
+  /replication (/repl) replication status: role, epoch, seq, lag, lease
+  /promote            promote this standby to primary (operator failover)
+  /handover           coordinated primary→standby handover (zero loss)
+  /fleet [reload] (/fl) partition-map status; reload adopts a newer map
   /controller  (/ctl) fleet controller (not ported yet: disabled)
   /users       (/u)   registered user count
   /sessions    (/s)   active session count
@@ -173,17 +190,19 @@ HELP = """Available commands:
 
 async def handle_command(
     cmd: str, state: ServerState, backend=None, durability=None,
-    admission=None, *, audit_log=None,
+    admission=None, *, audit_log=None, replication=None, fleet=None,
 ) -> tuple[str, bool]:
     """(output, should_quit) for one REPL line.  ``backend`` is the
     serving backend: /status surfaces its breaker state and /reset re-arms
     it when it is a ``FailoverBackend`` (the daemon serves the card bare,
     so only a caller that builds one sees them); ``durability`` is the
     DurabilityManager behind /persist, ``admission`` the
-    AdmissionController behind /overload and ``audit_log`` the
-    ProofLogWriter behind /audit (None when disabled).  The REPL
-    commands of the reference's unported subsystems answer with its
-    "disabled" text."""
+    AdmissionController behind /overload, ``audit_log`` the
+    ProofLogWriter behind /audit, ``replication`` the SegmentShipper
+    (primary) or StandbyReplica (standby) behind /replication, /promote
+    and /handover, and ``fleet`` the FleetRouter behind /fleet (each None
+    when disabled).  /controller answers with the reference's "disabled"
+    text: the fleet controller is not ported yet."""
     cmd = cmd.strip()
     if not cmd:
         return "", False
@@ -315,15 +334,59 @@ async def handle_command(
             False,
         )
     if word in ("/replication", "/repl"):
+        if replication is None:
+            return (
+                "replication disabled (set [replication] enabled = true on "
+                "a durability-enabled pair to get a warm standby)",
+                False,
+            )
+        s = replication.status()
+        if s["role"] == "primary":
+            return (
+                f"role=primary epoch={s['epoch']} mode={s['mode']}"
+                f" peer={s['peer']} wal_seq={s['wal_seq']}"
+                f" acked_seq={s['acked_seq']} lag={s['lag_records']}"
+                f" segments_shipped={s['segments_shipped']}"
+                f" fenced={s['fenced']} gap_stalled={s['gap_stalled']}",
+                False,
+            )
+        lease = s["lease_remaining_s"]
         return (
-            "replication disabled (set [replication] enabled = true on "
-            "a durability-enabled pair to get a warm standby)",
+            f"role={s['role']} epoch={s['epoch']}"
+            f" applied_seq={s['applied_seq']} lag={s['lag_records']}"
+            f" segments={s['segments_received']}"
+            f" (rejected={s['segments_rejected']} fenced={s['fenced']})"
+            f" records={s['records_applied']}"
+            f" (skipped={s['records_skipped']})"
+            f" lease={'unarmed' if lease is None else f'{lease:.2f}s'}",
             False,
         )
     if word in ("/fleet", "/fl"):
+        if fleet is None:
+            return (
+                "fleet routing disabled (set [fleet] enabled = true with a "
+                "map_path to join an N-partition fleet)",
+                False,
+            )
+        parts = cmd.split()
+        if len(parts) > 1 and parts[1].lower() == "reload":
+            try:
+                changed = fleet.reload()
+            except (OSError, ValueError) as e:
+                return f"map reload failed: {e}", False
+            if not changed:
+                return (
+                    f"map unchanged (still v{fleet.map.version} "
+                    f"{fleet.map.short_digest()})",
+                    False,
+                )
+        s = fleet.status()
         return (
-            "fleet routing disabled (set [fleet] enabled = true with a "
-            "map_path to join an N-partition fleet)",
+            f"partition={s['partition']}/{s['partitions']}"
+            f" map=v{s['map_version']} digest={s['map_digest']}"
+            f" address={s['address']}"
+            f" owned={s['owned_span_fraction']:.1%} of keyspace"
+            f" redirects={s['redirects']}",
             False,
         )
     if word in ("/controller", "/ctl"):
@@ -334,15 +397,43 @@ async def handle_command(
             False,
         )
     if word == "/promote":
+        if replication is None or not hasattr(replication, "promote"):
+            return (
+                "nothing to promote (this node is not a replication "
+                "standby)",
+                False,
+            )
+        report = await replication.promote(reason="operator")
+        if not report["promoted"]:
+            return f"not promoted: {report['message']}", False
         return (
-            "nothing to promote (this node is not a replication "
-            "standby)",
+            f"PROMOTED to primary: epoch={report['epoch']}"
+            f" applied_seq={report['applied_seq']}"
+            f" tail_replayed={report['replayed_tail']}"
+            f" torn_bytes={report['truncated_bytes']} — this node now "
+            "accepts auth traffic; fence the old primary before reviving it",
             False,
         )
     if word == "/handover":
+        if replication is None or not hasattr(replication, "run_handover"):
+            return (
+                "nothing to hand over (this node is not a replication "
+                "primary)",
+                False,
+            )
+        try:
+            report = await replication.run_handover(reason="operator")
+        except Exception as exc:  # noqa: BLE001 — surface, don't kill REPL
+            return (
+                f"handover ABORTED: {exc} — pair unchanged, lease "
+                "failover still covers a real primary death",
+                False,
+            )
         return (
-            "nothing to hand over (this node is not a replication "
-            "primary)",
+            f"HANDOVER complete in {report['duration_s'] * 1000.0:.0f}ms: "
+            f"standby promoted at epoch={report['epoch']} "
+            f"fence_seq={report['fence_seq']} — this node now redirects "
+            "writes to the new primary; drain and restart it",
             False,
         )
     if word in ("/reset", "/rearm"):
@@ -562,13 +653,74 @@ async def amain(args, *, device=None) -> None:
             config.audit.log_path, config.audit.fsync, audit_log.seq,
             config.audit.segment_bytes,
         )
+
+    shipper = None
+    replica = None
+    if config.replication.enabled:
+        from ..replication import SegmentShipper, StandbyReplica
+
+        if config.replication.role == "standby":
+            replica = StandbyReplica(
+                state, durability, config.replication,
+                audit_path=config.audit.log_path or None,
+                audit_log=audit_log,
+            )
+            log.info(
+                "replication standby: epoch=%d applied_seq=%d (auth RPCs "
+                "refused until promotion; lease %gms, auto_promote=%s)",
+                replica.epoch, replica.applied_seq,
+                config.replication.lease_ms, config.replication.auto_promote,
+            )
+        else:
+            # sealed proof-log segments ride the same shipping loop as
+            # WAL segments, so the audit trail survives machine death too
+            shipper = SegmentShipper(
+                state, durability, config.replication, audit_log=audit_log
+            )
+            durability.attach_shipper(shipper)
+            if config.replication.mode == "sync":
+                # one barrier per acknowledgement: a RegisterBatch RPC
+                # syncs the WAL once and so awaits this once, on the RPC's
+                # last sequence number, before it answers
+                state.attach_replication_barrier(shipper.wait_replicated)
+            log.info(
+                "replication primary: epoch=%d mode=%s -> %s (segment "
+                "%d bytes, renew %gms)",
+                shipper.epoch, config.replication.mode,
+                config.replication.peer, config.replication.segment_bytes,
+                config.replication.renew_interval_ms,
+            )
+
+    fleet_router = None
+    if config.fleet.enabled:
+        from ..fleet import FleetRouter, PartitionMap
+
+        pmap = PartitionMap.load(config.fleet.map_path)
+        idx = config.fleet.partition
+        if idx < 0:
+            advertise = config.fleet.advertise or config.addr()
+            idx = pmap.index_of_address(advertise)
+        fleet_router = FleetRouter(
+            pmap, idx, map_path=config.fleet.map_path
+        )
+        me = pmap.partitions[idx]
+        log.info(
+            "fleet routing enabled: partition %d/%d (map v%d %s, owns "
+            "%.1f%% of the keyspace as %s)",
+            idx, len(pmap.partitions), pmap.version, pmap.short_digest(),
+            100.0 * me.span() / (1 << 32), me.address,
+        )
     # the boot graph (restored state, the imported modules, the kernels'
     # plumbing) goes into the collector's frozen set, as after each sweep
     gc.collect()
     gc.freeze()
 
+    # started after the replication block: an unpromoted standby's sweep
+    # must checkpoint-only (see cleanup_supervisor)
     cleanup_task = asyncio.create_task(
-        cleanup_supervisor(state, stop, config.state_file or None, durability)
+        cleanup_supervisor(
+            state, stop, config.state_file or None, durability, replica
+        )
     )
 
     # ops plane + SLO engine: the remote introspection surface, started
@@ -593,16 +745,23 @@ async def amain(args, *, device=None) -> None:
 
     slo_task = asyncio.create_task(slo_ticker())
 
+    if fleet_router is not None:
+        # per-partition SLO attribution: the /slo payload (and /statusz
+        # rollup) names this partition so fleet dashboards can join
+        slo_engine.partition = str(fleet_router.self_index)
+
     ops_sources = OpsSources(
         state=state,
         batcher=batcher,
         backend=backend,
         admission=admission,
+        replication=shipper or replica,
         durability=durability,
         audit_log=audit_log,
         slo=slo_engine,
+        fleet=fleet_router,
         config_fingerprint=config.fingerprint(),
-        role="server",
+        role="standby" if replica is not None else "server",
     )
     ops_plane = None
     if config.opsplane.enabled:
@@ -629,10 +788,12 @@ async def amain(args, *, device=None) -> None:
     server, port = await serve(
         state, limiter, host=config.host, port=config.port,
         backend=backend, batcher=batcher, tls=tls, admission=admission,
-        audit_log=audit_log,
+        # a primary exposes the ReplicationService too (the shipper's
+        # handler serves the Handover RPC; ship/status answer refusals)
+        replica=replica or shipper, audit_log=audit_log,
         stream_window=config.tpu.stream_window,
         stream_entry_deadline_ms=config.tpu.stream_entry_deadline_ms,
-        wire=config.server.wire,
+        fleet=fleet_router, wire=config.server.wire,
         listen=not shard_ingest,
     )
     ingest = None
@@ -651,14 +812,28 @@ async def amain(args, *, device=None) -> None:
     # late attachments: serve() built these (health gate, stream registry)
     ops_sources.health = server.health
     ops_sources.service = server.auth_service
+    if shipper is not None:
+        shipper.start()
+    if replica is not None:
+        replica.start()
     log.info("wire path: %s", config.server.wire)
     print(_c("green", f"AuthService listening on {config.host}:{port}"
              + (f" ({config.server.ingest_shards} ingest shards)"
                 if shard_ingest else "")), flush=True)
 
     loop = asyncio.get_running_loop()
+    # SIGTERM is the planned-operations signal: on a primary with a live
+    # standby it runs a coordinated handover before the drain (below).
+    # SIGINT stays a plain stop — ^C in a terminal should not fail over.
+    term_requested = False
+
+    def _on_term() -> None:
+        nonlocal term_requested
+        term_requested = True
+        stop.set()
+
     loop.add_signal_handler(signal.SIGINT, stop.set)
-    loop.add_signal_handler(signal.SIGTERM, stop.set)
+    loop.add_signal_handler(signal.SIGTERM, _on_term)
 
     def dump_flightrec() -> None:
         """SIGUSR2: dump the flight-recorder ring as JSON — the live-
@@ -688,7 +863,8 @@ async def amain(args, *, device=None) -> None:
                 return
             out, quit_ = await handle_command(
                 line, state, backend, durability, admission,
-                audit_log=audit_log,
+                audit_log=audit_log, replication=shipper or replica,
+                fleet=fleet_router,
             )
             if out:
                 print(_c("white", out))
@@ -701,6 +877,32 @@ async def amain(args, *, device=None) -> None:
         repl_task = asyncio.create_task(repl())
 
     await stop.wait()
+
+    # planned operations: SIGTERM on a primary with a standby hands
+    # ownership over BEFORE the drain — the write blackout is one ship RTT
+    # plus the promotion instead of a lease_ms failover window, with zero
+    # acknowledged-write loss structurally.  Any failure falls back to the
+    # plain drain, loudly: the standby then takes over on lease expiry.
+    if (
+        term_requested
+        and shipper is not None
+        and config.replication.handover_on_term
+        and not shipper.fenced
+    ):
+        print(_c("yellow", "SIGTERM: attempting coordinated handover..."), flush=True)
+        try:
+            report = await shipper.run_handover(reason="sigterm")
+            print(_c(
+                "green",
+                f"handover complete: standby promoted at epoch "
+                f"{report['epoch']} in {report['duration_s'] * 1000.0:.0f}ms",
+            ), flush=True)
+        except Exception:
+            log.exception(
+                "coordinated handover FAILED; falling back to plain drain "
+                "(no/stale standby?) — the standby takes over via lease "
+                "expiry instead"
+            )
 
     # graceful shutdown: not-serving -> drain -> stop -> final snapshot;
     # background tasks are cancelled AND awaited so no in-flight sweep
@@ -724,6 +926,13 @@ async def amain(args, *, device=None) -> None:
                 log.error("audit trail: a pending fsync failed: %r", res)
         await asyncio.to_thread(audit_log.close)
         log.info("audit trail closed at seq %d", audit_log.seq)
+    # after the listener and the proof log: the shipper's final flush tick
+    # ships the last WAL records and the last sealed proof-log segment
+    # (the reference stops it before the listener)
+    if shipper is not None:
+        await shipper.stop()
+    if replica is not None:
+        await replica.stop()
     # the ops plane outlives the gRPC listener (it watched the drain);
     # stop it after so the last /statusz of a shutdown is observable
     if ops_plane is not None:

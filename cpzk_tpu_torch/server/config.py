@@ -325,8 +325,7 @@ class AuditSettings:
     appends one CRC-framed record per verified proof (statement,
     challenge, proof wire, verdict) to ``log_path``; the audit pipeline
     later replays it through the batch engine and emits a Schnorr-signed
-    report (not ported yet: enabling it stops the daemon at boot).  See ``docs/operations.md``
-    §"Streaming & audit"."""
+    report.  See ``docs/operations.md`` §"Streaming & audit"."""
 
     enabled: bool = False         # opt-in; requires log_path
     log_path: str = ""            # the proof log (created 0600)
@@ -345,13 +344,11 @@ class AuditSettings:
 @dataclass
 class FleetSettings:
     """N-partition fleet routing (fleet subsystem): this daemon's slot in
-    a versioned partition map (not ported yet: enabling it stops the
-    daemon at boot).  Every auth RPC
-    then checks ownership before touching state and redirects
-    wrong-partition requests with the map version + owner address in
-    trailing metadata; the ops plane serves the map read-only at
-    ``/partitionmap``.  See ``docs/operations.md`` §"Partitioned
-    fleet"."""
+    a versioned partition map.  Every auth RPC then checks ownership
+    before touching state and redirects wrong-partition requests with the
+    map version + owner address in trailing metadata; the ops plane serves
+    the map read-only at ``/partitionmap``.  See ``docs/operations.md``
+    §"Partitioned fleet"."""
 
     enabled: bool = False      # opt-in; requires map_path
     map_path: str = ""         # the serialized partition-map JSON file
@@ -370,7 +367,8 @@ class ControllerSettings:
     states) and acts through the existing actuators — live partition
     split, lane drain/re-admit, admission level cap.  Ships with
     ``dry_run = true``: decisions are computed, traced, and surfaced on
-    ``/statusz`` but no actuator fires until an operator flips it.  See
+    ``/statusz`` but no actuator fires until an operator flips it.  Not
+    ported yet: enabling it stops the port's daemon at boot.  See
     ``docs/operations.md`` §"Fleet controller & failure storms"."""
 
     enabled: bool = False

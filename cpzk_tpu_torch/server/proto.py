@@ -1,5 +1,5 @@
-"""Protobuf message bindings for ``proto/auth.proto`` and
-``proto/health.proto``.
+"""Protobuf message bindings for ``proto/auth.proto``,
+``proto/health.proto`` and ``proto/replication.proto``.
 
 The port's copy of ``cpzk_tpu/server/proto.py`` with one difference: the
 message modules are committed under ``cpzk_tpu_torch/_gen/`` and imported
@@ -7,8 +7,8 @@ by their package-qualified names.  Nothing runs ``protoc`` and nothing goes
 on ``sys.path`` at run time, so a process that loads both packages never
 hands one package the other's top-level ``auth_pb2``.  The gRPC plumbing is
 hand-wired from grpcio's generic handler API instead of a generated
-``*_pb2_grpc`` module (see ``service.py``).  ``replication.proto`` comes
-with the replication slice.
+``*_pb2_grpc`` module (see ``service.py`` and
+``replication/wire.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +42,13 @@ def load_health_pb2():
     from .._gen import health_pb2
 
     return health_pb2
+
+
+def load_replication_pb2():
+    """The ``replication_pb2`` message module (WAL segment shipping)."""
+    from .._gen import replication_pb2
+
+    return replication_pb2
 
 
 def method_types(pb2):

@@ -2,13 +2,13 @@
 
 A copy of ``cpzk_tpu/server/service.py`` on the port's own state store,
 wire parse and serving plane.  The handlers' ``admission=`` branch takes
-the port's :class:`~cpzk_tpu_torch.admission.AdmissionController` and
-the ``audit_log=`` branch the port's
-:class:`~cpzk_tpu_torch.audit.ProofLogWriter`; the ``replica=`` and
-``fleet=`` branches are the reference's and stay inert under ``None``:
-those packages come with the host control plane (the handlers name only
-the partition map's redirect trailers, from
-:mod:`cpzk_tpu_torch.fleet.partition_map`).  Two
+the port's :class:`~cpzk_tpu_torch.admission.AdmissionController`, the
+``audit_log=`` branch the port's
+:class:`~cpzk_tpu_torch.audit.ProofLogWriter`, the ``replica=`` branch a
+:class:`~cpzk_tpu_torch.replication.StandbyReplica` or
+:class:`~cpzk_tpu_torch.replication.SegmentShipper` and the ``fleet=``
+branch a :class:`~cpzk_tpu_torch.fleet.FleetRouter`; each is inert under
+``None``.  Two
 departures of the port hold here too: with no ``backend`` the batch
 verifier means ``TorchBackend()`` on the card (it raises without CUDA; the
 host runs only when passed ``backend=CpuBackend()``), and nothing moves
@@ -787,9 +787,7 @@ class AuthServiceImpl:
             tokens[i] = self.state.tag_session_token(
                 contexts[i], token_pool[64 * k: 64 * (k + 1)]
             )
-        # bulk mint: the fence verdict comes back per entry from
-        # create_sessions (re-checked inside its shard lock) and is mapped
-        # to redirect-shaped messages below
+        # cpzk-lint: disable=AWAIT-001 -- bulk mint: the fence verdict comes back per-entry from create_sessions (re-checked inside its shard lock) and is mapped to redirect-shaped messages below — the batch wire contract has no single redirect to raise
         session_errs = await self.state.create_sessions(
             [(tokens[i], contexts[i]) for i in verified])
         session_err_by_index = dict(zip(verified, session_errs, strict=True))

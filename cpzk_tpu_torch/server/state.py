@@ -4,9 +4,10 @@ A copy of ``cpzk_tpu/server/state.py`` (the port imports nothing of the
 JAX package).  Its snapshot file format is the reference's, so a snapshot
 written by either package restores in the other.  The durability journal,
 replication barrier and ownership fence hooks stay ``None`` until the host
-control plane attaches them through the ``attach_*`` methods; the
-journal's boot-time replay and a fleet split's export and drop of a user
-subset come with that plane too.
+control plane attaches them through the ``attach_*`` methods
+(durability, ``replication/``, ``fleet/``); a fleet split exports and
+drops a user subset through :meth:`ServerState.export_user_records` and
+:meth:`ServerState.drop_users`.
 
 Reference parity (``src/verifier/state.rs``): same TTLs (challenge 300 s
 with a 2x-age clock-skew guard, session 3600 s), per-user caps (3
@@ -627,6 +628,88 @@ class ServerState:
     @property
     def _user_challenges(self) -> _ShardedView:
         return _ShardedView(self, "_user_challenges", "user")
+
+    # --- owned-key subset iteration (fleet split: fleet/split.py) ----------
+
+    def export_user_records(self, predicate) -> list[dict]:
+        """Journal-style records (``type`` set, no ``seq``) for every user
+        matched by ``predicate(user_id)`` — the owned-key subset a fleet
+        split ships to the new partition.  Per user: the registration,
+        then live challenges, then live sessions, in the order the replay
+        validators require (a session/challenge record is rejected unless
+        its user is already registered).
+
+        One synchronous pass in a deterministic order (shard index, then
+        sorted user id): the event loop cannot interleave a mutating
+        handler, so the export is a consistent cut — the same guarantee
+        :meth:`snapshot` leans on — and two exports of the same state are
+        byte-identical, which keeps a resumed split's segment stream
+        stable."""
+        from ..core.ristretto import Ristretto255
+
+        eb = Ristretto255.element_to_bytes
+        out: list[dict] = []
+        for shard in self._shards:
+            for uid in sorted(shard._users):
+                if not predicate(uid):
+                    continue
+                user = shard._users[uid]
+                out.append({
+                    "type": "register_user",
+                    "user_id": uid,
+                    "y1": eb(user.statement.y1).hex(),
+                    "y2": eb(user.statement.y2).hex(),
+                    "registered_at": user.registered_at,
+                })
+                for cid in shard._user_challenges.get(uid, ()):
+                    ch = shard._challenges.get(cid)
+                    if ch is None or ch.is_expired():
+                        continue
+                    out.append({
+                        "type": "create_challenge",
+                        "challenge_id": cid.hex(),
+                        "user_id": uid,
+                        "created_at": ch.created_at,
+                        "expires_at": ch.expires_at,
+                    })
+                for token in shard._user_sessions.get(uid, ()):
+                    s = shard._sessions.get(token)
+                    if s is None or s.is_expired():
+                        continue
+                    out.append({
+                        "type": "create_session",
+                        "token": token,
+                        "user_id": uid,
+                        "created_at": s.created_at,
+                        "expires_at": s.expires_at,
+                    })
+        return out
+
+    # cpzk-lint: disable=LOCK-001 -- split drain runs single-threaded on offline partition files, like replay_journal_record
+    def drop_users(self, predicate) -> tuple[int, int, int]:
+        """Remove every user matched by ``predicate(user_id)`` together
+        with their challenges, sessions, and per-user lists — the drain
+        stage of a fleet split, after the moved subset is durable on the
+        new partition and the map has flipped.  Single-threaded offline
+        use only (the split tool operates on a stopped partition's
+        files); returns ``(users, challenges, sessions)`` removed."""
+        n_users = n_chal = n_sess = 0
+        for shard in self._shards:
+            doomed = [uid for uid in shard._users if predicate(uid)]
+            for uid in doomed:
+                self._user_remove(shard, uid)
+                n_users += 1
+                for cid in list(shard._user_challenges.get(uid, ())):
+                    if self._challenge_remove(shard, cid) is not None:
+                        n_chal += 1
+                for token in list(shard._user_sessions.get(uid, ())):
+                    if self._session_remove(shard, token) is not None:
+                        n_sess += 1
+                shard._user_challenges.pop(uid, None)
+                shard._user_sessions.pop(uid, None)
+        if n_users or n_chal or n_sess:
+            self._persist_dirty = True
+        return n_users, n_chal, n_sess
 
     # --- durability journal ---
 

@@ -11,9 +11,9 @@ reference's:
   sleeps exactly the advertised ``cpzk-retry-after-ms``, stops on a
   negative one, and spends the retry budget, as the reference's does;
 - partition redirects: the port's client with a stale partition map
-  converges on the reference's two-partition fleet (the port's server has
-  no fleet router yet) in one redirect per attempt, charging the retry
-  budget, as the reference's client does;
+  converges on the reference's two-partition fleet in one redirect per
+  attempt, charging the retry budget, as the reference's client does (the
+  port's own fleet is held in ``tests/test_torch_fleet.py``);
 - twins of ``tests/test_chaos.py``'s client cases
   (``test_client_retries_transient_codes_only_for_safe_rpcs``,
   ``test_client_without_policy_never_retries``) and of

@@ -27,6 +27,7 @@ import re
 import time
 import urllib.request
 
+import grpc
 import numpy as np
 import pytest
 
@@ -197,8 +198,9 @@ def test_status_repl_reports_breaker_state():
     "/reset", "/status", "/quit", "/nope", "hello", "",
 ])
 def test_commands_answer_as_the_reference_with_subsystems_off(cmd):
-    """The unported subsystems' commands answer with the reference's
-    "disabled" text, and the state commands alike."""
+    """With its subsystems off (no durability, audit, replication or
+    fleet; the controller is not ported), every command answers with the
+    reference's text, and the state commands alike."""
 
     async def main():
         return (await t_main.handle_command(cmd, ServerState()),
@@ -524,15 +526,12 @@ def test_verify_proof_trace_repl_and_json_log():
 
 
 @pytest.mark.parametrize("section,env", [
-    ("replication", {"SERVER_DURABILITY_ENABLED": "1", "SERVER_STATE_FILE": "s.json",
-                     "SERVER_REPLICATION_ENABLED": "1",
-                     "SERVER_REPLICATION_PEER": "127.0.0.1:1"}),
-    ("fleet", {"SERVER_FLEET_ENABLED": "1", "SERVER_FLEET_MAP_PATH": "m.json"}),
     ("controller", {"SERVER_CONTROLLER_ENABLED": "1"}),
 ])
 def test_unported_section_refused_at_boot(clean_env, monkeypatch, section, env):
-    """A config the reference accepts, with a subsystem the port does not
-    have: one error naming the section, before anything is built."""
+    """A config the reference accepts, with the one section of its host
+    control plane the port does not have yet, ``[controller]``: one error
+    naming the section, before anything is built."""
     for key, value in env.items():
         monkeypatch.setenv(key, value)
     j_main.resolve_config(j_main.parse_args([]))  # valid for the reference
@@ -541,12 +540,79 @@ def test_unported_section_refused_at_boot(clean_env, monkeypatch, section, env):
         run(t_main.amain(args, device="cpu"))
 
 
+@pytest.mark.parametrize("section,env", [
+    ("replication", {"SERVER_DURABILITY_ENABLED": "1", "SERVER_STATE_FILE": "s.json",
+                     "SERVER_REPLICATION_ENABLED": "1",
+                     "SERVER_REPLICATION_ROLE": "standby",
+                     "SERVER_REPLICATION_PEER": "127.0.0.1:1"}),
+    ("fleet", {"SERVER_FLEET_ENABLED": "1", "SERVER_FLEET_MAP_PATH": "m.json",
+               "SERVER_FLEET_PARTITION": "0"}),
+])
+def test_ported_section_boots(clean_env, monkeypatch, section, env):
+    """The reference's ``[replication]`` and ``[fleet]`` configs boot the
+    port's daemon, which the earlier slices refused: a replication standby
+    refuses auth RPCs until promoted, and a one-partition map serves."""
+    from cpzk_tpu_torch.fleet import PartitionMap
+    from cpzk_tpu_torch.client import AuthClient as TAuthClient
+    from cpzk_tpu_torch.client.__main__ import do_login, do_register
+    from torch_daemon_harness import Daemon
+
+    PartitionMap.uniform(["127.0.0.1:1"]).store(str(clean_env / "m.json"))
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    j_main.resolve_config(j_main.parse_args([]))  # valid for the reference
+    daemon = Daemon("port", clean_env / "daemon", '[tpu]\nbackend = "cpu"\n',
+                    env={**env, "SERVER_FLEET_MAP_PATH": str(clean_env / "m.json")})
+    try:
+        daemon.wait_listening()
+
+        async def drive():
+            async with TAuthClient(f"127.0.0.1:{daemon.port}") as client:
+                if section == "replication":
+                    with pytest.raises(grpc.aio.AioRpcError) as exc:
+                        await client.create_challenge("alice")
+                    return exc.value.code().name, exc.value.details()
+                return (await do_register(client, "alice", "pw"),
+                        await do_login(client, "alice", "pw"))
+
+        got = run(drive())
+        if section == "replication":
+            assert got == ("UNAVAILABLE",
+                           "standby replica: not promoted (writes go to the primary)")
+            assert "replication standby: epoch=1 applied_seq=0" in daemon.logs()
+        else:
+            assert "Registered" in got[0] and "Login OK" in got[1], got
+            assert "fleet routing enabled: partition 0/1" in daemon.logs()
+        assert daemon.terminate() == 0
+    finally:
+        daemon.kill()
+
+
 def test_card_backend_without_cuda_fails_at_boot(clean_env, monkeypatch):
     """``backend = "tpu"`` (the default) with no CUDA: an error at boot,
     never a daemon serving on the host."""
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = t_main.parse_args(["--no-repl", "--port", "0"])
+    assert t_main.resolve_config(args).tpu.backend == "tpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(t_main.amain(args))
+
+
+@pytest.mark.parametrize("role", ["standby", "primary"])
+def test_replication_daemon_without_cuda_fails_at_boot(clean_env, monkeypatch, role):
+    """A replication standby serves the card as a primary does, so that
+    its promotion pays no kernel load: with no CUDA either role stops at
+    boot, before anything listens, never serving (or promoting) on the
+    host."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for key, value in {"SERVER_DURABILITY_ENABLED": "1", "SERVER_STATE_FILE": "s.json",
+                       "SERVER_REPLICATION_ENABLED": "1", "SERVER_REPLICATION_ROLE": role,
+                       "SERVER_REPLICATION_PEER": "127.0.0.1:1"}.items():
+        monkeypatch.setenv(key, value)
     args = t_main.parse_args(["--no-repl", "--port", "0"])
     assert t_main.resolve_config(args).tpu.backend == "tpu"
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -6,9 +6,11 @@ Uses the harness's built-in seeded mutation engine via
 ``common.run_bounded`` (deterministic; Atheris, when installed, is
 deliberately bypassed because it ignores bounds).  The proof-log and
 partition-map targets hold the audit pipeline's parse-and-fold layer and
-the partition map's parse and routing totality; the other four the
-proof codec, statement validation, admission and the request-wire
-parser.  ``fuzz_wal_replay`` waits for the replication slice.
+the partition map's parse and routing totality, the WAL-replay target the
+log's frame parse, boot replay and segmented delivery into the standby's
+``SegmentApplier`` (duplicated, reordered, truncated, tampered and
+cross-epoch segments); the other four the proof codec, statement
+validation, admission and the request-wire parser.
 """
 
 import importlib.util
@@ -40,6 +42,7 @@ def _load(name: str):
         ("fuzz_audit_log", 400),
         ("fuzz_partition_map", 400),
         ("fuzz_wire_parse", 400),
+        ("fuzz_wal_replay", 300),
     ],
 )
 def test_fuzz_target_smoke(target, runs):

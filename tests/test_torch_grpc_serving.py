@@ -28,18 +28,20 @@ agree exactly; the checks each reference test makes on its own package's
 tracer, flight recorder and metrics are made on each side's own and
 recorded as observations too.
 
-Waiting for the daemon and its REPL (A5c): the REPL ``/tracez`` and JSON
-log parts of ``test_verify_proof_trace_end_to_end``,
-``test_chaos.py::test_status_repl_reports_breaker_state``.  Waiting for
-the host control plane (A13): ``test_chaos.py``'s
-``test_overload_storm_fairness_and_priority_ordering`` (admission),
-``test_latency_spikes_do_not_trip_the_breaker`` (a replica),
+The reference's other cases of these files have twins elsewhere: the REPL
+``/tracez`` and JSON-log parts of ``test_verify_proof_trace_end_to_end``
+and ``test_chaos.py::test_status_repl_reports_breaker_state`` in
+``tests/test_torch_daemon.py``; ``test_chaos.py``'s
+``test_latency_spikes_do_not_trip_the_breaker`` in
+``tests/test_torch_resilience.py``;
+``test_overload_storm_fairness_and_priority_ordering``,
+``test_client_retries_transient_codes_only_for_safe_rpcs`` and
+``test_client_without_policy_never_retries`` in
+``tests/test_torch_client.py``; and
 ``test_kill_primary_promote_login_zero_acknowledged_loss``,
 ``test_promotion_after_ship_crash_points`` and
-``test_sigkill_primary_two_process_failover_zero_loss`` (replication), and
-``test_client_retries_transient_codes_only_for_safe_rpcs`` and
-``test_client_without_policy_never_retries``, which test the client's own
-retry policy against stubbed calls.
+``test_sigkill_primary_two_process_failover_zero_loss`` in
+``tests/test_torch_replication.py``.
 """
 
 import asyncio

@@ -66,6 +66,9 @@ def test_import_pulls_in_neither_jax_nor_cpzk_tpu():
         "from cpzk_tpu_torch.durability import DurabilityManager, WriteAheadLog\n"
         "from cpzk_tpu_torch.server import RateLimiter, ServerState, UserData\n"
         "cpzk_tpu_torch.server.proto.load_pb2(), cpzk_tpu_torch.server.proto.load_health_pb2()\n"
+        "cpzk_tpu_torch.server.proto.load_replication_pb2()\n"
+        "import cpzk_tpu_torch.replication, cpzk_tpu_torch.fleet.split\n"
+        "import cpzk_tpu_torch.fleet.__main__\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cpzk_tpu')]\n"
         "assert not bad, bad\n"
         "top = [m for m in sys.modules if m in ('auth_pb2', 'health_pb2', 'replication_pb2')]\n"

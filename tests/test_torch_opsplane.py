@@ -2,11 +2,13 @@
 (``cpzk_tpu_torch/observability/opsplane.py``), SLO engine and the
 ``[opsplane]``/``[slo]`` config surface.
 
-Every case but ``test_statusz_e2e_with_replication_and_audit`` is here:
-that one needs replication, which the port does not have yet; its
-admission and durability blocks are held in
-``test_statusz_e2e_with_admission_and_durability`` and its audit block in
-``test_statusz_e2e_with_audit`` (driven by the port's client).  The port's metrics live in its own
+``test_statusz_e2e_with_replication_and_audit`` is held in three parts:
+its admission and durability blocks in
+``test_statusz_e2e_with_admission_and_durability``, its audit block in
+``test_statusz_e2e_with_audit`` (driven by the port's client) and its
+replication half in ``test_statusz_e2e_with_replication``; the first two
+also hold the blocks of a daemon without ``[replication]`` and
+``[fleet]`` (null, and a 404 at ``/partitionmap``).  The port's metrics live in its own
 registry, so the exposition tests read only the port's families.  The
 daemon cases boot ``python -m cpzk_tpu_torch.server --backend cpu``; the
 client side of the gRPC cases is the reference's ``AuthClient``.
@@ -245,6 +247,24 @@ def test_kernel_launch_gauge_reads_any_loaded_kernel_module(monkeypatch):
     assert 'kernel="elsewhere_kernel"' not in metrics.render_exposition()
 
 
+def test_card_memory_gauge_only_where_cuda_is_initialized(monkeypatch):
+    """Each daemon on a shared card reports the memory its own PyTorch
+    allocator holds (``tpu.device.memory_reserved_bytes``), read at scrape
+    time and only where CUDA is initialized: a host-only process (an
+    ingest shard, ``backend = "cpu"``) exports nothing for it."""
+    import types
+
+    cold = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        is_initialized=lambda: False, memory_reserved=lambda: 1 / 0))
+    monkeypatch.setitem(sys.modules, "torch", cold)
+    OpsSources().refresh_gauges()  # never asks an uninitialized CUDA
+    warm = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        is_initialized=lambda: True, memory_reserved=lambda: 3 << 30))
+    monkeypatch.setitem(sys.modules, "torch", warm)
+    OpsSources().refresh_gauges()
+    assert metrics.read("tpu.device.memory_reserved_bytes", "g") == float(3 << 30)
+
+
 # --- one serializer for REPL / HTTP / SIGUSR2 ----------------------------------
 
 
@@ -317,7 +337,7 @@ def test_unknown_path_404_and_method_not_allowed():
             status, _, _ = await aget(port, "/slo")
             assert status == 404
             status, _, _ = await aget(port, "/partitionmap")
-            assert status == 404  # no fleet: not ported
+            assert status == 404  # no fleet source attached
         finally:
             await plane.stop()
 
@@ -429,8 +449,11 @@ def test_statusz_e2e_with_admission_and_durability(tmp_path):
             assert doc["durability"]["wal_seq"] == mgr.wal.seq == 16
             assert doc["durability"]["fsync_policy"] == "always"
             assert doc["health"] == {"live": True, "ready": True}
-            for block in ("replication", "audit", "fleet", "controller"):
+            # a daemon without [replication], [audit] and [fleet]
+            for block in ("replication", "handover", "audit", "fleet", "controller"):
                 assert doc[block] is None, block
+            status, _, body = await aget(ops_port, "/partitionmap")
+            assert status == 404 and "[fleet] is disabled" in json.loads(body)["error"]
         finally:
             await plane.stop()
             await batcher.stop()
@@ -494,8 +517,11 @@ def test_statusz_e2e_with_audit(tmp_path):
             assert doc["audit"]["seq"] == 4
             assert doc["audit"]["bytes"] > 0
             assert doc["audit"]["records_this_boot"] == 4
-            for block in ("replication", "fleet", "controller"):
+            # a daemon without [replication] and [fleet]
+            for block in ("replication", "handover", "fleet", "controller"):
                 assert doc[block] is None, block
+            status, _, body = await aget(ops_port, "/partitionmap")
+            assert status == 404 and "[fleet] is disabled" in json.loads(body)["error"]
             assert metrics.read("audit.log.appends") - appends0 == 4
             status, _, body = await aget(ops_port, "/metrics")
             assert status == 200 and b"audit_log_appends_total" in body
@@ -504,6 +530,119 @@ def test_statusz_e2e_with_audit(tmp_path):
             await batcher.stop()
             await server.stop(None)
             audit_log.close()
+
+    run(main())
+
+
+def test_statusz_e2e_with_replication(tmp_path):
+    """The replication half of the reference's
+    ``test_statusz_e2e_with_replication_and_audit``: a daemon-shaped
+    primary (batcher + admission + durability) shipping in sync mode to a
+    real standby over gRPC serves logins through the port's client, and
+    /statusz fills the replication block (primary, no lag, a fresh last
+    ship) and the handover block, while /metrics carries the replication
+    families and the ship-RTT and apply-lag histograms land."""
+    from cpzk_tpu_torch.admission import AdmissionController
+    from cpzk_tpu_torch.client import AuthClient as TAuthClient
+    from cpzk_tpu_torch.durability import DurabilityManager
+    from cpzk_tpu_torch.replication import SegmentShipper, StandbyReplica
+    from cpzk_tpu_torch.server.batching import DynamicBatcher
+    from cpzk_tpu_torch.server.config import (
+        AdmissionSettings,
+        DurabilitySettings,
+        ReplicationSettings,
+    )
+
+    async def main():
+        sstate = ServerState()
+        smgr = DurabilityManager(sstate, DurabilitySettings(enabled=True),
+                                 str(tmp_path / "standby.json"))
+        await smgr.recover()
+        replica = StandbyReplica(sstate, smgr, ReplicationSettings(
+            enabled=True, role="standby", lease_ms=4000.0, renew_interval_ms=50.0,
+            mode="sync", auto_promote=False))
+        sserver, sport = await serve(sstate, RateLimiter(100_000, 100_000), port=0,
+                                     backend=CpuBackend(), replica=replica)
+        replica.start()
+        pstate = ServerState()
+        pmgr = DurabilityManager(pstate, DurabilitySettings(enabled=True),
+                                 str(tmp_path / "primary.json"))
+        await pmgr.recover()
+        shipper = SegmentShipper(pstate, pmgr, ReplicationSettings(
+            enabled=True, role="primary", peer=f"127.0.0.1:{sport}", lease_ms=4000.0,
+            renew_interval_ms=50.0, mode="sync"))
+        pmgr.attach_shipper(shipper)
+        pstate.attach_replication_barrier(shipper.wait_replicated)
+        batcher = DynamicBatcher(CpuBackend(), max_batch=64, window_ms=5.0)
+        admission = AdmissionController(AdmissionSettings(), batcher=batcher)
+        pserver, pport = await serve(pstate, RateLimiter(100_000, 100_000), port=0,
+                                     batcher=batcher, admission=admission,
+                                     replica=shipper)
+        shipper.start()
+        rtt0 = metrics.read_histogram("state.repl.ship_rtt")[0]
+        lag0 = metrics.read_histogram("state.repl.apply_lag_seconds")[0]
+        cfg = ServerConfig()
+        sources = OpsSources(
+            state=pstate, batcher=batcher, admission=admission, replication=shipper,
+            durability=pmgr, health=pserver.health, service=pserver.auth_service,
+            slo=SloEngine(cfg.slo), config_fingerprint=cfg.fingerprint(),
+        )
+        plane = OpsPlane(sources, port=0)
+        ops_port = await plane.start()
+        standby_plane = OpsPlane(OpsSources(state=sstate, replication=replica,
+                                            durability=smgr, role="standby"), port=0)
+        standby_ops = await standby_plane.start()
+        try:
+            async with TAuthClient(f"127.0.0.1:{pport}") as client:
+                provers = {}
+                for i in range(4):
+                    p = J.Prover(params, J.Witness(J.Ristretto255.random_scalar(rng)))
+                    provers[f"ops-u{i}"] = p
+                    resp = await client.register(
+                        f"ops-u{i}", EB(p.statement.y1), EB(p.statement.y2))
+                    assert resp.success
+                for uid, p in provers.items():
+                    ch = await client.create_challenge(uid)
+                    t = J.Transcript()
+                    t.append_context(bytes(ch.challenge_id))
+                    resp = await client.verify_proof(
+                        uid, ch.challenge_id, p.prove_with_transcript(rng, t).to_bytes())
+                    assert resp.success
+            # sync mode: every acknowledged mutation is standby-applied
+            assert shipper.acked_seq == pmgr.wal.seq == replica.applied_seq == 16
+            status, _, body = await aget(ops_port, "/statusz")
+            assert status == 200
+            doc = json.loads(body)
+            repl = doc["replication"]
+            assert repl["role"] == "primary" and repl["mode"] == "sync"
+            assert repl["lag_records"] == 0 and repl["wal_seq"] == repl["acked_seq"] == 16
+            assert repl["last_ship_age_s"] is not None and not repl["fenced"]
+            assert doc["handover"]["stage"] == "idle" and doc["handover"]["attempts"] == 0
+            assert doc["durability"]["wal_seq"] == pmgr.wal.seq
+            assert doc["shards"]["users"] == 4 and doc["shards"]["sessions"] == 4
+            # the standby's view: applied up to the primary's head, unpromoted
+            status, _, body = await aget(standby_ops, "/statusz")
+            sdoc = json.loads(body)
+            assert sdoc["replication"]["role"] == "standby"
+            assert sdoc["replication"]["applied_seq"] == 16
+            assert sdoc["handover"] is None
+            assert metrics.read_histogram("state.repl.ship_rtt")[0] > rtt0
+            assert metrics.read_histogram("state.repl.apply_lag_seconds")[0] > lag0
+            status, _, body = await aget(ops_port, "/metrics")
+            text = body.decode()
+            for family in ("state_repl_role", "state_repl_ship_rtt",
+                           "state_repl_segments_shipped", "state_repl_lag_records"):
+                assert family in text, family
+        finally:
+            await plane.stop()
+            await standby_plane.stop()
+            await batcher.stop()
+            await shipper.stop()
+            await replica.stop()
+            await pserver.stop(None)
+            await sserver.stop(None)
+            await pmgr.close()
+            await smgr.close()
 
     run(main())
 

@@ -41,12 +41,18 @@ from cpzk_tpu_torch import CpuBackend
 from cpzk_tpu_torch.server import RateLimiter as TRL, ServerState as TSS, metrics
 from cpzk_tpu_torch.server.proto import load_pb2 as t_load
 from cpzk_tpu_torch._gen import auth_pb2, health_pb2
+from cpzk_tpu.server.proto import load_replication_pb2 as j_load_repl
+from cpzk_tpu_torch.server.proto import load_replication_pb2 as t_load_repl
 
 jpb, tpb = j_load(), t_load()
 assert tpb is auth_pb2 and tpb.__name__ == "cpzk_tpu_torch._gen.auth_pb2"
 assert jpb.__name__ == "auth_pb2"
 assert tpb.DESCRIPTOR.serialized_pb == jpb.DESCRIPTOR.serialized_pb
 assert health_pb2.__name__ == "cpzk_tpu_torch._gen.health_pb2"
+# replication.proto joins the descriptors both packages register
+jrepl, trepl = j_load_repl(), t_load_repl()
+assert trepl.__name__ == "cpzk_tpu_torch._gen.replication_pb2" and jrepl.__name__ == "replication_pb2"
+assert trepl.DESCRIPTOR.serialized_pb == jrepl.DESCRIPTOR.serialized_pb
 
 async def main():
     rng = J.SecureRng()
@@ -94,22 +100,29 @@ def test_both_services_in_one_process(order):
 
 
 def test_port_descriptor_is_protoc_output_with_the_reference_order(tmp_path):
-    """The port's committed ``auth_pb2`` carries the reference's serialized
-    descriptor (byte-equal), and that descriptor holds exactly what protoc
-    makes of ``proto/auth.proto``, message for message."""
+    """The port's committed ``auth_pb2`` and ``replication_pb2`` carry the
+    reference's serialized descriptors (byte-equal), and those descriptors
+    hold exactly what protoc makes of ``proto/auth.proto`` and
+    ``proto/replication.proto``, message for message."""
     from google.protobuf import descriptor_pb2
 
     import cpzk_tpu_torch._gen.auth_pb2 as port_pb2
     import cpzk_tpu_torch._gen.health_pb2 as port_health
+    import cpzk_tpu_torch._gen.replication_pb2 as port_repl
 
     ref_src = (ROOT / "cpzk_tpu" / "_gen" / "auth_pb2.py").read_text()
     assert repr(port_pb2.DESCRIPTOR.serialized_pb) in ref_src
+    # the replication module's descriptor is the reference's, byte for byte
+    from cpzk_tpu.server.proto import load_replication_pb2
+
+    assert port_repl.DESCRIPTOR.serialized_pb == load_replication_pb2().DESCRIPTOR.serialized_pb
     protoc = shutil.which("protoc")
     if protoc is None:
         pytest.skip("protoc is not installed")
     out = tmp_path / "desc.pb"
     subprocess.run([protoc, f"-I{ROOT / 'proto'}", f"--descriptor_set_out={out}",
-                    "auth.proto", "health.proto"], check=True, timeout=60)
+                    "auth.proto", "health.proto", "replication.proto"], check=True,
+                   timeout=60)
     fds = descriptor_pb2.FileDescriptorSet.FromString(out.read_bytes())
     made = {f.name: f for f in fds.file}
     for f in made.values():  # a descriptor set adds json names; modules omit them
@@ -124,3 +137,16 @@ def test_port_descriptor_is_protoc_output_with_the_reference_order(tmp_path):
     del want.message_type[:]
     assert port.SerializeToString() == want.SerializeToString()
     assert port_health.DESCRIPTOR.serialized_pb == made["health.proto"].SerializeToString()
+    # the committed replication descriptor (the reference's bytes) lists its
+    # messages in another order and names one field's json name: the same
+    # messages and service as protoc's
+    repl = descriptor_pb2.FileDescriptorProto.FromString(port_repl.DESCRIPTOR.serialized_pb)
+    want = made["replication.proto"]
+    for m in repl.message_type:
+        for fd in m.field:
+            fd.ClearField("json_name")
+    assert sorted(m.SerializeToString() for m in repl.message_type) == sorted(
+        m.SerializeToString() for m in want.message_type)
+    del repl.message_type[:]
+    del want.message_type[:]
+    assert repl.SerializeToString() == want.SerializeToString()
