@@ -415,13 +415,16 @@ CHALLENGE_REPS = 3
 #: the audit phase: the client's stream subcommand (users, proofs), the
 #: unary logins after the batch wave (the last one tampered), the size at
 #: which the daemon's proof log seals a segment (a record is ~520 bytes, so
-#: the ~12,300-record trail seals several), the synthetic log (records,
-#: users, reject and lying-verdict shares) and the replay quantum
+#: the ~8,200-record trail seals several), the synthetic log (records,
+#: users, reject and lying-verdict shares) and the replay quantum.  The
+#: stream and the synthetic log were 8192 and 16,384 before the
+#: multi-device phases were added, and the segments twice as large: halved
+#: to keep the whole script inside its time limit
 AUDIT_STREAM_USERS = 64
-AUDIT_STREAM_PROOFS = 8192
+AUDIT_STREAM_PROOFS = 4096
 AUDIT_UNARY = 4
-AUDIT_SEGMENT_BYTES = 2 << 20
-AUDIT_SYNTH_N = 16384
+AUDIT_SEGMENT_BYTES = 1 << 20
+AUDIT_SYNTH_N = 8192
 AUDIT_SYNTH_USERS = 64
 AUDIT_REJECT_FRAC = 0.01
 AUDIT_MISMATCH_FRAC = 0.005
@@ -3845,8 +3848,10 @@ async def fleet_register(pmap, user_ids, index: dict, corpus, rpc_max: int) -> d
             "registrations_per_s": n / wall, "redirects": redirects}
 
 
-async def fleet_logins(pmap, user_ids, index: dict, provers, rpc_max: int, gen) -> dict:
-    """One login wave through the port's ``AuthClient`` holding the map:
+async def fleet_logins(pmap, user_ids, index: dict, provers, rpc_max: int, gen,
+                       **client_kw) -> dict:
+    """One login wave through the port's ``AuthClient`` holding the map
+    (``client_kw`` goes to the client, a ``map_refresh`` for instance):
     one ``CreateChallenge`` per user, proofs by prover ``index[u]``, about
     1% tampered and 2 undecodable (``tamper_logins``), then the logins in
     concurrent ``VerifyProofBatch`` calls of ``rpc_max`` entries, which the
@@ -3856,7 +3861,7 @@ async def fleet_logins(pmap, user_ids, index: dict, provers, rpc_max: int, gen) 
 
     n, m = len(user_ids), len(provers)
     bounds = [(lo, min(lo + rpc_max, n)) for lo in range(0, n, rpc_max)]
-    async with fleet_client(pmap) as client:
+    async with fleet_client(pmap, **client_kw) as client:
         t0 = time.perf_counter()
         cids = [bytes(r.challenge_id) for r in await asyncio.gather(
             *[client.create_challenge(uid) for uid in user_ids])]
@@ -4300,6 +4305,779 @@ def replication_phase(corpus, provers, users: int, n: int, rpc_max: int, further
     return out
 
 
+
+# -- multi-device serving, the sharded mesh, the two-rank job, the controller --
+
+#: lanes and mesh slices on the one card: two of each (routing, breakers,
+#: sharding and gathers; nothing about scale-out)
+MULTI_DEVICES = 2
+#: entries at or above which a batch takes the mesh lane
+LANES_MESH_THRESHOLD = 8192
+#: the lane breakers' cooldown before a HALF_OPEN probe; longer than the
+#: fault lasts, so no probe meets the sick lane
+LANES_RECOVERY_S = 3.0
+#: the controller beside the lanes: its tick, how long a breaker stays
+#: OPEN before the drain, the drained lane's least time out, and the
+#: CLOSED ticks before the readmission
+LANES_TICK_MS = 100.0
+LANES_OPEN_AFTER_S = 1.0
+LANES_COOLDOWN_S = 1.0
+LANES_CLEAR_TICKS = 2
+#: seconds of traffic after the fault clears and after the readmission
+LANES_SETTLE_S = 1.0
+#: the mesh phase: rows of the verify paths; statements of the prover
+MESH_ROWS = 16384
+MESH_STATEMENTS = (16384, 65536)
+#: the two-rank job: rows of its batches
+MULTIHOST_ROWS = 16384
+MULTIHOST_TIMEOUT_S = 300.0
+#: the controller phase: users registered at A, the user count at which
+#: its controller splits the partition (a choice of this phase, not a
+#: measured capacity), the controller's tick, and the login wave per
+#: partition
+CTL_USERS = 65536
+CTL_SPLIT_THRESHOLD = 32768
+CTL_TICK_MS = 100.0
+CTL_LOGINS_PER_PARTITION = 2048
+
+
+def lanes_phase(params, corpus, n: int, closed_total: int, clients: int, group: int,
+                mesh_n: int, devices=None, mesh_threshold: int = LANES_MESH_THRESHOLD) -> dict:
+    """The ``lanes`` phase: the multi-device serving plane in process.
+
+    A ``LaneRouter`` over ``devices`` (by default ``cuda:0`` twice: two
+    lanes on the one card) plus a mesh lane over the same list at
+    ``mesh_threshold`` entries, behind ``DynamicBatcher(router=...)`` at
+    ``batch_max = n``; ``mesh_n`` entries tile the corpus, about 1%
+    tampered.  Steps: a closed loop of ``closed_total`` entries (every
+    verdict and message exact; both lanes take batches, from the
+    ``/statusz`` lane rows); one ``mesh_n``-entry batch on the mesh lane
+    (exact); then, while the closed loop runs and a live
+    ``FleetController`` ticks beside it, a fault strikes the lane that
+    placement sends the next batch to (its backend raises, from a wrapper
+    here): only that lane's breaker opens, the other lane serves every
+    later batch, every entry of a failed batch is answered when its caller
+    retries, the controller drains the sick lane after
+    ``LANES_OPEN_AFTER_S`` and, once the fault is cleared and the probe has
+    closed the breaker, readmits it."""
+    import asyncio
+    import threading
+
+    import torch
+
+    from cpzk_tpu_torch.fleet.controller import FleetController
+    from cpzk_tpu_torch.observability.opsplane import OpsSources
+    from cpzk_tpu_torch.ops import point_kernels as pk
+    from cpzk_tpu_torch.ops.backend import TorchBackend, prewarm
+    from cpzk_tpu_torch.protocol.batch import BatchEntry, VerifierBackend
+    from cpzk_tpu_torch.protocol.gadgets import Proof
+    from cpzk_tpu_torch.server.batching import DynamicBatcher
+    from cpzk_tpu_torch.server.config import ControllerSettings
+    from cpzk_tpu_torch.server.router import LaneRouter
+
+    devices = devices or [torch.device("cuda", 0)] * MULTI_DEVICES
+    m = len(corpus)
+    valid, mixed, bad, _ = serving_wires(params, corpus, mesh_n)
+    proofs = Proof.from_bytes_batch([(mixed[i] if i in bad else valid[i])[0]
+                                     for i in range(mesh_n)])
+    entries = [BatchEntry(params, corpus[i % m][0], proofs[i],
+                          (mixed[i] if i in bad else valid[i])[3]) for i in range(mesh_n)]
+    expected = [("InvalidParams", "Proof verification failed") if i in bad else None
+                for i in range(mesh_n)]
+
+    def check(lo: int, results, part: str) -> None:
+        got = [None if r is None else (type(r).__name__, str(r)) for r in results]
+        if got != expected[lo:lo + len(results)]:
+            raise AssertionError(f"lanes {part}: wrong verdicts at {lo}")
+
+    # while ``armed``, the first lane to draw a batch falls sick and raises
+    # on every call until the fault is cleared
+    fault = {"armed": False, "lane": None}
+    fault_lock = threading.Lock()
+
+    class Lane(VerifierBackend):
+        """A lane's card backend, counting its batches and the kernels its
+        device thread launches, and raising while it is the sick lane."""
+
+        prefers_combined = True
+
+        def __init__(self, inner, index: int):
+            self.inner = inner
+            self.index = index
+            self.batches = self.entries = self.failed = 0
+            self.launches: dict = {}
+
+        def _call(self, fn, rows, *args):
+            with fault_lock:
+                if fault["armed"] and fault["lane"] is None:
+                    fault["lane"] = self.index
+                sick = fault["armed"] and fault["lane"] == self.index
+            if sick:
+                self.failed += 1
+                raise RuntimeError("injected device fault")
+            with pk.thread_launches() as tally:
+                out = fn(rows, *args)
+            for k, v in tally.items():
+                self.launches[k] = self.launches.get(k, 0) + v
+            return out
+
+        def verify_combined(self, rows, beta):
+            out = self._call(self.inner.verify_combined, rows, beta)
+            self.batches += 1
+            self.entries += len(rows)
+            return out
+
+        def verify_each(self, rows):
+            return self._call(self.inner.verify_each, rows)
+
+    out = {"devices": [str(d) for d in devices], "batch_max": n, "closed_total": closed_total,
+           "mesh_n": mesh_n, "mesh_threshold": mesh_threshold,
+           "tampered": len(bad), "tolerance": "exact"}
+    t0 = time.perf_counter()
+    for d in dict.fromkeys(devices):
+        prewarm([n], d)
+    out["prewarm_s"] = time.perf_counter() - t0
+    lanes = [Lane(TorchBackend(device=d), i) for i, d in enumerate(devices)]
+    mesh_backend = TorchBackend(mesh_devices=len(devices), devices=devices)
+    router = LaneRouter(lanes, devices=devices, recovery_after_s=LANES_RECOVERY_S,
+                        mesh_backend=mesh_backend, mesh_threshold=mesh_threshold)
+    batcher = DynamicBatcher(lanes[0], max_batch=n, window_ms=5.0, router=router)
+    settings = ControllerSettings(
+        enabled=True, dry_run=False, tick_interval_ms=LANES_TICK_MS, act_ticks=1,
+        clear_ticks=LANES_CLEAR_TICKS, lane_open_after_s=LANES_OPEN_AFTER_S,
+        lane_cooldown_s=LANES_COOLDOWN_S)
+    controller = FleetController(settings, router=router)
+    timeline: list = []
+    retried = [0]
+
+    def lane_rows() -> list:
+        return OpsSources(batcher=batcher).statusz()["lanes"]["lanes"]
+
+    async def traffic(stop, total: int | None = None) -> dict:
+        issued = [0]
+        answered = [0]
+        t_start = time.perf_counter()
+
+        async def client():
+            while (total is None and not stop.is_set()) or (
+                    total is not None and issued[0] * group < total):
+                g = issued[0]
+                issued[0] += 1
+                lo = (g * group) % mesh_n
+                while True:
+                    try:
+                        results = await batcher.submit_many(entries[lo:lo + group])
+                        break
+                    except RuntimeError:
+                        retried[0] += 1  # the batch failed on the sick lane
+                check(lo, results, f"group {g}")
+                answered[0] += group
+
+        await asyncio.gather(*[client() for _ in range(clients)])
+        wall = time.perf_counter() - t_start
+        return {"entries": answered[0], "wall_s": wall, "entries_per_s": answered[0] / wall}
+
+    async def ticker(stop) -> None:
+        while not stop.is_set():
+            await asyncio.sleep(LANES_TICK_MS / 1000.0)
+            await controller.tick()
+            timeline.append((time.perf_counter(), [
+                (r["lane"], r["breaker"], r["drained"]) for r in router.lane_states()]))
+
+    async def until(what: str, cond, timeout: float = 30.0) -> float:
+        t = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t > timeout:
+                raise AssertionError(f"lanes: {what} not reached in {timeout} s")
+            await asyncio.sleep(0.01)
+        return time.perf_counter()
+
+    async def drive() -> None:
+        batcher.start()
+        try:
+            # 1. the closed loop over both lanes
+            pk.reset_all_launches()
+            out["closed_loop"] = await traffic(None, closed_total)
+            rows = lane_rows()
+            out["closed_loop"]["lane_rows"] = rows
+            out["closed_loop"]["launches_per_lane"] = [dict(lane.launches) for lane in lanes]
+            if min(r["dispatches"] for r in rows) < 1:
+                raise AssertionError(f"lanes: a lane took no batch: {rows}")
+            # 2. one big batch on the mesh lane
+            before = pk.all_launches()
+            t = time.perf_counter()
+            results = await router.submit(entries, None)
+            out["mesh_batch"] = {"wall_s": time.perf_counter() - t,
+                                 "launches": {k: v - before[k]
+                                              for k, v in pk.all_launches().items()}}
+            check(0, results, "mesh batch")
+            mesh_row = router.status()["mesh"]
+            if mesh_row["dispatches"] != 1 or mesh_row["breaker"] != "closed":
+                raise AssertionError(f"lanes: the mesh lane {mesh_row}")
+            # 3. the lane that draws the next batch falls sick under
+            # traffic, beside a live controller
+            served0 = [lane.entries for lane in lanes]
+            stop, stop_ticks = asyncio.Event(), asyncio.Event()
+            ticks = asyncio.ensure_future(ticker(stop_ticks))
+            load = asyncio.ensure_future(traffic(stop))
+            t_fault = time.perf_counter()
+            with fault_lock:
+                fault["armed"] = True
+            await until("a lane fell sick", lambda: fault["lane"] is not None)
+            sick = fault["lane"]
+            well = 1 - sick
+            t_open = await until("the sick lane OPEN", lambda: router.lane_states()[sick][
+                "breaker"] == "open")
+            t_drain = await until("the sick lane drained",
+                                  lambda: router.lane_states()[sick]["drained"])
+            await until("the other lane serving", lambda: lanes[well].entries > served0[well],
+                        timeout=60.0)
+            served_sick = [lane.entries for lane in lanes]
+            with fault_lock:
+                fault["armed"] = False
+            t_clear = time.perf_counter()
+            t_readmit = await until("the sick lane readmitted", lambda: (
+                not router.lane_states()[sick]["drained"]), timeout=LANES_RECOVERY_S + 30.0)
+            await asyncio.sleep(LANES_SETTLE_S)
+            stop.set()
+            out["fault_traffic"] = await load
+            stop_ticks.set()
+            await ticks
+            out["fault"] = {
+                "sick_lane": sick, "fault_to_open_s": t_open - t_fault,
+                "open_to_drain_s": t_drain - t_open,
+                "fault_s": t_clear - t_fault, "clear_to_readmit_s": t_readmit - t_clear,
+                "failed_batches_on_sick_lane": lanes[sick].failed,
+                "retried_groups": retried[0],
+                "entries_while_sick": [b - a for a, b in zip(served0, served_sick)],
+                "entries_after_readmit": [lane.entries - s for lane, s in
+                                          zip(lanes, served_sick)]}
+        finally:
+            await batcher.stop()
+
+    t_phase = time.perf_counter()
+    asyncio.run(drive())
+    wall = time.perf_counter() - t_phase
+    synchronize()
+    t_first = timeline[0][0] if timeline else 0.0
+    changes = []
+    for t, row in timeline:
+        if not changes or changes[-1][1] != row:
+            changes.append((round(t - t_first, 3), row))
+    out["lane_state_timeline"] = changes
+    out["decisions"] = [d.row() for d in controller.decisions if d.fired or d.veto is None]
+    out["lane_rows"] = lane_rows()
+    out["entries_per_lane"] = [lane.entries for lane in lanes]
+    out["entries_per_s_per_lane"] = [lane.entries / wall for lane in lanes]
+    out["launches_per_lane"] = [dict(lane.launches) for lane in lanes]
+    out["phase_s"] = wall
+    fired = [(d["action"], d["target"]) for d in out["decisions"] if d["fired"]]
+    fault = out["fault"]
+    sick, well = fault["sick_lane"], 1 - fault["sick_lane"]
+    if any(row[well][1] != "closed" for _, row in timeline):
+        raise AssertionError(f"lanes: lane {well}'s breaker left CLOSED: {changes}")
+    if router.status()["mesh"]["breaker"] != "closed":
+        raise AssertionError("lanes: the mesh lane's breaker opened")
+    if fired != [("lane_drain", str(sick)), ("lane_readmit", str(sick))]:
+        raise AssertionError(f"lanes: the controller fired {fired}")
+    if fault["open_to_drain_s"] < LANES_OPEN_AFTER_S:
+        raise AssertionError(f"lanes: drained {fault['open_to_drain_s']} s after OPEN")
+    if (fault["failed_batches_on_sick_lane"] < 1 or fault["entries_while_sick"][sick] != 0
+            or fault["entries_while_sick"][well] < 1
+            or fault["entries_after_readmit"][sick] < 1):
+        raise AssertionError(f"lanes: the fault {fault}")
+    if (router.lane_states()[sick]["breaker"] != "closed"
+            or out["lane_rows"][sick]["probes"] < 1):
+        raise AssertionError(f"lanes: lane {sick} after the fault {out['lane_rows'][sick]}")
+    on_card = torch.device(devices[0]).type == "cuda"
+    if on_card and min(min(lane.launches.get(k, 0) for k in POINT_KERNELS)
+                       for lane in lanes) < 1:
+        raise AssertionError(f"lanes: a lane launched no point kernel: {out['launches_per_lane']}")
+    return out
+
+
+def _rlc_terms(rows, beta):
+    """The combined check's inputs on the host, as ``TorchBackend`` builds
+    them: the per-row route's points and windows (correction row last) and
+    the Pippenger route's points, digits and window size."""
+    import torch
+
+    from cpzk_tpu_torch.ops import backend as ob
+    from cpzk_tpu_torch.ops import curve, msm
+
+    cpu = "cpu"
+    n = len(rows)
+    a, ac, ba, bac, corr0, corr1 = ob._host_rlc_scalars(rows, beta)
+    pad = ob._pad_lanes(n + 1)
+    per_row = (ob._elems_soa([r.r1 for r in rows] + [rows[0].g], pad, cpu),
+               ob._elems_soa([r.y1 for r in rows] + [rows[0].h], pad, cpu),
+               ob._elems_soa([r.r2 for r in rows], pad, cpu),
+               ob._elems_soa([r.y2 for r in rows], pad, cpu),
+               curve.scalar_windows(a + [corr0], pad, cpu),
+               curve.scalar_windows(ac + [corr1], pad, cpu),
+               curve.scalar_windows(ba, pad, cpu), curve.scalar_windows(bac, pad, cpu))
+    m = 4 * ob._pad_pow2(n) + 2
+    c = msm.pick_window(min(m, ob.LANE_CHUNK))
+    m_pad = m if m <= ob.LANE_CHUNK else ob._pad_lanes(m)
+    elems = ([r.r1 for r in rows] + [r.y1 for r in rows] + [r.r2 for r in rows]
+             + [r.y2 for r in rows] + [rows[0].g, rows[0].h])
+    terms = a + ac + ba + bac + [corr0, corr1]
+    digits = torch.from_numpy(msm.scalars_to_signed_digits(terms + [0] * (m_pad - len(terms)), c))
+    return pad, per_row, (ob._elems_soa(elems, m_pad, cpu), digits, c)
+
+
+def mesh_phase(params, rows, beta, statements_ns, gen, devices=None) -> dict:
+    """The ``mesh`` phase: the sharded paths on ``devices`` (by default
+    ``cuda:0`` twice) against the same calls on one device, at
+    ``len(rows)`` rows with about 1% tampered and at ``statements_ns``
+    statements: ``verify_each`` (row bits), the combined check through
+    the Pippenger MSM (verdicts, with the host's scalars and with
+    ``CPZK_DEVICE_RLC=1``; and the MSM's total as a canonical encoding),
+    the per-row combined check (``sharded_combined_check``), and the
+    prover's statements (bytes; the mesh prover's first call made straight
+    after its construction).  Wall ms of each beside the one-device call."""
+    import dataclasses
+
+    import torch
+
+    from cpzk_tpu_torch.core.ristretto import Ristretto255, Scalar
+    from cpzk_tpu_torch.core.scalars import L
+    from cpzk_tpu_torch.ops import backend as ob
+    from cpzk_tpu_torch.ops import curve, msm
+    from cpzk_tpu_torch.ops import point_kernels as pk
+    from cpzk_tpu_torch.ops.backend import TorchBackend
+    from cpzk_tpu_torch.ops.prove import BatchProver
+    from cpzk_tpu_torch.parallel import mesh as pm
+
+    devices = devices or [torch.device("cuda", 0)] * MULTI_DEVICES
+    dev = torch.device(devices[0])
+    n = len(rows)
+    bad = set(range(37 % n, n, max(2, n // 42)))
+    tampered = [dataclasses.replace(r, s=Scalar((r.s.value + 1) % L)) if i in bad else r
+                for i, r in enumerate(rows)]
+    single = TorchBackend(device=dev, pippenger_min=2)
+    meshed = TorchBackend(mesh_devices=len(devices), devices=devices)
+    mesh = meshed.mesh
+    out = {"devices": [str(d) for d in devices], "rows": n, "tampered": len(bad),
+           "tolerance": "exact (bits, canonical encodings, bytes)"}
+
+    def both(name: str, one, sharded) -> tuple:
+        times = {}
+        for side, fn in (("one_device", one), ("mesh", sharded), ("one_device_2", one),
+                         ("mesh_2", sharded)):
+            synchronize()
+            t = time.perf_counter()
+            got = fn()
+            synchronize()
+            times[side] = (time.perf_counter() - t) * 1e3
+            if side.endswith("_2"):
+                continue
+            if side == "one_device":
+                want = got
+            elif got != want:
+                raise AssertionError(f"mesh {name}: the mesh gave {got!r:.200}, one device "
+                                     f"{want!r:.200}")
+        out.setdefault("wall_ms", {})[name] = {
+            "one_device": [times["one_device"], times["one_device_2"]],
+            "mesh": [times["mesh"], times["mesh_2"]]}
+        return want
+
+    launches0 = pk.all_launches()
+    bits = both("verify_each", lambda: single.verify_each(tampered),
+                lambda: meshed.verify_each(tampered))
+    if [not b for b in bits] != [i in bad for i in range(n)]:
+        raise AssertionError("mesh verify_each: wrong row bits")
+    verdicts = both("combined_pippenger",
+                    lambda: (single.verify_combined(rows, beta),
+                             single.verify_combined(tampered, beta)),
+                    lambda: (meshed.verify_combined(rows, beta),
+                             meshed.verify_combined(tampered, beta)))
+    if verdicts != (True, False):
+        raise AssertionError(f"mesh combined (Pippenger): {verdicts}")
+    # the same with the scalar plane on the card: the digits are made on
+    # the mesh's first device, on the caller's stream, and the slices read
+    # them there in place
+    prev_rlc = os.environ.get("CPZK_DEVICE_RLC")
+    os.environ["CPZK_DEVICE_RLC"] = "1"
+    try:
+        rlc0 = pk.all_launches()
+        verdicts = both("combined_pippenger_device_rlc",
+                        lambda: (single.verify_combined(rows, beta),
+                                 single.verify_combined(tampered, beta)),
+                        lambda: (meshed.verify_combined(rows, beta),
+                                 meshed.verify_combined(tampered, beta)))
+        rlc1 = pk.all_launches()
+    finally:
+        if prev_rlc is None:
+            os.environ.pop("CPZK_DEVICE_RLC", None)
+        else:
+            os.environ["CPZK_DEVICE_RLC"] = prev_rlc
+    out["device_rlc_launches"] = {k: rlc1[k] - rlc0[k] for k in PIPPENGER_KERNELS}
+    if verdicts != (True, False):
+        raise AssertionError(f"mesh combined (Pippenger, CPZK_DEVICE_RLC=1): {verdicts}")
+    if dev.type == "cuda" and min(out["device_rlc_launches"].values()) < 1:
+        raise AssertionError(f"mesh device RLC: {out['device_rlc_launches']}")
+    encodings = []
+    for name, rs in (("msm_total_valid", rows), ("msm_total_tampered", tampered)):
+        pad, per_row, (pts, digits, c) = _rlc_terms(rs, beta)
+
+        def one_total(pts=pts, digits=digits, c=c):
+            parts = [msm.msm_kernel(tuple(x[..., lo:hi].to(dev) for x in pts),
+                                    digits[:, lo:hi].to(dev), c)
+                     for lo, hi in ob._chunk_bounds(digits.shape[-1], ob.LANE_CHUNK)]
+            total = curve.tree_sum(tuple(torch.cat([p[k] for p in parts], -1)
+                                         for k in range(4)))
+            return bytes(curve.encode(tuple(x.cpu()[:, None] for x in total))
+                         .to(torch.uint8)[:, 0].tolist())
+
+        def mesh_total(pts=pts, digits=digits, c=c):
+            total = pm.make_sharded_msm(mesh)(pts, digits, c)
+            return bytes(curve.encode(tuple(x.cpu()[:, None] for x in total))
+                         .to(torch.uint8)[:, 0].tolist())
+
+        encodings.append(both(name, one_total, mesh_total))
+        ok = both(f"combined_per_row_{name[10:]}",
+                  lambda per_row=per_row, pad=pad: ob.chunked_combined_identity(
+                      pad, ob.LANE_CHUNK, *(tuple(x.to(dev) for x in p) if isinstance(p, tuple)
+                                            else p.to(dev) for p in per_row)),
+                  lambda per_row=per_row: pm.make_sharded_combined_check(mesh)(*per_row))
+        if ok != (rs is rows):
+            raise AssertionError(f"mesh per-row combined check on {name}: {ok}")
+    identity = Ristretto255.element_to_bytes(Ristretto255.identity())
+    if encodings[0] != identity or encodings[1] == identity:
+        raise AssertionError("mesh: the MSM totals are not (identity, not identity)")
+    out["msm_totals"] = [e.hex() for e in encodings]
+    one_prover = BatchProver(params, device=dev)
+    ws = [Ristretto255.random_scalar(gen) for _ in range(statements_ns[0])]
+    want = one_prover.statements(ws)
+    mesh_prover = BatchProver(params, mesh_devices=len(devices), devices=devices)
+    if mesh_prover.statements(ws) != want:  # straight after the tables' build
+        raise AssertionError("mesh prover: the first call after construction differs")
+    for k in statements_ns:
+        ws = [Ristretto255.random_scalar(gen) for _ in range(k)]
+        both(f"statements_{k}", lambda ws=ws: one_prover.statements(ws),
+             lambda ws=ws: mesh_prover.statements(ws))
+    after = pk.all_launches()
+    out["launches"] = {k: after[k] - launches0[k] for k in after}
+    return out
+
+
+MULTIHOST_WORKER = r"""
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import torch
+t0 = time.perf_counter()
+from cpzk_tpu_torch.parallel import multihost
+multihost.initialize()
+local = os.environ.get("CPZK_SMOKE_LOCAL")
+mesh = multihost.global_batch_mesh(local.split(",") if local else None)
+on_card = torch.cuda.is_available() and not local
+if not on_card:
+    torch.set_num_threads(1)
+setup_s = time.perf_counter() - t0
+import chip_smoke as cs
+from cpzk_tpu_torch import BatchVerifier
+from cpzk_tpu_torch.ops import point_kernels as pk
+from cpzk_tpu_torch.ops.backend import TorchBackend
+rank, world = multihost.process_info()
+n = int(os.environ["CPZK_SMOKE_ROWS"])
+params, corpus, _ = cs.make_corpus(int(os.environ["CPZK_SMOKE_CORPUS"]),
+                                   cs.SeededRng(int(os.environ["CPZK_SMOKE_SEED"])))
+backend = TorchBackend(mesh_devices=0, devices=mesh)
+
+
+def verify(mismatched):
+    bv = BatchVerifier(backend=backend, max_size=n + 1)
+    for i in range(n):
+        st, pr, ctx = corpus[i % len(corpus)]
+        bv.add_with_context(params, st, pr, ctx)
+    if mismatched:
+        bv.add_with_context(params, corpus[0][0], corpus[1][1], corpus[1][2])
+    pk.reset_all_launches()
+    t = time.perf_counter()
+    res = bv.verify(cs.SeededRng(7))
+    if on_card:
+        torch.cuda.synchronize()
+    return ([None if r is None else str(r) for r in res], time.perf_counter() - t,
+            pk.all_launches())
+
+
+valid, valid_s, valid_launches = verify(False)
+mixed, mixed_s, mixed_launches = verify(True)
+print("MULTIHOST " + json.dumps({
+    "rank": rank, "world": world, "mesh": [str(d) for d in mesh], "owners": list(mesh.owners),
+    "setup_s": setup_s, "valid": valid, "mixed": mixed, "valid_s": valid_s,
+    "mixed_s": mixed_s, "valid_launches": valid_launches, "mixed_launches": mixed_launches,
+    "memory_reserved_mib": torch.cuda.memory_reserved(0) / 2**20 if on_card else None,
+    "max_memory_allocated_mib": (torch.cuda.max_memory_allocated(0) / 2**20
+                                 if on_card else None)}), flush=True)
+multihost.shutdown()
+"""
+
+
+def multihost_phase(n: int, world: int = MULTI_DEVICES, corpus_n: int = CORPUS,
+                    timeout: float = MULTIHOST_TIMEOUT_S, local: str | None = None) -> dict:
+    """The ``multihost`` phase: ``world`` ranks spawned on the one card,
+    each through ``multihost.initialize()`` (gloo at ``127.0.0.1``) with a
+    global mesh of ``world`` (one ``cuda:0`` slice per rank), verify the
+    same ``n`` rows SPMD: the all-valid batch is accepted by the combined
+    check (the partial points all-gathered over gloo), and with one
+    mismatched row appended the per-row route isolates it (the row bits
+    gathered).  Both ranks must exit 0 with the same verdicts.  ``local``
+    names each rank's devices instead of its CUDA cards (``"cpu"`` for a
+    rehearsal)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CPZK_")}
+    env.update(PYTHONPATH=root + os.pathsep + env.get("PYTHONPATH", ""),
+               CPZK_COORDINATOR=f"127.0.0.1:{free_port()}", CPZK_NUM_PROCESSES=str(world),
+               CPZK_SMOKE_ROWS=str(n), CPZK_SMOKE_CORPUS=str(corpus_n),
+               CPZK_SMOKE_SEED=str(SEED + 29), **({"CPZK_SMOKE_LOCAL": local} if local else {}))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", MULTIHOST_WORKER], cwd=root,
+                              env=dict(env, CPZK_PROCESS_ID=str(r)), text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(world)]
+    results = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=timeout)
+            results.append((p.returncode, stdout, stderr))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    docs = []
+    for r, (rc, stdout, stderr) in enumerate(results):
+        line = next((ln for ln in stdout.splitlines() if ln.startswith("MULTIHOST ")), None)
+        if rc != 0 or line is None:
+            raise AssertionError(f"multihost: rank {r} exited {rc}:\n{stderr[-3000:]}")
+        docs.append(json.loads(line[len("MULTIHOST "):]))
+    want_valid = [None] * n
+    want_mixed = [None] * n + ["Proof verification failed"]
+    for doc in docs:
+        if doc["valid"] != want_valid or doc["mixed"] != want_mixed:
+            raise AssertionError(f"multihost: rank {doc['rank']}'s verdicts are wrong")
+        if doc["world"] != world or len(doc["mesh"]) != world:
+            raise AssertionError(f"multihost: rank {doc['rank']} saw {doc['mesh']}")
+        if local is None and min(doc["valid_launches"][k] + doc["mixed_launches"][k]
+                                 for k in POINT_KERNELS) < 1:
+            raise AssertionError(f"multihost: rank {doc['rank']} launched "
+                                 f"{doc['valid_launches']}")
+    return {"world": world, "rows": n, "exit_codes": [r[0] for r in results],
+            "phase_s": time.perf_counter() - t0,
+            "ranks": [{k: v for k, v in doc.items() if k not in ("valid", "mixed")}
+                      for doc in docs],
+            "verdicts_equal_across_ranks": all(d["mixed"] == docs[0]["mixed"] for d in docs),
+            "tolerance": "exact"}
+
+
+def controller_phase(corpus, provers, users: int, threshold: int, logins: int, rpc_max: int,
+                     launcher: list | None = None, on_card: bool = True) -> dict:
+    """The ``controller`` phase: a live split fired by the fleet controller
+    of a serving daemon.
+
+    Daemon A serves a one-partition fleet (``[fleet]`` on a map from
+    ``python -m cpzk_tpu_torch.fleet init``), ``[durability]`` with
+    ``fsync = "always"``, ``[admission]`` off (the phase measures the
+    split, not the sheds after a login wave), and ``[controller] enabled =
+    true``, ``dry_run = false``, ``split_user_threshold = threshold``, ``split_target_address``
+    B's.  ``users`` registrations go to A in ``RegisterBatch`` calls of
+    ``rpc_max``, ``REPL_REGISTER_IN_FLIGHT`` at a time, from a client
+    holding the one-partition map; the controller splits while A serves.
+    Entries answered with a redirect after the flip are registered again,
+    through the new map, once daemon B has booted at the target address
+    from the ``partition-1.state.json``, WAL and epoch file the split wrote
+    beside the map.  Then ``logins`` users of each partition log in through
+    a client holding the old map (following the redirects): every verdict
+    exact, both point kernels launched on both daemons.  After both stop,
+    their final snapshots hold every acknowledged registration at its
+    owner and no user at both."""
+    from cpzk_tpu_torch.fleet import PartitionMap
+    from cpzk_tpu_torch.server.__main__ import DRAIN_SECONDS
+
+    t_phase = time.perf_counter()
+    steps: dict = {}  # seconds from the phase's start to the end of each step
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = tempfile.mkdtemp(prefix="cpzk-ctl-")
+    ports = {k: free_port() for k in ("a", "b")}
+    addr = {k: f"127.0.0.1:{ports[k]}" for k in ports}
+    dirs = {k: os.path.join(workdir, k) for k in ports}
+    for d in dirs.values():
+        os.makedirs(d)
+    map_path = os.path.join(workdir, "map.json")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SERVER_")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    argv = (launcher or [sys.executable, "-m", "cpzk_tpu_torch.server"]) + ["--no-repl"]
+    gen = SeededRng(SEED + 31)
+    out = {"users": users, "split_user_threshold": threshold, "logins_per_partition": logins,
+           "rpc_entries": rpc_max, "in_flight": REPL_REGISTER_IN_FLIGHT,
+           "tick_ms": CTL_TICK_MS, "tolerance": "exact"}
+    procs: dict = {}
+
+    def config(name: str, state_file: str, partition: int, controller: str) -> str:
+        path = os.path.join(dirs[name], "server.toml")
+        with open(path, "w") as f:
+            f.write(f'state_file = "{state_file}"\n[server]\nmax_users = {users}\n'
+                    f'[tpu]\nbackend = "tpu"\nbatch_max = {rpc_max}\n'
+                    f'prewarm_quanta = "{rpc_max}"\n'
+                    "[rate_limit]\nrequests_per_minute = 100000000\nburst = 1000000\n"
+                    "[admission]\nenabled = false\n"
+                    "[opsplane]\nenabled = true\nport = 0\n"
+                    '[durability]\nenabled = true\nfsync = "always"\n'
+                    f'[fleet]\nenabled = true\nmap_path = "{map_path}"\n'
+                    f"partition = {partition}\n" + controller)
+        return path
+
+    def boot(name: str, path: str) -> "DaemonProcess":
+        procs[name] = DaemonProcess(f"ctl_{name}", argv + ["--port", str(ports[name])],
+                                    dirs[name], dict(env, SERVER_CONFIG_PATH=path))
+        return procs[name].wait_listening(DAEMON_BOOT_TIMEOUT_S)
+
+    def statusz(name: str) -> dict:
+        return json.loads(http_get(procs[name].ops_port, "/statusz"))
+
+    try:
+        done = subprocess.run([sys.executable, "-m", "cpzk_tpu_torch.fleet", "init",
+                               "--addresses", addr["a"], "--out", map_path], cwd=workdir,
+                              env=env, capture_output=True, text=True, timeout=120)
+        if done.returncode != 0:
+            raise AssertionError(f"controller: fleet init: {done.stderr}")
+        old_map = PartitionMap.load(map_path)
+        boot("a", config("a", os.path.join(dirs["a"], "state.json"), 0,
+                         "[controller]\nenabled = true\ndry_run = false\n"
+                         f"tick_interval_ms = {CTL_TICK_MS}\nact_ticks = 1\n"
+                         f"split_user_threshold = {threshold}\n"
+                         f'split_target_address = "{addr["b"]}"\n'))
+        out["boot_a_s"] = procs["a"].boot_s
+        steps["a_listening"] = time.perf_counter() - t_phase
+        user_ids = [f"ctl-{i:05d}" for i in range(users)]
+        index = {uid: i for i, uid in enumerate(user_ids)}
+        reg = asyncio.run(register_through_split(old_map, user_ids, index, corpus, rpc_max))
+        acked, redirected = reg.pop("acked"), reg.pop("redirected")
+        out["register"] = reg
+        steps["registered"] = time.perf_counter() - t_phase
+        doc = statusz("a")["controller"]
+        splits = [d for d in doc["decisions"] if d["action"] == "split" and d["fired"]]
+        if len(splits) != 1 or not redirected:
+            raise AssertionError(f"controller: split decisions {splits}, "
+                                 f"{len(redirected)} redirected registrations")
+        report = splits[0]["detail"]["report"]
+        out["split"] = {"reason": splits[0]["reason"], **report}
+        out["decisions"] = summarize_decisions(doc["decisions"])
+        new_map = PartitionMap.load(map_path)
+        target = report["target_state_file"]
+        for suffix in ("", ".wal", ".epoch"):
+            if not os.path.exists(target + suffix):
+                raise AssertionError(f"controller: the split wrote no {target + suffix}")
+        boot("b", config("b", target, 1, ""))
+        out["boot_b_s"] = procs["b"].boot_s
+        out["b_restored_users"] = statusz("b")["shards"]["users"]
+        steps["b_listening"] = time.perf_counter() - t_phase
+        out["reregister"] = asyncio.run(fleet_register(new_map, redirected, index, corpus,
+                                                       rpc_max))
+        steps["reregistered"] = time.perf_counter() - t_phase
+        owners = {uid: new_map.partition_for(uid).index for uid in user_ids}
+        waves = {}
+        for name, part in (("a", 0), ("b", 1)):
+            members = [u for u in user_ids if owners[u] == part][:logins]
+            proc = procs[name]
+            launches0 = kernel_launches(proc.ops_port)
+            waves[name] = asyncio.run(fleet_logins(
+                old_map, members, index, provers, rpc_max, gen,
+                map_refresh=lambda: new_map))
+            waves[name]["launches"] = {k: v - launches0[k] for k, v in
+                                       kernel_launches(proc.ops_port).items()}
+            if on_card and min(waves[name]["launches"].values()) < 1:
+                raise AssertionError(f"controller: a kernel was not launched at {name}: "
+                                     f"{waves[name]['launches']}")
+            steps[f"logged_in_at_{name}"] = time.perf_counter() - t_phase
+        if waves["b"]["redirects"] < 1:
+            raise AssertionError("controller: the old-map client was never redirected")
+        out["logins"] = waves
+        if on_card:
+            out["card_memory_mib"] = {k: daemon_card_memory(procs[k].ops_port)
+                                      for k in ("a", "b")}
+        for name in ("a", "b"):
+            rc, _ = procs[name].terminate(DRAIN_SECONDS + 60)
+            if rc != 0:
+                raise AssertionError(f"controller: {name} exited {rc}:\n"
+                                     f"{procs[name].text()[-3000:]}")
+            steps[f"{name}_stopped"] = time.perf_counter() - t_phase
+        held = {}
+        for name, path in (("a", os.path.join(dirs["a"], "state.json")), ("b", target)):
+            with open(path, encoding="utf-8") as f:
+                held[name] = set(json.load(f)["users"])
+        steps["final_snapshots_read"] = time.perf_counter() - t_phase
+        both = held["a"] & held["b"]
+        misplaced = [u for u in held["a"] if owners[u] != 0] + [
+            u for u in held["b"] if owners[u] != 1]
+        held_anywhere = held["a"] | held["b"]
+        missing = [u for u in user_ids if u not in held_anywhere]
+        out["final"] = {"a_users": len(held["a"]), "b_users": len(held["b"]),
+                        "at_both": len(both), "misplaced": len(misplaced),
+                        "missing": len(missing), "acked_before_b": len(acked)}
+        if both or misplaced or missing:
+            raise AssertionError(f"controller: after the split {out['final']}")
+        out["steps_s"] = steps
+        out["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.save_log()
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def summarize_decisions(rows: list) -> dict:
+    """Decision counts by action and outcome, and the fired ones."""
+    counts: dict = {}
+    for d in rows:
+        outcome = "fired" if d["fired"] else (f"veto:{d['veto']}" if d["veto"] else "dry_run")
+        key = f"{d['action']}/{outcome}"
+        counts[key] = counts.get(key, 0) + 1
+    return {"counts": counts, "fired": [{k: d[k] for k in ("action", "target", "reason", "at")}
+                                        for d in rows if d["fired"]]}
+
+
+async def register_through_split(pmap, user_ids, index: dict, corpus, rpc_max: int) -> dict:
+    """``RegisterBatch`` of ``user_ids`` at the one partition of ``pmap``,
+    in calls of ``rpc_max``, ``REPL_REGISTER_IN_FLIGHT`` at a time; user
+    ``u`` registers corpus statement ``index[u]``.  An entry is either
+    acknowledged or answered with the fleet's wrong-partition redirect
+    (after the split's flip); any other failure fails the phase."""
+    n, m = len(user_ids), len(corpus)
+    bounds = [(lo, min(lo + rpc_max, n)) for lo in range(0, n, rpc_max)]
+    window = asyncio.Semaphore(REPL_REGISTER_IN_FLIGHT)
+    acked: list = []
+    redirected: list = []
+    other: list = []
+    async with fleet_client(pmap) as client:
+        async def call(lo: int, hi: int):
+            async with window:
+                uids = user_ids[lo:hi]
+                resp = await client.register_batch(
+                    uids, [corpus[index[u] % m][0].y1.wire() for u in uids],
+                    [corpus[index[u] % m][0].y2.wire() for u in uids])
+                for uid, r in zip(uids, resp.results):
+                    if r.success:
+                        acked.append(uid)
+                    elif "partition" in r.message:
+                        redirected.append(uid)
+                    else:
+                        other.append(r.message)
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*[call(lo, hi) for lo, hi in bounds])
+        wall = time.perf_counter() - t0
+    if other or len(acked) + len(redirected) != n:
+        raise AssertionError(f"controller: {len(other)} registrations failed: {other[:3]}")
+    return {"users": n, "calls": len(bounds), "register_s": wall,
+            "registrations_per_s": n / wall, "acknowledged": len(acked),
+            "redirected_after_flip": len(redirected), "acked": acked,
+            "redirected": redirected}
+
+
 def main() -> int:
     try:
         import torch
@@ -4459,6 +5237,40 @@ def main() -> int:
                                    REPL_FURTHER, REPL_KILL_AFTER)
     emit({"phase": "replication", **replicated, **card})
 
+    # 5h. this slice's paths: two lanes and a mesh lane on the card behind
+    # the batcher with a live controller; the sharded paths against one
+    # device; two ranks over gloo; a daemon's controller splitting its
+    # partition live.  Every count set to 0 just before each and read just
+    # after (the daemons' from their ops planes around each wave).
+    phase_launches = {}
+    for name, run_phase in (
+            ("lanes", lambda: lanes_phase(params, corpus, SERVING_N, CLOSED_LOOP_N, CLIENTS,
+                                          GROUP_N, MESH_ROWS)),
+            ("mesh", lambda: mesh_phase(params, rows, beta, MESH_STATEMENTS,
+                                        SeededRng(SEED + 23))),
+            ("multihost", lambda: multihost_phase(MULTIHOST_ROWS)),
+            ("controller", lambda: controller_phase(corpus, provers, CTL_USERS,
+                                                    CTL_SPLIT_THRESHOLD,
+                                                    CTL_LOGINS_PER_PARTITION,
+                                                    LOGIN_RPC_MAX))):
+        pk.reset_all_launches()
+        result = run_phase()
+        synchronize()
+        phase_launches[name] = pk.all_launches()
+        emit({"phase": name, **result, "launches_in_process": phase_launches[name], **card})
+        if name == "controller":
+            counts = {k: sum(w["launches"][k] for w in result["logins"].values())
+                      for k in POINT_KERNELS}
+        elif name == "multihost":
+            counts = {k: sum(r["valid_launches"][k] + r["mixed_launches"][k]
+                             for r in result["ranks"]) for k in POINT_KERNELS}
+        else:
+            counts = phase_launches[name]
+        phase_launches[name] = counts
+        for k in POINT_KERNELS:
+            if counts[k] < 1:
+                raise AssertionError(f"{k} was never launched on the {name} path")
+
     # 6. where the time goes
     prof = profile_combined(backend, rows[:SERVING_N], beta)
     emit({"phase": "profile", **prof, **card})
@@ -4499,6 +5311,7 @@ def main() -> int:
                 sum(w[name] for w in replicated["wave"]["launches"].values()),
             "launches_in_replication_promoted_b": replicated["promoted"]["b"]["launches"][name],
             "launches_in_replication_promoted_d": replicated["promoted"]["d"]["launches"][name],
+            **{f"launches_in_{p}": phase_launches[p][name] for p in phase_launches},
         })
     for name in PIPPENGER_KERNELS:
         results = kernel_rows[name]

@@ -194,12 +194,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tpu = the card (TorchBackend on cuda:0, the "
                         "default; exits 2 without CUDA), cpu = the host")
     r.add_argument("--mesh-devices", type=int, default=0,
-                   help="0 or 1 = the one card (a mesh over more devices "
-                        "comes with the multi-GPU slice)")
+                   help="0 = every local card, k = the first k (tpu "
+                        "backend; one card means no mesh)")
     r.add_argument("--lanes", type=int, default=1,
-                   help="1 = direct single-engine replay (the only mode "
-                        "until the multi-GPU slice brings the lane "
-                        "router)")
+                   help="-1 = one lane per local card (tpu) or host core "
+                        "(cpu), k = exactly k lanes, 1 = direct "
+                        "single-engine replay; quanta fan out across the "
+                        "lanes and the signed report is the same bytes")
     r.add_argument("--fresh", action="store_true",
                    help="ignore an existing cursor and restart from byte 0")
     r.add_argument("--max-batches", type=int, default=None,

@@ -13,9 +13,10 @@ backend`` keeps it), or on the host's :class:`~cpzk_tpu_torch.protocol.
 batch.CpuBackend` when asked (``backend="cpu"``), then emits a
 Schnorr-signed report (:mod:`cpzk_tpu_torch.audit.sign`) stating what it
 found.  There is no fallback from the card to the host: without CUDA, or
-when a kernel fails to build or launch, the run raises.  One card on one
-lane only: a mesh over several devices or ``lanes != 1`` raises until the
-multi-GPU slice brings the lane router.
+when a kernel fails to build or launch, the run raises.  ``lanes != 1``
+replays through the serving plane's lane router (each quantum fanned out
+over one lane per device), and ``mesh_devices`` shards each quantum over
+a mesh; either way the signed report is the same bytes.
 
 Resumability contract (the SIGKILL test pins it exactly):
 
@@ -230,31 +231,42 @@ def _read_log_bytes(log_path: str) -> bytes:
     return b"".join(parts)
 
 
-def build_backend(backend_name: str, mesh_devices: int = 0, device=None):
+def _device_pool(device, devices):
+    """The devices ``lanes`` and ``mesh_devices`` resolve against:
+    ``devices``, else ``[device]``, else None (the local CUDA cards)."""
+    if devices is not None:
+        return devices
+    return [device] if device is not None else None
+
+
+def build_backend(backend_name: str, mesh_devices: int = 0, device=None,
+                  devices=None):
     """The audit compute plane: ``"tpu"`` is :class:`~cpzk_tpu_torch.ops.
-    backend.TorchBackend` on ``device`` (``None`` means ``cuda:0`` and
-    raises without CUDA; ``"cpu"`` runs the kernels' plain versions, for
-    the tests), ``"cpu"`` the host's ``CpuBackend``.  ``mesh_devices`` 0
-    or 1 is the one card; a mesh over more devices raises, naming the
-    multi-GPU slice (A8) that brings it."""
+    backend.TorchBackend` (``device=None`` means ``cuda:0`` and raises
+    without CUDA; ``"cpu"`` runs the kernels' plain versions, for the
+    tests), sharded over a mesh when ``mesh_devices`` resolves to more than
+    one device of the pool (``devices`` when given, an explicit list that
+    may repeat a device, else the local CUDA cards); ``"cpu"`` the host's
+    ``CpuBackend``."""
     if backend_name == "tpu":
-        if mesh_devices not in (0, 1):
-            raise errors.InvalidParams(
-                f"mesh_devices={mesh_devices} asks for a mesh over "
-                "several devices; the port replays on one card until the "
-                "multi-GPU slice (A8) lands"
-            )
-        if device is None:
-            import torch
+        import torch
 
-            if not torch.cuda.is_available():
-                raise errors.InvalidParams(
-                    "CUDA is not available; backend 'tpu' replays on "
-                    "the card (backend 'cpu' replays on the host)"
-                )
         from ..ops.backend import TorchBackend
+        from ..parallel.mesh import resolve_mesh_devices
 
-        return TorchBackend(device=device)
+        if device is None and devices is None and not torch.cuda.is_available():
+            raise errors.InvalidParams(
+                "CUDA is not available; backend 'tpu' replays on "
+                "the card (backend 'cpu' replays on the host)"
+            )
+        pool = _device_pool(device, devices)
+        try:
+            mesh = resolve_mesh_devices(mesh_devices, pool)
+        except ValueError as e:
+            raise errors.InvalidParams(str(e)) from e
+        if mesh is not None:
+            return TorchBackend(mesh_devices=len(mesh), devices=mesh)
+        return TorchBackend(device=pool[0] if pool else None)
     if backend_name != "cpu":
         raise ValueError(f"unknown audit backend: {backend_name!r}")
     from ..protocol.batch import CpuBackend
@@ -262,17 +274,46 @@ def build_backend(backend_name: str, mesh_devices: int = 0, device=None):
     return CpuBackend()
 
 
-def build_router(backend_name: str, lanes: int, quantum: int):
-    """The multi-lane compute plane: ``None`` for ``lanes == 1`` (the
-    direct ``verify_once`` path, the only one the port has).  Any other
-    value raises, for either backend, naming the multi-GPU slice (A8),
-    which brings the lane router."""
+def build_router(backend_name: str, lanes: int, quantum: int, device=None,
+                 devices=None):
+    """The audit pipeline's multi-lane compute plane — the SAME
+    :class:`~cpzk_tpu_torch.server.router.LaneRouter` the serving daemon
+    places batches on, attached via its synchronous seam
+    (``verify_blocking``): each quantum fans out across every lane.
+
+    ``lanes`` semantics match ``[tpu] lanes``: 1 = no router, -1 = one
+    lane per device of the pool (tpu backend; the pool as in
+    :func:`build_backend`) or per host core (cpu backend), k = exactly k
+    lanes.  Returns None when one lane resolves — the caller keeps the
+    direct ``verify_once`` path.  The tpu lanes are prewarmed at
+    ``quantum`` on every lane device."""
     if lanes == 1:
         return None
-    raise errors.InvalidParams(
-        f"lanes={lanes} needs the lane router, which the port does "
-        "not have until the multi-GPU slice (A8) lands; use lanes=1"
-    )
+    from ..server.router import LaneRouter
+
+    if backend_name == "tpu":
+        from ..ops.backend import TorchBackend, prewarm
+        from ..parallel.mesh import resolve_lane_devices
+
+        try:
+            lane_devices = resolve_lane_devices(lanes, _device_pool(device, devices))
+        except ValueError as e:
+            raise errors.InvalidParams(str(e)) from e
+        if lane_devices is None:
+            return None
+        for d in dict.fromkeys(lane_devices):
+            prewarm([quantum], d)
+        return LaneRouter(
+            [TorchBackend(device=d) for d in lane_devices], devices=lane_devices,
+        )
+    from ..protocol.batch import CpuBackend
+
+    n = lanes if lanes > 0 else (os.cpu_count() or 1)
+    if n <= 1:
+        return None
+    # CPU lanes: the native verify releases the GIL, so N lanes = real
+    # host-core parallelism through the identical router seam
+    return LaneRouter([CpuBackend() for _ in range(n)])
 
 
 def _record_entry(rec: dict) -> tuple[BatchEntry | None, str | None]:
@@ -316,6 +357,7 @@ def run_audit(
     max_batches: int | None = None,
     progress=None,
     device=None,
+    devices=None,
 ) -> dict | None:
     """Replay ``log_path`` through the batch engine and write a signed
     report to ``report_path``.  Returns the report dict, or ``None`` when
@@ -336,8 +378,11 @@ def run_audit(
     means ``cuda:0`` and raises without CUDA, ``device="cpu"`` runs the
     kernels' plain versions (a Python-level keyword for the tests, as the
     daemon's ``amain(..., device=)`` is).  ``backend="cpu"`` is the host's
-    ``CpuBackend``.  ``lanes != 1`` and a multi-device ``mesh_devices``
-    raise (:func:`build_router`, :func:`build_backend`).
+    ``CpuBackend``.  ``lanes != 1`` replays through the lane router
+    (:func:`build_router`) and ``mesh_devices`` shards over a mesh
+    (:func:`build_backend`), both resolved against ``devices`` when given
+    (an explicit device list that may repeat a device), else the local
+    CUDA cards; the report is the same bytes either way.
     """
     if quantum < 1:
         raise ValueError("audit quantum must be positive")
@@ -355,8 +400,9 @@ def run_audit(
             f"({len(buf)} bytes) — wrong log file?"
         )
 
-    build_router(backend, lanes, quantum)  # raises unless lanes == 1
-    engine = build_backend(backend, mesh_devices=mesh_devices, device=device)
+    router = build_router(backend, lanes, quantum, device=device, devices=devices)
+    engine = None if router is not None else build_backend(
+        backend, mesh_devices=mesh_devices, device=device, devices=devices)
     rng = SecureRng()
     # ONE scan of the remaining suffix (the parse cost is linear in what
     # is left, not quadratic in batch count); quanta then slice the
@@ -366,20 +412,26 @@ def run_audit(
     )
     batches = 0
     idx = 0
-    while idx < len(records):
-        batch = records[idx: idx + quantum]
-        idx += len(batch)
-        _audit_batch(batch, state, engine, rng)
-        state.offset = _advance(buf, state.offset, len(batch))
-        batches += 1
-        _atomic_write_json(cursor_path, state.to_cursor(log_path))
-        if progress is not None:
-            progress(state)
-        if (
-            max_batches is not None and batches >= max_batches
-            and idx < len(records)
-        ):
-            return None
+    if router is not None:
+        router.start_in_thread()
+    try:
+        while idx < len(records):
+            batch = records[idx: idx + quantum]
+            idx += len(batch)
+            _audit_batch(batch, state, engine, rng, router=router)
+            state.offset = _advance(buf, state.offset, len(batch))
+            batches += 1
+            _atomic_write_json(cursor_path, state.to_cursor(log_path))
+            if progress is not None:
+                progress(state)
+            if (
+                max_batches is not None and batches >= max_batches
+                and idx < len(records)
+            ):
+                return None
+    finally:
+        if router is not None:
+            router.stop_thread()
     state.offset = max(state.offset, valid)
 
     report = _build_report(
@@ -410,12 +462,13 @@ def _advance(buf: bytes, offset: int, n_frames: int) -> int:
 
 
 def _audit_batch(
-    records: list[dict], state: AuditState, engine, rng
+    records: list[dict], state: AuditState, engine, rng, router=None
 ) -> None:
-    """Verify one quantum of records through the serving dispatch seam
-    (``verify_once``) and fold the outcomes into ``state`` IN RECORD
-    ORDER (the backend's lane padding and the route it verifies by never
-    reorder the fold)."""
+    """Verify one quantum of records through the serving dispatch seam —
+    the direct ``verify_once`` engine, or the lane router's synchronous
+    fan-out (``verify_blocking``) — and fold the outcomes into ``state``
+    IN RECORD ORDER (lane placement, the backend's lane padding and the
+    route it verifies by never reorder the fold)."""
     from ..server.dispatch import DispatchLane
 
     entries: list[BatchEntry] = []
@@ -445,7 +498,12 @@ def _audit_batch(
             continue
         entry.proof = proof
         live.append(entry)
-    results = DispatchLane.verify_once(engine, rng, live) if live else []
+    if not live:
+        results = []
+    elif router is not None:
+        results = router.verify_blocking(live)
+    else:
+        results = DispatchLane.verify_once(engine, rng, live)
     it = iter(results)
     for rec, skip, parse_fail in plan:
         if skip is not None:

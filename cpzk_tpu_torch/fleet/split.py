@@ -82,6 +82,13 @@ SPLIT_CRASH_POINTS = (
 )
 
 
+#: the offline split replays whole partitions: its recovery and its copy
+#: take every record, whatever capacity the daemons are configured with
+#: (a default cap would skip the records past it, and the drain would then
+#: drop users the copy never received)
+_NO_CAPS = {"max_users": 1 << 62, "max_challenges": 1 << 62, "max_sessions": 1 << 62}
+
+
 class SplitError(RuntimeError):
     """A split cannot proceed (bad arguments, mismatched resume manifest,
     or a segment the trust boundary refused)."""
@@ -226,7 +233,7 @@ async def run_split(
     # -- stage 2: copy the moved subset into the new partition -------------
     if not flipped:
         _crash(faults, "pre_copy")
-        src_state = ServerState()
+        src_state = ServerState(**_NO_CAPS)
         await _recover_into(src_state, source_state_file, source_wal)
         records = src_state.export_user_records(moved_user)
         for seq, rec in enumerate(records, start=1):
@@ -243,7 +250,7 @@ async def run_split(
                 os.unlink(stale)
             except OSError:
                 pass
-        tgt_state = ServerState()
+        tgt_state = ServerState(**_NO_CAPS)
         twal = WriteAheadLog(target_wal, fsync="always")
 
         def sink(frames: bytes, last_seq: int) -> None:
@@ -295,7 +302,7 @@ async def run_split(
 
     # -- stage 4: drain the moved subset from the source -------------------
     _crash(faults, "pre_drain")
-    src_state = ServerState()
+    src_state = ServerState(**_NO_CAPS)
     src_report = await _recover_into(src_state, source_state_file, source_wal)
     dropped = src_state.drop_users(moved_user)
     report["dropped_users"], report["dropped_challenges"], \

@@ -163,6 +163,8 @@ class FlightRecord:
     seq: int = 0
     ts: float = 0.0            # wall clock at record time
     batch: int = 0             # true rows in the batch
+    lane: int | str | None = None  # dispatch lane index ("mesh" for the
+                               # big-batch mesh path; None = single-lane)
     lanes: int = 0             # padded device lanes (0 = no device padding)
     occupancy: float = 1.0     # batch / lanes (1.0 without device padding)
     pad_waste: float = 0.0     # 1 - occupancy
@@ -189,6 +191,7 @@ class FlightRecord:
             "seq": self.seq,
             "ts": self.ts,
             "batch": self.batch,
+            "lane": self.lane,
             "lanes": self.lanes,
             "occupancy": round(self.occupancy, 6),
             "pad_waste": round(self.pad_waste, 6),
@@ -364,8 +367,10 @@ def format_record(rec: dict) -> str:
         f"{name}={stages_s.get(name, 0.0) * 1000:.2f}ms"
         for name in RECORD_STAGES
     )
+    lane = rec.get("lane")
+    lane_tag = "" if lane is None else f"lane={lane} "
     return (
-        f"#{rec['seq']} n={rec['batch']} lanes={rec['lanes']} "
+        f"#{rec['seq']} {lane_tag}n={rec['batch']} lanes={rec['lanes']} "
         f"occ={rec['occupancy']:.2f} gap={rec['dispatch_gap_s'] * 1000:.2f}ms "
         f"wait={rec['queue_wait_s'] * 1000:.2f}ms {stages} "
         f"wall={rec['wall_s'] * 1000:.2f}ms "

@@ -17,9 +17,9 @@ listener, serving:
   per-shard registry sizes + sampled lock wait, breaker state, ingest
   shards, active streams, uptime, config fingerprint, and the admission,
   durability, audit, replication (with the primary's handover block)
-  and fleet blocks when the daemon runs them.  The controller block is
-  ``null``: the fleet controller is not ported yet, and the daemon
-  refuses to boot with it enabled;
+  fleet and controller blocks when the daemon runs them, and one row per
+  dispatch lane (breaker, depth, drain rate) when it serves through the
+  lane router;
 - ``GET /partitionmap`` — the fleet's partition map (404 without
   ``[fleet]``);
 - ``GET /tracez``, ``GET /flightrec`` — the ring dumps as JSON, the
@@ -81,8 +81,8 @@ class OpsSources:
     batcher: object | None = None      # DynamicBatcher
     backend: object | None = None      # TorchBackend | FailoverBackend
     # the reference's host control plane: the daemon fills admission,
-    # durability, audit_log, replication and fleet when their sections are
-    # enabled; the controller is not ported yet, so it leaves it None
+    # durability, audit_log, replication, fleet and controller when their
+    # sections are enabled
     admission: object | None = None    # AdmissionController
     replication: object | None = None  # SegmentShipper | StandbyReplica
     audit_log: object | None = None    # ProofLogWriter

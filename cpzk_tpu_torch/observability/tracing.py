@@ -316,6 +316,9 @@ class BatchStages:
         self.queue_wait_s = queue_wait_s
         #: accumulated seconds per stage name (incl. the widened vocab)
         self.durations: dict[str, float] = {}
+        #: dispatch-lane index, stamped by the LaneRouter at placement
+        #: time ("mesh" for the big-batch mesh path; None = single-lane)
+        self.lane: int | str | None = None
         self._submitted_at: float | None = None
         self._staged_at: float | None = None
         self._worker_ended_at: float | None = None
@@ -437,6 +440,7 @@ class BatchStages:
         occupancy = (rows / lanes) if lanes > 0 else 1.0
         rec = FlightRecord(
             batch=self.batch_size,
+            lane=self.lane,
             lanes=lanes,
             occupancy=occupancy,
             pad_waste=max(0.0, 1.0 - occupancy),

@@ -1,7 +1,7 @@
 """GPU ``VerifierBackend`` — the device data plane behind
 :class:`cpzk_tpu_torch.protocol.batch.BatchVerifier`.
 
-Port of the single-device path of ``cpzk_tpu/ops/backend.py``.  Host side:
+Port of ``cpzk_tpu/ops/backend.py``.  Host side:
 SoA limb marshalling of the row points from their wire bytes (the host
 core's batch decode, :func:`.curve.wires_to_device`) and, by default, the
 RLC scalar products mod l (Python ints) with their window or digit
@@ -34,9 +34,17 @@ of the reference's ahead-of-time compile: it builds the CUDA kernels and
 runs one combined check at each serving width before a server reports
 ready.
 
-Not ported (single-device GPU path only): the jit/AOT caches, buffer
-donation and mesh sharding (which always routes through the MSM).  Scratch
-is allocated per call, so one instance serves concurrent batches.
+A mesh (``mesh_devices``, over the local CUDA devices or an explicit
+``devices`` list) shards each batch over several devices
+(:mod:`cpzk_tpu_torch.parallel.mesh`): the combined check then always
+runs the Pippenger MSM, each device reducing its slice of the terms to one
+partial point, and ``verify_each`` the sharded per-row ladder.  Every call
+runs under :func:`device_scope`, which pins the calling thread (a serving
+lane's device thread) to the instance's device.
+
+Not ported: the jit/AOT caches and buffer donation (nothing is compiled per
+shape).  Scratch is allocated per call, so one instance serves concurrent
+batches.
 """
 
 from __future__ import annotations
@@ -77,6 +85,20 @@ PIPPENGER_MIN_ROWS = int(os.environ.get("CPZK_PIPPENGER_MIN", str(1 << 62)))
 #: one generator pair; the bound keeps a huge registered-statement
 #: population from growing device memory one pair at a time.
 GH_CACHE_MAX = 128
+
+
+@contextlib.contextmanager
+def device_scope(device):
+    """Pin the calling thread to one device: on a card
+    ``torch.cuda.device(device)``, so launches and allocations land there.
+    ``None`` and host devices are no-ops.  A per-device serving lane's
+    backend enters it around every call, so each lane launches on its own
+    device."""
+    if device is not None and torch.device(device).type == "cuda":
+        with torch.cuda.device(torch.device(device)):
+            yield
+    else:
+        yield
 
 
 def _pad_pow2(n: int) -> int:
@@ -259,12 +281,46 @@ class TorchBackend(VerifierBackend):
     :data:`LANE_CHUNK` for this instance (below the quantum, or a multiple
     of it); ``gh_cache_max`` overrides :data:`GH_CACHE_MAX`;
     ``pippenger_min`` overrides :data:`PIPPENGER_MIN_ROWS`, the row count
-    from which the combined check runs the Pippenger MSM."""
+    from which the combined check runs the Pippenger MSM.
+
+    ``mesh_devices`` shards every batch over a mesh
+    (:func:`~cpzk_tpu_torch.parallel.mesh.resolve_mesh_devices`: ``0`` every
+    device of the pool, ``k`` the first k, a pool of one means no mesh);
+    the pool is ``devices`` when given (an explicit list that may repeat a
+    device, or a job's global mesh), else the local CUDA devices.
+    ``device`` pins one device and cannot be combined with a mesh."""
 
     prefers_combined = True
 
     def __init__(self, device=None, lane_chunk: int | None = None,
-                 gh_cache_max: int | None = None, pippenger_min: int | None = None):
+                 gh_cache_max: int | None = None, pippenger_min: int | None = None,
+                 mesh_devices: int | None = None, devices=None):
+        if device is not None and mesh_devices is not None:
+            raise ValueError(
+                "TorchBackend(device=...) pins one device; it cannot also "
+                "shard over a mesh (mesh_devices must be None)")
+        if devices is not None and mesh_devices is None:
+            raise ValueError(
+                "TorchBackend(devices=...) is the pool of a mesh: pass "
+                "mesh_devices too (0 = every device of the pool)")
+        #: the :class:`~cpzk_tpu_torch.parallel.mesh.Mesh` this instance
+        #: shards over, or None
+        self.mesh = None
+        self._sharded_each = self._sharded_msm = None
+        if mesh_devices is not None:
+            from ..parallel.mesh import (
+                make_sharded_msm_check,
+                make_sharded_verify_each,
+                resolve_mesh_devices,
+            )
+
+            self.mesh = resolve_mesh_devices(mesh_devices, devices)
+            if self.mesh is not None:
+                device = self.mesh.first
+                self._sharded_each = make_sharded_verify_each(self.mesh)
+                self._sharded_msm = make_sharded_msm_check(self.mesh)
+            elif devices is not None and len(devices):
+                device = devices[0]
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -293,10 +349,13 @@ class TorchBackend(VerifierBackend):
         self._gh_lock = threading.Lock()
 
     def _scope(self):
-        """Run on this instance's card (a no-op on the CPU)."""
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
+        """Pin the calling thread to this instance's device."""
+        return device_scope(self.device)
+
+    def _host(self) -> torch.device:
+        """Where the row tensors are marshalled: the host for a mesh (each
+        slice is copied to its own device), else the instance's device."""
+        return torch.device("cpu") if self.mesh is not None else self.device
 
     def _device_work(self):
         """:func:`device_work` on this instance's card."""
@@ -314,8 +373,8 @@ class TorchBackend(VerifierBackend):
                 # single shared points keep a size-1 batch axis ([20, 1]
                 # coords) and broadcast against the [20, n] row tensors
                 pair = (
-                    curve.points_to_device([row.g.point], self.device),
-                    curve.points_to_device([row.h.point], self.device),
+                    curve.points_to_device([row.g.point], self._host()),
+                    curve.points_to_device([row.h.point], self._host()),
                 )
             self._gh_cache[key] = pair  # (re)insert most-recently-used
             while len(self._gh_cache) > self._gh_cache_max:
@@ -334,7 +393,9 @@ class TorchBackend(VerifierBackend):
     def _verify_combined(self, rows: list[BatchRow], beta: Scalar) -> bool:
         n = len(rows)
         device_rlc = os.environ.get("CPZK_DEVICE_RLC") == "1"
-        if n >= self.pippenger_min:
+        if self._sharded_msm is not None or n >= self.pippenger_min:
+            # a mesh always routes through the Pippenger MSM: each device
+            # reduces its slice of the terms to one partial point
             return self._combined_pippenger(rows, beta, device_rlc)
         dev = self.device
         t0 = time.perf_counter()
@@ -379,18 +440,20 @@ class TorchBackend(VerifierBackend):
         c = msm.pick_window(min(m, self.lane_chunk))
         m_pad = m if m <= self.lane_chunk else _pad_lanes(m, self.lane_chunk)
         _note_pad_waste(4 * n + 2, m_pad)
-        pts = _elems_soa(elems, m_pad, dev)
+        pts = _elems_soa(elems, m_pad, self._host())
         if device_rlc:
             scalars = _marshal_scalar_limbs(rows, beta, _pad_pow2(n), dev)
         else:
             a, ac, ba, bac, corr0, corr1 = _host_rlc_scalars(rows, beta)
             terms = a + ac + ba + bac + [corr0, corr1]
             digits = torch.from_numpy(msm.scalars_to_signed_digits(
-                terms + [0] * (m_pad - len(terms)), c)).to(dev)
+                terms + [0] * (m_pad - len(terms)), c)).to(self._host())
         flightrec.note_marshal(time.perf_counter() - t0)
         with self._device_work():
             if device_rlc:
                 digits = _signed_digits(c, n, m_pad, scalars[0], _rlc_scalar_groups(*scalars))
+            if self._sharded_msm is not None:
+                return self._sharded_msm(pts, digits, c)
             return chunked_msm_identity(c, pts, digits, self.lane_chunk)
 
     def verify_each(self, rows: list[BatchRow]) -> list[bool]:
@@ -399,11 +462,14 @@ class TorchBackend(VerifierBackend):
 
     def _verify_each(self, rows: list[BatchRow]) -> list[bool]:
         n = len(rows)
-        dev = self.device
         t0 = time.perf_counter()
         pad = _pad_lanes(n, self.lane_chunk)
         _note_pad_waste(n, pad)
         shared = all(r.g == rows[0].g and r.h == rows[0].h for r in rows)
+        # a mesh shards rows that share one generator pair; any other batch
+        # runs on the mesh's first device, as in the reference
+        sharded = self._sharded_each is not None and shared
+        dev = self._host() if sharded else self.device
         if shared:
             g, h = self._gh(rows[0])
         else:
@@ -417,6 +483,9 @@ class TorchBackend(VerifierBackend):
         wc = curve.scalar_windows([r.c.value for r in rows], pad, dev)
         flightrec.note_marshal(time.perf_counter() - t0)
         with self._device_work():
+            if sharded:
+                mask = self._sharded_each(g, h, y1, y2, r1, r2, ws, wc)
+                return [bool(v) for v in mask[:n].tolist()]
             # per-row checks are lane-independent: tile and concatenate
             masks = []
             for lo, hi in _chunk_bounds(pad, self.lane_chunk):

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import keccak
-from .point_kernels import _check, library, on_card
+from .point_kernels import _check, count_launch, library, on_card
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernel and nowhere else.
@@ -103,7 +103,7 @@ def keccak_chain(s_hi, s_lo, m_hi, m_lo):
                                    m_hi.data_ptr(), m_lo.data_ptr(), k, n,
                                    out[0].data_ptr(), out[1].data_ptr(), stream)
     _check(rc, "keccak_chain")
-    LAUNCHES["keccak_chain"] += 1
+    count_launch(LAUNCHES, "keccak_chain")
     return out[0], out[1]
 
 

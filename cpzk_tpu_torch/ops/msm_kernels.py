@@ -39,7 +39,8 @@ import torch
 
 from .limbs import NLIMBS
 from .point_kernels import (
-    ADD_OPS_PER_LANE, _check, _lanes, double_k_ops_per_lane, library, on_card)
+    ADD_OPS_PER_LANE, _check, _lanes, count_launch, double_k_ops_per_lane, library,
+    on_card)
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernel and nowhere else.
@@ -98,7 +99,7 @@ def msm_bucket(points, digits: torch.Tensor, c: int):
         rc = lib.cpzk_msm_bucket(*(f.data_ptr() for f in flat), digits.data_ptr(),
                                  *(o.data_ptr() for o in out), m, k, c, stream)
     _check(rc, "msm_bucket")
-    LAUNCHES["msm_bucket"] += 1
+    count_launch(LAUNCHES, "msm_bucket")
     return tuple(o.reshape(NLIMBS, k, nb) for o in out)
 
 
@@ -129,5 +130,5 @@ def msm_window_reduce(buckets, c: int):
         rc = lib.cpzk_msm_window_reduce(*(f.data_ptr() for f in flat), scratch.data_ptr(),
                                         *(o.data_ptr() for o in out), k, c, stream)
     _check(rc, "msm_window_reduce")
-    LAUNCHES["msm_window_reduce"] += 1
+    count_launch(LAUNCHES, "msm_window_reduce")
     return tuple(out)

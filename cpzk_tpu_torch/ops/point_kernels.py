@@ -140,6 +140,36 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+#: Guards every kernel module's ``LAUNCHES`` increments: lanes and mesh
+#: slices launch from several threads at once.
+_COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
+
+
+def count_launch(launches: dict, name: str) -> None:
+    """Add one to ``launches[name]`` (a kernel module's ``LAUNCHES``), and
+    to the calling thread's open :func:`thread_launches` tally."""
+    with _COUNT_LOCK:
+        launches[name] += 1
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+
+
+class thread_launches:
+    """Context manager: the kernels the calling thread launches inside the
+    block, counted by name into the dict it yields (a serving lane's share
+    of launches while other lanes launch from their own threads)."""
+
+    def __enter__(self) -> dict:
+        self._prev = getattr(_TALLY, "counts", None)
+        _TALLY.counts = {}
+        return _TALLY.counts
+
+    def __exit__(self, *exc) -> None:
+        _TALLY.counts = self._prev
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (transcriptions of the Pallas kernel bodies)
 # ---------------------------------------------------------------------------
@@ -413,7 +443,7 @@ def point_add(p: Point, q: Point) -> Point:
         rc = lib.cpzk_point_add(
             *(c.data_ptr() for c in flat), *(o.data_ptr() for o in out), n, stream)
     _check(rc, "point_add")
-    LAUNCHES["point_add"] += 1
+    count_launch(LAUNCHES, "point_add")
     return tuple(o.reshape(shape) for o in out)
 
 
@@ -433,5 +463,5 @@ def point_double_k(p: Point, k: int) -> Point:
         rc = lib.cpzk_point_double_k(
             *(c.data_ptr() for c in flat), *(o.data_ptr() for o in out), n, k, stream)
     _check(rc, "point_double_k")
-    LAUNCHES["point_double_k"] += 1
+    count_launch(LAUNCHES, "point_double_k")
     return tuple(o.reshape(shape) for o in out)

@@ -58,33 +58,54 @@ class BatchProver:
     bytes parse under ``Proof.from_bytes`` and verify with the standard
     ``Verifier`` (``tests/test_torch_prove.py``).  ``device=None`` runs on
     ``cuda:0`` (raising without CUDA), ``device="cpu"`` on the kernels'
-    plain PyTorch versions.
+    plain PyTorch versions; ``mesh_devices`` shards over several devices
+    (:mod:`cpzk_tpu_torch.parallel.mesh`).
     """
 
     def __init__(self, params: Parameters | None = None,
-                 mesh_devices: int | None = None, device=None):
-        """``mesh_devices``: ``None`` only.  The reference shards the digit
-        batch over a mesh of devices; the port's multi-card path (ROADMAP
-        A8) does not exist yet, so any other value raises."""
-        if mesh_devices is not None:
+                 mesh_devices: int | None = None, device=None, devices=None):
+        """``mesh_devices``: ``None`` pins one device; ``0`` shards the
+        digit batch over every device of the pool, ``k > 1`` over its first
+        k (pure data parallelism: proofs are independent).  The pool is
+        ``devices`` when given (an explicit list that may repeat a device),
+        else the local CUDA devices; ``device`` cannot be combined with a
+        mesh."""
+        if device is not None and mesh_devices is not None:
             raise ValueError(
-                f"BatchProver(mesh_devices={mesh_devices!r}): proving sharded over "
-                "several cards is not ported yet (ROADMAP A8); pass None for one card")
+                "BatchProver(device=...) pins one device; it cannot also "
+                "shard over a mesh (mesh_devices must be None)")
         self.params = params or Parameters.new()
+        self._sharded = None
+        mesh = None
+        if mesh_devices is not None:
+            from ..parallel.mesh import make_sharded_prove, resolve_mesh_devices
+
+            mesh = resolve_mesh_devices(mesh_devices, devices)
+            if mesh is not None:
+                device = mesh.first
+                self._sharded = make_sharded_prove(mesh)
+            elif devices is not None and len(devices):
+                device = devices[0]
+        self.mesh = mesh
         self.device = point_kernels.resolve_device("BatchProver", device)
         g = curve.points_to_device([self.params.generator_g.point], self.device)
         h = curve.points_to_device([self.params.generator_h.point], self.device)
         self._tg = prove_kernels.comb_tables(g)
         self._th = prove_kernels.comb_tables(h)
+        if self._sharded is not None and self.device.type == "cuda":
+            # the mesh's slice streams read the tables, in whichever thread
+            # proves: finish them here, once
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _fixed_base_bytes(self, scalars: list[int]) -> tuple[list[bytes], list[bytes]]:
         """(P1, P2) wire bytes for (k·G, k·H) per scalar.
 
         Proofs are lane-independent, so batches past ``LANE_CHUNK`` run as
         ``LANE_CHUNK``-lane tiles and the byte columns concatenate, as in
-        the reference.  The card's work (the digits' upload, the launches,
-        the bytes' download) reports its interval as the verifier backend's
-        does (:func:`.backend.device_work`)."""
+        the reference; a mesh splits them over its devices.  The card's
+        work (the digits' upload, the launches, the bytes' download)
+        reports its interval as the verifier backend's does
+        (:func:`.backend.device_work`)."""
         from . import backend
 
         chunk = backend.LANE_CHUNK
@@ -92,6 +113,9 @@ class BatchProver:
         pad = backend._pad_lanes(n, chunk)
         windows = _windows_lsb(scalars + [0] * (pad - n))
         with backend.device_work(self.device):
+            if self._sharded is not None:
+                b1, b2 = self._sharded(self._tg, self._th, torch.from_numpy(windows))
+                return _columns(b1, n), _columns(b2, n)
             digits = torch.from_numpy(windows).to(self.device)
             if pad > chunk:
                 parts = [prove_kernels.commitments(self._tg, self._th, digits[:, lo:hi])

@@ -48,8 +48,8 @@ import torch
 from . import curve, limbs
 from .limbs import NLIMBS
 from .point_kernels import (
-    ADD_OPS_PER_LANE, W32_MUL_OPS, W32_SQ_OPS, _check, double_k_ops_per_lane, library,
-    on_card, point_add_plain, point_double_k_plain,
+    ADD_OPS_PER_LANE, W32_MUL_OPS, W32_SQ_OPS, _check, count_launch, double_k_ops_per_lane,
+    library, on_card, point_add_plain, point_double_k_plain,
 )
 
 Point = curve.Point
@@ -207,7 +207,7 @@ def comb_tables(p: Point):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.cpzk_comb_tables(*(c.data_ptr() for c in coords), out.data_ptr(), stream)
     _check(rc, "comb_tables")
-    LAUNCHES["comb_tables"] += 1
+    count_launch(LAUNCHES, "comb_tables")
     return out
 
 
@@ -240,5 +240,5 @@ def commitments(tg, th, digits: torch.Tensor) -> tuple[torch.Tensor, torch.Tenso
                                   digits.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
                                   n, stream)
     _check(rc, "commitments")
-    LAUNCHES["commitments"] += 1
+    count_launch(LAUNCHES, "commitments")
     return out[0], out[1]

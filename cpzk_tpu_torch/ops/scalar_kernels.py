@@ -45,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from . import sclimbs as sc
-from .point_kernels import _check, library, on_card
+from .point_kernels import _check, count_launch, library, on_card
 
 NLIMBS = sc.NLIMBS
 
@@ -174,7 +174,7 @@ def rlc_scalars(al, cl, sl, bl):
             *(o.data_ptr() for o in out), partials.data_ptr(), ticket.data_ptr(),
             *(o.data_ptr() for o in corr), pad, stream)
     _check(rc, "rlc_scalars")
-    LAUNCHES["rlc_scalars"] += 1
+    count_launch(LAUNCHES, "rlc_scalars")
     return (*out, *corr)
 
 
@@ -190,7 +190,7 @@ def _recode(groups, corr0, corr1, n: int, mode: int, c: int, nwin: int, m: int,
             *(g.data_ptr() for g in groups), corr0.contiguous().data_ptr(),
             corr1.contiguous().data_ptr(), n, pad, mode, c, nwin, m, out.data_ptr(), stream)
     _check(rc, "scalar_recode")
-    LAUNCHES["scalar_recode"] += 1
+    count_launch(LAUNCHES, "scalar_recode")
     return out
 
 
@@ -253,5 +253,5 @@ def reduce_wide(x: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.cpzk_reduce_wide(x.data_ptr(), x.shape[0], out.data_ptr(), n, stream)
     _check(rc, "reduce_wide")
-    LAUNCHES["reduce_wide"] += 1
+    count_launch(LAUNCHES, "reduce_wide")
     return out

@@ -32,9 +32,10 @@ a primary does, so its promotion pays no kernel load.  With ``[audit]
 enabled`` its promotion moves the proof log's numbering past the segments
 the primary shipped, so its own verdicts continue that trail.
 
-The reference's fleet controller (``[controller]``) is not ported yet: a
-config that enables it stops the daemon at boot with an error naming the
-section.
+``[tpu] lanes`` over several cards serves through the lane router
+(one lane per card), and ``[controller] enabled`` boots the fleet
+controller's ticker (dry-run by default), behind ``/controller`` on the
+REPL and the controller block of ``/statusz``.
 
 Run: ``python -m cpzk_tpu_torch.server --host 127.0.0.1 --port 50051``
 """
@@ -63,8 +64,8 @@ SUPERVISOR_BACKOFF_SECONDS = 5
 DRAIN_SECONDS = 2
 
 #: config sections of the reference's host control plane that the port
-#: does not have yet: enabling one stops the daemon at boot
-UNPORTED_SECTIONS = ("controller",)
+#: does not have: none, every section boots
+UNPORTED_SECTIONS = ()
 
 log = logging.getLogger("cpzk_tpu_torch.server")
 
@@ -178,7 +179,7 @@ HELP = """Available commands:
   /promote            promote this standby to primary (operator failover)
   /handover           coordinated primary→standby handover (zero loss)
   /fleet [reload] (/fl) partition-map status; reload adopts a newer map
-  /controller  (/ctl) fleet controller (not ported yet: disabled)
+  /controller  (/ctl) fleet controller: mode, cooldowns, last decisions
   /users       (/u)   registered user count
   /sessions    (/s)   active session count
   /challenges  (/c)   pending challenge count
@@ -191,6 +192,7 @@ HELP = """Available commands:
 async def handle_command(
     cmd: str, state: ServerState, backend=None, durability=None,
     admission=None, *, audit_log=None, replication=None, fleet=None,
+    controller=None,
 ) -> tuple[str, bool]:
     """(output, should_quit) for one REPL line.  ``backend`` is the
     serving backend: /status surfaces its breaker state and /reset re-arms
@@ -200,9 +202,9 @@ async def handle_command(
     AdmissionController behind /overload, ``audit_log`` the
     ProofLogWriter behind /audit, ``replication`` the SegmentShipper
     (primary) or StandbyReplica (standby) behind /replication, /promote
-    and /handover, and ``fleet`` the FleetRouter behind /fleet (each None
-    when disabled).  /controller answers with the reference's "disabled"
-    text: the fleet controller is not ported yet."""
+    and /handover, ``fleet`` the FleetRouter behind /fleet and
+    ``controller`` the FleetController behind /controller (each None when
+    disabled)."""
     cmd = cmd.strip()
     if not cmd:
         return "", False
@@ -390,12 +392,38 @@ async def handle_command(
             False,
         )
     if word in ("/controller", "/ctl"):
-        return (
-            "fleet controller disabled (set [controller] enabled = true "
-            "to close the signal->actuator loop; dry_run = true to "
-            "watch decisions without acting)",
-            False,
-        )
+        if controller is None:
+            return (
+                "fleet controller disabled (set [controller] enabled = true "
+                "to close the signal->actuator loop; dry_run = true to "
+                "watch decisions without acting)",
+                False,
+            )
+        s = controller.status()
+        lines = [
+            f"mode={'DRY-RUN' if s['dry_run'] else 'LIVE'}"
+            f" ticks={s['ticks']}"
+            f" acting={s['acting']}"
+            f" drained_lanes={','.join(s['drained_lanes']) or 'none'}"
+            + (
+                " cooldowns=" + " ".join(
+                    f"{k}:{v:.0f}s" for k, v in s["cooldowns_s"].items()
+                ) if s["cooldowns_s"] else ""
+            )
+        ]
+        for row in list(s["decisions"])[-5:]:
+            outcome = (
+                "FIRED" if row["fired"]
+                else f"veto:{row['veto']}" if row["veto"]
+                else "dry-run"
+            )
+            lines.append(
+                f"  {row['action']} {row['target']} [{outcome}] "
+                f"{row['reason']}"
+            )
+        if len(lines) == 1:
+            lines.append("  (no decisions yet)")
+        return "\n".join(lines), False
     if word == "/promote":
         if replication is None or not hasattr(replication, "promote"):
             return (
@@ -456,20 +484,6 @@ async def handle_command(
     if word in ("/quit", "/exit", "/q"):
         return "shutting down...", True
     return f"Unknown command: {word}. Type /help for available commands.", False
-
-
-def refuse_unported(config: ServerConfig) -> None:
-    """Stop the boot, with one error naming every such section, when the
-    config enables a subsystem the port does not have yet, rather than
-    serve without it."""
-    enabled = [s for s in UNPORTED_SECTIONS if getattr(config, s).enabled]
-    if enabled:
-        names = ", ".join(f"[{s}]" for s in enabled)
-        raise RuntimeError(
-            f"{names} enabled, but cpzk_tpu_torch has no {', '.join(enabled)} "
-            "subsystem yet (it comes with a later slice of the port); set "
-            "enabled = false there to boot"
-        )
 
 
 async def load_state(config: ServerConfig):
@@ -557,13 +571,15 @@ def resolve_config(args) -> ServerConfig:
     return config
 
 
-async def amain(args, *, device=None) -> None:
+async def amain(args, *, device=None, devices=None) -> None:
     """Run the daemon until SIGTERM/SIGINT or /quit.  ``device`` is where
     ``backend = "tpu"`` serves: None means ``cuda:0`` (and raises without
-    CUDA); the tests pass ``"cpu"`` to run the kernels' plain versions."""
+    CUDA); the tests pass ``"cpu"`` to run the kernels' plain versions.
+    ``devices`` is an explicit device pool for ``[tpu] lanes`` and
+    ``mesh_devices`` to resolve against (it may repeat a device); None
+    means the local CUDA cards (:func:`.plane.build_backend`)."""
     # resolve config first so .env-provided RUST_LOG/LOG_LEVEL reach logging
     config = resolve_config(args)
-    refuse_unported(config)
 
     logging.basicConfig(
         level=os.environ.get("RUST_LOG", os.environ.get("LOG_LEVEL", "INFO")).upper(),
@@ -616,7 +632,7 @@ async def amain(args, *, device=None) -> None:
         # builds the CUDA kernels and prewarms [tpu] prewarm_quanta before
         # anything listens: a kernel that fails to build or launch stops
         # the boot here
-        backend, batcher = build_backend(config.tpu, device=device)
+        backend, batcher = build_backend(config.tpu, device=device, devices=devices)
         log.info(
             "card backend enabled on %s (batch_max=%d window=%.1fms, no "
             "host failover)",
@@ -812,6 +828,50 @@ async def amain(args, *, device=None) -> None:
     # late attachments: serve() built these (health gate, stream registry)
     ops_sources.health = server.health
     ops_sources.service = server.auth_service
+    # fleet controller ([controller] enabled): the self-driving loop over
+    # the planes built above — started after serve() so its first tick
+    # already sees the lane router and ingest shards, dry-run by default
+    controller = None
+    controller_task = None
+    if config.controller.enabled:
+        from ..fleet.controller import FleetController
+
+        controller = FleetController(
+            config.controller,
+            state=state,
+            router=getattr(batcher, "router", None),
+            admission=admission,
+            slo=slo_engine,
+            fleet=fleet_router,
+            durability=durability,
+            replica=replica,
+            epoch_file=config.replication.epoch_file
+            or ((config.state_file + ".epoch") if config.state_file else ""),
+            segment_bytes=config.replication.segment_bytes,
+        )
+        ops_sources.controller = controller
+
+        async def controller_ticker() -> None:
+            interval = config.controller.tick_interval_ms / 1000.0
+            while not stop.is_set():
+                try:
+                    await asyncio.wait_for(stop.wait(), timeout=interval)
+                    return
+                except asyncio.TimeoutError:
+                    pass
+                try:
+                    await controller.tick()
+                except Exception:
+                    log.exception("controller tick failed; continuing")
+
+        controller_task = asyncio.create_task(controller_ticker())
+        log.info(
+            "fleet controller %s: tick %gms, act after %d hot ticks, "
+            "clear after %d",
+            "DRY-RUN (decisions only)" if config.controller.dry_run
+            else "LIVE", config.controller.tick_interval_ms,
+            config.controller.act_ticks, config.controller.clear_ticks,
+        )
     if shipper is not None:
         shipper.start()
     if replica is not None:
@@ -864,7 +924,7 @@ async def amain(args, *, device=None) -> None:
             out, quit_ = await handle_command(
                 line, state, backend, durability, admission,
                 audit_log=audit_log, replication=shipper or replica,
-                fleet=fleet_router,
+                fleet=fleet_router, controller=controller,
             )
             if out:
                 print(_c("white", out))
@@ -939,6 +999,10 @@ async def amain(args, *, device=None) -> None:
         await ops_plane.stop()
     if metrics_fallback_plane is not None:
         await metrics_fallback_plane.stop()
+    if controller_task is not None:
+        controller_task.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await controller_task
     slo_task.cancel()
     with contextlib.suppress(asyncio.CancelledError):
         await slo_task

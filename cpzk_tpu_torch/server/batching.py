@@ -129,8 +129,14 @@ class DynamicBatcher:
         max_queue: int | None = None,
         pipeline_depth: int = 2,
         shed_expired: bool = True,
+        router=None,
     ):
         self.backend = backend
+        # multi-device serving plane: a prebuilt LaneRouter replaces the
+        # single dispatch lane — every settled batch is placed on one of N
+        # per-device lanes (or the big-batch mesh lane).  None (the
+        # [tpu] lanes = 1 default) keeps the single-lane path unchanged
+        self.router = router
         self.max_batch = max_batch
         self.shed_expired = shed_expired
         # shed load once more than a few device batches are waiting; the
@@ -167,13 +173,16 @@ class DynamicBatcher:
     def start(self) -> None:
         if self._task is not None and not self._task.done():
             return  # already running (serve() starts the batcher it is given)
-        self._lane = DispatchLane(
-            self.backend,
-            rng=self._rng,
-            overlap=self.pipeline_depth > 1,
-            staging_slots=max(1, self.pipeline_depth - 1),
-        )
-        self._lane.start()
+        if self.router is not None:
+            self.router.start()
+        else:
+            self._lane = DispatchLane(
+                self.backend,
+                rng=self._rng,
+                overlap=self.pipeline_depth > 1,
+                staging_slots=max(1, self.pipeline_depth - 1),
+            )
+            self._lane.start()
         self._task = asyncio.get_running_loop().create_task(self._run())
 
     async def stop(self) -> None:
@@ -189,6 +198,8 @@ class DynamicBatcher:
             await asyncio.gather(*tuple(self._dispatches), return_exceptions=True)
         if self._lane is not None:
             await self._lane.stop()
+        if self.router is not None:
+            await self.router.stop()
 
     # -- submission --------------------------------------------------------
 
@@ -588,10 +599,16 @@ class DynamicBatcher:
     async def _lane_verify(
         self, entries: list[BatchEntry], stages: BatchStages | None
     ) -> list[Error | None]:
-        """Route one committed batch through the dispatch lane; falls back
-        to a worker thread running the identical seam when the lane is
-        already draining (a dispatch committed in the same loop tick as
-        stop())."""
+        """Route one committed batch through the lane router (multi-device
+        plane) or the single dispatch lane; falls back to a worker thread
+        running the identical seam when the lane is already draining (a
+        dispatch committed in the same loop tick as stop())."""
+        router = self.router
+        if router is not None and router.running:
+            try:
+                return await router.submit(entries, stages)
+            except LaneStopped:
+                pass  # raced stop(); the fallback below still verifies
         lane = self._lane
         if lane is not None and lane.running:
             try:

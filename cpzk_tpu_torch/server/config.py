@@ -96,11 +96,11 @@ class TpuSettings:
                                   # is "cpu") | "cpu" (inline host verify)
     batch_max: int = 4096         # dynamic-batcher device batch target
     batch_window_ms: float = 5.0  # queue deadline before dispatch
-    mesh_devices: int = 0         # 0 = all visible devices; the port serves
-                                  # on one card and refuses more than one
+    mesh_devices: int = 0         # 0 = all visible devices, k = the first k
+                                  # (one card: no mesh)
     lanes: int = 1                # per-device dispatch lanes: 1 = one lane;
                                   # -1 = one per local device, k > 1 = the
-                                  # first k (not ported yet: refused)
+                                  # first k
     mesh_threshold: int = 0       # entries at/above which a batch routes to
                                   # the mesh lane; 0 = never
     pipeline_depth: int = 2       # in-flight batches (1 = serial dispatch);
@@ -367,8 +367,7 @@ class ControllerSettings:
     states) and acts through the existing actuators — live partition
     split, lane drain/re-admit, admission level cap.  Ships with
     ``dry_run = true``: decisions are computed, traced, and surfaced on
-    ``/statusz`` but no actuator fires until an operator flips it.  Not
-    ported yet: enabling it stops the port's daemon at boot.  See
+    ``/statusz`` but no actuator fires until an operator flips it.  See
     ``docs/operations.md`` §"Fleet controller & failure storms"."""
 
     enabled: bool = False

@@ -1,20 +1,26 @@
-"""Assembly of the single-card serving plane: the port of
-``build_backend`` (``cpzk_tpu/server/__main__.py``).
+"""Assembly of the serving plane: the port of ``build_backend``
+(``cpzk_tpu/server/__main__.py``).
 
-``[tpu] backend = "tpu"`` selects the device plane, which here is one
-CUDA card: ``TorchBackend`` behind a
-:class:`~cpzk_tpu_torch.server.batching.DynamicBatcher`.
+``[tpu] backend = "tpu"`` selects the device plane: ``TorchBackend`` on a
+CUDA card behind a :class:`~cpzk_tpu_torch.server.batching.DynamicBatcher`.
+With ``[tpu] lanes`` resolving to more than one device the batcher places
+each batch on one of N per-device lanes through a
+:class:`~cpzk_tpu_torch.server.router.LaneRouter` (one ``TorchBackend`` per
+lane device, plus a mesh lane over all of them when ``mesh_threshold > 0``);
+otherwise one lane serves, sharded over a mesh when ``mesh_devices``
+resolves to more than one device.
 
-No hidden fallback: the card is served bare, so a kernel launch that
-fails, a CUDA fault or an out-of-memory fails its batch and reaches the
-callers.  The reference's card-to-host failover is opt-in: a caller that
-passes ``fallback=`` gets a
-:class:`~cpzk_tpu_torch.protocol.batch.FailoverBackend` over the card and
-that backend, whose trips log WARNING and count ``tpu.backend.failover``.
-Either way :func:`~cpzk_tpu_torch.ops.backend.prewarm` first builds the
-CUDA kernels and runs the combined check at every configured quantum, so
-a kernel that fails to build or to launch raises out of
-:func:`build_backend` before anything serves.
+No hidden fallback: each lane serves its card bare, so a kernel launch
+that fails, a CUDA fault or an out-of-memory fails its batch (and, with
+lanes, opens that lane's own breaker).  The reference's card-to-host
+failover is opt-in on the single lane: a caller that passes ``fallback=``
+gets a :class:`~cpzk_tpu_torch.protocol.batch.FailoverBackend` over the
+card and that backend, whose trips log WARNING and count
+``tpu.backend.failover``.  :func:`~cpzk_tpu_torch.ops.backend.prewarm`
+first builds the CUDA kernels and runs the combined check at every
+configured quantum on every device that serves, so a kernel that fails to
+build or to launch raises out of :func:`build_backend` before anything
+serves.
 """
 
 from __future__ import annotations
@@ -22,8 +28,7 @@ from __future__ import annotations
 import logging
 import time
 
-from ..errors import InvalidParams
-from ..parallel.devices import resolve_lane_devices
+from ..parallel.mesh import resolve_lane_devices, resolve_mesh_devices
 from ..protocol.batch import FailoverBackend, VerifierBackend
 from . import metrics
 from .batching import DynamicBatcher
@@ -36,20 +41,21 @@ def build_backend(
     tpu: TpuSettings,
     device=None,
     fallback: VerifierBackend | None = None,
+    devices=None,
 ) -> tuple[VerifierBackend | None, DynamicBatcher | None]:
     """(backend, batcher) for the ``[tpu]`` settings: the card behind a
     dynamic batching queue, or ``(None, None)`` when ``backend != "tpu"``
     (inline host verification, as in the reference).
 
-    ``device=None`` means ``cuda:0`` and raises without CUDA; the CPU runs
-    only when asked for (``device="cpu"``, the plain PyTorch versions of
-    the kernels).  The backend is ``TorchBackend`` itself unless a
-    ``fallback`` is passed: then it is a ``FailoverBackend`` that degrades
-    to it, with the settings' ``recovery_after_s`` and
-    ``probe_batch_max``.  A ``lanes`` setting that resolves to more than one
-    device, or a mesh over more than one card, raises ``InvalidParams``:
-    the multi-GPU serving plane is not ported yet, and this never serves
-    such a setting on one lane."""
+    The device pool that ``lanes`` and ``mesh_devices`` resolve against is
+    ``devices`` when given (an explicit list, which may repeat a device:
+    the tests' CPU "devices", two lanes on one card), else ``[device]``
+    when a device is pinned, else every local CUDA card; ``device=None``
+    then means ``cuda:0`` and raises without CUDA.  The CPU runs only when
+    asked for (the plain PyTorch versions of the kernels).  With several
+    lanes the returned backend is lane 0's and the batcher carries the
+    router.  ``fallback`` wraps a single lane in a ``FailoverBackend``
+    with the settings' ``recovery_after_s`` and ``probe_batch_max``."""
     if tpu.backend != "tpu":
         return None, None
     validate_tpu(tpu)
@@ -57,42 +63,68 @@ def build_backend(
 
     from ..ops import backend as ops_backend
 
-    if device is None:
+    if devices is not None and device is not None:
+        raise ValueError("build_backend: pass device= or devices=, not both")
+    if devices is not None:
+        pool = [torch.device(d) for d in devices]
+        if not pool:
+            raise ValueError("build_backend: devices= is empty")
+    elif device is not None:
+        pool = [torch.device(device)]
+    else:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "build_backend: CUDA is not available (pass device='cpu' "
                 "to serve on the plain PyTorch versions on the CPU)")
-        device = torch.device("cuda", 0)
-    device = torch.device(device)
-    lane_devices = resolve_lane_devices(tpu.lanes)
-    if lane_devices is not None:
-        raise InvalidParams(
-            f"tpu.lanes = {tpu.lanes} resolves to {len(lane_devices)} "
-            "devices, but the multi-GPU serving plane is not ported yet; "
-            "set tpu.lanes = 1"
-        )
-    cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if tpu.mesh_devices > 1 or (tpu.mesh_devices == 0 and cards > 1):
-        raise InvalidParams(
-            f"tpu.mesh_devices = {tpu.mesh_devices} asks for a mesh over "
-            f"more than one card ({cards} visible), but the multi-GPU "
-            "serving plane is not ported yet; set tpu.mesh_devices = 1"
-        )
-
+        pool = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    recovery_after_s = None if tpu.recovery_after_s == -1 else tpu.recovery_after_s
     quanta = tpu.parsed_prewarm_quanta()
-    t0 = time.monotonic()
-    warmed = ops_backend.prewarm(quanta, device)
-    log.info(
-        "prewarmed the verify kernels on %s for batch quanta %s in %.1fs (%s)",
-        device, quanta, time.monotonic() - t0,
-        ", ".join(f"{k} {v:.2f}s" for k, v in warmed.items()) or "nothing to build",
-        extra={"prewarm_s": warmed},
-    )
-    backend: VerifierBackend = ops_backend.TorchBackend(device=device)
-    if fallback is not None:
-        recovery_after_s = (
-            None if tpu.recovery_after_s == -1 else tpu.recovery_after_s
+    lane_devices = resolve_lane_devices(tpu.lanes, pool)
+    if lane_devices is not None:
+        from .router import LaneRouter
+
+        _prewarm(ops_backend, quanta, lane_devices)
+        lane_backends = [ops_backend.TorchBackend(device=d) for d in lane_devices]
+        mesh_backend = None
+        if tpu.mesh_threshold > 0:
+            mesh_backend = ops_backend.TorchBackend(
+                mesh_devices=len(lane_devices), devices=lane_devices)
+        router = LaneRouter(
+            lane_backends,
+            devices=lane_devices,
+            overlap=tpu.pipeline_depth > 1,
+            staging_slots=max(1, tpu.pipeline_depth - 1),
+            recovery_after_s=recovery_after_s,
+            mesh_backend=mesh_backend,
+            mesh_threshold=tpu.mesh_threshold,
         )
+        metrics.gauge("tpu.lanes").set(len(lane_devices))
+        log.info(
+            "serving plane: %d per-device dispatch lanes over %s (of %d "
+            "devices), mesh path %s",
+            len(lane_devices), ", ".join(str(d) for d in lane_devices), len(pool),
+            f"at >= {tpu.mesh_threshold} entries" if tpu.mesh_threshold > 0 else "off",
+        )
+        batcher = DynamicBatcher(
+            lane_backends[0],
+            max_batch=tpu.batch_max,
+            window_ms=tpu.batch_window_ms,
+            pipeline_depth=tpu.pipeline_depth,
+            shed_expired=tpu.shed_expired,
+            router=router,
+        )
+        return lane_backends[0], batcher
+
+    # mesh_devices: 0 = shard over every device of the pool, k = the first
+    # k; a pool of one serves that device alone
+    mesh = resolve_mesh_devices(tpu.mesh_devices, pool)
+    _prewarm(ops_backend, quanta, list(mesh) if mesh is not None else pool[:1])
+    if mesh is not None:
+        backend: VerifierBackend = ops_backend.TorchBackend(
+            mesh_devices=tpu.mesh_devices, devices=pool)
+    else:
+        backend = ops_backend.TorchBackend(device=pool[0])
+    if fallback is not None:
         backend = FailoverBackend(
             backend,
             fallback,
@@ -100,7 +132,10 @@ def build_backend(
             probe_batch_max=tpu.probe_batch_max,
         )
     metrics.gauge("tpu.lanes").set(1)
-    log.info("serving plane: single dispatch lane on %s", device)
+    log.info(
+        "serving plane: single dispatch lane on %s%s", pool[0],
+        f" (mesh over {len(mesh)} devices for in-batch sharding)" if mesh is not None else "",
+    )
     batcher = DynamicBatcher(
         backend,
         max_batch=tpu.batch_max,
@@ -109,3 +144,21 @@ def build_backend(
         shed_expired=tpu.shed_expired,
     )
     return backend, batcher
+
+
+def _prewarm(ops_backend, quanta, devices) -> None:
+    """Build the kernels and prewarm every quantum once on each distinct
+    device that will serve."""
+    seen: list = []
+    for d in devices:
+        if d in seen:
+            continue
+        seen.append(d)
+        t0 = time.monotonic()
+        warmed = ops_backend.prewarm(quanta, d)
+        log.info(
+            "prewarmed the verify kernels on %s for batch quanta %s in %.1fs (%s)",
+            d, quanta, time.monotonic() - t0,
+            ", ".join(f"{k} {v:.2f}s" for k, v in warmed.items()) or "nothing to build",
+            extra={"prewarm_s": warmed},
+        )

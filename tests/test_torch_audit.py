@@ -13,8 +13,8 @@
 - the card path (``backend="tpu"``) on the kernels' plain versions
   (``device="cpu"``) equal in ``totals`` and ``digest`` to the host's;
 - the port's defaults: the card unless ``backend="cpu"``, no CUDA means an
-  error (CLI exit 2), and ``lanes != 1`` or a multi-device mesh raise,
-  naming A8;
+  error (CLI exit 2), and ``lanes != 1`` and a mesh replay through the
+  lane router and the sharded backend to the direct replay's bytes;
 - the daemon with ``[audit]`` on: the proof log it writes replays to the
   same ``totals`` and ``digest`` through both packages' ``audit run``.
 
@@ -24,6 +24,7 @@ versions (``device="cpu"``): with neither, the port replays on the card.
 
 import asyncio
 import dataclasses
+import json
 import os
 import pathlib
 import re
@@ -629,29 +630,46 @@ def test_card_path_on_the_plain_versions_matches_the_host(tmp_path):
     assert verify_report_file(str(tmp_path / "card.json"))[0]
 
 
-def test_the_card_is_the_default_and_a8_is_refused(tmp_path, monkeypatch):
+def test_the_card_is_the_default_and_lanes_and_a_mesh_replay(tmp_path, monkeypatch):
     """``run_audit`` and the CLI default to the card: without CUDA they
-    raise (exit 2), never replaying on the host; ``lanes != 1`` and a
-    mesh over several devices raise for either backend, naming A8."""
+    raise (exit 2), never replaying on the host.  ``lanes != 1`` replays
+    through the lane router and a mesh shards each quantum, for either
+    backend, to the report bytes of the direct replay; a lane count or a
+    mesh larger than the device pool is refused."""
     import torch
 
     from cpzk_tpu_torch.audit.__main__ import main as audit_main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     log = tmp_path / "p.log"
     make_log(log, 4)
     report = str(tmp_path / "r.json")
+    key = str(tmp_path / "k.key")
     with pytest.raises(InvalidParams, match="CUDA is not available"):
         run_audit(str(log), report)
     assert audit_main(["run", "--log", str(log), "--report", report, "--quiet"]) == 2
-    for backend in ("cpu", "tpu"):
-        with pytest.raises(InvalidParams, match="A8"):
-            run_audit(str(log), report, backend=backend, lanes=2, device="cpu")
-    with pytest.raises(InvalidParams, match="A8"):
+    assert not os.path.exists(report)
+    for backend, kw in (("cpu", {}), ("tpu", {"devices": ["cpu"] * 2})):
+        direct = run_audit(str(log), str(tmp_path / f"{backend}.json"), key_path=key,
+                           quantum=4, backend=backend, **({"device": "cpu"}
+                                                          if backend == "tpu" else {}))
+        routed = run_audit(str(log), str(tmp_path / f"{backend}-lanes.json"),
+                           key_path=key, quantum=4, backend=backend, lanes=2, **kw)
+        assert routed == direct
+        assert ((tmp_path / f"{backend}.json").read_bytes()
+                == (tmp_path / f"{backend}-lanes.json").read_bytes())
+    meshed = run_audit(str(log), str(tmp_path / "mesh.json"), key_path=key, quantum=4,
+                       backend="tpu", mesh_devices=2, devices=["cpu"] * 2)
+    assert (tmp_path / "mesh.json").read_bytes() == (tmp_path / "tpu.json").read_bytes()
+    assert meshed["totals"]["verified"] == 4
+    with pytest.raises(InvalidParams, match="lanes=2 exceeds the 1 local device"):
+        run_audit(str(log), report, backend="tpu", lanes=2, device="cpu")
+    with pytest.raises(InvalidParams, match="mesh_devices=2 exceeds the 1 visible device"):
         run_audit(str(log), report, backend="tpu", mesh_devices=2, device="cpu")
     assert audit_main(["run", "--log", str(log), "--report", report, "--quiet",
-                       "--backend", "cpu", "--lanes", "-1"]) == 2
-    assert not os.path.exists(report)
+                       "--backend", "cpu", "--lanes", "-1", "--key", key]) == 0
+    assert json.loads(open(report).read())["digest"] == direct["digest"]
 
 
 # --- the daemon's trail, replayed by both packages ----------------------------------

@@ -198,9 +198,9 @@ def test_status_repl_reports_breaker_state():
     "/reset", "/status", "/quit", "/nope", "hello", "",
 ])
 def test_commands_answer_as_the_reference_with_subsystems_off(cmd):
-    """With its subsystems off (no durability, audit, replication or
-    fleet; the controller is not ported), every command answers with the
-    reference's text, and the state commands alike."""
+    """With its subsystems off (no durability, audit, replication, fleet
+    or controller), every command answers with the reference's text, and
+    the state commands alike."""
 
     async def main():
         return (await t_main.handle_command(cmd, ServerState()),
@@ -208,6 +208,50 @@ def test_commands_answer_as_the_reference_with_subsystems_off(cmd):
 
     port, ref = run(main())
     assert port == ref
+
+
+def test_controller_command_answers_as_the_reference():
+    """``/controller`` with a fleet controller: each package's controller,
+    fed the same lane signals on the same clock (one lane's breaker OPEN
+    past ``lane_open_after_s``, dry-run), renders the same mode line and
+    decision rows."""
+    from cpzk_tpu.fleet.controller import FleetController as JFleetController
+    from cpzk_tpu.server.config import ControllerSettings as JControllerSettings
+    from cpzk_tpu_torch.fleet.controller import FleetController
+    from cpzk_tpu_torch.server.config import ControllerSettings
+
+    class Lanes:
+        def __init__(self):
+            self.breaker = "open"
+
+        def lane_states(self):
+            return [{"lane": "0", "breaker": "closed", "drained": False, "pending": 0},
+                    {"lane": "1", "breaker": self.breaker, "drained": False,
+                     "pending": 3}]
+
+    t = [100.0]
+    knobs = dict(enabled=True, dry_run=True, lane_open_after_s=1.0)
+    port = FleetController(ControllerSettings(**knobs), router=Lanes(),
+                           clock=lambda: t[0], wall=lambda: 0.0)
+    ref = JFleetController(JControllerSettings(**knobs), router=Lanes(),
+                           clock=lambda: t[0], wall=lambda: 0.0)
+
+    async def main():
+        out = []
+        for _ in range(3):
+            await port.tick()
+            await ref.tick()
+            t[0] += 0.6
+            out.append((await t_main.handle_command("/controller", ServerState(),
+                                                     controller=port),
+                        await j_main.handle_command("/ctl", JServerState(),
+                                                    controller=ref)))
+        return out
+
+    rows = run(main())
+    assert [p for p, _ in rows] == [r for _, r in rows]
+    assert "(no decisions yet)" in rows[0][0][0]
+    assert "lane_drain 1 [dry-run]" in rows[-1][0][0]
 
 
 # --- the config sections ----------------------------------------------------------
@@ -526,32 +570,22 @@ def test_verify_proof_trace_repl_and_json_log():
 
 
 @pytest.mark.parametrize("section,env", [
-    ("controller", {"SERVER_CONTROLLER_ENABLED": "1"}),
-])
-def test_unported_section_refused_at_boot(clean_env, monkeypatch, section, env):
-    """A config the reference accepts, with the one section of its host
-    control plane the port does not have yet, ``[controller]``: one error
-    naming the section, before anything is built."""
-    for key, value in env.items():
-        monkeypatch.setenv(key, value)
-    j_main.resolve_config(j_main.parse_args([]))  # valid for the reference
-    args = t_main.parse_args(["--no-repl", "--port", "0", "--backend", "cpu"])
-    with pytest.raises(RuntimeError, match=rf"\[{section}\].*later slice"):
-        run(t_main.amain(args, device="cpu"))
-
-
-@pytest.mark.parametrize("section,env", [
     ("replication", {"SERVER_DURABILITY_ENABLED": "1", "SERVER_STATE_FILE": "s.json",
                      "SERVER_REPLICATION_ENABLED": "1",
                      "SERVER_REPLICATION_ROLE": "standby",
                      "SERVER_REPLICATION_PEER": "127.0.0.1:1"}),
     ("fleet", {"SERVER_FLEET_ENABLED": "1", "SERVER_FLEET_MAP_PATH": "m.json",
                "SERVER_FLEET_PARTITION": "0"}),
+    ("controller", {"SERVER_CONTROLLER_ENABLED": "1",
+                    "SERVER_CONTROLLER_TICK_INTERVAL_MS": "50",
+                    "SERVER_OPSPLANE_ENABLED": "1", "SERVER_OPSPLANE_PORT": "0"}),
 ])
 def test_ported_section_boots(clean_env, monkeypatch, section, env):
-    """The reference's ``[replication]`` and ``[fleet]`` configs boot the
-    port's daemon, which the earlier slices refused: a replication standby
-    refuses auth RPCs until promoted, and a one-partition map serves."""
+    """The reference's ``[replication]``, ``[fleet]`` and ``[controller]``
+    configs boot the port's daemon, which the earlier slices refused: a
+    replication standby refuses auth RPCs until promoted, a one-partition
+    map serves, and the fleet controller ticks in dry-run beside a serving
+    daemon, its block in ``/statusz``."""
     from cpzk_tpu_torch.fleet import PartitionMap
     from cpzk_tpu_torch.client import AuthClient as TAuthClient
     from cpzk_tpu_torch.client.__main__ import do_login, do_register
@@ -580,6 +614,19 @@ def test_ported_section_boots(clean_env, monkeypatch, section, env):
             assert got == ("UNAVAILABLE",
                            "standby replica: not promoted (writes go to the primary)")
             assert "replication standby: epoch=1 applied_seq=0" in daemon.logs()
+        elif section == "controller":
+            assert "Registered" in got[0] and "Login OK" in got[1], got
+            assert "fleet controller DRY-RUN (decisions only)" in daemon.logs()
+            deadline = time.monotonic() + 30
+            while True:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{daemon.ops_port}/statusz", timeout=10) as r:
+                    block = json.loads(r.read())["controller"]
+                if block["ticks"] > 0 or time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+            assert block["enabled"] is True and block["dry_run"] is True
+            assert block["ticks"] > 0 and block["decisions"] == []
         else:
             assert "Registered" in got[0] and "Login OK" in got[1], got
             assert "fleet routing enabled: partition 0/1" in daemon.logs()

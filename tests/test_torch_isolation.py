@@ -69,10 +69,34 @@ def test_import_pulls_in_neither_jax_nor_cpzk_tpu():
         "cpzk_tpu_torch.server.proto.load_replication_pb2()\n"
         "import cpzk_tpu_torch.replication, cpzk_tpu_torch.fleet.split\n"
         "import cpzk_tpu_torch.fleet.__main__\n"
+        "import cpzk_tpu_torch.parallel.mesh, cpzk_tpu_torch.parallel.multihost\n"
+        "import cpzk_tpu_torch.server.router, cpzk_tpu_torch.fleet.controller\n"
+        "import cpzk_tpu_torch.observability.regress\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cpzk_tpu')]\n"
         "assert not bad, bad\n"
         "top = [m for m in sys.modules if m in ('auth_pb2', 'health_pb2', 'replication_pb2')]\n"
         "assert not top, top\n"
+        "print('clean')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+def test_importing_parallel_initializes_neither_cuda_nor_a_process_group():
+    """``import cpzk_tpu_torch.parallel`` (and resolving its lazy mesh
+    names) leaves CUDA and ``torch.distributed`` uninitialized, so
+    ``multihost.initialize`` can always run after it."""
+    code = (
+        "import torch, torch.distributed as dist\n"
+        "import cpzk_tpu_torch.parallel as par\n"
+        "from cpzk_tpu_torch.parallel import multihost\n"
+        "assert par.Mesh and par.batch_mesh and par.make_sharded_verify_each\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not (dist.is_available() and dist.is_initialized())\n"
+        "assert multihost.process_info() == (0, 1)\n"
+        "assert not torch.cuda.is_initialized()\n"
         "print('clean')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

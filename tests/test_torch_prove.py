@@ -160,13 +160,20 @@ def test_prover_reports_its_device_interval(bp, monkeypatch):
             min(a for a, _ in calls), max(b for _, b in calls))
 
 
-def test_sharded_prover_waits_for_multi_card(monkeypatch):
-    """Twin of ``test_sharded_batch_prove_matches_single_device``: the port
-    has one card per prover until ROADMAP A8, so ``mesh_devices`` other
-    than None raises, naming A8; ``device=None`` means the card and raises
-    without CUDA."""
-    with pytest.raises(ValueError, match="A8"):
+def test_sharded_prover_matches_one_device(bp, monkeypatch):
+    """``BatchProver(mesh_devices=...)`` shards the statements over a mesh
+    of CPU "devices" (the comb tables copied to each) and gives the
+    one-device prover's bytes, ragged batch included; ``device=`` with a
+    mesh raises, a mesh larger than the pool raises naming both numbers,
+    and ``device=None`` means the card and raises without CUDA."""
+    meshed = BatchProver(bp.params, mesh_devices=0, devices=["cpu"] * 3)
+    assert len(meshed.mesh) == 3
+    ws = witnesses(21, 5)
+    assert meshed.statements(ws) == bp.statements(ws)
+    with pytest.raises(ValueError, match="mesh"):
         BatchProver(T.Parameters.new(), mesh_devices=0, device="cpu")
+    with pytest.raises(ValueError, match="mesh_devices=4 exceeds the 3 visible"):
+        BatchProver(T.Parameters.new(), mesh_devices=4, devices=["cpu"] * 3)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BatchProver(T.Parameters.new())

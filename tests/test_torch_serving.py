@@ -390,27 +390,59 @@ def test_build_backend_refuses_without_cuda_unless_cpu_asked(monkeypatch):
             batcher.pipeline_depth) == (backend, 128, 0.002, 1)
 
 
-@pytest.mark.parametrize("settings, device, exc, match", [
-    (TpuSettings(backend="tpu", lanes=-1, mesh_devices=1), "cpu",
-     InvalidParams, "lanes = -1 resolves to 4 devices"),
-    (TpuSettings(backend="tpu", lanes=2, mesh_devices=1), "cpu",
-     InvalidParams, "multi-GPU serving plane is not ported yet"),
-    (TpuSettings(backend="tpu", mesh_devices=2), "cpu",
-     InvalidParams, "multi-GPU serving plane is not ported yet"),
-    (TpuSettings(backend="tpu"), "cuda:0",
-     InvalidParams, "mesh_devices = 0 asks for a mesh over more than one card"),
-    (TpuSettings(backend="tpu", lanes=8, mesh_devices=1), "cpu",
-     ValueError, "exceeds the 4 local CUDA device"),
-    (TpuSettings(backend="tpu", lanes=0), "cpu",
-     ValueError, "tpu.lanes must be a positive lane count"),
+def _lanes_of(batcher):
+    """Per lane device names of a batcher's router (None without one)."""
+    router = batcher.router
+    return None if router is None else [row["device"] for row in router.status()["lanes"]]
+
+
+@pytest.mark.parametrize("settings, kwargs, expect", [
+    # an explicit pool of four CPU "devices": lanes resolve against it
+    (TpuSettings(backend="tpu", lanes=-1, mesh_devices=1),
+     {"devices": ["cpu"] * 4}, ("lanes", ["cpu"] * 4)),
+    (TpuSettings(backend="tpu", lanes=2, mesh_devices=1, mesh_threshold=64),
+     {"devices": ["cpu"] * 4}, ("lanes+mesh", ["cpu"] * 2)),
+    (TpuSettings(backend="tpu", mesh_devices=2),
+     {"devices": ["cpu"] * 4}, ("mesh", 2)),
+    # a pinned device is a pool of one: no lanes, no mesh
+    (TpuSettings(backend="tpu", lanes=-1), {"device": "cpu"}, ("single", "cpu")),
+    (TpuSettings(backend="tpu", lanes=8, mesh_devices=1), {"devices": ["cpu"] * 4},
+     (ValueError, "lanes=8 exceeds the 4 local device")),
+    (TpuSettings(backend="tpu", lanes=0), {"device": "cpu"},
+     (ValueError, "tpu.lanes must be a positive lane count")),
 ])
 def test_build_backend_never_serves_multi_device_settings_on_one_lane(
-        monkeypatch, settings, device, exc, match):
-    """On a host with four cards, a multi-lane or multi-card setting is
-    refused before anything is built; it never serves on one lane."""
+        monkeypatch, settings, kwargs, expect):
+    """On a host with four cards, a multi-lane setting builds one lane per
+    device of the pool behind the lane router (a mesh lane beside them at
+    ``mesh_threshold``), a mesh setting shards the one lane, a pinned
+    device serves alone, and an overcommitted or invalid setting is
+    refused before anything is built: a multi-device setting never serves
+    on one lane."""
+    from cpzk_tpu_torch.server.router import LaneRouter
+
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(exc, match=match):
-        build_backend(settings, device=device)
+    kind, value = expect
+    if isinstance(kind, type):
+        with pytest.raises(kind, match=value):
+            build_backend(settings, **kwargs)
+        return
+    backend, batcher = build_backend(settings, **kwargs)
+    assert isinstance(backend, TorchBackend)
+    if kind.startswith("lanes"):
+        assert isinstance(batcher.router, LaneRouter)
+        assert _lanes_of(batcher) == value
+        assert backend is batcher.router._slots[0].lane._backend
+        mesh = batcher.router.status()["mesh"]
+        assert (mesh is not None) == (kind == "lanes+mesh")
+        assert metrics.read("tpu.lanes", "g") == len(value)
+    else:
+        assert batcher.router is None and batcher.backend is backend
+        assert metrics.read("tpu.lanes", "g") == 1
+        if kind == "mesh":
+            assert len(backend.mesh) == value
+        else:
+            assert backend.mesh is None and backend.device == torch.device(value)
 
 
 def test_build_backend_launch_error_fails_the_batch(monkeypatch):
