@@ -1639,13 +1639,25 @@ def test_replication_phase_rehearsal(tmp_path, monkeypatch):
     proof logs replaying as one trail after their primaries') must hold."""
     import runpy
 
+    import torch
+
     monkeypatch.chdir(tmp_path)  # the daemons' logs land in ./chiprun_out
     smoke = runpy.run_path(str(ROOT / "chip_smoke.py"), run_name="chip_smoke_rehearsal")
     _, corpus, provers = smoke["make_corpus"](16, smoke["SeededRng"](1))
-    out = smoke["replication_phase"](
-        corpus, provers, 160, 48, 10, 16, 8, lease_ms=6000.0, audit_segment_bytes=2048,
-        sync_timeout_ms=20000.0, launcher=[sys.executable, "-c", _CPU_LAUNCHER],
-        on_card=False)
+    # The two trail replays run in this process on the plain ladders, whose
+    # ops (lanes padded to 2048) are wide enough for torch's intra-op pool.
+    # A pool of one thread per core, on cores the other test workers keep
+    # busy, waits at every op's join for descheduled threads: under the
+    # suite's load one replay took 391 s against 19 s on one thread.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = smoke["replication_phase"](
+            corpus, provers, 160, 48, 10, 16, 8, lease_ms=6000.0, audit_segment_bytes=2048,
+            sync_timeout_ms=20000.0, launcher=[sys.executable, "-c", _CPU_LAUNCHER],
+            on_card=False)
+    finally:
+        torch.set_num_threads(threads)
     assert out["register"]["users"] == 160 and out["wave"]["entries"] == 48
     assert out["wave"]["sessions"] == out["wave"]["valid"]
     assert out["stale_map_client"] == {"success": True, "redirects": 1, "map_version": 3}
