@@ -356,6 +356,8 @@ PIPPENGER_KERNELS = ("rlc_scalars", "scalar_recode", "msm_bucket", "msm_window_r
 #: the batch prover's kernels, then the device challenges'
 PROVER_KERNELS = ("comb_tables", "commitments")
 CHALLENGE_KERNELS = ("keccak_chain", "reduce_wide")
+#: ristretto DECODE (an XLA program of the JAX package; on no serving path)
+DECODE_KERNELS = ("ristretto_decode",)
 REPLACES = {"point_add": "cpzk_tpu/ops/pallas_kernels.py:51",
             "point_double_k": "cpzk_tpu/ops/pallas_kernels.py:87",
             "rlc_scalars": "cpzk_tpu/ops/backend.py:468",
@@ -365,7 +367,8 @@ REPLACES = {"point_add": "cpzk_tpu/ops/pallas_kernels.py:51",
             "comb_tables": "cpzk_tpu/ops/prove.py:38",
             "commitments": "cpzk_tpu/ops/prove.py:63",
             "keccak_chain": "cpzk_tpu/ops/challenge.py:159",
-            "reduce_wide": "cpzk_tpu/ops/sclimbs.py:136"}
+            "reduce_wide": "cpzk_tpu/ops/sclimbs.py:136",
+            "ristretto_decode": "cpzk_tpu/ops/curve.py:351"}
 _CSRC = "cpzk_tpu_torch/csrc/"
 SOURCES = {
     "point_add": [_CSRC + "point_ops.cu", _CSRC + "fe25519_w32.cuh"],
@@ -380,6 +383,8 @@ SOURCES = {
                     _CSRC + "ristretto_w32.cuh", _CSRC + "fe25519_w32.cuh"],
     "keccak_chain": [_CSRC + "keccak_ops.cu", _CSRC + "keccak_u64.cuh"],
     "reduce_wide": [_CSRC + "scalar_ops.cu", _CSRC + "sc25519_w32.cuh"],
+    "ristretto_decode": [_CSRC + "decode_ops.cu", _CSRC + "ristretto_w32.cuh",
+                         _CSRC + "fe25519_w32.cuh"],
 }
 #: the scalar kernels' checks: row counts, window sizes of the digit recode,
 #: and the row counts timed (the 4096- and 16,384-row checks)
@@ -3403,6 +3408,157 @@ def device_challenges_phase(params, proofs_out, ns, reps: int, int32_ops_per_s: 
     return out
 
 
+# -- ristretto DECODE on the card, and the matmulfold multiply --------------
+
+#: the decode phase's lane counts (its path decodes each once), the lanes
+#: of the limbs.mul variants' comparison, and the timed reps
+DECODE_NS = (16384, 4096)
+MUL_VARIANT_N = 16384
+DECODE_REPS = 20
+
+
+def decode_wires(n: int, corpus, gen):
+    """``[n, 32]`` uint8 wires (numpy) for the decode phase, and each row's
+    kind: first the cases the reference's tests reject (``p + 2``, the odd
+    3, 32 bytes of 0xff) beside ``p`` itself, ``p - 1``, a valid encoding
+    with bit 255 set and the all-zero identity; then, in turns, the
+    corpus's valid encodings (Y1, Y2, R1, R2 of each proof) and random 32
+    bytes from ``gen``."""
+    import numpy as np
+
+    from cpzk_tpu_torch.core import edwards
+
+    valid = [e.wire() for statement, proof, _ in corpus
+             for e in (statement.y1, statement.y2, proof.commitment.r1, proof.commitment.r2)]
+    high = bytearray(valid[0])
+    high[31] |= 0x80
+    special = [((edwards.P + 2).to_bytes(32, "little"), "p+2"),
+               ((3).to_bytes(32, "little"), "odd"), (b"\xff" * 32, "all-ones"),
+               (edwards.P.to_bytes(32, "little"), "p"),
+               ((edwards.P - 1).to_bytes(32, "little"), "p-1"),
+               (bytes(high), "bit-255"), (bytes(32), "identity")]
+    rows, kinds = [], []
+    for wire, kind in special[:n]:
+        rows.append(wire)
+        kinds.append(kind)
+    for i in range(n - len(rows)):
+        if i % 2:
+            rows.append(gen.fill_bytes(32))
+            kinds.append("random")
+        else:
+            rows.append(valid[(i // 2) % len(valid)])
+            kinds.append("corpus")
+    return np.frombuffer(b"".join(rows), dtype=np.uint8).reshape(n, 32).copy(), kinds
+
+
+def host_decode_words(wires):
+    """The host core's ``batch_decode`` of ``[n, 32]`` wires: ``[4, 8, n]``
+    int32 words of the canonical coordinates and ``[n]`` uint8 validity."""
+    import numpy as np
+    import torch
+
+    from cpzk_tpu_torch.core import _native
+
+    coords, ok = _native.batch_decode(wires.tobytes())
+    words = np.frombuffer(coords, dtype="<u4").reshape(-1, 4, 8).transpose(1, 2, 0)
+    return (torch.from_numpy(words.astype(np.int64)).to(torch.int32),
+            torch.frombuffer(bytearray(ok), dtype=torch.uint8))
+
+
+def decode_phase(dev, corpus, ns, mul_n: int, reps: int, int32_ops_per_s: float,
+                 gen, on_card: bool = True) -> dict:
+    """The ``decode`` phase: ``ristretto_decode`` on the card at each of
+    ``ns`` lanes (the phase's path, counts set to 0 just before and read
+    just after), its words and validity equal (exact, the words canonical)
+    to the plain ``curve.decode`` on the card and to the host core's
+    ``batch_decode`` (the points of valid lanes; invalid lanes the identity)
+    and every listed case decided as the reference decides it; the kernel
+    timed beside its bound and its plain version.  Then ``limbs.mul`` under
+    ``CPZK_MUL``'s two variants on the card at ``mul_n`` loose lanes
+    (|limb| <= 9500, both signs), bit for bit equal, both timed.  With
+    ``on_card`` false (a rehearsal on the CPU: ``dev`` is the CPU, the
+    kernel's plain version runs) nothing is timed or counted."""
+    import numpy as np
+    import torch
+
+    from cpzk_tpu_torch.core import edwards
+    from cpzk_tpu_torch.ops import decode_kernels as dk, limbs
+    from cpzk_tpu_torch.ops.point_kernels import all_launches, reset_all_launches
+
+    inputs = {n: decode_wires(n, corpus, gen) for n in ns}
+    on_dev = {n: torch.from_numpy(w).to(dev) for n, (w, _) in inputs.items()}
+    if on_card:
+        synchronize()
+    reset_all_launches()
+    got = {n: dk.ristretto_decode(on_dev[n], device=dev) for n in ns}
+    if on_card:
+        synchronize()
+    launches = all_launches()
+    if on_card and (launches["ristretto_decode"] != len(ns)
+                    or sum(launches.values()) != len(ns)):
+        raise AssertionError(f"decode: launches {launches}")
+    identity = dk.limbs_to_words(tuple(
+        torch.from_numpy(limbs.int_to_limbs(v)[:, None]) for v in (0, 1, 1, 0)))
+    out = {"launches": {"ristretto_decode": launches["ristretto_decode"]},
+           "tolerance": "exact (canonical words, validity bytes)", "results": []}
+    for n in ns:
+        wires, kinds = inputs[n]
+        words, valid = (t.cpu() for t in got[n])
+        plain_words, plain_valid = (t.cpu() for t in dk.ristretto_decode_plain(on_dev[n]))
+        host_words, host_valid = host_decode_words(wires)
+        ok = valid.bool()
+        err = int((words.to(torch.int64) - plain_words.to(torch.int64)).abs().max())
+        host_err = int((words[..., ok].to(torch.int64)
+                        - host_words[..., ok].to(torch.int64)).abs().max())
+        expect = {k: (k in ("corpus", "identity")) for k in set(kinds)}
+        wrong = [i for i, k in enumerate(kinds)
+                 if k != "random" and bool(ok[i]) != expect[k]]
+        # each random row as the reference's pure decode decides it
+        randoms = [i for i, k in enumerate(kinds) if k == "random"][:256]
+        pure_wrong = [i for i in randoms
+                      if (edwards.ristretto_decode(wires[i].tobytes()) is not None) != bool(ok[i])]
+        if (err or host_err or not torch.equal(valid, plain_valid)
+                or not torch.equal(valid, host_valid)
+                or not torch.equal(words[..., ~ok], identity.expand(4, 8, int((~ok).sum())))
+                or wrong or pure_wrong):
+            raise AssertionError(f"decode at {n}: error {err}, host error {host_err}, "
+                                 f"validity equal {torch.equal(valid, plain_valid)} / "
+                                 f"{torch.equal(valid, host_valid)}, wrong cases "
+                                 f"{[(i, kinds[i]) for i in wrong[:5]]}, pure {pure_wrong[:5]}")
+        timed = kernel_ms(lambda n=n: dk.ristretto_decode(on_dev[n], device=dev),
+                          lambda n=n: dk.ristretto_decode_plain(on_dev[n]),
+                          reps) if on_card else {}
+        out["results"].append({
+            "n": n, "max_abs_err": err, "host_max_abs_err": host_err,
+            "valid_lanes": int(ok.sum()), "random_valid": int(sum(
+                bool(ok[i]) for i, k in enumerate(kinds) if k == "random")),
+            "cases": {k: int(ok[kinds.index(k)]) for k in kinds[:7]},
+            **timed, **bound_of(*dk.decode_work(n), int32_ops_per_s)})
+
+    rng = np.random.default_rng(SEED + 29)
+    a, b = (torch.from_numpy(rng.integers(-limbs.BOUND, limbs.BOUND + 1, (20, mul_n),
+                                          dtype=np.int32)).to(dev) for _ in range(2))
+    a[:, 0], b[:, 0] = limbs.BOUND, -limbs.BOUND  # the loose extremes, both signs
+    a[10:, 1], b[:10, 1] = -limbs.BOUND, -limbs.BOUND
+    variant = limbs.MUL_VARIANT
+    products, times = {}, {}
+    try:
+        for name in ("schoolbook", "matmulfold"):
+            limbs.MUL_VARIANT = name
+            products[name] = limbs.mul(a, b)
+            if on_card:
+                synchronize()
+                times[name] = kernel_ms(lambda: limbs.mul(a, b), None, reps)["ms"]
+    finally:
+        limbs.MUL_VARIANT = variant
+    if not torch.equal(products["schoolbook"], products["matmulfold"]):
+        raise AssertionError("limbs.mul: matmulfold differs from schoolbook on the card")
+    out["mul_variants"] = {"n": mul_n, "bit_equal": True, "ms": times,
+                           "timed_by": "CUDA events around reps calls held behind a spin "
+                                       "kernel (each call many launches)"}
+    return out
+
+
 def vectors_check(dev) -> dict:
     """The ``vectors`` check: the pinned vectors of ``tests/vectors`` on
     the card.  ``commitments`` (with ``comb_tables`` of G and H) gives
@@ -5097,9 +5253,9 @@ def main() -> int:
 
     names = set(pk.kernel_names())
     for table, keys in (("POINT_KERNELS + PIPPENGER_KERNELS + PROVER_KERNELS + "
-                         "CHALLENGE_KERNELS",
+                         "CHALLENGE_KERNELS + DECODE_KERNELS",
                          POINT_KERNELS + PIPPENGER_KERNELS + PROVER_KERNELS
-                         + CHALLENGE_KERNELS),
+                         + CHALLENGE_KERNELS + DECODE_KERNELS),
                         ("REPLACES", REPLACES), ("SOURCES", SOURCES)):
         if set(keys) != names:
             raise AssertionError(f"{table} lists {sorted(keys)}, the library's kernels "
@@ -5190,6 +5346,13 @@ def main() -> int:
     chal = device_challenges_phase(params, proofs_out, CHALLENGE_NS, CHALLENGE_REPS,
                                    int32_ops_per_s)
     emit({"phase": "device_challenges", **chal, **card})
+
+    # 5a''. this slice's path: ristretto DECODE on the card at two widths
+    # (its count set to 0 inside just before the phase's decodes and read
+    # just after), and the limbs.mul variants of CPZK_MUL
+    decoded = decode_phase(dev, corpus, DECODE_NS, MUL_VARIANT_N, DECODE_REPS,
+                           int32_ops_per_s, SeededRng(SEED + 31))
+    emit({"phase": "decode", **decoded, **card})
 
     # 5b. the serving plane (its own launch counts, reset inside just before
     # the served traffic and read just after)
@@ -5364,6 +5527,23 @@ def main() -> int:
             "spill_bytes": per_kernel[name].get("spill_store_bytes"),
             "launches_in_batch_prove": proved["launches"][name],
             "launches_in_device_challenges": chal["launches"][name],
+        })
+    for name in DECODE_KERNELS:
+        results = decoded["results"]
+        main_row = next(r for r in results if r["n"] == MAIN_N)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": SOURCES[name][0], "sources": SOURCES[name],
+            "replaces": REPLACES[name], "launches": decoded["launches"][name],
+            "max_abs_err": max(max(r["max_abs_err"], r["host_max_abs_err"]) for r in results),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": None, "shape": {"n": MAIN_N},
+            "timed": [{k: r[k] for k in ("n", "ms", "plain_ms", "bound_ms", "bound_by")}
+                      for r in results],
+            "registers": per_kernel[name].get("registers"),
+            "spill_bytes": per_kernel[name].get("spill_store_bytes"),
+            "launches_in_decode": decoded["launches"][name],
         })
     for entry in kernels[:len(POINT_KERNELS)]:
         entry["launches_in_batch_prove_verify"] = \

@@ -12,6 +12,11 @@ must not be loaded on another CPU); concurrent first builds take an
 exclusive file lock, compile to a per-process temporary file and
 ``os.replace`` it into place, so every process loads one complete library.
 
+:func:`build_sanitizer_driver` links ``native/tsan_driver.cpp`` (the row
+pool, threaded challenges and the comb rwlock under churn) with the same
+``SOURCES`` under ThreadSanitizer or AddressSanitizer with UBSan, so an
+instrumented run covers exactly what serving loads.
+
 There is no silent fallback: a failed build or load raises
 :class:`NativeCoreError` with the compiler's output in the message.  The
 pure-Python twins of these functions live beside their callers under
@@ -40,6 +45,15 @@ CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 #: ``cpzk_abi_version()`` that ``ristretto.cpp`` must report.
 ABI_VERSION = 4
+#: The sanitizer driver and its builds: the flags of the reference
+#: Makefile's ``tsan`` / ``asan-ubsan`` targets (``SAN_CXXFLAGS`` plus each
+#: kind's own), keyed by the ``-fsanitize=`` value.
+SAN_DRIVER = SRC_DIR / "tsan_driver.cpp"
+SAN_CXX_FLAGS = ("-O1", "-g", "-std=c++17", "-Wall", "-Wextra")
+SANITIZERS = {
+    "thread": ("-fsanitize=thread",),
+    "address,undefined": ("-fsanitize=address,undefined", "-fno-sanitize-recover=all"),
+}
 
 _LIB: ctypes.CDLL | None = None
 _LIB_LOCK = threading.Lock()
@@ -66,25 +80,26 @@ def _cpu_model() -> str:
     return platform.processor()
 
 
-def library_name(cxx: str | None = None) -> str:
-    """File name of the library these sources, compiler, flags and CPU give."""
-    cxx = cxx or CXX
+def _digest(cxx: str, flags: tuple[str, ...], sources: tuple[Path, ...]) -> str:
+    """Hash of a build: compiler, flags, CPU and every source's bytes."""
     h = hashlib.sha256()
-    for part in (cxx, *CXX_FLAGS, *_arch_flags(), platform.machine(), _cpu_model()):
+    for part in (cxx, *flags, *_arch_flags(), platform.machine(), _cpu_model()):
         h.update(part.encode() + b"\0")
-    for src in SOURCES:
+    for src in sources:
         h.update(src.name.encode() + b"\0")
         h.update(src.read_bytes())
-    return f"libcpzk_host_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
 
 
-def build(cxx: str | None = None, out_dir: Path | None = None) -> Path:
-    """Compile the sources with ``cxx`` (default :data:`CXX`) into
-    ``out_dir`` (default :data:`BUILD_DIR`) unless a library for them
-    already exists there; returns its path.  Raises :class:`NativeCoreError`
-    with the compiler's output when the compiler fails."""
-    cxx = cxx or CXX
-    out = Path(out_dir or BUILD_DIR) / library_name(cxx)
+def library_name(cxx: str | None = None) -> str:
+    """File name of the library these sources, compiler, flags and CPU give."""
+    return f"libcpzk_host_{_digest(cxx or CXX, CXX_FLAGS, SOURCES)}.so"
+
+
+def _compile(out: Path, cmd_for, what: str) -> Path:
+    """Build ``out`` unless it exists: under an exclusive lock beside it,
+    ``cmd_for(tmp)`` compiles to a per-process temporary name that is
+    renamed into place, so every process finds one complete file."""
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -93,19 +108,52 @@ def build(cxx: str | None = None, out_dir: Path | None = None) -> Path:
         if out.exists():  # another process built it while this one waited
             return out
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [cxx, *CXX_FLAGS, *_arch_flags(), "-o", str(tmp),
-               *map(str, SOURCES), "-lpthread"]
+        cmd = cmd_for(tmp)
         try:
             res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         except OSError as exc:
-            raise NativeCoreError(f"host core build failed: {' '.join(cmd)}: {exc}") from exc
+            raise NativeCoreError(f"{what} build failed: {' '.join(cmd)}: {exc}") from exc
         if res.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise NativeCoreError(
-                f"host core build failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{what} build failed ({res.returncode}): {' '.join(cmd)}\n"
                 f"{res.stderr}{res.stdout}")
         os.replace(tmp, out)
     return out
+
+
+def build(cxx: str | None = None, out_dir: Path | None = None) -> Path:
+    """Compile the sources with ``cxx`` (default :data:`CXX`) into
+    ``out_dir`` (default :data:`BUILD_DIR`) unless a library for them
+    already exists there; returns its path.  Raises :class:`NativeCoreError`
+    with the compiler's output when the compiler fails."""
+    cxx = cxx or CXX
+    return _compile(
+        Path(out_dir or BUILD_DIR) / library_name(cxx),
+        lambda tmp: [cxx, *CXX_FLAGS, *_arch_flags(), "-o", str(tmp),
+                     *map(str, SOURCES), "-lpthread"],
+        "host core")
+
+
+def build_sanitizer_driver(kind: str, cxx: str | None = None,
+                           out_dir: Path | None = None) -> Path:
+    """The sanitizer driver executable for ``kind`` (a key of
+    :data:`SANITIZERS`: ``"thread"`` or ``"address,undefined"``): the
+    library's own :data:`SOURCES` plus :data:`SAN_DRIVER`, built with
+    :data:`SAN_CXX_FLAGS` into ``out_dir`` (default :data:`BUILD_DIR`)
+    unless it exists there.  Raises :class:`NativeCoreError` as
+    :func:`build` does, and ``ValueError`` for an unknown ``kind``."""
+    if kind not in SANITIZERS:
+        raise ValueError(f"sanitizer {kind!r} is not one of {tuple(SANITIZERS)}")
+    cxx = cxx or CXX
+    flags = SAN_CXX_FLAGS + SANITIZERS[kind]
+    sources = SOURCES + (SAN_DRIVER,)
+    tag = "tsan" if kind == "thread" else "asan"
+    return _compile(
+        Path(out_dir or BUILD_DIR) / f"cpzk_{tag}_driver_{_digest(cxx, flags, sources)}",
+        lambda tmp: [cxx, *flags, *_arch_flags(), "-o", str(tmp),
+                     *map(str, sources), "-lpthread"],
+        f"{kind} sanitizer driver")
 
 
 def _declare(lib: ctypes.CDLL) -> None:

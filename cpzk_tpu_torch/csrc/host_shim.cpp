@@ -2,7 +2,7 @@
 // ristretto_w32.cuh, prove_w32.cuh and keccak_u64.cuh:
 // a C interface over limb-major [20, n] int32 arrays, looping over lanes on
 // the CPU, so the tests can hold the kernels' field, point and scalar
-// arithmetic, the Pippenger thread bodies, ristretto encode, the prover's
+// arithmetic, the Pippenger thread bodies, ristretto encode and decode, the prover's
 // comb and walk bodies and the Keccak chain against the plain PyTorch
 // versions with a host C++ compiler:
 //
@@ -168,6 +168,21 @@ void host_ristretto_encode(const int32_t* x, const int32_t* y, const int32_t* z,
     uint8_t b[32];
     cpzk::ristretto_encode(b, p);
     for (int i = 0; i < 32; ++i) out[(long)i * n + j] = b[i];
+  }
+}
+
+// ristretto_decode_kernel's thread body for every lane j < n: [n, 32] byte
+// rows -> [4, 8, n] canonical words and [n] validity bytes
+void host_ristretto_decode(const uint8_t* wire, uint32_t* words, uint8_t* valid, int n) {
+  for (int j = 0; j < n; ++j) {
+    Fe p[4];
+    const uint32_t ok = cpzk::ristretto_decode(p, wire + (long)j * 32);
+    for (int c = 0; c < 4; ++c) {
+      Fe v;
+      cpzk::fe_canonical(v, p[c]);
+      for (int i = 0; i < NW; ++i) words[(long)(8 * c + i) * n + j] = v.w[i];
+    }
+    valid[j] = (uint8_t)ok;
   }
 }
 

@@ -23,6 +23,8 @@ live on its operand's device (:func:`on`).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -256,6 +258,20 @@ def neg(a: torch.Tensor) -> torch.Tensor:
     return -a
 
 
+#: Multiplication strategy, from ``CPZK_MUL`` at import: "schoolbook" (the
+#: default: outer product and one anti-diagonal sum) or "matmulfold" (the
+#: same outer product folded by a shared [39, 400] 0/1 matrix, as the JAX
+#: package's MXU experiment does).  Both are bit-exact.  No H100 measurement
+#: chooses between them; the default is the reference's.
+_MUL_VARIANTS = ("schoolbook", "matmulfold")
+MUL_VARIANT = os.environ.get("CPZK_MUL", "schoolbook")
+if MUL_VARIANT not in _MUL_VARIANTS:
+    raise ValueError(
+        f"CPZK_MUL={MUL_VARIANT!r} is not one of {_MUL_VARIANTS} — refusing "
+        "to silently benchmark the default under a mislabeled name"
+    )
+
+
 def _raw_schoolbook(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
     """[n, ...] x [n, ...] -> un-carried [2n-1, ...] anti-diagonal sums.
 
@@ -269,13 +285,48 @@ def _raw_schoolbook(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
     return flat.reshape((n, 2 * n - 1) + batch).sum(dim=0, dtype=I32)
 
 
+_FOLD_MATRICES: dict = {}  # (device, dtype) -> [39, 400] fold, built on first use
+
+
+def _fold_matrix(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    key = (device, dtype)
+    if key not in _FOLD_MATRICES:
+        f = np.zeros((2 * NLIMBS - 1, NLIMBS * NLIMBS), dtype=np.int32)
+        for i in range(NLIMBS):
+            for j in range(NLIMBS):
+                f[i + j, i * NLIMBS + j] = 1
+        _FOLD_MATRICES[key] = torch.from_numpy(f).to(device=device, dtype=dtype)
+    return _FOLD_MATRICES[key]
+
+
+def _mul_matmulfold(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Anti-diagonal fold as one shared-matrix product: prod[k] =
+    sum_{i+j=k} outer[i, j] is the fixed 0/1 map F [39, 400], so the
+    product is ``F @ outer_flat`` with outer_flat [400, prod(batch)].
+
+    torch has no int32 matrix product on CUDA, so there the fold runs in
+    float64 and is cast back.  That is exact: under the loose carried-form
+    bound |limb| <= 9500 each fold sum is at most 20 * 9500^2 ~ 1.8e9 < 2^53
+    (and < 2^31, so the int32 result is the JAX package's).  float32 and
+    TF32 would round it.  On the CPU the product stays int32."""
+    batch = tuple(a.shape[1:])
+    flat = (a[:, None] * b[None, :]).reshape(NLIMBS * NLIMBS, -1)  # [400, prod(batch)]
+    if flat.is_cuda:
+        prod = (_fold_matrix(flat.device, torch.float64) @ flat.to(torch.float64)).to(I32)
+    else:
+        prod = _fold_matrix(flat.device, I32) @ flat
+    return prod.reshape((2 * NLIMBS - 1,) + batch)
+
+
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched field multiply: schoolbook 20x20 -> 39-limb product, then
-    fold+carry."""
+    """Batched field multiply: schoolbook 20x20 -> 39-limb product (or the
+    CPZK_MUL-selected variant), then fold+carry."""
     a, b = _align(a, b)
     batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
     a = a.expand((NLIMBS,) + tuple(batch))
     b = b.expand((NLIMBS,) + tuple(batch))
+    if MUL_VARIANT == "matmulfold":
+        return carry_product(_mul_matmulfold(a, b))
     return carry_product(_raw_schoolbook(a, b, NLIMBS))
 
 

@@ -281,13 +281,13 @@ def build(csrc: Path = CSRC) -> tuple[Path, str]:
 
 def kernel_modules() -> tuple:
     """The modules of the library's kernels: this one, :mod:`.scalar_kernels`,
-    :mod:`.msm_kernels`, :mod:`.keccak_kernels` and :mod:`.prove_kernels`.
-    The one registry of the kernels: each module's ``LAUNCHES`` keys are its
-    kernels' wrapper names."""
-    from . import keccak_kernels, msm_kernels, prove_kernels, scalar_kernels
+    :mod:`.msm_kernels`, :mod:`.keccak_kernels`, :mod:`.prove_kernels` and
+    :mod:`.decode_kernels`.  The one registry of the kernels: each module's
+    ``LAUNCHES`` keys are its kernels' wrapper names."""
+    from . import decode_kernels, keccak_kernels, msm_kernels, prove_kernels, scalar_kernels
 
     return (sys.modules[__name__], scalar_kernels, msm_kernels, keccak_kernels,
-            prove_kernels)
+            prove_kernels, decode_kernels)
 
 
 def kernel_names() -> tuple[str, ...]:
@@ -348,6 +348,7 @@ ENTRY_POINTS = {
     "cpzk_keccak_chain": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
     "cpzk_comb_tables": [_P] * 6,
     "cpzk_commitments": [_P] * 5 + [_I, _P],
+    "cpzk_ristretto_decode": [_P, _I, _P, _P, _P],
 }
 
 
@@ -400,6 +401,37 @@ def _lanes(coords, device: torch.device) -> tuple[list[torch.Tensor], tuple[int,
     if flat[0].shape[1] < 1:
         raise ValueError("point kernels need at least one lane")
     return flat, tuple(shape)
+
+
+def words_of_limbs(lim: torch.Tensor) -> torch.Tensor:
+    """``[..., 20]`` limbs in [0, 2^13) -> ``[..., 8]`` int32 words of the same
+    value (below 2^256; the words read as unsigned 32-bit values)."""
+    lim = lim.to(torch.int64)
+    words = []
+    for k in range(8):
+        acc = torch.zeros(lim.shape[:-1], dtype=torch.int64, device=lim.device)
+        for i in range(NLIMBS):
+            shift = limbs.LIMB_BITS * i - 32 * k
+            if -limbs.LIMB_BITS < shift < 32:
+                acc = acc | (lim[..., i] << shift if shift >= 0 else lim[..., i] >> -shift)
+        acc = acc & 0xFFFFFFFF
+        words.append(acc - ((acc >> 31) << 32))
+    return torch.stack(words, dim=-1).to(torch.int32)
+
+
+def limbs_of_words(words: torch.Tensor) -> torch.Tensor:
+    """``[..., 8]`` int32 words -> ``[..., 20]`` int32 limbs in [0, 2^13), the
+    same value."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    out = []
+    for i in range(NLIMBS):
+        bit = limbs.LIMB_BITS * i
+        wd, sh = bit >> 5, bit & 31
+        v = w[..., wd] >> sh
+        if sh > 32 - limbs.LIMB_BITS and wd + 1 < 8:
+            v = v | (w[..., wd + 1] << (32 - sh))
+        out.append((v & limbs.LIMB_MASK).to(torch.int32))
+    return torch.stack(out, dim=-1)
 
 
 def _check(rc: int, name: str) -> None:

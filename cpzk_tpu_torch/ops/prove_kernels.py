@@ -49,7 +49,7 @@ from . import curve, limbs
 from .limbs import NLIMBS
 from .point_kernels import (
     ADD_OPS_PER_LANE, W32_MUL_OPS, W32_SQ_OPS, _check, count_launch, double_k_ops_per_lane,
-    library, on_card, point_add_plain, point_double_k_plain,
+    library, limbs_of_words, on_card, point_add_plain, point_double_k_plain, words_of_limbs,
 )
 
 Point = curve.Point
@@ -107,16 +107,7 @@ def table_limbs(table) -> LimbTable:
     tensors (kernel words become digits in [0, 2^13) of the same value)."""
     if not isinstance(table, torch.Tensor):
         return tuple(table)
-    w = table.reshape(WORDS_SHAPE).to(torch.int64) & 0xFFFFFFFF  # [64, 16, 4, 8]
-    out = []
-    for i in range(NLIMBS):
-        bit = limbs.LIMB_BITS * i
-        wd, sh = bit >> 5, bit & 31
-        v = w[..., wd] >> sh
-        if sh > 32 - limbs.LIMB_BITS and wd + 1 < 8:
-            v = v | (w[..., wd + 1] << (32 - sh))
-        out.append((v & limbs.LIMB_MASK).to(torch.int32))
-    lim = torch.stack(out, dim=-1)  # [64, 16, 4, 20]
+    lim = limbs_of_words(table.reshape(WORDS_SHAPE))  # [64, 16, 4, 20]
     return tuple(lim[:, :, c, :, None].contiguous() for c in range(4))
 
 
@@ -126,18 +117,8 @@ def table_words(table) -> torch.Tensor:
     if isinstance(table, torch.Tensor):
         return table.reshape(WORDS_SHAPE)
     lim = torch.stack([limbs.canonical(c[..., 0].movedim(-1, 0)).movedim(0, -1)
-                       for c in table], dim=2).to(torch.int64)  # [64, 16, 4, 20]
-    words = []
-    for k in range(8):
-        acc = torch.zeros(lim.shape[:-1], dtype=torch.int64, device=lim.device)
-        for i in range(NLIMBS):
-            shift = limbs.LIMB_BITS * i - 32 * k
-            if -limbs.LIMB_BITS < shift < 32:
-                part = lim[..., i] << shift if shift >= 0 else lim[..., i] >> -shift
-                acc = acc | part
-        acc = acc & 0xFFFFFFFF
-        words.append(acc - ((acc >> 31) << 32))
-    return torch.stack(words, dim=-1).to(torch.int32).contiguous()
+                       for c in table], dim=2)  # [64, 16, 4, 20]
+    return words_of_limbs(lim).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,10 @@ scalar kernels exact (``torch.equal``: both canonical); the MSM kernels
 equal as group elements (the encodings: the order of the adds differs).
 The Keccak chain and the wide reduction exact; the comb tables equal
 after canonicalization; the commitments' bytes identical (and equal to the
-host core's comb).  Also the launch counters and the block size.  Needs an NVIDIA GPU
+host core's comb).  The ristretto DECODE kernel's canonical words and
+validity exact, on valid, random and rejected encodings; the matmulfold
+multiply bit for bit the schoolbook one in float64 on the card.  Also the
+launch counters and the block size.  Needs an NVIDIA GPU
 with nvcc: marked ``cuda`` and skipped elsewhere.  On the machine with the
 card (no JAX there, so without tests/conftest.py):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q``."""
@@ -20,6 +23,7 @@ from cpzk_tpu_torch.core import edwards as he
 from cpzk_tpu_torch.core.scalars import L
 from cpzk_tpu_torch.ops import curve, limbs, msm, msm_kernels as mk, point_kernels as pk
 from cpzk_tpu_torch.ops import scalar_kernels as sk, sclimbs as sc
+from cpzk_tpu_torch.ops import decode_kernels as dk
 from cpzk_tpu_torch.ops import keccak_kernels as kk, prove_kernels as pvk
 
 pytestmark = pytest.mark.cuda
@@ -188,3 +192,40 @@ def test_prover_kernels_match_plain_on_card(dev):
     with pytest.raises(ValueError, match="words"):
         pvk.commitments(pvk.table_limbs(tg), th, digits)
     assert pvk.LAUNCHES["commitments"] == 3
+
+
+def test_ristretto_decode_matches_plain_on_card(dev):
+    from cpzk_tpu_torch import Parameters
+    from cpzk_tpu_torch.core import edwards
+
+    params = Parameters.new()
+    valid = [params.generator_g.wire(), params.generator_h.wire(), bytes(32)]
+    special = [(edwards.P + 2).to_bytes(32, "little"), (3).to_bytes(32, "little"),
+               b"\xff" * 32, edwards.P.to_bytes(32, "little")]
+    rng = np.random.default_rng(11)
+    for n in (1, 127, 4096):
+        rows = (valid + special + [rng.bytes(32) for _ in range(n)])[:n]
+        wires = torch.from_numpy(np.frombuffer(b"".join(rows), dtype=np.uint8)
+                                 .reshape(n, 32).copy()).to(dev)
+        dk.reset_launches()
+        words, ok = dk.ristretto_decode(wires)
+        torch.cuda.synchronize()
+        assert dk.LAUNCHES == {"ristretto_decode": 1}
+        assert words.device == dev and words.shape == (4, 8, n) and ok.shape == (n,)
+        ref_words, ref_ok = dk.ristretto_decode_plain(wires)
+        assert torch.equal(ok, ref_ok) and torch.equal(words, ref_words)
+        for j in range(min(n, 7)):
+            assert bool(ok[j]) == (j < 3)
+    with pytest.raises(ValueError, match=r"\[n, 32\] uint8"):
+        dk.ristretto_decode(wires.t().contiguous())
+    assert dk.LAUNCHES == {"ristretto_decode": 1}
+
+
+def test_matmulfold_matches_schoolbook_on_card(dev, monkeypatch):
+    a, b = coords(dev, 4096, 2, 12)
+    a[:, 0], b[:, 0] = limbs.BOUND, -limbs.BOUND
+    monkeypatch.setattr(limbs, "MUL_VARIANT", "schoolbook")
+    school = limbs.mul(a, b)
+    monkeypatch.setattr(limbs, "MUL_VARIANT", "matmulfold")
+    assert torch.equal(limbs.mul(a, b), school)
+    assert torch.equal(limbs._mul_matmulfold(a, b), limbs._raw_schoolbook(a, b, 20))

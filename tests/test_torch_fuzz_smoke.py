@@ -9,7 +9,8 @@ partition-map targets hold the audit pipeline's parse-and-fold layer and
 the partition map's parse and routing totality, the WAL-replay target the
 log's frame parse, boot replay and segmented delivery into the standby's
 ``SegmentApplier`` (duplicated, reordered, truncated, tampered and
-cross-epoch segments); the other four the proof codec, statement
+cross-epoch segments), the lint target that the port's analyser never
+raises on any source; the other four the proof codec, statement
 validation, admission and the request-wire parser.
 """
 
@@ -43,6 +44,7 @@ def _load(name: str):
         ("fuzz_partition_map", 400),
         ("fuzz_wire_parse", 400),
         ("fuzz_wal_replay", 300),
+        ("fuzz_lint", 150),
     ],
 )
 def test_fuzz_target_smoke(target, runs):

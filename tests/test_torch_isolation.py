@@ -72,6 +72,10 @@ def test_import_pulls_in_neither_jax_nor_cpzk_tpu():
         "import cpzk_tpu_torch.parallel.mesh, cpzk_tpu_torch.parallel.multihost\n"
         "import cpzk_tpu_torch.server.router, cpzk_tpu_torch.fleet.controller\n"
         "import cpzk_tpu_torch.observability.regress\n"
+        "import cpzk_tpu_torch.ops.decode_kernels\n"
+        "import cpzk_tpu_torch.analysis, cpzk_tpu_torch.analysis.model\n"
+        "import cpzk_tpu_torch.analysis.__main__, cpzk_tpu_torch.analysis.rules\n"
+        "cpzk_tpu_torch.analysis.analyze_source('x = 1\\n')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cpzk_tpu')]\n"
         "assert not bad, bad\n"
         "top = [m for m in sys.modules if m in ('auth_pb2', 'health_pb2', 'replication_pb2')]\n"

@@ -25,7 +25,10 @@ plain tables after canonicalization, and ``commitments_kernel``'s lane body
 (walk and encode) against the plain commitments and the host core's comb
 (bytes identical); and ``csrc/keccak_u64.cuh``'s absorb chain of
 ``keccak_chain_kernel`` against the plain int32-pair Keccak (words
-identical).  Skips where g++ is missing."""
+identical); and ``ristretto_decode``'s lane body (``csrc/ristretto_w32.cuh``)
+on ``chip_smoke.py``'s decode inputs against the plain and the JAX
+``curve.decode``, the host core's ``batch_decode`` and the pure decode
+(validity equal, canonical words exact).  Skips where g++ is missing."""
 
 import ctypes
 import random
@@ -39,6 +42,7 @@ import torch
 from cpzk_tpu_torch.core import edwards as he
 from cpzk_tpu_torch.core.scalars import L
 from cpzk_tpu_torch.ops import curve, limbs, msm, point_kernels as pk, sclimbs as sc
+from cpzk_tpu_torch.ops import decode_kernels as dk
 from cpzk_tpu_torch.ops import keccak, keccak_kernels as kk, prove_kernels as pvk
 
 N = 96
@@ -93,6 +97,7 @@ def host_lib(tmp_path_factory):
     lib.host_fe_is_negative.argtypes = [P_, P_, I]
     lib.host_fe_sqrt_ratio_m1.argtypes = [P_] * 4 + [I]
     lib.host_ristretto_encode.argtypes = [P_] * 5 + [I]
+    lib.host_ristretto_decode.argtypes = [P_] * 3 + [I]
     lib.host_comb_window.argtypes = [P_] * 4 + [I, P_]
     lib.host_commitments.argtypes = [P_] * 5 + [I]
     lib.host_keccak_chain.argtypes = [P_, P_, I, P_, P_, I, I, P_, P_]
@@ -100,7 +105,8 @@ def host_lib(tmp_path_factory):
                lib.host_point_double_k, lib.host_sc_op, lib.host_sc_reduce_wide,
                lib.host_sc_windows, lib.host_sc_signed_digits, lib.host_msm_bucket,
                lib.host_msm_window_reduce, lib.host_fe_is_negative,
-               lib.host_fe_sqrt_ratio_m1, lib.host_ristretto_encode, lib.host_comb_window,
+               lib.host_fe_sqrt_ratio_m1, lib.host_ristretto_encode,
+               lib.host_ristretto_decode, lib.host_comb_window,
                lib.host_commitments, lib.host_keccak_chain):
         fn.restype = None
     return lib
@@ -427,6 +433,59 @@ def test_encode_matches_plain(host_lib):
     z_inv = limbs.mul(limbs.mul(limbs.mul(inv, u1), limbs.mul(inv, u2)), T0)
     rotate = limbs.is_negative(limbs.mul(T0, z_inv))
     assert bool(rotate.any()) and not bool(rotate.all())
+
+
+# -- ristretto decode (ristretto_w32.cuh, decode_ops.cu's thread body) ------
+
+@pytest.fixture(scope="module")
+def decode_inputs():
+    """The ``decode`` phase's inputs of ``chip_smoke.py`` at 96 lanes: the
+    rejected cases of tests/test_ristretto.py, p, p - 1, bit 255 set over a
+    valid encoding, the identity, then corpus encodings and random bytes."""
+    import pathlib
+    import runpy
+
+    smoke = runpy.run_path(str(pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"),
+                           run_name="chip_smoke_inputs")
+    _, corpus, _ = smoke["make_corpus"](4, smoke["SeededRng"](7))
+    wires, kinds = smoke["decode_wires"](96, corpus, smoke["SeededRng"](8))
+    return wires, kinds, smoke["host_decode_words"]
+
+
+def test_decode_matches_plain_jax_and_host_core(host_lib, decode_inputs):
+    """The kernel's lane body gives the plain ``curve.decode``'s validity
+    and canonical words exactly, and the JAX package's ``curve.decode``
+    (compared after canonicalization); valid lanes hold the host core's
+    ``batch_decode`` points, invalid ones the identity; every listed case
+    and every random row is decided as the reference's pure decode decides
+    it."""
+    import jax.numpy as jnp
+
+    from cpzk_tpu.ops import curve as jax_curve
+
+    wires, kinds, host_decode_words = decode_inputs
+    n = wires.shape[0]
+    words = torch.empty((4, 8, n), dtype=torch.int32)
+    valid = torch.empty(n, dtype=torch.uint8)
+    host_lib.host_ristretto_decode(ptr(torch.from_numpy(wires)), ptr(words), ptr(valid), n)
+    plain_words, plain_valid = dk.ristretto_decode_plain(torch.from_numpy(wires))
+    assert torch.equal(valid, plain_valid) and torch.equal(words, plain_words)
+    point, jax_valid = jax_curve.decode(jnp.asarray(wires.T.astype(np.int32)))
+    assert np.array_equal(np.asarray(jax_valid), valid.numpy().astype(bool))
+    jax_words = dk.limbs_to_words(tuple(torch.from_numpy(np.asarray(c)) for c in point))
+    assert torch.equal(jax_words, words)
+    host_words, host_valid = host_decode_words(wires)
+    ok = valid.bool()
+    assert torch.equal(valid, host_valid) and torch.equal(words[..., ok], host_words[..., ok])
+    identity = dk.limbs_to_words(tuple(torch.from_numpy(limbs.int_to_limbs(v)[:, None])
+                                       for v in (0, 1, 1, 0)))
+    assert torch.equal(words[..., ~ok], identity.expand(4, 8, int((~ok).sum())))
+    for i, kind in enumerate(kinds):
+        assert bool(ok[i]) == (he.ristretto_decode(wires[i].tobytes()) is not None), (i, kind)
+        if kind != "random":
+            assert bool(ok[i]) == (kind in ("corpus", "identity")), (i, kind)
+    assert 0 < int(ok[[i for i, k in enumerate(kinds) if k == "random"]].sum()) < kinds.count(
+        "random")  # random bytes met both verdicts
 
 
 # -- the batch prover's thread bodies (prove_w32.cuh) ------------------------

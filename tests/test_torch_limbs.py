@@ -160,3 +160,69 @@ def test_host_conversions_match_jax(inputs):
     rows = np.stack([np.frombuffer(hf.fe_to_bytes(x), dtype=np.uint8) for x in a])
     np.testing.assert_array_equal(tl.bytes_to_limbs(rows), jl.bytes_to_limbs(rows))
     assert tl.limbs_to_ints(convert.tensor(la, "cpu")) == a
+
+
+# -- CPZK_MUL: the matmulfold variant (twin of
+# tests/test_ops_limbs.py::test_mul_variants_bit_exact) -----------------------
+
+#: loose carried-form extremes with mixed-sign halves: low half +bound,
+#: high half -bound (the shape that overflowed the reference's removed
+#: Karatsuba variant), and the reverse
+MIXED_A = np.concatenate([np.full((10, 3), BOUND), np.full((10, 3), -BOUND)]).astype(np.int32)
+MIXED_B = np.concatenate([np.full((10, 3), -BOUND), np.full((10, 3), BOUND)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("variant", ["schoolbook", "matmulfold"])
+def test_mul_variants_match_jax(inputs, variant, monkeypatch):
+    """Under each ``CPZK_MUL`` variant the port's ``mul`` equals the JAX
+    package's under the same variant limb for limb (exact), on field
+    values, on the loose-limb extremes and on mixed-sign halves at the
+    bound, and both variants give the host field's products."""
+    monkeypatch.setattr(jl, "MUL_VARIANT", variant)
+    monkeypatch.setattr(tl, "MUL_VARIANT", variant)
+    a, b, la, lb = inputs
+    got = tl.mul(convert.tensor(la, "cpu"), convert.tensor(lb, "cpu"))
+    same(jl.mul(la, lb), got)
+    assert canon_ints(got) == [hf.fmul(x, y) for x, y in zip(a, b)]
+    for xa, xb in ((ADVERSARIAL, ADVERSARIAL[:, ::-1].copy()), (MIXED_A, MIXED_B),
+                   (MIXED_B, MIXED_A)):
+        got = tl.mul(convert.tensor(xa, "cpu"), convert.tensor(xb, "cpu"))
+        same(jl.mul(xa, xb), got)
+        want = [jl.limbs_to_int(xa[:, i]) * jl.limbs_to_int(xb[:, i]) % hf.P
+                for i in range(xa.shape[1])]
+        assert canon_ints(got) == want
+
+
+def test_matmulfold_product_matches_jax(inputs):
+    """The uncarried 39-limb fold itself is the JAX package's, and equals
+    the schoolbook anti-diagonal sums (int32 on the CPU)."""
+    _, _, la, lb = inputs
+    for xa, xb in ((la, lb), (MIXED_A, MIXED_B)):
+        ta, tb = convert.tensor(xa, "cpu"), convert.tensor(xb, "cpu")
+        fold = tl._mul_matmulfold(ta, tb)
+        assert fold.dtype == torch.int32 and fold.shape == (39,) + tuple(xa.shape[1:])
+        same(jl._mul_matmulfold(xa, xb), fold)
+        assert torch.equal(fold, tl._raw_schoolbook(ta, tb, 20))
+
+
+@pytest.mark.parametrize("value,ok", [("matmulfold", True), ("karatsuba", False)])
+def test_cpzk_mul_is_read_at_import(value, ok):
+    """``CPZK_MUL`` picks the variant when the module is imported; an
+    unknown value is refused with the reference's ``ValueError``."""
+    import os
+    import subprocess
+    import sys
+
+    done = subprocess.run(
+        [sys.executable, "-c",
+         "from cpzk_tpu_torch.ops import limbs; print(limbs.MUL_VARIANT)"],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, CPZK_MUL=value))
+    if ok:
+        assert done.returncode == 0, done.stderr
+        assert done.stdout.strip() == value
+    else:
+        assert done.returncode != 0
+        assert ("ValueError: CPZK_MUL='karatsuba' is not one of ('schoolbook', "
+                "'matmulfold') — refusing to silently benchmark the default under a "
+                "mislabeled name") in done.stderr
