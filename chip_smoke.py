@@ -39,10 +39,14 @@ seconds since the script started):
    MSM at m in {2048, 18432} terms (18,432: the 4096-row check's terms,
    two chunks at c = 11), with the digits of random scalars, the same with
    window 1 all +-2^(c-1) (the top bucket), and digits that put every term
-   of a window in one bucket: equal as group elements (the encodings; the order of
-   the adds differs, so the limbs may).  Device times beside the bounds at
-   the 4096- and 16,384-row shapes; and the batch prover's and the device
-   challenges' kernels: ``comb_tables`` for G and H (tables equal to the
+   of a window in one bucket, and the random and top-bucket digits at c = 4
+   and c = 16 on one 2,048-term chunk: equal as group elements (the
+   encodings; the order of the adds differs, so the limbs may).  Device
+   times beside the bounds at the 4096- and 16,384-row shapes (the MSM
+   pair per wrapper call, its two ``__global__`` launches, by CUDA events
+   on the random and the one-bucket digits, and once by the profiler,
+   with ``msm_window_reduce``'s chain floor); and the batch prover's and
+   the device challenges' kernels: ``comb_tables`` for G and H (tables equal to the
    plain ones after canonicalization), ``commitments`` at n in {1, 127,
    4096, 16,384} lanes (bytes identical, and equal to the host core's comb
    on a sample), ``keccak_chain`` with 3 masks (a state per row and one
@@ -396,6 +400,10 @@ SCALAR_TIMED_NS = (4096, 16384)
 MSM_MS = (2048, 18432)
 MSM_C = 11
 MSM_CHUNK = 16384
+#: the window sizes checked besides MSM_C (the smallest and largest
+#: histograms), and the calls each timed run of an MSM kernel makes
+MSM_OTHER_CS = (4, 16)
+MSM_TIMED_REPS = 10
 #: rows of the pippenger phase's A/B, and its reps (turns per config)
 AB_NS = (4096, 16384)
 AB_REPS = 3
@@ -534,15 +542,19 @@ def profiled(work):
             and not evt.key.startswith("ProfilerStep")]
 
 
-def device_ms(name: str, kernel, plain, reps: int, plain_reps: int) -> dict:
+def device_ms(name: str, kernel, plain, reps: int, plain_reps: int,
+              kernels: tuple[str, ...] | None = None) -> dict:
     """Device time per call of a kernel and of its plain version: the
-    kernel's own events (by name) over ``reps`` calls, and every device
-    event of ``plain_reps`` calls of the plain version."""
+    kernel's own events (by name: ``kernels``, the ``__global__`` functions
+    one call launches, by default ``<name>_kernel``) over ``reps`` calls,
+    and every device event of ``plain_reps`` calls of the plain version
+    (``plain=None``: the kernel alone)."""
+    kernels = kernels or (f"{name}_kernel",)
 
     def work():
         for _ in range(reps):
             kernel()
-        for _ in range(plain_reps):
+        for _ in range(plain_reps if plain is not None else 0):
             plain()
 
     # the profiler can miss a step's launches altogether; such a step is
@@ -551,19 +563,21 @@ def device_ms(name: str, kernel, plain, reps: int, plain_reps: int) -> dict:
         ours_us = other_us = 0.0
         ours_count = other_count = 0
         for key, us, count in profiled(work):
-            if f"::{name}_kernel(" in key:
+            if any(f"::{k}(" in key for k in kernels):
                 ours_us += us
                 ours_count += count
             else:
                 other_us += us
                 other_count += count
-        if ours_count >= 1 and other_us > 0:
+        if ours_count >= 1 and (other_us > 0 or plain is None):
             break
     else:
         raise AssertionError(f"{name}: the profiler saw no device time")
-    return {"ms": ours_us / 1e3 / ours_count, "plain_ms": other_us / 1e3 / plain_reps,
-            "profiled_launches": ours_count, "expected_launches": reps,
-            "plain_kernel_launches_per_call": other_count / plain_reps}
+    return {"ms": ours_us / 1e3 / (ours_count / len(kernels)),
+            "plain_ms": other_us / 1e3 / plain_reps if plain is not None else None,
+            "profiled_launches": ours_count, "expected_launches": reps * len(kernels),
+            "plain_kernel_launches_per_call":
+                other_count / plain_reps if plain is not None else None}
 
 
 def kernel_ms(kernel, plain, reps: int, turns: int = 3) -> dict:
@@ -2676,17 +2690,23 @@ def scalar_kernels_vs_plain(dev, ns, cs, timed_ns, int32_ops_per_s: float) -> di
     return rows
 
 
-def msm_kernels_vs_plain(dev, ms, c: int, chunk: int, int32_ops_per_s: float) -> dict:
+def msm_kernels_vs_plain(dev, ms, c: int, chunk: int, int32_ops_per_s: float,
+                         other_cs=MSM_OTHER_CS) -> dict:
     """Phase 3c: the MSM kernels against the plain MSM on every lane chunk
     of m terms: random valid points; digits of random scalars (0, 1, l - 1
     among them), as the main path makes them; the same with window 1 all
     +-2^(c-1), the top bucket; and a full-width case where every digit is
-    5, so each window's terms share one bucket.  ``msm_bucket`` against
-    the plain bucket sums, and ``msm_window_reduce`` (on the kernel's
-    buckets and on the plain ones) against the plain reduction, as group
-    elements: the encodings must be equal.  Device times on the first,
-    full chunk of the random digits (the other two cases put one thread's
-    whole window into one bucket, a serial chain of m adds)."""
+    5, so each window's terms share one bucket.  Then the random and
+    top-bucket digits at each window size of ``other_cs`` on one chunk of
+    ``ms[0]`` terms (the smallest and largest histograms).  ``msm_bucket``
+    against the plain bucket sums, and ``msm_window_reduce`` (on the
+    kernel's buckets and on the plain ones) against the plain reduction, as
+    group elements: the encodings must be equal.  Times on the first, full
+    chunk of the random and the one-bucket digits: each wrapper call (its
+    two ``__global__`` launches) by ``kernel_ms``, and the random case once
+    by the profiler (``device_ms``); and the chain floor of
+    ``msm_window_reduce``: c (K - 1) doublings at the latency of one, from
+    ``point_double_k`` on one lane."""
     import random
 
     import numpy as np
@@ -2697,55 +2717,94 @@ def msm_kernels_vs_plain(dev, ms, c: int, chunk: int, int32_ops_per_s: float) ->
     from cpzk_tpu_torch.ops import curve, msm, msm_kernels as mk, point_kernels as pk
     from cpzk_tpu_torch.ops.backend import _chunk_bounds, _chunk_point
 
+    t_start = time.perf_counter()
     rng = random.Random(SEED + 5)
     np_rng = np.random.default_rng(SEED + 5)
     base = curve.points_to_device(
         [edwards.pt_scalar_mul(edwards.BASEPOINT, rng.randrange(L)) for _ in range(256)], dev)
-    half = 1 << (c - 1)
     rows = {"msm_bucket": [], "msm_window_reduce": []}
 
     def err(a, b) -> int:
         return int((curve.encode(a) - curve.encode(b)).abs().max())
 
-    for m in ms:
+    def timed_row(name, case, p, dd, cc, buckets) -> dict:
+        if name == "msm_bucket":
+            row = {**bound_of(*mk.msm_bucket_work(dd, cc), int32_ops_per_s),
+                   "nonzero_digits": int((dd != 0).sum())}
+            kernel = lambda: mk.msm_bucket(p, dd, cc)  # noqa: E731
+            plain = lambda: msm.bucket_sums_plain(p, dd, cc)  # noqa: E731
+        else:
+            row = bound_of(*mk.msm_window_reduce_work(dd.shape[0], cc), int32_ops_per_s)
+            kernel = lambda: mk.msm_window_reduce(buckets, cc)  # noqa: E731
+            plain = lambda: msm.window_reduce_plain(buckets, cc)  # noqa: E731
+        row.update(kernel_ms(kernel, plain, MSM_TIMED_REPS))
+        row["global_launches_per_call"] = len(mk.GLOBALS[name])
+        if case == "random":
+            # the kernel alone: tracing the plain version's many small
+            # launches takes minutes, and kernel_ms timed it already
+            prof = device_ms(name, kernel, None, 5, 0, kernels=mk.GLOBALS[name])
+            row["profiler"] = {"ms": prof["ms"],
+                               "profiled_launches": prof["profiled_launches"],
+                               "expected_launches": prof["expected_launches"],
+                               "timed_by": "torch.profiler device events (device_ms)"}
+        return row
+
+    def check(m, cc, case, dg, pts, chunk_of, timed):
+        d = torch.from_numpy(dg).to(dev)
+        for lo, hi in _chunk_bounds(m, chunk_of):
+            p, dd = _chunk_point(pts, lo, hi), d[:, lo:hi].contiguous()
+            buckets = mk.msm_bucket(p, dd, cc)
+            out = mk.msm_window_reduce(buckets, cc)
+            synchronize()
+            ref_buckets = msm.bucket_sums_plain(p, dd, cc)
+            ref = msm.window_reduce_plain(ref_buckets, cc)
+            errs = {"msm_bucket": err(buckets, ref_buckets),
+                    "msm_window_reduce": max(err(out, ref),
+                                             err(mk.msm_window_reduce(ref_buckets, cc), ref))}
+            if any(errs.values()):
+                raise AssertionError(f"MSM kernels m={m} c={cc} {case} chunk {lo}:{hi}: "
+                                     f"encodings differ by {errs}")
+            for name, e in errs.items():
+                row = {"m": m, "case": case, "chunk": [lo, hi], "c": cc, "max_abs_err": e}
+                if timed and lo == 0 and hi - lo == chunk_of:
+                    row.update(timed_row(name, case, p, dd, cc, buckets))
+                rows[name].append(row)
+
+    def inputs(m, cc):
         i1 = torch.from_numpy(np_rng.integers(0, 256, m)).to(dev)
         i2 = torch.from_numpy(np_rng.integers(0, 256, m)).to(dev)
         pts = pk.point_add_plain(tuple(x[:, i1] for x in base), tuple(x[:, i2] for x in base))
         vals = [rng.randrange(L) for _ in range(m - 3)] + [0, 1, L - 1]
-        digits = msm.scalars_to_signed_digits(vals, c)
+        digits = msm.scalars_to_signed_digits(vals, cc)
         top = digits.copy()
+        half = 1 << (cc - 1)
         top[1] = np.where(np.arange(m) % 3 == 0, -half, half)
+        return pts, digits, top
+
+    for m in ms:
+        pts, digits, top = inputs(m, c)
         for case, dg in (("random", digits), ("top_bucket", top),
                          ("one_bucket", np.full_like(digits, 5))):
-            d = torch.from_numpy(dg).to(dev)
-            for lo, hi in _chunk_bounds(m, chunk):
-                p, dd = _chunk_point(pts, lo, hi), d[:, lo:hi].contiguous()
-                buckets = mk.msm_bucket(p, dd, c)
-                out = mk.msm_window_reduce(buckets, c)
-                synchronize()
-                ref_buckets = msm.bucket_sums_plain(p, dd, c)
-                ref = msm.window_reduce_plain(ref_buckets, c)
-                errs = {"msm_bucket": err(buckets, ref_buckets),
-                        "msm_window_reduce": max(err(out, ref),
-                                                 err(mk.msm_window_reduce(ref_buckets, c), ref))}
-                if any(errs.values()):
-                    raise AssertionError(f"MSM kernels m={m} {case} chunk {lo}:{hi}: "
-                                         f"encodings differ by {errs}")
-                timed = case == "random" and lo == 0 and hi - lo == chunk
-                for name, e in errs.items():
-                    row = {"m": m, "case": case, "chunk": [lo, hi], "c": c, "max_abs_err": e}
-                    if timed and name == "msm_bucket":
-                        row.update(bound_of(*mk.msm_bucket_work(dd, c), int32_ops_per_s))
-                        row["nonzero_digits"] = int((dd != 0).sum())
-                        row.update(device_ms(name, lambda: mk.msm_bucket(p, dd, c),
-                                             lambda: msm.bucket_sums_plain(p, dd, c), 5, 1))
-                    elif timed:
-                        row.update(bound_of(*mk.msm_window_reduce_work(dd.shape[0], c),
-                                            int32_ops_per_s))
-                        row.update(device_ms(name, lambda: mk.msm_window_reduce(buckets, c),
-                                             lambda: msm.window_reduce_plain(buckets, c), 5, 1))
-                    rows[name].append(row)
-    return rows
+            check(m, c, case, dg, pts, chunk, case != "top_bucket")
+    for cc in other_cs:
+        pts, digits, top = inputs(ms[0], cc)
+        for case, dg in (("random", digits), ("top_bucket", top)):
+            check(ms[0], cc, case, dg, pts, ms[0], False)
+
+    # the chain floor: c (K - 1) doublings of the top window, one after
+    # another, at one doubling's latency (point_double_k on one lane)
+    k = msm.num_windows(c)
+    doublings = c * (k - 1)
+    one = tuple(x[:, :1].contiguous() for x in base)
+    lat = kernel_ms(lambda: pk.point_double_k(one, doublings), None, 10)
+    floor = {"c": c, "windows": k, "doublings": doublings,
+             "double_us": lat["ms"] * 1e3 / doublings, "chain_floor_ms": lat["ms"],
+             "adds_after": (k - 1).bit_length(),
+             "timed_by": "point_double_k on one lane, k = c (K - 1), by kernel_ms"}
+    for row in rows["msm_window_reduce"]:
+        if "ms" in row:
+            row["chain_floor"] = floor
+    return {**rows, "seconds": time.perf_counter() - t_start}
 
 
 def batch_verdicts(backend, params, corpus, n: int) -> dict:
@@ -2906,8 +2965,15 @@ def pippenger_ab(rows, beta, ns, reps: int) -> dict:
     with open(os.path.join("chiprun_out", "profile_pippenger_4096.txt"), "w") as f:
         for key, (ms, count) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0]):
             f.write(f"{ms:10.3f} ms {count:6d}  {key}\n")
-    ours = {name: v for k, v in by_kernel.items()
-            for name in POINT_KERNELS + PIPPENGER_KERNELS if f"::{name}_kernel(" in k}
+    from cpzk_tpu_torch.ops.msm_kernels import GLOBALS as MSM_GLOBALS
+
+    # by wrapper: the MSM pair's calls launch two __global__ functions each
+    ours = {}
+    for k, (ms, count) in by_kernel.items():
+        for name in POINT_KERNELS + PIPPENGER_KERNELS:
+            if any(f"::{g}(" in k for g in MSM_GLOBALS.get(name, (f"{name}_kernel",))):
+                prev = ours.get(name, (0.0, 0))
+                ours[name] = (prev[0] + ms, prev[1] + count)
     out["profile_4096"] = {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
@@ -5303,7 +5369,7 @@ def main() -> int:
     emit({"phase": "kernels_vs_plain", "kernels": "scalar", "tolerance": "exact (torch.equal)",
           **card, "results": scalar_rows})
     msm_rows = msm_kernels_vs_plain(dev, MSM_MS, MSM_C, MSM_CHUNK, int32_ops_per_s)
-    emit({"phase": "kernels_vs_plain", "kernels": "msm",
+    emit({"phase": "kernels_vs_plain", "kernels": "msm", "seconds": msm_rows.pop("seconds"),
           "tolerance": "equal as group elements (encodings)", **card, "results": msm_rows})
     prover_rows = prover_kernels_vs_plain(dev, PROVE_KERNEL_NS, PROVE_TIMED_NS,
                                           CHALLENGE_MASKS, int32_ops_per_s)
@@ -5476,11 +5542,15 @@ def main() -> int:
             "launches_in_replication_promoted_d": replicated["promoted"]["d"]["launches"][name],
             **{f"launches_in_{p}": phase_launches[p][name] for p in phase_launches},
         })
+    from cpzk_tpu_torch.ops.msm_kernels import GLOBALS as MSM_GLOBALS
+
     for name in PIPPENGER_KERNELS:
         results = kernel_rows[name]
         timed = [r for r in results if "ms" in r]
         # the 4096-row Pippenger check's shapes: its rows, and one full chunk
-        main_row = next(r for r in timed if r.get("n", SERVING_N) == SERVING_N)
+        # of random digits
+        main_row = next(r for r in timed if r.get("n", SERVING_N) == SERVING_N
+                        and r.get("case", "random") == "random")
         kernels.append({
             "name": name, "route": "cuda",
             "source": SOURCES[name][0], "sources": SOURCES[name],
@@ -5491,8 +5561,8 @@ def main() -> int:
             "library_ms": None,
             "shape": {k: main_row[k] for k in ("n", "lanes", "terms", "m", "chunk", "c")
                       if k in main_row},
-            "timed": [{k: r[k] for k in ("n", "m", "ms", "plain_ms", "bound_ms", "bound_by")
-                       if k in r} for r in timed],
+            "timed": [{k: r[k] for k in ("n", "m", "case", "c", "ms", "plain_ms", "bound_ms",
+                                         "bound_by") if k in r} for r in timed],
             "registers": per_kernel[name].get("registers"),
             "spill_bytes": per_kernel[name].get("spill_store_bytes"),
             "launches_in_pippenger": pip["launches"][name],
@@ -5501,6 +5571,18 @@ def main() -> int:
             "launches_in_daemon_all_valid_batch":
                 served["pippenger"]["all_valid_batch"]["launches"][name],
         })
+        if name in MSM_GLOBALS:
+            one = next(r for r in timed if r["case"] == "one_bucket")
+            kernels[-1].update({
+                "ms_runs": main_row["ms_runs"], "timed_by": main_row["timed_by"],
+                "globals": MSM_GLOBALS[name],
+                "global_launches_per_call": main_row["global_launches_per_call"],
+                "registers_by_global": per_kernel[name].get("globals"),
+                "profiler": main_row["profiler"], "one_bucket_ms": one["ms"],
+                "one_bucket_over_random": one["ms"] / main_row["ms"]})
+            if "chain_floor" in main_row:
+                kernels[-1]["chain_floor_ms"] = main_row["chain_floor"]["chain_floor_ms"]
+                kernels[-1]["chain_floor"] = main_row["chain_floor"]
     # the prover's and the challenges' kernels: launches over their phase's
     # path; times at the shapes that path launches (the prover's 16,384-lane
     # tiles and its tables; the device challenges' 20,480 rows at once)

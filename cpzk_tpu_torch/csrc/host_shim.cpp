@@ -13,6 +13,8 @@
 // this library.
 #include <stdint.h>
 
+#include <algorithm>
+#include <utility>
 #include <vector>
 
 #include "fe25519_w32.cuh"
@@ -27,6 +29,7 @@ namespace {
 using cpzk::Fe;
 using cpzk::NL;
 using cpzk::NW;
+using cpzk::PT_WORDS;
 using cpzk::Sc;
 
 void load_fe(Fe& out, const int32_t* src, int n, int j) {
@@ -51,6 +54,57 @@ void store_sc(int32_t* dst, const Sc& v, int n, int j) {
   int32_t l[NL];
   cpzk::sc_to_limbs(l, v);
   for (int i = 0; i < NL; ++i) dst[(long)i * n + j] = l[i];
+}
+
+// msm_ops.cu's seg_reduce over ns slots, one level after another.
+uint32_t* seg_reduce(uint32_t* a, int* ha, uint32_t* b, int* hb, const int* key, int ns,
+                     int** has_out) {
+  for (int d = 1; d < ns; d <<= 1) {
+    bool took = false;
+    for (int i = 0; i < ns; ++i) took |= cpzk::msm_seg_level(b, hb, a, ha, key, ns, i, d);
+    std::swap(a, b);
+    std::swap(ha, hb);
+    if (!took) break;
+  }
+  *has_out = ha;
+  return a;
+}
+
+// msm_window_reduce_totals_kernel's walk with one thread's adds (a quad's
+// equal them word for word): a segment of buckets at positions lo .. hi - 1
+// of one window (position q holds bucket q + 1, at lane base + q of
+// [20, lanes] limbs), from the top: run = the sum of its buckets, tot =
+// sum over it of (q - lo + 1) bucket_(q+1).
+void msm_segment(Fe run[4], Fe tot[4], int lo, int hi, const int32_t* const buckets[4],
+                 long lanes, long base) {
+  cpzk::pt_identity(run);
+  cpzk::pt_identity(tot);
+  for (int q = hi - 1; q >= lo; --q) {
+    Fe b[4];
+    cpzk::load_point(b, buckets, lanes, base + q);
+    cpzk::pt_add_into(run, b);
+    cpzk::pt_add_into(tot, run);
+  }
+}
+
+// msm_ops.cu's quad_double_k and quad_add_into with the four lanes run one
+// after another and the shuffles as arrays.
+void quad_double_k(Fe p[4], int k) {
+  for (int round = 0; round < k; ++round) {
+    Fe s[4], efgh[4], prod[4];
+    for (int r = 0; r < 4; ++r) cpzk::quad_dbl_square(s[r], p, r);
+    cpzk::quad_dbl_efgh(efgh, s);
+    for (int r = 0; r < 4; ++r) cpzk::quad_product(prod[r], efgh, r);
+    cpzk::pt_copy(p, prod);
+  }
+}
+
+void quad_add_into(Fe acc[4], const Fe q[4]) {
+  Fe w[4], efgh[4], prod[4];
+  for (int r = 0; r < 4; ++r) cpzk::quad_add_first(w[r], acc, q, r);
+  cpzk::quad_add_efgh(efgh, w);
+  for (int r = 0; r < 4; ++r) cpzk::quad_product(prod[r], efgh, r);
+  cpzk::pt_copy(acc, prod);
 }
 
 }  // namespace
@@ -281,52 +335,227 @@ void host_sc_signed_digits(const int32_t* a, int c, int nwin, int32_t* out, int 
   }
 }
 
-// msm_bucket_kernel's thread body over every (window w, bucket j): points
-// [20, m] x 4, digits [k, m] -> buckets [20, k 2^(c-1)] x 4, bucket j of
-// window w at lane w 2^(c-1) + j - 1; the whole row is one tile, and the
-// pending list holds cap entries.
+// msm_bucket's two kernels over every block, thread and phase, in their
+// order: points [20, m] x 4, digits [k, m] -> buckets [20, k 2^(c-1)] x 4,
+// bucket j of window w at lane w 2^(c-1) + j - 1; `threads` runs a block and
+// `parts` blocks a window (the card's are 128 and a count set by m).
 void host_msm_bucket(const int32_t* x, const int32_t* y, const int32_t* z,
                      const int32_t* t, const int32_t* digits, int32_t* ox, int32_t* oy,
-                     int32_t* oz, int32_t* ot, int m, int k, int c, int cap) {
+                     int32_t* oz, int32_t* ot, int m, int k, int c, int threads, int parts) {
   const int nb = 1 << (c - 1);
+  const int nt = cpzk::MSM_SORT_THREADS;
   const int32_t* const coords[4] = {x, y, z, t};
   int32_t* const out[4] = {ox, oy, oz, ot};
-  int32_t pend[64];
+  const long stride = (long)k * nb;
+  std::vector<uint32_t> pw((long)m * PT_WORDS), counts(nb + 1), part(nt), grp(32);
+  std::vector<int32_t> keys((long)m), ents((long)m);
+  for (long i = 0; i < m; ++i) cpzk::msm_point_words(pw.data(), coords, m, i);
+  std::vector<uint32_t> buf0((long)(threads + 1) * PT_WORDS), buf1(buf0.size());
+  std::vector<uint32_t> lbuf((long)threads * PT_WORDS);
+  std::vector<int> key(threads + 1), has0(threads + 1), has1(threads + 1);
+  std::vector<int> lkey(threads), lhas(threads);
+  std::vector<uint32_t> pieces((long)2 * parts * PT_WORDS);
+  std::vector<int> pkey(2 * parts), phas(2 * parts);
   for (int w = 0; w < k; ++w) {
-    for (int j = 1; j <= nb; ++j) {
-      Fe acc[4];
-      cpzk::pt_identity(acc);
-      cpzk::msm_bucket_tile(acc, digits + (long)w * m, m, 0, j, coords, m, pend, 1, cap);
-      cpzk::store_point(out, (long)k * nb, (long)w * nb + j - 1, acc);
+    const int32_t* row = digits + (long)w * m;
+    const long base = (long)w * nb;
+    // msm_bucket_sort_kernel's block w
+    std::fill(counts.begin(), counts.end(), 0u);
+    for (int tid = 0; tid < nt; ++tid) cpzk::msm_sort_count(counts.data(), row, m, tid, nt);
+    for (int tid = 0; tid < nt; ++tid)
+      cpzk::msm_sort_chunk_sum(part.data(), counts.data(), nb, tid, nt);
+    for (int g = 0; g < 32; ++g) cpzk::msm_sort_scan_group(part.data(), grp.data(), nt, g);
+    const long n = cpzk::msm_sort_scan_groups(grp.data());
+    for (int tid = 0; tid < nt; ++tid)
+      cpzk::msm_sort_empties(counts.data(), nb, tid, nt, out, stride, base);
+    for (int tid = 0; tid < nt; ++tid)
+      cpzk::msm_sort_cursors(counts.data(), part.data(), grp.data(), nb, tid, nt);
+    for (int tid = 0; tid < nt; ++tid)
+      cpzk::msm_sort_scatter(keys.data(), ents.data(), counts.data(), row, m, tid, nt);
+    // msm_bucket_add_kernel's blocks (p, w)
+    for (int p = 0; p < parts; ++p) {
+      const long lo = cpzk::msm_split(n, p, parts), hi = cpzk::msm_split(n, p + 1, parts);
+      uint32_t* mine = pieces.data() + (long)2 * p * PT_WORDS;
+      if (lo < hi) {
+        const long len = hi - lo;
+        for (int r = 0; r < threads; ++r)
+          cpzk::msm_run(buf0.data(), key.data(), has0.data(), lbuf.data(), lkey.data(),
+                        lhas.data(), r, keys.data(), ents.data(), n,
+                        lo + cpzk::msm_split(len, r, threads),
+                        lo + cpzk::msm_split(len, r + 1, threads), pw.data(), out, stride,
+                        base);
+        for (int i = 0; i <= threads; ++i)
+          cpzk::msm_seg_join(buf0.data(), key.data(), has0.data(), lbuf.data(), lkey.data(),
+                             lhas.data(), threads, i);
+        int* has;
+        const uint32_t* v = seg_reduce(buf0.data(), has0.data(), buf1.data(), has1.data(),
+                                       key.data(), threads + 1, &has);
+        for (int i = 0; i <= threads; ++i) {
+          if (!cpzk::msm_seg_head(key.data(), i)) continue;
+          Fe pt[4];
+          cpzk::msm_slot_point(pt, v, has, i);
+          cpzk::msm_place_head(pt, key[i], keys.data(), n, lo, hi, out, stride, base, mine);
+        }
+      }
+      cpzk::msm_block_pieces(pkey.data() + 2 * p, phas.data() + 2 * p, keys.data(), n, lo, hi);
+    }
+    // the last block of the window joins the blocks' pieces
+    std::vector<uint32_t> j0((long)(parts + 1) * PT_WORDS), j1(j0.size()),
+        jl((long)parts * PT_WORDS);
+    std::vector<int> jkey(parts + 1), h0(parts + 1), h1(parts + 1), jlkey(parts), jlhas(parts);
+    for (int q = 0; q < parts; ++q) {
+      std::copy(pieces.begin() + (long)2 * q * PT_WORDS,
+                pieces.begin() + (long)(2 * q + 1) * PT_WORDS, j0.begin() + (long)q * PT_WORDS);
+      std::copy(pieces.begin() + (long)(2 * q + 1) * PT_WORDS,
+                pieces.begin() + (long)(2 * q + 2) * PT_WORDS, jl.begin() + (long)q * PT_WORDS);
+      jkey[q] = pkey[2 * q];
+      h0[q] = phas[2 * q];
+      jlkey[q] = pkey[2 * q + 1];
+      jlhas[q] = phas[2 * q + 1];
+    }
+    for (int i = 0; i <= parts; ++i)
+      cpzk::msm_seg_join(j0.data(), jkey.data(), h0.data(), jl.data(), jlkey.data(),
+                         jlhas.data(), parts, i);
+    int* has;
+    const uint32_t* v = seg_reduce(j0.data(), h0.data(), j1.data(), h1.data(), jkey.data(),
+                                   parts + 1, &has);
+    for (int i = 0; i <= parts; ++i) {
+      if (!cpzk::msm_seg_head(jkey.data(), i)) continue;
+      Fe pt[4];
+      cpzk::msm_slot_point(pt, v, has, i);
+      cpzk::store_point(out, stride, base + jkey[i] - 1, pt);
     }
   }
 }
 
-// msm_window_reduce_kernel's thread bodies: buckets [20, k 2^(c-1)] x 4 ->
-// the [20, 1] result, with `segments` segments per window (a power of two
-// dividing 2^(c-1), at most 32).
+// msm_window_reduce's two kernels: buckets [20, k 2^(c-1)] x 4 -> the
+// [20, 1] result, with `segments` segments a window (a power of two
+// dividing 2^(c-1); the card's: min(2^(c-1), 64)) and `quads` quads for
+// the scaled windows (at most k; the card's: min(k, 64)).  The totals'
+// quads add as point_add does, word for word, so their serial bodies
+// stand in for them here.
 void host_msm_window_reduce(const int32_t* bx, const int32_t* by, const int32_t* bz,
                             const int32_t* bt, int32_t* ox, int32_t* oy, int32_t* oz,
-                            int32_t* ot, int k, int c, int segments) {
+                            int32_t* ot, int k, int c, int segments, int quads) {
   const int nb = 1 << (c - 1);
-  int log_s = 0;
-  while ((segments << log_s) < nb) ++log_s;
+  int log_g = 0;
+  while ((segments << log_g) < nb) ++log_g;
   const int32_t* const coords[4] = {bx, by, bz, bt};
   const long lanes = (long)k * nb;
-  std::vector<uint32_t> totals((long)k * 4 * NW);
+  std::vector<uint32_t> totals((long)k * PT_WORDS);
+  std::vector<uint32_t> sr((long)segments * PT_WORDS), sr2(sr.size()), sx(sr.size());
+  std::vector<Fe> run((long)segments * 4);
+  // msm_window_reduce_totals_kernel's block w
   for (int w = 0; w < k; ++w) {
-    Fe run[32][4], tot[32][4], total[4];
-    for (int s = 0; s < segments; ++s) {
-      cpzk::msm_segment(run[s], tot[s], s << log_s, (s + 1) << log_s, coords, lanes,
-                        (long)w * nb);
+    for (int sg = 0; sg < segments; ++sg) {
+      Fe tot[4];
+      msm_segment(&run[(long)sg * 4], tot, sg << log_g, (sg + 1) << log_g, coords,
+                        lanes, (long)w * nb);
+      cpzk::pt_store_words(&sx[(long)sg * PT_WORDS], tot);
+      cpzk::pt_store_words(&sr[(long)sg * PT_WORDS], &run[(long)sg * 4]);
     }
-    cpzk::msm_join(total, run, tot, segments, log_s);
-    cpzk::store_total(&totals[(long)w * 4 * NW], total);
+    for (int d = 1; d < segments; d <<= 1) {
+      sr2 = sr;
+      for (int sg = 0; sg + d < segments; ++sg) {
+        Fe q[4];
+        cpzk::pt_load_words(q, &sr2[(long)(sg + d) * PT_WORDS]);
+        cpzk::pt_add_into(&run[(long)sg * 4], q);
+        cpzk::pt_store_words(&sr[(long)sg * PT_WORDS], &run[(long)sg * 4]);
+      }
+    }
+    for (int sg = 0; sg < segments; ++sg) {
+      Fe x[4], tot[4];
+      if (sg + 1 < segments) {
+        cpzk::pt_load_words(x, &sr[(long)(sg + 1) * PT_WORDS]);
+      } else {
+        cpzk::pt_identity(x);
+      }
+      cpzk::pt_load_words(tot, &sx[(long)sg * PT_WORDS]);
+      // segment sg holds buckets sg g + 1 .. sg g + g: x = g later + tot
+      if (log_g > 0) cpzk::point_double_k(x, log_g);
+      cpzk::pt_add_into(x, tot);
+      cpzk::pt_store_words(&sx[(long)sg * PT_WORDS], x);
+    }
+    for (int h = segments >> 1; h >= 1; h >>= 1) {
+      for (int sg = 0; sg < h; ++sg) {
+        Fe x[4], q[4];
+        cpzk::pt_load_words(x, &sx[(long)sg * PT_WORDS]);
+        cpzk::pt_load_words(q, &sx[(long)(sg + h) * PT_WORDS]);
+        cpzk::pt_add_into(x, q);
+        cpzk::pt_store_words(&sx[(long)sg * PT_WORDS], x);
+      }
+    }
+    std::copy(sx.begin(), sx.begin() + PT_WORDS, totals.begin() + (long)w * PT_WORDS);
+  }
+  // msm_window_reduce_scale_kernel's quads
+  std::vector<uint32_t> sq((long)quads * PT_WORDS);
+  for (int q = 0; q < quads; ++q) {
+    Fe acc[4];
+    int w = q + (k - 1 - q) / quads * quads;
+    cpzk::pt_load_words(acc, &totals[(long)w * PT_WORDS]);
+    for (w -= quads; w >= 0; w -= quads) {
+      quad_double_k(acc, c * quads);
+      Fe t[4];
+      cpzk::pt_load_words(t, &totals[(long)w * PT_WORDS]);
+      quad_add_into(acc, t);
+    }
+    quad_double_k(acc, c * q);
+    cpzk::pt_store_words(&sq[(long)q * PT_WORDS], acc);
+  }
+  int top = 1;
+  while (top < quads) top <<= 1;
+  for (int h = top >> 1; h >= 1; h >>= 1) {
+    for (int q = 0; q < h && q + h < quads; ++q) {
+      Fe acc[4], o[4];
+      cpzk::pt_load_words(acc, &sq[(long)q * PT_WORDS]);
+      cpzk::pt_load_words(o, &sq[(long)(q + h) * PT_WORDS]);
+      quad_add_into(acc, o);
+      cpzk::pt_store_words(&sq[(long)q * PT_WORDS], acc);
+    }
   }
   Fe acc[4];
-  cpzk::msm_horner(acc, k, c, totals.data());
+  cpzk::pt_load_words(acc, sq.data());
   int32_t* const out[4] = {ox, oy, oz, ot};
   cpzk::store_point(out, 1, 0, acc);
+}
+
+// The quad doubling and add of msm_window_reduce_scale_kernel per lane:
+// k doublings of [20, n] x 3, and p + q of [20, n] x 4 each.
+void host_quad_double_k(const int32_t* x, const int32_t* y, const int32_t* z, int32_t* ox,
+                        int32_t* oy, int32_t* oz, int32_t* ot, int n, int k) {
+  for (int j = 0; j < n; ++j) {
+    Fe p[4];
+    load_fe(p[0], x, n, j);
+    load_fe(p[1], y, n, j);
+    load_fe(p[2], z, n, j);
+    p[3] = p[0];  // not read: a doubling takes X, Y, Z
+    quad_double_k(p, k);
+    store_fe(ox, p[0], n, j);
+    store_fe(oy, p[1], n, j);
+    store_fe(oz, p[2], n, j);
+    store_fe(ot, p[3], n, j);
+  }
+}
+
+void host_quad_add(const int32_t* x1, const int32_t* y1, const int32_t* z1, const int32_t* t1,
+                   const int32_t* x2, const int32_t* y2, const int32_t* z2, const int32_t* t2,
+                   int32_t* ox, int32_t* oy, int32_t* oz, int32_t* ot, int n) {
+  for (int j = 0; j < n; ++j) {
+    Fe p[4], q[4];
+    load_fe(p[0], x1, n, j);
+    load_fe(p[1], y1, n, j);
+    load_fe(p[2], z1, n, j);
+    load_fe(p[3], t1, n, j);
+    load_fe(q[0], x2, n, j);
+    load_fe(q[1], y2, n, j);
+    load_fe(q[2], z2, n, j);
+    load_fe(q[3], t2, n, j);
+    quad_add_into(p, q);
+    store_fe(ox, p[0], n, j);
+    store_fe(oy, p[1], n, j);
+    store_fe(oz, p[2], n, j);
+    store_fe(ot, p[3], n, j);
+  }
 }
 
 }  // extern "C"

@@ -1,39 +1,51 @@
 // The two kernels of the signed-digit Pippenger MSM, for Hopper (sm_90a),
 // with a plain C launch interface loaded through ctypes by
-// cpzk_tpu_torch/ops/msm_kernels.py.  Both run on the point arithmetic of
-// fe25519_w32.cuh, through the thread bodies of msm_w32.cuh.
+// cpzk_tpu_torch/ops/msm_kernels.py.  Each is two __global__ launches on the
+// thread bodies of msm_w32.cuh (the phases are described there), on the
+// point arithmetic of fe25519_w32.cuh.
 //
-//   msm_bucket_kernel         replaces the bucket sums of
-//                             cpzk_tpu/ops/msm.py::_window_sum (sort, prefix
-//                             scan, boundary differences) for every window
-//                             of msm_kernel
-//   msm_window_reduce_kernel  replaces the suffix scan and tree sum of
-//                             ::_window_sum and the Horner step of
-//                             ::msm_kernel (double_k(acc, c) + W_w)
+//   msm_bucket         replaces the bucket sums of
+//                      cpzk_tpu/ops/msm.py::_window_sum (a sort, a prefix
+//                      scan, boundary differences) for every window of
+//                      ::msm_kernel:
+//     msm_bucket_sort_kernel  one block per window: the counting sort of
+//                             its digits and a share of the points' words
+//     msm_bucket_add_kernel   a grid of (part, window): the adds, balanced
+//                             over the window's entries, and the joins
+//   msm_window_reduce  replaces the suffix scan and tree sum of ::_window_sum
+//                      and the Horner step of ::msm_kernel:
+//     msm_window_reduce_totals_kernel  one block per window: sum_j j B_j
+//                                      on 64 quads of lanes
+//     msm_window_reduce_scale_kernel   one block: each total times 2^(c w)
+//                                      on a quad of lanes, then a tree sum
 //
 // Layout: points are [20, m] limb-major int32 coordinates, digits [k, m]
 // signed c-bit digits (LSB window first), buckets [20, k B] with bucket j of
-// window w at lane w B + j - 1 (B = 2^(c-1)), the result [20, 1].
+// window w at lane w B + j - 1 (B = 2^(c-1)), the result [20, 1].  Scratch
+// (from the wrapper, cpzk_msm_bucket_scratch words) holds the points' words,
+// the sorted entries and the blocks' pieces.
 //
-// msm_bucket_kernel: one thread per (window, bucket).  A block holds
-// consecutive buckets of one window; it stages tiles of that window's
-// digits in shared memory, every thread scans the tile (the reads are
-// broadcasts) and lists the terms whose digit has its bucket's magnitude,
-// then adds the listed points (loaded from L2; the m points of a chunk are
-// 5 MB at m = 16,384) into its running sum, negated for a negative digit.
-// Listing first lets a warp's threads run their adds together: at c = 11 a
-// thread matches about one term in a thousand, and adding at the match
-// would run each thread's add alone.  The grouping is this scan, not a sort.
-// What bounds it: one point add per non-zero digit (about 1.6k int32
-// operations each), so operations; the scan costs m reads per thread more.
-//
-// msm_window_reduce_kernel: one block of G threads per window.  Thread s
-// walks its segment of S = B / G buckets from the top with two running sums
-// (msm_segment), thread 0 joins the segments with small-scalar multiples as
-// running sums (msm_join) into W_w, and the last block to finish (an atomic
-// ticket) runs Horner over the windows.  One dependent chain of about
-// 2 S + 3 G adds per window and k (c doublings + 1 add) for Horner: bound by
-// that chain's latency, far above its operation bound (2 k B adds).
+// What bounds them on an H100.  msm_bucket needs one point add (~1.6k int32
+// operations) per non-zero digit: bound by operations (376,664 adds, 36 us,
+// at the main path's 16,384-term chunk, c = 11).  What stands in the way:
+// finding a bucket's terms (a scan of all m digits per bucket is 4e8
+// compares), the points' scattered limb loads, and skewed digits (a bucket
+// that holds every term is a serial chain of m adds).  So a counting sort
+// makes the grouping linear, the points are read as 128 contiguous bytes
+// (converted once, in the add's cached form), and every thread adds the
+// same number of entries whatever the digits: the runs split the sorted
+// entries, not the buckets, and the pieces of a bucket that spans runs or
+// blocks are joined in log depth.  The adds then run as fast as the
+// field arithmetic allows; more threads do not help.  msm_window_reduce
+// needs 2 adds a bucket and the doublings (4.75 us of operations), but no
+// schedule beats its chain: the top window's total must be doubled
+// c (k - 1) times, one doubling after another.  So four lanes of a warp (a
+// quad) share every add and doubling (an add costs three field operations
+// of latency, not nine; a doubling two, not seven): the window totals run
+// 64 quads a window on buckets staged in shared memory (a segment each, a
+// suffix scan and a tree sum), and the scale kernel doubles each window
+// total on its own quad, so the chain is c (k - 1) quad doublings and
+// log2(k) quad adds.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,123 +55,506 @@ namespace {
 
 using cpzk::Fe;
 using cpzk::NW;
+using cpzk::PT_WORDS;
 
-constexpr int kBucketThreads = 128;
-constexpr int kTile = 2048;
-constexpr int kPendCap = 8;
-constexpr int kMaxSegments = 32;
+constexpr int kSortThreads = cpzk::MSM_SORT_THREADS;
+constexpr int kAddThreads = 128;
+constexpr int kRanges = kAddThreads;  // one run a thread
+// entries a thread of msm_bucket_add_kernel should get at least, and its
+// blocks per SM at most (registers and shared memory allow three)
+constexpr int kEntriesPerThread = 16;
+constexpr int kAddBlocksPerSm = 3;
+constexpr int kTotalsQuads = 64;
+// buckets a window of msm_window_reduce_totals_kernel stages in shared
+// memory at most (c <= 11: 128 KB)
+constexpr int kTotalsStagedBuckets = 1024;
+constexpr int kMaxQuads = 64;
 
-__global__ void __launch_bounds__(kBucketThreads)
-msm_bucket_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
-                  const int32_t* __restrict__ z, const int32_t* __restrict__ t,
-                  const int32_t* __restrict__ digits, int32_t* __restrict__ ox,
-                  int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-                  int32_t* __restrict__ ot, int m, int k, int c) {
-  __shared__ int32_t tile[kTile];
-  __shared__ int32_t pend[kPendCap * kBucketThreads];
-  const int nb = 1 << (c - 1);
-  const int w = blockIdx.y;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x + 1;
-  const bool active = j <= nb;
-  const int32_t* const coords[4] = {x, y, z, t};
-  const int32_t* row = digits + (long)w * m;
-  Fe acc[4];
-  cpzk::pt_identity(acc);
-  for (long base = 0; base < m; base += kTile) {
-    const int count = (int)(m - base < kTile ? m - base : kTile);
-    __syncthreads();
-    for (int i = threadIdx.x; i < count; i += blockDim.x) tile[i] = row[base + i];
-    __syncthreads();
-    if (active)
-      cpzk::msm_bucket_tile(acc, tile, count, base, j, coords, m, pend + threadIdx.x,
-                            blockDim.x, kPendCap);
+// SMs of the current device, read once per device.
+int sm_count() {
+  static int counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0) {
+    int c = 0;
+    if (cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    counts[dev] = c;
   }
-  if (active) {
-    int32_t* const out[4] = {ox, oy, oz, ot};
-    cpzk::store_point(out, (long)k * nb, (long)w * nb + j - 1, acc);
+  return counts[dev];
+}
+
+// Dynamic shared memory above 48 KB must be allowed per kernel and device
+// (bytes: the most any launch of the kernel asks for).
+template <typename K>
+int allow_smem(K kernel, int bytes, bool* done) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  if (bytes <= 48 * 1024 || done[dev]) return 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) !=
+      cudaSuccess)
+    return 1;
+  done[dev] = true;
+  return 0;
+}
+
+// Parts per window of msm_bucket_add_kernel: enough blocks to fill the card,
+// but no fewer than kEntriesPerThread entries a thread (the digits' count
+// is known only on the card, m bounds it).
+int add_parts(long m, int k) {
+  const int sms = sm_count() > 0 ? sm_count() : 1;
+  long by_work = (m + (long)kAddThreads * kEntriesPerThread - 1) /
+                 ((long)kAddThreads * kEntriesPerThread);
+  const long by_card = ((long)kAddBlocksPerSm * sms + k - 1) / k;
+  long p = by_work < by_card ? by_work : by_card;
+  if (p > kRanges) p = kRanges;  // the last block joins p + 1 slots
+  return p < 1 ? 1 : (int)p;
+}
+
+struct BucketScratch {
+  uint32_t* pw;      // m points, 32 words each
+  int32_t* keys;     // k x m: the sorted entries' buckets
+  int32_t* ents;     // k x m: the sorted signed entries
+  uint32_t* nz;      // k: non-zero digits per window
+  unsigned* ticket;  // k: blocks of the window done
+  uint32_t* parts;   // k x parts x 2 points: the blocks' pieces
+  int32_t* pkey;     // k x parts x 2
+  int32_t* phas;     // k x parts x 2
+  long words;
+};
+
+BucketScratch bucket_scratch(void* base, long m, int k, int parts) {
+  BucketScratch s;
+  uint32_t* p = (uint32_t*)base;
+  s.pw = p;
+  p += m * PT_WORDS;
+  s.parts = p;  // 16-byte aligned: m * 128 bytes after the base
+  p += (long)k * parts * 2 * PT_WORDS;
+  s.keys = (int32_t*)p;
+  p += (long)k * m;
+  s.ents = (int32_t*)p;
+  p += (long)k * m;
+  s.nz = p;
+  p += k;
+  s.ticket = p;
+  p += k;
+  s.pkey = (int32_t*)p;
+  p += (long)k * parts * 2;
+  s.phas = (int32_t*)p;
+  p += (long)k * parts * 2;
+  s.words = p - (uint32_t*)base;
+  return s;
+}
+
+// dynamic shared memory the sort may ask for: its histogram and scan, and
+// where they fit beside them, the sorted entries (scattered in shared
+// memory, then copied out in order)
+constexpr int kSortSmemMax = 200 * 1024;
+
+int sort_smem(int nb) { return (nb + 1 + kSortThreads + 32) * 4; }
+
+bool sort_staged(long m, int nb) { return sort_smem(nb) + 8 * m <= kSortSmemMax; }
+
+__global__ void __launch_bounds__(kSortThreads)
+msm_bucket_sort_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                       const int32_t* __restrict__ z, const int32_t* __restrict__ t,
+                       const int32_t* __restrict__ digits, BucketScratch s,
+                       int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                       int32_t* __restrict__ oz, int32_t* __restrict__ ot, int m, int k,
+                       int c, bool staged) {
+  extern __shared__ uint32_t sort_smem_words[];
+  __shared__ uint32_t n_sh;
+  const int nb = 1 << (c - 1);
+  uint32_t* counts = sort_smem_words;        // nb + 1
+  uint32_t* part = counts + nb + 1;          // kSortThreads
+  uint32_t* grp = part + kSortThreads;       // 32
+  const int w = blockIdx.x, tid = threadIdx.x;
+  const int32_t* row = digits + (long)w * m;
+  int32_t* const out[4] = {ox, oy, oz, ot};
+  const long stride = (long)k * nb, base = (long)w * nb;
+  int32_t* keys = s.keys + (long)w * m;
+  int32_t* ents = s.ents + (long)w * m;
+
+  // this block's share of the points, into the kernels' form
+  const int32_t* const coords[4] = {x, y, z, t};
+  for (long i = cpzk::msm_split(m, w, k) + tid; i < cpzk::msm_split(m, w + 1, k);
+       i += kSortThreads)
+    cpzk::msm_point_words(s.pw, coords, m, i);
+
+  for (int b = tid; b <= nb; b += kSortThreads) counts[b] = 0;
+  if (tid == 0) s.ticket[w] = 0;
+  __syncthreads();
+  cpzk::msm_sort_count(counts, row, m, tid, kSortThreads);
+  __syncthreads();
+  cpzk::msm_sort_chunk_sum(part, counts, nb, tid, kSortThreads);
+  __syncthreads();
+  if (tid < 32) cpzk::msm_sort_scan_group(part, grp, kSortThreads, tid);
+  __syncthreads();
+  if (tid == 0) s.nz[w] = n_sh = cpzk::msm_sort_scan_groups(grp);
+  cpzk::msm_sort_empties(counts, nb, tid, kSortThreads, out, stride, base);
+  __syncthreads();
+  cpzk::msm_sort_cursors(counts, part, grp, nb, tid, kSortThreads);
+  __syncthreads();
+  if (!staged) {
+    cpzk::msm_sort_scatter(keys, ents, counts, row, m, tid, kSortThreads);
+    return;
+  }
+  // random stores into shared memory, then coalesced ones out
+  int32_t* skeys = (int32_t*)(grp + 32);
+  int32_t* sents = skeys + m;
+  cpzk::msm_sort_scatter(skeys, sents, counts, row, m, tid, kSortThreads);
+  __syncthreads();
+  for (long e = tid; e < (long)n_sh; e += kSortThreads) {
+    keys[e] = skeys[e];
+    ents[e] = sents[e];
   }
 }
 
-__global__ void __launch_bounds__(kMaxSegments)
-msm_window_reduce_kernel(const int32_t* __restrict__ bx, const int32_t* __restrict__ by,
-                         const int32_t* __restrict__ bz, const int32_t* __restrict__ bt,
-                         uint32_t* totals, unsigned int* ticket,
-                         int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                         int32_t* __restrict__ oz, int32_t* __restrict__ ot,
-                         int k, int c, int log_s) {
-  __shared__ Fe run_sh[kMaxSegments][4];
-  __shared__ Fe tot_sh[kMaxSegments][4];
+// The segmented reduction over ns slots in shared memory, double-buffered
+// (a, ha) -> (b, hb) level by level; returns the buffer holding the result
+// (its has flags in *has_out).
+__device__ uint32_t* seg_reduce(uint32_t* a, int* ha, uint32_t* b, int* hb, const int* key,
+                                int ns, int** has_out) {
+  for (int d = 1; d < ns; d <<= 1) {
+    bool took = false;
+    for (int i = threadIdx.x; i < ns; i += blockDim.x)
+      took |= cpzk::msm_seg_level(b, hb, a, ha, key, ns, i, d);
+    took = __syncthreads_or(took);
+    uint32_t* tw = a;
+    a = b;
+    b = tw;
+    int* th = ha;
+    ha = hb;
+    hb = th;
+    if (!took) break;
+  }
+  *has_out = ha;
+  return a;
+}
+
+// Shared memory of msm_bucket_add_kernel: two buffers of the kRanges + 1
+// joined slots, the kRanges last pieces, and their keys and has flags.
+int add_smem() { return ((2 * (kRanges + 1) + kRanges) * PT_WORDS + 5 * kRanges + 3) * 4; }
+
+__global__ void __launch_bounds__(kAddThreads)
+msm_bucket_add_kernel(BucketScratch s, int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                      int32_t* __restrict__ oz, int32_t* __restrict__ ot, int m, int k, int c,
+                      int parts) {
+  extern __shared__ uint4 add_smem_vec[];
+  uint32_t* buf0 = (uint32_t*)add_smem_vec;
+  uint32_t* buf1 = buf0 + (kRanges + 1) * PT_WORDS;
+  uint32_t* lbuf = buf1 + (kRanges + 1) * PT_WORDS;
+  int* key = (int*)(lbuf + kRanges * PT_WORDS);
+  int* has0 = key + kRanges + 1;
+  int* has1 = has0 + kRanges + 1;
+  int* lkey = has1 + kRanges + 1;
+  int* lhas = lkey + kRanges;
   __shared__ bool last;
   const int nb = 1 << (c - 1);
-  const int seg = 1 << log_s;
-  const int w = blockIdx.x, s = threadIdx.x;
-  const int32_t* const coords[4] = {bx, by, bz, bt};
-  const long lanes = (long)k * nb;
-  {
-    Fe run[4], tot[4];
-    cpzk::msm_segment(run, tot, s * seg, s * seg + seg, coords, lanes, (long)w * nb);
-    cpzk::pt_copy(run_sh[s], run);
-    cpzk::pt_copy(tot_sh[s], tot);
-  }
-  __syncthreads();
-  if (s == 0) {
-    Fe total[4];
-    cpzk::msm_join(total, run_sh, tot_sh, blockDim.x, log_s);
-    cpzk::store_total(totals + (long)w * 4 * NW, total);
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last || s != 0) return;
-  // every window's total is visible (each fenced before its ticket)
-  Fe acc[4];
-  cpzk::msm_horner(acc, k, c, totals);
+  const int p = blockIdx.x, w = blockIdx.y, tid = threadIdx.x;
+  const long n = s.nz[w];
+  const int32_t* keys = s.keys + (long)w * m;
+  const int32_t* ents = s.ents + (long)w * m;
   int32_t* const out[4] = {ox, oy, oz, ot};
-  cpzk::store_point(out, 1, 0, acc);
+  const long stride = (long)k * nb, base = (long)w * nb;
+  const long lo = cpzk::msm_split(n, p, parts), hi = cpzk::msm_split(n, p + 1, parts);
+  const long piece0 = ((long)w * parts + p) * 2;
+
+  if (lo < hi) {
+    const long len = hi - lo;
+    cpzk::msm_run(buf0, key, has0, lbuf, lkey, lhas, tid, keys, ents, n,
+                  lo + cpzk::msm_split(len, tid, kRanges),
+                  lo + cpzk::msm_split(len, tid + 1, kRanges), s.pw, out, stride, base);
+    __syncthreads();
+    for (int i = tid; i <= kRanges; i += kAddThreads)
+      cpzk::msm_seg_join(buf0, key, has0, lbuf, lkey, lhas, kRanges, i);
+    __syncthreads();
+    int* has;
+    const uint32_t* v = seg_reduce(buf0, has0, buf1, has1, key, kRanges + 1, &has);
+    for (int i = tid; i <= kRanges; i += kAddThreads) {
+      if (!cpzk::msm_seg_head(key, i)) continue;
+      Fe pt[4];
+      cpzk::msm_slot_point(pt, v, has, i);
+      cpzk::msm_place_head(pt, key[i], keys, n, lo, hi, out, stride, base,
+                           s.parts + piece0 * PT_WORDS);
+    }
+  }
+  if (tid == 0) cpzk::msm_block_pieces(s.pkey + piece0, s.phas + piece0, keys, n, lo, hi);
+
+  // the last block of the window joins the pieces of the buckets that span
+  // blocks (each block's stores fenced before its ticket)
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&s.ticket[w], 1u) == (unsigned)parts - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const long first = (long)w * parts * 2;
+  for (int q = tid; q < parts; q += kAddThreads) {
+    const uint4* src = reinterpret_cast<const uint4*>(s.parts + (first + 2 * q) * PT_WORDS);
+    uint4* fd = reinterpret_cast<uint4*>(buf0 + (long)q * PT_WORDS);
+    uint4* ld = reinterpret_cast<uint4*>(lbuf + (long)q * PT_WORDS);
+#pragma unroll
+    for (int u = 0; u < PT_WORDS / 4; ++u) {
+      fd[u] = __ldcg(src + u);
+      ld[u] = __ldcg(src + PT_WORDS / 4 + u);
+    }
+    key[q] = __ldcg(s.pkey + first + 2 * q);
+    has0[q] = __ldcg(s.phas + first + 2 * q);
+    lkey[q] = __ldcg(s.pkey + first + 2 * q + 1);
+    lhas[q] = __ldcg(s.phas + first + 2 * q + 1);
+  }
+  __syncthreads();
+  for (int i = tid; i <= parts; i += kAddThreads)
+    cpzk::msm_seg_join(buf0, key, has0, lbuf, lkey, lhas, parts, i);
+  __syncthreads();
+  int* has;
+  const uint32_t* v = seg_reduce(buf0, has0, buf1, has1, key, parts + 1, &has);
+  for (int i = tid; i <= parts; i += kAddThreads) {
+    if (!cpzk::msm_seg_head(key, i)) continue;
+    Fe pt[4];
+    cpzk::msm_slot_point(pt, v, has, i);
+    cpzk::store_point(out, stride, base + key[i] - 1, pt);
+  }
 }
 
-int bucket_threads(int nb) {
-  int t = nb < kBucketThreads ? nb : kBucketThreads;
-  return (t + 31) / 32 * 32;
+// The four values of a quad, one from each lane (lane r of the quad gives
+// out[r]); mask names the quad's lanes.
+__device__ __forceinline__ void quad_gather(Fe out[4], const Fe& v, unsigned mask) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) out[r].w[i] = __shfl_sync(mask, v.w[i], r, 4);
+  }
 }
+
+// k >= 0 doublings of p (every lane holds it) shared by a quad.
+__device__ void quad_double_k(Fe p[4], int k, int r, unsigned mask) {
+  for (int round = 0; round < k; ++round) {
+    Fe sq, s[4], efgh[4], prod;
+    cpzk::quad_dbl_square(sq, p, r);
+    quad_gather(s, sq, mask);
+    cpzk::quad_dbl_efgh(efgh, s);
+    cpzk::quad_product(prod, efgh, r);
+    quad_gather(p, prod, mask);
+  }
+}
+
+// acc += q (every lane holds both) shared by a quad.
+__device__ void quad_add_into(Fe acc[4], const Fe q[4], int r, unsigned mask) {
+  Fe w1, w[4], efgh[4], prod;
+  cpzk::quad_add_first(w1, acc, q, r);
+  quad_gather(w, w1, mask);
+  cpzk::quad_add_efgh(efgh, w);
+  cpzk::quad_product(prod, efgh, r);
+  quad_gather(acc, prod, mask);
+}
+
+// Segments (quads) per window of msm_window_reduce_totals_kernel (a power
+// of two, at most kTotalsQuads) for window size c.
+int totals_segments(int c) {
+  const int nb = 1 << (c - 1);
+  return nb < kTotalsQuads ? nb : kTotalsQuads;
+}
+
+// One block per window, a quad of lanes per segment of g = 2^log_g
+// buckets.  Segment s holds buckets s g + 1 .. s g + g; walked from the
+// top it gives run_s (the sum of its buckets) and tot_s (sum over it of
+// (j - s g) B_j), so it contributes tot_s + s g run_s to sum_j j B_j.
+// Over all segments that is sum_s x_s with x_s = tot_s + g later_s, where
+// later_s is the sum of the runs after s: a suffix scan of the runs, then
+// the tree sum of the x_s, every add and doubling shared by the quad.
+__global__ void __launch_bounds__(4 * kTotalsQuads)
+msm_window_reduce_totals_kernel(const int32_t* __restrict__ bx, const int32_t* __restrict__ by,
+                                const int32_t* __restrict__ bz, const int32_t* __restrict__ bt,
+                                uint32_t* __restrict__ totals, int k, int c, int log_g,
+                                bool staged) {
+  __shared__ uint4 sr_vec[kTotalsQuads * PT_WORDS / 4], sx_vec[kTotalsQuads * PT_WORDS / 4];
+  uint32_t* sr = (uint32_t*)sr_vec;
+  uint32_t* sx = (uint32_t*)sx_vec;
+  const int nb = 1 << (c - 1);
+  const int nseg = nb >> log_g;
+  const int w = blockIdx.x, sg = threadIdx.x >> 2, r = threadIdx.x & 3;
+  const unsigned mask = 0xFu << (threadIdx.x & 28);
+  const bool on = sg < nseg;
+  extern __shared__ uint4 staged_vec[];
+  uint32_t* sb = (uint32_t*)staged_vec;
+  const int32_t* const coords[4] = {bx, by, bz, bt};
+  const long lanes = (long)k * nb;
+  // the window's buckets in the kernels' form, read once with coalesced
+  // loads, where they fit
+  if (staged) {
+    for (int q = threadIdx.x; q < nb; q += blockDim.x) {
+      Fe b[4];
+      cpzk::load_point(b, coords, lanes, (long)w * nb + q);
+      cpzk::pt_store_words(sb + (long)q * PT_WORDS, b);
+    }
+    __syncthreads();
+  }
+  Fe run[4], x[4];
+  if (on) {
+    Fe tot[4];
+    cpzk::pt_identity(run);
+    cpzk::pt_identity(tot);
+    for (int q = ((sg + 1) << log_g) - 1; q >= sg << log_g; --q) {
+      Fe b[4];
+      if (staged) {
+        cpzk::pt_load_words(b, sb + (long)q * PT_WORDS);
+      } else {
+        cpzk::load_point(b, coords, lanes, (long)w * nb + q);
+      }
+      quad_add_into(run, b, r, mask);
+      quad_add_into(tot, run, r, mask);
+    }
+    if (r == 0) {
+      cpzk::pt_store_words(sx + (long)sg * PT_WORDS, tot);
+      cpzk::pt_store_words(sr + (long)sg * PT_WORDS, run);
+    }
+  }
+  __syncthreads();
+  // the inclusive suffix scan of the runs
+  for (int d = 1; d < nseg; d <<= 1) {
+    const bool take = on && sg + d < nseg;
+    Fe q[4];
+    if (take) cpzk::pt_load_words(q, sr + (long)(sg + d) * PT_WORDS);
+    __syncthreads();
+    if (take) {
+      quad_add_into(run, q, r, mask);
+      if (r == 0) cpzk::pt_store_words(sr + (long)sg * PT_WORDS, run);
+    }
+    __syncthreads();
+  }
+  if (on) {
+    if (sg + 1 < nseg) {
+      cpzk::pt_load_words(x, sr + (long)(sg + 1) * PT_WORDS);
+    } else {
+      cpzk::pt_identity(x);
+    }
+    Fe tot[4];
+    cpzk::pt_load_words(tot, sx + (long)sg * PT_WORDS);
+    quad_double_k(x, log_g, r, mask);
+    quad_add_into(x, tot, r, mask);
+  }
+  __syncthreads();
+  if (on && r == 0) cpzk::pt_store_words(sx + (long)sg * PT_WORDS, x);
+  __syncthreads();
+  for (int h = nseg >> 1; h >= 1; h >>= 1) {
+    if (sg < h) {
+      Fe q[4];
+      cpzk::pt_load_words(q, sx + (long)(sg + h) * PT_WORDS);
+      quad_add_into(x, q, r, mask);
+      if (r == 0) cpzk::pt_store_words(sx + (long)sg * PT_WORDS, x);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) cpzk::pt_store_words(totals + (long)w * PT_WORDS, x);
+}
+
+// Quads (and threads) of msm_window_reduce_scale_kernel for k windows.
+__host__ __device__ int scale_quads(int k) { return k < kMaxQuads ? k : kMaxQuads; }
+
+__global__ void __launch_bounds__(4 * kMaxQuads)
+msm_window_reduce_scale_kernel(const uint32_t* __restrict__ totals, int32_t* __restrict__ ox,
+                               int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+                               int32_t* __restrict__ ot, int k, int c) {
+  __shared__ uint4 scale_smem_vec[kMaxQuads * PT_WORDS / 4];
+  uint32_t* sq = (uint32_t*)scale_smem_vec;
+  const int nq = scale_quads(k);
+  const int q = threadIdx.x >> 2, r = threadIdx.x & 3;
+  const unsigned mask = 0xFu << (threadIdx.x & 28);
+  Fe acc[4];
+  if (q < nq) {
+    // windows q, q + nq, ...: Horner over them with stride nq, from the top,
+    // then 2^(c q); a quad's chain is at most c (k - 1) doublings
+    int w = q + (k - 1 - q) / nq * nq;
+    cpzk::pt_load_words(acc, totals + (long)w * PT_WORDS);
+    for (w -= nq; w >= 0; w -= nq) {
+      quad_double_k(acc, c * nq, r, mask);
+      Fe t[4];
+      cpzk::pt_load_words(t, totals + (long)w * PT_WORDS);
+      quad_add_into(acc, t, r, mask);
+    }
+    quad_double_k(acc, c * q, r, mask);
+    if (r == 0) cpzk::pt_store_words(sq + (long)q * PT_WORDS, acc);
+  }
+  __syncthreads();
+  int top = 1;
+  while (top < nq) top <<= 1;
+  for (int h = top >> 1; h >= 1; h >>= 1) {
+    if (q < h && q + h < nq) {
+      Fe o[4];
+      cpzk::pt_load_words(o, sq + (long)(q + h) * PT_WORDS);
+      quad_add_into(acc, o, r, mask);
+      if (r == 0) cpzk::pt_store_words(sq + (long)q * PT_WORDS, acc);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    int32_t* const out[4] = {ox, oy, oz, ot};
+    cpzk::store_point(out, 1, 0, acc);
+  }
+}
+
+bool sort_smem_set[64], add_smem_set[64], totals_smem_set[64];
 
 }  // namespace
 
-// Segments per window of msm_window_reduce (a power of two, at most 32)
-// for window size c; log2 of the buckets per segment is c - 1 - log2 of it.
-extern "C" int cpzk_msm_segments(int c) {
-  const int nb = 1 << (c - 1);
-  return nb < kMaxSegments ? nb : kMaxSegments;
+// int32 words of scratch msm_bucket needs for m terms, k windows, window
+// size c on the current device (-1 if out of range).
+extern "C" int cpzk_msm_bucket_scratch(int m, int k, int c) {
+  if (m < 1 || k < 1 || c < 2 || c > 16) return -1;
+  const long words = bucket_scratch(nullptr, m, k, add_parts(m, k)).words;
+  return words > 0x7fffffffL ? -1 : (int)words;
 }
 
 // Each entry point launches on `stream` (a cudaStream_t), does not
-// synchronise, and returns cudaGetLastError() of the launch (0 = success).
-extern "C" int cpzk_msm_bucket(const void* x, const void* y, const void* z,
-                               const void* t, const void* digits, void* ox, void* oy,
+// synchronise, and returns the first CUDA error of its launches (0 =
+// success).
+extern "C" int cpzk_msm_bucket(const void* x, const void* y, const void* z, const void* t,
+                               const void* digits, void* scratch, void* ox, void* oy,
                                void* oz, void* ot, int m, int k, int c, void* stream) {
   if (m < 1 || k < 1 || c < 2 || c > 16) return (int)cudaErrorInvalidValue;
   const int nb = 1 << (c - 1);
-  const int threads = bucket_threads(nb);
-  const dim3 grid((nb + threads - 1) / threads, k);
-  msm_bucket_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  const int parts = add_parts(m, k);
+  const BucketScratch s = bucket_scratch(scratch, m, k, parts);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (allow_smem(msm_bucket_sort_kernel, kSortSmemMax, sort_smem_set) ||
+      allow_smem(msm_bucket_add_kernel, add_smem(), add_smem_set))
+    return (int)cudaErrorInvalidValue;
+  const bool staged = sort_staged(m, nb);
+  msm_bucket_sort_kernel<<<k, kSortThreads, sort_smem(nb) + (staged ? 8 * m : 0), st>>>(
       (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (const int32_t*)t,
-      (const int32_t*)digits, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (int32_t*)ot,
-      m, k, c);
+      (const int32_t*)digits, s, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (int32_t*)ot, m,
+      k, c, staged);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  msm_bucket_add_kernel<<<dim3(parts, k), kAddThreads, add_smem(), st>>>(
+      s, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (int32_t*)ot, m, k, c, parts);
   return (int)cudaGetLastError();
 }
 
-// scratch: k x 32 words of window totals, then one zeroed ticket word.
+// scratch: k x 32 words of window totals.
 extern "C" int cpzk_msm_window_reduce(const void* bx, const void* by, const void* bz,
                                       const void* bt, void* scratch, void* ox, void* oy,
                                       void* oz, void* ot, int k, int c, void* stream) {
   if (k < 1 || c < 2 || c > 16) return (int)cudaErrorInvalidValue;
-  const int segments = cpzk_msm_segments(c);
-  int log_s = 0;
-  while ((segments << log_s) < (1 << (c - 1))) ++log_s;
-  uint32_t* totals = (uint32_t*)scratch;
-  msm_window_reduce_kernel<<<k, segments, 0, (cudaStream_t)stream>>>(
+  const int segments = totals_segments(c);
+  int log_g = 0;
+  while ((segments << log_g) < (1 << (c - 1))) ++log_g;
+  const int threads = (4 * segments + 31) / 32 * 32;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int nb = 1 << (c - 1);
+  const bool staged = nb <= kTotalsStagedBuckets;
+  if (allow_smem(msm_window_reduce_totals_kernel, kTotalsStagedBuckets * PT_WORDS * 4,
+                 totals_smem_set))
+    return (int)cudaErrorInvalidValue;
+  msm_window_reduce_totals_kernel<<<k, threads, staged ? nb * PT_WORDS * 4 : 0, st>>>(
       (const int32_t*)bx, (const int32_t*)by, (const int32_t*)bz, (const int32_t*)bt,
-      totals, (unsigned int*)(totals + (long)k * 4 * NW), (int32_t*)ox, (int32_t*)oy,
-      (int32_t*)oz, (int32_t*)ot, k, c, log_s);
+      (uint32_t*)scratch, k, c, log_g, staged);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int quads = scale_quads(k);
+  msm_window_reduce_scale_kernel<<<1, (4 * quads + 31) / 32 * 32, 0, st>>>(
+      (const uint32_t*)scratch, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (int32_t*)ot, k, c);
   return (int)cudaGetLastError();
 }

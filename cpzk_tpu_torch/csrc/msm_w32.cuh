@@ -1,14 +1,35 @@
 // The thread bodies of the Pippenger kernels (msm_ops.cu) on the point
 // arithmetic of fe25519_w32.cuh.  Host and device code: the kernels call
-// them per thread, and the tests compile this header with a host C++
-// compiler (through host_shim.cpp) and run them over every (window, bucket)
-// to hold them against the plain PyTorch version in
-// cpzk_tpu_torch/ops/msm.py.
+// them per thread, phase by phase between barriers, and the tests compile
+// this header with a host C++ compiler (through host_shim.cpp), whose
+// drivers run every thread of every phase in the kernels' order, to hold
+// them against the plain PyTorch version in cpzk_tpu_torch/ops/msm.py.
 //
 // Digits are signed c-bit digits d in [-2^(c-1), 2^(c-1)], so a window has
 // the buckets j = 1 .. 2^(c-1) (the top one included: n_buckets = 2^(c-1) + 1
 // with bucket 0, which is skipped).  A point enters bucket |d|, negated
 // where d < 0.
+//
+// msm_bucket in four steps (the bodies below, in the order they run):
+//   1. the chunk's points once from [20, m] limbs to the adds' cached form,
+//      32 consecutive words a point (msm_point_words);
+//   2. a counting sort of each window's digits by bucket: a histogram, an
+//      exclusive scan of it into bucket offsets, the empty buckets stored as
+//      the identity, and a scatter of the signed term entries ±(i + 1) into
+//      bucket order (msm_sort_*);
+//   3. the window's sorted entries split evenly over runs, one run a thread:
+//      a thread adds its entries in order and flushes its sum at every bucket
+//      change (msm_run); a bucket whose entries all lie in the run is stored,
+//      a piece of a bucket that continues past either end of the run is
+//      kept;
+//   4. the pieces joined by a segmented suffix reduction of log depth
+//      (msm_seg_join, msm_seg_level), first over a block's threads, then
+//      over the blocks of a window (msm_place_head decides where a joined
+//      piece goes).
+// msm_window_reduce in two: the window totals sum_j j B_j by segments, a
+// suffix scan and a tree sum, then each window total times 2^(c w) and
+// their tree sum; four lanes of a warp share each add and doubling of both
+// (quad_*; the walks themselves are in msm_ops.cu).
 #pragma once
 
 #include <stdint.h>
@@ -16,6 +37,11 @@
 #include "fe25519_w32.cuh"
 
 namespace cpzk {
+
+// words of a point in the kernels' form (X, Y, Z, T, 8 words each)
+constexpr int PT_WORDS = 4 * NW;
+// threads of the sort's block (a multiple of 32)
+constexpr int MSM_SORT_THREADS = 1024;
 
 FE_FN void pt_identity(Fe p[4]) {
 #pragma unroll
@@ -30,13 +56,6 @@ FE_FN void pt_identity(Fe p[4]) {
 FE_FN void pt_copy(Fe out[4], const Fe p[4]) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) out[k] = p[k];
-}
-
-// -P = (-X, Y, Z, -T) in place.
-FE_FN void pt_negate(Fe p[4]) {
-  const Fe zero = {{0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}};
-  fe_sub(p[0], zero, p[0]);
-  fe_sub(p[3], zero, p[3]);
 }
 
 // acc += p (acc and p distinct).
@@ -67,103 +86,444 @@ FE_FN void store_point(int32_t* const out[4], long stride, long j, const Fe p[4]
   }
 }
 
-// Add the terms of one pending list into acc: each entry is i + 1 for a
-// positive digit of term i and -(i + 1) for a negative one.
-FE_FN void msm_flush(Fe acc[4], const int32_t* pend, int pstride, int cnt,
-                     const int32_t* const coords[4], long m) {
-  for (int q = 0; q < cnt; ++q) {
-    const int32_t e = pend[q * pstride];
-    Fe p[4];
-    load_point(p, coords, m, (e < 0 ? -e : e) - 1);
-    if (e < 0) pt_negate(p);
-    pt_add_into(acc, p);
+// A point in the kernels' form: 32 words at src (16-byte aligned), read and
+// written as 16-byte vectors on the card.
+FE_FN void pt_load_words(Fe p[4], const uint32_t* src) {
+#if defined(__CUDA_ARCH__)
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint4 v = s[q];
+    uint32_t* f = p[q >> 1].w + (q & 1) * 4;
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+#else
+  for (int k = 0; k < 4; ++k) {
+    for (int i = 0; i < NW; ++i) p[k].w[i] = src[k * NW + i];
+  }
+#endif
+}
+
+FE_FN void pt_store_words(uint32_t* dst, const Fe p[4]) {
+#if defined(__CUDA_ARCH__)
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint32_t* f = p[q >> 1].w + (q & 1) * 4;
+    d[q] = make_uint4(f[0], f[1], f[2], f[3]);
+  }
+#else
+  for (int k = 0; k < 4; ++k) {
+    for (int i = 0; i < NW; ++i) dst[k * NW + i] = p[k].w[i];
+  }
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// msm_bucket, step 1: the points in the adds' cached form
+// ---------------------------------------------------------------------------
+
+// A point's cached form (Y - X, Y + X, 2d T, 2 Z): the factors that
+// point_add derives from its second operand, so that adding it costs 8
+// multiplies, not 9, and two dependent levels, not three.
+FE_FN void pt_cached(Fe c[4], const Fe p[4]) {
+  const Fe d2 = {CPZK_D2_WORDS};
+  fe_sub(c[0], p[1], p[0]);
+  fe_add(c[1], p[1], p[0]);
+  fe_mul(c[2], p[3], d2);
+  fe_mul2(c[3], p[2]);
+}
+
+// The cached form of -P from that of P, in place: (Y + X, Y - X, -2d T, 2 Z).
+FE_FN void pt_cached_negate(Fe c[4]) {
+  const Fe zero = {{0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}};
+  const Fe t = c[0];
+  c[0] = c[1];
+  c[1] = t;
+  fe_sub(c[2], zero, c[2]);
+}
+
+// acc += Q, Q in cached form: add-2008-hwcd-3 (point_add's formulas) with
+// A = (Y1 - X1) Q0, B = (Y1 + X1) Q1, C = T1 Q2, D = Z1 Q3 in one batch.
+FE_FN void pt_add_cached_into(Fe acc[4], const Fe q[4]) {
+  Fe u[4], w[4];
+  fe_sub(u[0], acc[1], acc[0]);
+  fe_add(u[1], acc[1], acc[0]);
+  u[2] = acc[3];
+  u[3] = acc[2];
+  mul_n<4>(w, u, q);  // A, B, C, D
+  Fe E, F, G, H;
+  fe_sub(E, w[1], w[0]);
+  fe_sub(F, w[3], w[2]);
+  fe_add(G, w[3], w[2]);
+  fe_add(H, w[1], w[0]);
+  const Fe a[4] = {E, G, F, E}, b[4] = {F, H, G, H};
+  mul_n<4>(acc, a, b);
+}
+
+// Term i of [20, m] limbs into pw[32 i .. 32 i + 32), cached.
+FE_FN void msm_point_words(uint32_t* pw, const int32_t* const coords[4], long m, long i) {
+  Fe p[4], c[4];
+  load_point(p, coords, m, i);
+  pt_cached(c, p);
+  pt_store_words(pw + i * PT_WORDS, c);
+}
+
+// ---------------------------------------------------------------------------
+// msm_bucket, step 2: the counting sort of one window (a block of nt threads
+// on the card; every phase runs for every thread t before the next starts)
+// ---------------------------------------------------------------------------
+
+FE_FN int msm_bucket_of(int32_t d) { return d < 0 ? -d : d; }
+
+// The entry of term i with digit d: i + 1, negated for a negative digit.
+FE_FN int32_t msm_entry(int32_t d, long i) {
+  return d < 0 ? -(int32_t)(i + 1) : (int32_t)(i + 1);
+}
+
+// Claims the next slot of the counter *ctr and returns it: a shared-memory
+// atomic add on the card (grouping a warp's lanes by counter with
+// __match_any_sync first costs four times as much on random digits on the
+// H100), a plain one on the host, which runs the threads one after
+// another.
+FE_FN uint32_t msm_claim(uint32_t* ctr) {
+#if defined(__CUDA_ARCH__)
+  return atomicAdd(ctr, 1u);
+#else
+  return (*ctr)++;
+#endif
+}
+
+// Phase 1, thread t of nt: the histogram of |digit| over the row's m digits
+// into counts[0 .. nb] (zeroed before; bucket 0 counts the zero digits).
+FE_FN void msm_sort_count(uint32_t* counts, const int32_t* row, long m, int t, int nt) {
+  for (long i = t; i < m; i += nt) msm_claim(&counts[msm_bucket_of(row[i])]);
+}
+
+// Buckets 1 .. nb in nt chunks of ch = ceil(nb / nt): thread t's chunk.
+FE_FN int msm_chunk_lo(int nb, int t, int nt) {
+  const int ch = (nb + nt - 1) / nt;
+  const int lo = 1 + t * ch;
+  return lo < nb + 1 ? lo : nb + 1;
+}
+
+// Phase 2, thread t: the sum of its chunk of counts into part[t].
+FE_FN void msm_sort_chunk_sum(uint32_t* part, const uint32_t* counts, int nb, int t, int nt) {
+  const int hi = msm_chunk_lo(nb, t + 1, nt);
+  uint32_t s = 0;
+  for (int b = msm_chunk_lo(nb, t, nt); b < hi; ++b) s += counts[b];
+  part[t] = s;
+}
+
+// Phase 3, thread g < 32: the exclusive scan of its group of nt / 32 chunk
+// sums in place, the group's total into grp[g].
+FE_FN void msm_sort_scan_group(uint32_t* part, uint32_t* grp, int nt, int g) {
+  const int gs = nt / 32;
+  uint32_t acc = 0;
+  for (int u = g * gs; u < (g + 1) * gs; ++u) {
+    const uint32_t x = part[u];
+    part[u] = acc;
+    acc += x;
+  }
+  grp[g] = acc;
+}
+
+// Phase 4, one thread: the exclusive scan of the 32 group totals in place;
+// returns the total, the window's count of non-zero digits.
+FE_FN uint32_t msm_sort_scan_groups(uint32_t* grp) {
+  uint32_t acc = 0;
+  for (int g = 0; g < 32; ++g) {
+    const uint32_t x = grp[g];
+    grp[g] = acc;
+    acc += x;
+  }
+  return acc;
+}
+
+// Phase 5, thread t: the empty buckets among 1 + t, 1 + t + nt, ...
+// (coalesced stores) stored as the identity, in limbs at lane base + b - 1
+// of stride lanes.
+FE_FN void msm_sort_empties(const uint32_t* counts, int nb, int t, int nt,
+                            int32_t* const out[4], long stride, long base) {
+  Fe id[4];
+  pt_identity(id);
+  for (int b = 1 + t; b <= nb; b += nt) {
+    if (counts[b] == 0) store_point(out, stride, base + b - 1, id);
   }
 }
 
-// One thread's work of msm_bucket_kernel on one tile of window w's digits:
-// of the count terms base .. base + count - 1 (digits tile[0 .. count)),
-// those whose digit has magnitude j are added into acc (bucket j's running
-// sum), negated where the digit is negative.  Matches are first listed in
-// pend (cap entries at stride pstride) and added after the scan, so the
-// threads of a warp, which scan the same tile for different j, run their
-// adds together instead of one at a time; a full list is emptied early.
-FE_FN void msm_bucket_tile(Fe acc[4], const int32_t* tile, int count, long base, int j,
-                           const int32_t* const coords[4], long m, int32_t* pend,
-                           int pstride, int cap) {
-  int cnt = 0;
-  for (int t = 0; t < count; ++t) {
-    const int32_t d = tile[t];
-    if (d == j || d == -j) {
-      if (cnt == cap) {
-        msm_flush(acc, pend, pstride, cnt, coords, m);
-        cnt = 0;
+// Phase 6, thread t: its chunk's counts turned into the offsets where each
+// bucket's entries start (the cursors of the scatter).
+FE_FN void msm_sort_cursors(uint32_t* counts, const uint32_t* part, const uint32_t* grp,
+                            int nb, int t, int nt) {
+  const int hi = msm_chunk_lo(nb, t + 1, nt);
+  uint32_t acc = part[t] + grp[t / (nt / 32)];
+  for (int b = msm_chunk_lo(nb, t, nt); b < hi; ++b) {
+    const uint32_t x = counts[b];
+    counts[b] = acc;
+    acc += x;
+  }
+}
+
+// Phase 7, thread t: the scatter of the non-zero digits' entries into
+// bucket order (cursor[b] is the next free position of bucket b): keys[e]
+// the bucket, ents[e] the signed entry.
+FE_FN void msm_sort_scatter(int32_t* keys, int32_t* ents, uint32_t* cursor, const int32_t* row,
+                            long m, int t, int nt) {
+  for (long i = t; i < m; i += nt) {
+    const int32_t d = row[i];
+    if (d != 0) {
+      const int b = msm_bucket_of(d);
+      const uint32_t e = msm_claim(&cursor[b]);
+      keys[e] = b;
+      ents[e] = msm_entry(d, i);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// msm_bucket, step 3: one thread's run of sorted entries
+// ---------------------------------------------------------------------------
+//
+// A window's n sorted entries are split into ranges (a block's, then a
+// thread's run).  A range keeps at most two pieces of buckets that cross
+// its ends: its first piece, of a bucket that continues before it, and its
+// last, of one that continues after it (a range inside one bucket keeps
+// its piece as the first).  key[] is a piece's bucket, has[] whether it
+// holds a sum; a range without a first piece takes the key of a bucket
+// that crosses its start (has 0) or -1, so that the slots of one bucket
+// are contiguous (msm_seg_join).
+
+// The bucket that continues across position x (0 <= x <= n) of the sorted
+// keys, or -1.
+FE_FN int msm_gap_key(const int32_t* keys, long n, long x) {
+  return x > 0 && x < n && keys[x - 1] == keys[x] ? keys[x] : -1;
+}
+
+// Where bucket b's entries within [lo, hi) go: 0 the whole bucket lies in
+// the range, 1 it continues before lo, 2 it continues after hi (only).
+FE_FN int msm_piece_kind(const int32_t* keys, long n, long lo, long hi, int b) {
+  if (lo > 0 && keys[lo - 1] == b) return 1;
+  if (hi < n && keys[hi] == b) return 2;
+  return 0;
+}
+
+// One run: entries lo .. hi - 1 of a window's n sorted entries, added bucket
+// by bucket (every entry is one add, so the lanes of a warp stay together)
+// from the cached points pw; a sum is flushed where the bucket changes: a whole
+// bucket to out (limbs, lane base + b - 1 of stride lanes), a first piece
+// to (fslot, fkey, fhas)[r], a last piece to (lslot, lkey, lhas)[r].
+FE_FN void msm_run(uint32_t* fslot, int* fkey, int* fhas, uint32_t* lslot, int* lkey,
+                   int* lhas, int r, const int32_t* keys, const int32_t* ents, long n, long lo,
+                   long hi, const uint32_t* pw, int32_t* const out[4], long stride, long base) {
+  fhas[r] = lhas[r] = 0;
+  fkey[r] = msm_gap_key(keys, n, lo);
+  lkey[r] = -1;
+  if (lo >= hi) return;
+  Fe acc[4];
+  pt_identity(acc);
+  int b = keys[lo];
+  for (long e = lo; e <= hi; ++e) {
+    // the flush holds no exit, so a warp's lanes meet again at the add
+    if (e == hi || keys[e] != b) {
+      const int kind = msm_piece_kind(keys, n, lo, hi, b);
+      if (kind == 0) {
+        store_point(out, stride, base + b - 1, acc);
+      } else if (kind == 1) {
+        pt_store_words(fslot + (long)r * PT_WORDS, acc);
+        fhas[r] = 1;
+      } else {
+        pt_store_words(lslot + (long)r * PT_WORDS, acc);
+        lkey[r] = b;
+        lhas[r] = 1;
       }
-      const int32_t e = (int32_t)(base + t + 1);
-      pend[cnt * pstride] = d < 0 ? -e : e;
-      ++cnt;
+      pt_identity(acc);
+      if (e < hi) b = keys[e];
+    }
+    if (e < hi) {
+      const int32_t en = ents[e];
+      Fe q[4];
+      pt_load_words(q, pw + (long)((en < 0 ? -en : en) - 1) * PT_WORDS);
+      if (en < 0) pt_cached_negate(q);
+      pt_add_cached_into(acc, q);
     }
   }
-  msm_flush(acc, pend, pstride, cnt, coords, m);
 }
 
-// One thread's segment of msm_window_reduce_kernel: the buckets at
-// positions lo .. hi - 1 of one window (position q holds bucket q + 1, at
-// lane base + q of [20, lanes] limb-major coordinates), walked from the
-// top: run = sum of the segment's buckets, tot = sum over the segment of
-// (q - lo + 1) bucket_(q+1).
-FE_FN void msm_segment(Fe run[4], Fe tot[4], int lo, int hi,
-                       const int32_t* const buckets[4], long lanes, long base) {
-  pt_identity(run);
-  pt_identity(tot);
-  for (int q = hi - 1; q >= lo; --q) {
-    Fe b[4];
-    load_point(b, buckets, lanes, base + q);
-    pt_add_into(run, b);
-    pt_add_into(tot, run);
+// ---------------------------------------------------------------------------
+// msm_bucket, step 4: the segmented reduction of the pieces
+// ---------------------------------------------------------------------------
+//
+// The pieces of nr ranges become nr + 1 slots: slot i is range i's first
+// piece joined with range i - 1's last (its bucket continues into range i),
+// slot nr range nr - 1's last.  A bucket's slots are then contiguous and
+// one a range, and a segmented reduction of log depth sums them.
+
+// Slot i (0 <= i <= nr) of the join, in place over the first pieces.
+FE_FN void msm_seg_join(uint32_t* slot, int* key, int* has, const uint32_t* lslot,
+                        const int* lkey, const int* lhas, int nr, int i) {
+  if (i == nr) {
+    key[i] = lkey[i - 1];
+    has[i] = 0;
   }
+  if (i == 0 || !lhas[i - 1]) return;
+  Fe v[4], q[4];
+  pt_load_words(q, lslot + (long)(i - 1) * PT_WORDS);
+  if (has[i]) {
+    pt_load_words(v, slot + (long)i * PT_WORDS);
+    pt_add_into(v, q);
+  } else {
+    pt_copy(v, q);
+  }
+  pt_store_words(slot + (long)i * PT_WORDS, v);
+  key[i] = lkey[i - 1];
+  has[i] = 1;
 }
 
-// Join the g segments of S = 2^log_s buckets each (segment s covers
-// positions s S .. s S + S - 1) into the window total sum_j j bucket_j =
-// sum_s tot_s + S sum_s s run_s, the last sum by running sums from the top
-// segment down (so a small-scalar multiple costs adds, not a ladder).
-FE_FN void msm_join(Fe total[4], const Fe (*run)[4], const Fe (*tot)[4], int g, int log_s) {
-  Fe rr[4], acc[4];
-  pt_identity(rr);
-  pt_identity(acc);
-  pt_identity(total);
-  for (int s = g - 1; s >= 0; --s) {
-    pt_add_into(total, tot[s]);
-    if (s > 0) {
-      pt_add_into(rr, run[s]);
-      pt_add_into(acc, rr);
+// One level (distance d) of the segmented suffix reduction over ns slots at
+// slot i: dst[i] = src[i], plus src[i + d] where that slot holds a piece of
+// the same bucket.  After the levels d = 1, 2, 4, ... the first slot of
+// each bucket holds the sum of all its slots.  Returns whether slot i took
+// a piece: when no slot takes one at some level, no later level would.
+FE_FN bool msm_seg_level(uint32_t* dst, int* dhas, const uint32_t* src, const int* shas,
+                         const int* key, int ns, int i, int d) {
+  Fe v[4];
+  pt_load_words(v, src + (long)i * PT_WORDS);
+  int h = shas[i];
+  const int j = i + d;
+  const bool take = j < ns && key[i] >= 0 && key[j] == key[i] && shas[j];
+  if (take) {
+    Fe q[4];
+    pt_load_words(q, src + (long)j * PT_WORDS);
+    if (h) {
+      pt_add_into(v, q);
+    } else {
+      pt_copy(v, q);
     }
+    h = 1;
   }
-  if (log_s > 0) point_double_k(acc, log_s);
-  pt_add_into(total, acc);
+  pt_store_words(dst + (long)i * PT_WORDS, v);
+  dhas[i] = h;
+  return take;
 }
 
-// Horner over the k window totals, most significant first:
-// acc = 2^c acc + total_w.  Window w's total is the four 8-word
-// coordinates at totals[32 w ..], read as volatile: on the card another
-// block wrote them (and fenced) before this one read its ticket.
-FE_FN void msm_horner(Fe acc[4], int k, int c, const volatile uint32_t* totals) {
-  pt_identity(acc);
-  for (int w = k - 1; w >= 0; --w) {
-    point_double_k(acc, c);
-    Fe t[4];
-    for (int q = 0; q < 4; ++q) {
-      for (int i = 0; i < NW; ++i) t[q].w[i] = totals[(long)(w * 4 + q) * NW + i];
-    }
-    pt_add_into(acc, t);
+// Slot i's point (words at v), the identity where it holds none.
+FE_FN void msm_slot_point(Fe pt[4], const uint32_t* v, const int* has, int i) {
+  if (has[i]) {
+    pt_load_words(pt, v + (long)i * PT_WORDS);
+  } else {
+    pt_identity(pt);
   }
 }
 
-// A point's four coordinates as 8-word totals at out[0 .. 32).
-FE_FN void store_total(uint32_t* out, const Fe p[4]) {
-  for (int q = 0; q < 4; ++q) {
-    for (int i = 0; i < NW; ++i) out[q * NW + i] = p[q].w[i];
+// Whether slot i starts its bucket's slots (and so holds their sum).
+FE_FN bool msm_seg_head(const int* key, int i) {
+  return key[i] >= 0 && (i == 0 || key[i - 1] != key[i]);
+}
+
+// A block's joined piece of bucket b (slot value v) over its entries
+// [lo, hi) of the window's n: the whole bucket to out, else into the
+// block's first or last piece at part (its two pieces' words).
+FE_FN void msm_place_head(const Fe v[4], int b, const int32_t* keys, long n, long lo, long hi,
+                          int32_t* const out[4], long stride, long base, uint32_t* part) {
+  const int kind = msm_piece_kind(keys, n, lo, hi, b);
+  if (kind == 0) {
+    store_point(out, stride, base + b - 1, v);
+  } else {
+    pt_store_words(part + (kind - 1) * PT_WORDS, v);
   }
+}
+
+// The keys and has flags of a block's first and last pieces for its
+// entries [lo, hi) of the window's n (the words come from msm_place_head).
+FE_FN void msm_block_pieces(int* key, int* has, const int32_t* keys, long n, long lo, long hi) {
+  const int first = msm_gap_key(keys, n, lo);
+  const int last = msm_gap_key(keys, n, hi);
+  key[0] = first;
+  has[0] = lo < hi && first >= 0;
+  // a block inside one bucket keeps its piece as the first
+  key[1] = last;
+  has[1] = lo < hi && last >= 0 && last != first;
+}
+
+// The even split of a count into parts: the start of part p of np.
+FE_FN long msm_split(long n, long p, long np) { return n * p / np; }
+
+// ---------------------------------------------------------------------------
+// msm_window_reduce: four lanes share each doubling and each add
+// ---------------------------------------------------------------------------
+//
+// A quad (four consecutive lanes r = 0..3 of a warp) holds one point, every
+// lane all four coordinates.  A doubling (dbl-2008-hwcd, the formulas of
+// point_double_k) squares one value per lane, gathers the four squares, and
+// multiplies one product per lane (X' = EF, Y' = GH, Z' = FG, T' = EH); an
+// add (add-2008-hwcd-3, those of point_add) multiplies one product per lane
+// (A, B, T1 T2, Z1 Z2), gathers them, runs C = T1 T2 2d in every lane, and
+// multiplies one product per lane.  So a doubling costs the latency of two
+// field operations and an add three, where one thread runs seven and nine
+// (in batches); the gathers are warp shuffles on the card, arrays on the
+// host.  The results equal point_double_k's and point_add's word for word.
+
+// Lane r's pick of four values, word by word (a lane-indexed array would
+// live in local memory on the card).
+FE_FN void fe_pick(Fe& out, const Fe& a, const Fe& b, const Fe& c, const Fe& d, int r) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i)
+    out.w[i] = r == 0 ? a.w[i] : r == 1 ? b.w[i] : r == 2 ? c.w[i] : d.w[i];
+}
+
+// Doubling, lane r's square: X^2, Y^2, Z^2, (X + Y)^2.
+FE_FN void quad_dbl_square(Fe& s, const Fe p[4], int r) {
+  Fe sum, in;
+  fe_add(sum, p[0], p[1]);
+  fe_pick(in, p[0], p[1], p[2], sum, r);
+  fe_sq(s, in);
+}
+
+// Doubling, every lane: (E, F, G, H) from the four squares.
+FE_FN void quad_dbl_efgh(Fe efgh[4], const Fe s[4]) {
+  Fe C;
+  fe_mul2(C, s[2]);
+  fe_add(efgh[3], s[0], s[1]);       // H = A + B
+  fe_sub(efgh[0], efgh[3], s[3]);    // E = H - (X + Y)^2
+  fe_sub(efgh[2], s[0], s[1]);       // G = A - B
+  fe_add(efgh[1], C, efgh[2]);       // F = C + G
+}
+
+// Doubling and add, lane r's product: EF, GH, FG, EH.
+FE_FN void quad_product(Fe& out, const Fe efgh[4], int r) {
+  Fe a, b;
+  fe_pick(a, efgh[0], efgh[2], efgh[1], efgh[0], r);   // E, G, F, E
+  fe_pick(b, efgh[1], efgh[3], efgh[2], efgh[3], r);   // F, H, G, H
+  fe_mul(out, a, b);
+}
+
+// Add p + q, lane r's first product: (Y1 - X1)(Y2 - X2), (Y1 + X1)(Y2 + X2),
+// T1 T2, Z1 Z2.
+FE_FN void quad_add_first(Fe& out, const Fe p[4], const Fe q[4], int r) {
+  Fe pd, ps, qd, qs, u, v;
+  fe_sub(pd, p[1], p[0]);
+  fe_add(ps, p[1], p[0]);
+  fe_sub(qd, q[1], q[0]);
+  fe_add(qs, q[1], q[0]);
+  fe_pick(u, pd, ps, p[3], p[2], r);
+  fe_pick(v, qd, qs, q[3], q[2], r);
+  fe_mul(out, u, v);
+}
+
+// Add, every lane: (E, F, G, H) from the four first products.
+FE_FN void quad_add_efgh(Fe efgh[4], const Fe w[4]) {
+  const Fe d2 = {CPZK_D2_WORDS};
+  Fe C, Dv;
+  fe_mul(C, w[2], d2);
+  fe_mul2(Dv, w[3]);
+  fe_sub(efgh[0], w[1], w[0]);   // E = B - A
+  fe_sub(efgh[1], Dv, C);        // F = D - C
+  fe_add(efgh[2], Dv, C);        // G = D + C
+  fe_add(efgh[3], w[1], w[0]);   // H = B + A
 }
 
 }  // namespace cpzk

@@ -14,7 +14,8 @@ Two implementations of one function:
 
 - on a CUDA tensor, :func:`msm_kernel` runs the two CUDA kernels of
   :mod:`.msm_kernels`: the bucket sums (``msm_bucket``), then the window
-  totals and the Horner step (``msm_window_reduce``);
+  totals and their sum, each scaled by 2^(c w) (``msm_window_reduce``; the
+  same point as Horner's);
 - on a CPU tensor, the plain version, which transcribes the reference's
   TPU formulation: per window a stable ``argsort`` of |digit|, an
   inclusive prefix scan of point adds, bucket sums as differences of the

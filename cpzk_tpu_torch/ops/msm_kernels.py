@@ -17,16 +17,34 @@ and ``csrc/msm_ops.cu`` (the kernels and their C launch interface), on the
 point arithmetic of ``csrc/fe25519_w32.cuh``, built into the package's
 kernel library by :func:`.point_kernels.library`.
 
-``msm_bucket`` runs one thread per (window, bucket): a block stages tiles
-of its window's digits in shared memory, each thread lists the terms of
-its bucket and then adds their points (negated for a negative digit), so a
-warp runs its adds together.  ``msm_window_reduce`` runs one block per
-window: each thread walks a segment of buckets with two running sums,
-thread 0 joins the segments, and the last block runs Horner over the
-windows into one ``[20, 1]`` point.  The buckets pass between the two as
-``[20, K, 2^(c-1)]`` limb tensors, bucket j of a window at index j - 1.
-Outputs are group elements equal to the plain version's; the order of the
-adds differs, so the limbs may differ (compare encodings).
+Design (PERF.md, section 6, has the times).  ``msm_bucket`` is two
+``__global__`` launches a call.  The first, one block per window, turns
+the chunk's points once into the add's cached form, 32 contiguous words
+each, and sorts the window's digits by bucket (a counting sort:
+histogram, scan, scatter of the signed term entries; the empty buckets
+stored as the identity).  The second, a grid of (part, window), splits
+each window's sorted entries evenly over its blocks and their threads: a
+thread adds its run of entries in order and stores a bucket at each
+change, and the pieces of a bucket that spans runs or blocks are joined
+by a segmented reduction of log depth (the last block of a window joins
+the blocks').  So every thread adds about the same number of points
+whatever the digits, and a bucket that holds every term costs about what
+random digits cost.  ``msm_window_reduce`` is two launches too: one block
+per window forms ``sum_j j B_j`` from segments of buckets, a suffix scan
+and a tree sum in shared memory; then one block multiplies each window
+total by 2^(c w) and sums them in a tree.  In both, a quad of lanes
+shares every add and doubling four ways.  The buckets pass between the
+two kernels as ``[20, K, 2^(c-1)]`` limb tensors, bucket j of a window at
+index j - 1.  Outputs are group elements equal to the plain version's;
+the order of the adds differs (and within a bucket follows the sort's
+atomics), so the limbs may differ (compare encodings).
+
+What bounds them on an H100: ``msm_bucket`` one point add per non-zero
+digit (int32 operations, :func:`msm_bucket_work`; the sort's traffic is
+not counted); ``msm_window_reduce`` two adds a bucket and the doublings
+(:func:`msm_window_reduce_work`), but in time the chain of c (k - 1)
+doublings of the top window, one after another, which the quads shorten
+and no schedule of this algorithm removes.
 
 Routing: each wrapper runs the plain version for tensors on the CPU and
 launches its kernel for CUDA tensors; any other device raises, and a failed
@@ -43,8 +61,15 @@ from .point_kernels import (
     on_card)
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.  A
-#: wrapper adds one where it launches its kernel and nowhere else.
+#: wrapper adds one where it launches its kernels (one call, the
+#: ``__global__`` launches of :data:`GLOBALS`) and nowhere else.
 LAUNCHES = {"msm_bucket": 0, "msm_window_reduce": 0}
+
+#: ``__global__`` launches of one wrapper call (the CUDA names in
+#: ``csrc/msm_ops.cu``)
+GLOBALS = {"msm_bucket": ("msm_bucket_sort_kernel", "msm_bucket_add_kernel"),
+           "msm_window_reduce": ("msm_window_reduce_totals_kernel",
+                                 "msm_window_reduce_scale_kernel")}
 
 #: bytes of one point's four coordinates as [20] int32 limbs each
 POINT_BYTES = 4 * NLIMBS * 4
@@ -95,9 +120,15 @@ def msm_bucket(points, digits: torch.Tensor, c: int):
            for _ in range(4)]
     lib = library()
     with torch.cuda.device(digits.device):
+        words = lib.cpzk_msm_bucket_scratch(m, k, c)
+        if words < 0:
+            raise ValueError(f"msm_bucket: {m} terms x {k} windows is too large")
+        # the points' words, the sorted entries and the blocks' pieces
+        scratch = torch.empty((words,), dtype=torch.int32, device=digits.device)
         stream = torch.cuda.current_stream(digits.device).cuda_stream
         rc = lib.cpzk_msm_bucket(*(f.data_ptr() for f in flat), digits.data_ptr(),
-                                 *(o.data_ptr() for o in out), m, k, c, stream)
+                                 scratch.data_ptr(), *(o.data_ptr() for o in out), m, k, c,
+                                 stream)
     _check(rc, "msm_bucket")
     count_launch(LAUNCHES, "msm_bucket")
     return tuple(o.reshape(NLIMBS, k, nb) for o in out)
@@ -105,8 +136,7 @@ def msm_bucket(points, digits: torch.Tensor, c: int):
 
 def msm_window_reduce(buckets, c: int):
     """``[20, K, 2^(c-1)]`` x 4 bucket sums -> the ``[20, 1]`` x 4 MSM
-    result: per window sum_j j bucket_j, then Horner over the windows,
-    most significant first."""
+    result: per window W_w = sum_j j bucket_j, then sum_w 2^(c w) W_w."""
     if not 2 <= c <= 16:
         raise ValueError(f"msm_window_reduce: window size {c} outside 2..16")
     device = buckets[0].device
@@ -122,8 +152,8 @@ def msm_window_reduce(buckets, c: int):
                              f"on {device}, got {b.dtype} {tuple(b.shape)} on {b.device}")
     flat = [b.contiguous() for b in buckets]
     out = [torch.empty((NLIMBS, 1), dtype=torch.int32, device=device) for _ in range(4)]
-    # k window totals of 32 words, then the ticket (zeroed)
-    scratch = torch.zeros((k * 32 + 1,), dtype=torch.int32, device=device)
+    # the k window totals, 32 words each
+    scratch = torch.empty((k * 32,), dtype=torch.int32, device=device)
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -306,28 +306,47 @@ def reset_all_launches() -> None:
         module.reset_launches()
 
 
-def ptxas_report(report: str) -> dict[str, dict[str, int]]:
+def ptxas_report(report: str) -> dict[str, dict]:
     """Registers and stack and spill bytes per kernel (keyed by wrapper
-    name) from the ``-Xptxas -v`` report that :func:`build` returns."""
-    out: dict[str, dict[str, int]] = {}
+    name) from the ``-Xptxas -v`` report that :func:`build` returns.  A
+    wrapper whose call launches several ``__global__`` functions (named
+    ``<wrapper>_<step>_kernel``) gets each under ``globals``, beside their
+    largest register count and stack and the sums of their spills."""
+    per_fn: dict[str, dict[str, dict[str, int]]] = {}
     names = kernel_names()
-    current = None
+    entry = None
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
-            current = next((k for k in names if f"{k}_kernel" in m.group(1)), None)
+            entry = None
+            for k in names:
+                g = re.search(rf"{k}(?:_[a-z]+)?_kernel", m.group(1))
+                if g:
+                    entry = per_fn.setdefault(k, {}).setdefault(g.group(0), {})
+                    break
             continue
-        if current is None:
+        if entry is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
-            out.setdefault(current, {}).update(
-                stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
-                spill_load_bytes=int(m.group(3)))
+            entry.update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                         spill_load_bytes=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out.setdefault(current, {})["registers"] = int(m.group(1))
+            entry["registers"] = int(m.group(1))
+    out: dict[str, dict] = {}
+    for name, fns in per_fn.items():
+        if len(fns) == 1:
+            out[name] = next(iter(fns.values()))
+            continue
+        info: dict = {"globals": fns}
+        for key, join in (("stack_bytes", max), ("spill_store_bytes", sum),
+                          ("spill_load_bytes", sum), ("registers", max)):
+            vals = [f[key] for f in fns.values() if key in f]
+            if vals:
+                info[key] = join(vals)
+        out[name] = info
     return out
 
 
@@ -341,9 +360,9 @@ ENTRY_POINTS = {
     "cpzk_rlc_scalars": [_P] * 11 + [_I, _P],
     "cpzk_rlc_scalars_blocks": [_I],
     "cpzk_scalar_recode": [_P] * 6 + [_I] * 6 + [_P] * 2,
-    "cpzk_msm_bucket": [_P] * 9 + [_I] * 3 + [_P],
+    "cpzk_msm_bucket": [_P] * 10 + [_I] * 3 + [_P],
+    "cpzk_msm_bucket_scratch": [_I] * 3,
     "cpzk_msm_window_reduce": [_P] * 9 + [_I] * 2 + [_P],
-    "cpzk_msm_segments": [_I],
     "cpzk_reduce_wide": [_P, _I, _P, _I, _P],
     "cpzk_keccak_chain": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
     "cpzk_comb_tables": [_P] * 6,

@@ -98,10 +98,11 @@ def test_scalar_kernels_match_plain_on_card(dev, n):
     assert sk.LAUNCHES == {"rlc_scalars": 1, "scalar_recode": 4, "reduce_wide": 0}
 
 
-def msm_case(dev, m, c, seed):
+def msm_case(dev, m, c, seed, kind="mixed"):
     """m valid points (sums of two of 64 random points) and [K, m] digits of
-    random scalars with 0, 1, l - 1; window 1 all +-2^(c-1) (the top
-    bucket), window 2 all 3 (one crowded bucket)."""
+    random scalars with 0, 1, l - 1; for ``mixed`` window 1 all +-2^(c-1)
+    (the top bucket) and window 2 all 3 (one crowded bucket); for ``equal``
+    every digit 5 (each window's terms in one bucket)."""
     rng = random.Random(seed)
     base = curve.points_to_device(
         [he.pt_scalar_mul(he.BASEPOINT, rng.randrange(L)) for _ in range(64)], dev)
@@ -111,14 +112,19 @@ def msm_case(dev, m, c, seed):
     vals = [rng.randrange(L) for _ in range(m - 3)] + [0, 1, L - 1]
     digits = msm.scalars_to_signed_digits(vals, c)
     half = 1 << (c - 1)
-    digits[1] = [half if i % 3 else -half for i in range(m)]
-    digits[2] = 3
+    if kind == "mixed":
+        digits[1] = [half if i % 3 else -half for i in range(m)]
+        digits[2] = 3
+    elif kind == "equal":
+        digits[:] = 5
     return pts, torch.from_numpy(digits).to(dev)
 
 
-@pytest.mark.parametrize("m,c", [(64, 5), (2048, 11)])
-def test_msm_kernels_match_plain_on_card(dev, m, c):
-    pts, digits = msm_case(dev, m, c, m + c)
+@pytest.mark.parametrize("m,c,kind", [(64, 5, "mixed"), (2048, 11, "mixed"),
+                                      (16384, 11, "random"), (16384, 11, "equal"),
+                                      (2048, 16, "mixed")])
+def test_msm_kernels_match_plain_on_card(dev, m, c, kind):
+    pts, digits = msm_case(dev, m, c, m + c, kind)
     mk.reset_launches()
     buckets = mk.msm_bucket(pts, digits, c)
     out = mk.msm_window_reduce(buckets, c)

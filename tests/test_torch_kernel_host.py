@@ -92,8 +92,10 @@ def host_lib(tmp_path_factory):
     lib.host_sc_reduce_wide.argtypes = [P_, P_, I]
     lib.host_sc_windows.argtypes = [P_, P_, I]
     lib.host_sc_signed_digits.argtypes = [P_, I, I, P_, I]
-    lib.host_msm_bucket.argtypes = [P_] * 9 + [I] * 4
-    lib.host_msm_window_reduce.argtypes = [P_] * 8 + [I] * 3
+    lib.host_msm_bucket.argtypes = [P_] * 9 + [I] * 5
+    lib.host_msm_window_reduce.argtypes = [P_] * 8 + [I] * 4
+    lib.host_quad_double_k.argtypes = [P_] * 7 + [I, I]
+    lib.host_quad_add.argtypes = [P_] * 12 + [I]
     lib.host_fe_is_negative.argtypes = [P_, P_, I]
     lib.host_fe_sqrt_ratio_m1.argtypes = [P_] * 4 + [I]
     lib.host_ristretto_encode.argtypes = [P_] * 5 + [I]
@@ -104,7 +106,8 @@ def host_lib(tmp_path_factory):
     for fn in (lib.host_d2, lib.host_to_words, lib.host_fe_op, lib.host_point_add,
                lib.host_point_double_k, lib.host_sc_op, lib.host_sc_reduce_wide,
                lib.host_sc_windows, lib.host_sc_signed_digits, lib.host_msm_bucket,
-               lib.host_msm_window_reduce, lib.host_fe_is_negative,
+               lib.host_msm_window_reduce, lib.host_quad_double_k,
+               lib.host_quad_add, lib.host_fe_is_negative,
                lib.host_fe_sqrt_ratio_m1, lib.host_ristretto_encode,
                lib.host_ristretto_decode, lib.host_comb_window,
                lib.host_commitments, lib.host_keccak_chain):
@@ -308,7 +311,7 @@ def msm_inputs(seed, m, c):
     digits = msm.scalars_to_signed_digits(scalars, c)
     half = 1 << (c - 1)
     digits[1] = [half if i % 3 else -half for i in range(m)]
-    digits[2] = 3
+    digits[2] = min(3, half)
     return curve.points_to_device(pts, "cpu"), torch.from_numpy(digits)
 
 
@@ -316,44 +319,146 @@ def group_equal(p, q):
     return torch.equal(curve.encode(p), curve.encode(q))
 
 
-@pytest.mark.parametrize("c,cap", [(4, 8), (5, 1)])
-def test_msm_bucket_body_matches_plain(host_lib, c, cap):
-    """Every (window, bucket) of msm_bucket_kernel's thread body, the top
-    bucket included; cap = 1 empties the pending list at every match."""
-    m = 12
-    points, digits = msm_inputs(14 + c, m, c)
-    k, nb = digits.shape[0], 1 << (c - 1)
+def host_bucket_sums(lib, points, digits, c, threads, parts):
+    """msm_bucket's two kernels run by the host driver: [20, K, 2^(c-1)]."""
+    k, m = digits.shape
+    nb = 1 << (c - 1)
     outs = [empty(k * nb) for _ in range(4)]
-    host_lib.host_msm_bucket(*(ptr(p) for p in points), ptr(digits),
-                             *(ptr(o) for o in outs), m, k, c, cap)
+    lib.host_msm_bucket(*(ptr(p) for p in points), ptr(digits.contiguous()),
+                        *(ptr(o) for o in outs), m, k, c, threads, parts)
+    return tuple(o.reshape(20, k, nb) for o in outs)
+
+
+def host_window_reduce(lib, buckets, c, segments, quads):
+    """msm_window_reduce's two kernels run by the host driver: [20, 1]."""
+    k = buckets[0].shape[1]
+    outs = [empty(1) for _ in range(4)]
+    flat = [b.reshape(20, -1).contiguous() for b in buckets]
+    lib.host_msm_window_reduce(*(ptr(b) for b in flat), *(ptr(o) for o in outs),
+                               k, c, segments, quads)
+    return tuple(outs)
+
+
+def oracle_msm(points, digits, c):
+    """sum_i (sum_w d_wi 2^(c w)) P_i on the host oracle."""
+    want = he.IDENTITY
+    for j, p in enumerate(curve.points_from_device(points)):
+        s = sum(int(digits[w, j]) << (c * w) for w in range(digits.shape[0]))
+        want = he.pt_add(want, he.pt_scalar_mul(p, s % L))
+    return want
+
+
+def assert_oracle_equal(point, want):
+    got = tuple(v % he.P for v in curve.points_from_device(point)[0])
+    assert he.pt_eq(got, want)
+
+
+@pytest.mark.parametrize("c,m,threads,parts,digits_kind", [
+    (4, 12, 4, 2, "mixed"),
+    (5, 12, 32, 2, "mixed"),          # runs of one entry (and empty runs)
+    (5, 40, 1, 1, "mixed"),           # one run across every bucket of a window
+    (4, 24, 4, 3, "one_bucket"),      # one bucket across every run and block
+    (2, 10, 4, 2, "mixed"),           # the smallest window
+], ids=["mixed", "run_of_one", "run_across_buckets", "bucket_across_runs", "c2"])
+def test_msm_bucket_body_matches_plain(host_lib, c, m, threads, parts, digits_kind):
+    """msm_bucket's sort, runs and joins over every block and thread (the
+    top bucket and a crowded one included) against the plain bucket sums."""
+    points, digits = msm_inputs(14 + c + m, m, c)
+    if digits_kind == "one_bucket":
+        digits = torch.tensor([[5 if i % 2 else -5 for i in range(m)]] * digits.shape[0],
+                              dtype=torch.int32)
+    got = host_bucket_sums(host_lib, points, digits, c, threads, parts)
     ref = msm.bucket_sums_plain(points, digits, c)
-    got = tuple(o.reshape(20, k, nb) for o in outs)
     assert group_equal(got, ref)
-    # the top bucket of window 1 holds every term, signs applied
-    assert not bool(curve.is_identity(tuple(g[:, 1, nb - 1:] for g in got)))
+    nb = 1 << (c - 1)
+    if digits_kind == "mixed":
+        # the top bucket of window 1 holds every term, signs applied
+        assert not bool(curve.is_identity(tuple(g[:, 1, nb - 1:] for g in got)))
 
 
-@pytest.mark.parametrize("c,segments", [(4, 1), (4, 8), (5, 4)])
-def test_msm_window_reduce_body_matches_plain(host_lib, c, segments):
-    """msm_window_reduce_kernel's segments, join and Horner on the plain
-    bucket sums, against the plain window reduction and the host oracle."""
+def test_msm_bucket_body_matches_oracle_at_c16(host_lib):
+    """c = 16 (32,768 buckets a window) on two windows: the non-empty
+    buckets against sums on the host oracle, every other bucket exactly
+    the identity's limbs (0, 1, 1, 0)."""
+    c, m = 16, 6
+    points, _ = msm_inputs(61, m, c)
+    half = 1 << (c - 1)
+    digits = torch.tensor([[half, -half, 1, -1, 12345, 0],
+                           [7, 7, -7, half - 1, 0, -half]], dtype=torch.int32)
+    got = host_bucket_sums(host_lib, points, digits, c, 4, 2)
+    host_pts = curve.points_from_device(points)
+    filled = set()
+    for w in range(2):
+        for b in {abs(int(d)) for d in digits[w]} - {0}:
+            want = he.IDENTITY
+            for i in range(m):
+                d = int(digits[w, i])
+                if abs(d) == b:
+                    want = he.pt_add(want, host_pts[i] if d > 0 else he.pt_neg(host_pts[i]))
+            assert_oracle_equal(tuple(g[:, w, b - 1:b] for g in got), want)
+            filled.add((w, b - 1))
+    ident = [0, 1, 1, 0]
+    for q, g in enumerate(got):
+        mask = torch.ones(g.shape[1:], dtype=torch.bool)
+        for w, j in filled:
+            mask[w, j] = False
+        rest = g[:, mask]
+        assert int(rest[0].ne(ident[q]).sum()) == 0 and int(rest[1:].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("c,segments,quads", [
+    (4, 8, 64),      # the card's shapes at c = 4: two windows on some quads
+    (4, 1, 5),       # one segment a window; Horner with stride 5 on each quad
+    (5, 4, 52),
+    (2, 2, 64),      # the smallest window: 128 windows on 64 quads
+    (11, 64, 24),    # the main path's c = 11 with the card's segments and quads
+])
+def test_msm_window_reduce_body_matches_plain(host_lib, c, segments, quads):
+    """msm_window_reduce's window totals (segments, suffix scan, tree sum)
+    and its quads' scaled windows and tree sum, on the plain bucket sums,
+    against the plain window reduction and the host oracle."""
     m = 10
     points, digits = msm_inputs(20 + c + segments, m, c)
     buckets = msm.bucket_sums_plain(points, digits, c)
-    k = digits.shape[0]
-    outs = [empty(1) for _ in range(4)]
-    flat = [b.reshape(20, -1).contiguous() for b in buckets]
-    host_lib.host_msm_window_reduce(*(ptr(b) for b in flat), *(ptr(o) for o in outs),
-                                    k, c, segments)
-    ref = msm.window_reduce_plain(buckets, c)
-    assert group_equal(tuple(outs), ref)
-    host_pts = curve.points_from_device(points)
-    want = he.IDENTITY
-    for j, p in enumerate(host_pts):
-        s = sum(int(digits[w, j]) << (c * w) for w in range(k))
-        want = he.pt_add(want, he.pt_scalar_mul(p, s % L))
-    got = tuple(v % he.P for v in curve.points_from_device(tuple(outs))[0])
-    assert he.pt_eq(got, want)
+    got = host_window_reduce(host_lib, buckets, c, segments, quads)
+    assert group_equal(got, msm.window_reduce_plain(buckets, c))
+    assert_oracle_equal(got, oracle_msm(points, digits, c))
+
+
+def test_msm_window_reduce_body_matches_oracle_at_c16(host_lib):
+    """c = 16 on two windows, from msm_bucket's host run: 64 segments of
+    512 buckets, against the host oracle."""
+    c, m = 16, 5
+    points, _ = msm_inputs(62, m, c)
+    half = 1 << (c - 1)
+    digits = torch.tensor([[half, -3, 3, 999, -half + 1], [1, half, -half, 0, 2]],
+                          dtype=torch.int32)
+    buckets = host_bucket_sums(host_lib, points, digits, c, 4, 2)
+    assert_oracle_equal(host_window_reduce(host_lib, buckets, c, 64, 2),
+                        oracle_msm(points, digits, c))
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_quad_double_k_matches_plain(host_lib, k):
+    """The quad doubling (four lanes, one square and one product each a
+    round) against the plain k-fold doubling, on loose limbs."""
+    a = limb_inputs(50 + k, 3)
+    outs = [empty() for _ in range(4)]
+    host_lib.host_quad_double_k(*(ptr(t) for t in a), *(ptr(o) for o in outs), N, k)
+    ref = pk.point_double_k_plain((a[0], a[1], a[2], a[0]), k)
+    for o, r in zip(outs, ref):
+        assert_canonical_equal(o, r)
+
+
+def test_quad_add_matches_plain(host_lib):
+    """The quad add (four lanes, two products each and C in every lane)
+    against the plain add, on loose limbs."""
+    a = limb_inputs(57, 8)
+    outs = [empty() for _ in range(4)]
+    host_lib.host_quad_add(*(ptr(t) for t in a), *(ptr(o) for o in outs), N)
+    ref = pk.point_add_plain(tuple(a[:4]), tuple(a[4:]))
+    for o, r in zip(outs, ref):
+        assert_canonical_equal(o, r)
 
 
 # -- ristretto encode (ristretto_w32.cuh) ------------------------------------

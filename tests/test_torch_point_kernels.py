@@ -152,3 +152,28 @@ def test_ptxas_report_and_operation_counts():
     assert pk.ADD_OPS_PER_LANE == pk._add_ops(pk.W32_MUL_OPS, pk.W32_LINEAR_OPS) == 1611
     assert pk.double_k_ops_per_lane(4) == 4578
     assert pk.double_k_ops_per_lane(4) < pk._double_k_ops(4, pk.MUL_OPS, pk.SQ_OPS, pk.LINEAR_OPS)
+
+
+def test_ptxas_report_joins_a_wrappers_globals():
+    """A wrapper whose call launches two ``__global__`` functions (the MSM
+    pair's sort and add, totals and scale) reports each under ``globals``,
+    its largest register count and stack and the sums of its spills."""
+    lines = []
+    for fn, regs, spill in (("msm_bucket_sort_kernel", 40, 0), ("msm_bucket_add_kernel", 168, 8),
+                            ("msm_window_reduce_totals_kernel", 170, 0),
+                            ("msm_window_reduce_scale_kernel", 130, 4)):
+        mangled = f"_ZN12_GLOBAL__N_1{len(fn)}{fn}EPKiS1_"
+        lines += [f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
+                  f"ptxas info    : Function properties for {mangled}",
+                  f"    {spill} bytes stack frame, {spill} bytes spill stores, "
+                  f"{spill} bytes spill loads",
+                  f"ptxas info    : Used {regs} registers, used 1 barriers"]
+    got = pk.ptxas_report("\n".join(lines))
+    assert got["msm_bucket"]["registers"] == 168
+    assert got["msm_bucket"]["spill_store_bytes"] == 8
+    assert got["msm_bucket"]["globals"]["msm_bucket_sort_kernel"]["registers"] == 40
+    assert got["msm_window_reduce"]["registers"] == 170
+    assert got["msm_window_reduce"]["stack_bytes"] == 4
+    assert set(got["msm_window_reduce"]["globals"]) == {"msm_window_reduce_totals_kernel",
+                                                        "msm_window_reduce_scale_kernel"}
+    assert set(got) == {"msm_bucket", "msm_window_reduce"}
