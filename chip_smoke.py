@@ -45,7 +45,8 @@ seconds since the script started):
    times beside the bounds at the 4096- and 16,384-row shapes (the MSM
    pair per wrapper call, its two ``__global__`` launches, by CUDA events
    on the random and the one-bucket digits, and once by the profiler,
-   with ``msm_window_reduce``'s chain floor); and the batch prover's and
+   with the chain floor of ``msm_window_reduce``'s quad schedule, checked
+   and timed on its own); and the batch prover's and
    the device challenges' kernels: ``comb_tables`` for G and H (tables equal to the
    plain ones after canonicalization), ``commitments`` at n in {1, 127,
    4096, 16,384} lanes (bytes identical, and equal to the host core's comb
@@ -2705,8 +2706,8 @@ def msm_kernels_vs_plain(dev, ms, c: int, chunk: int, int32_ops_per_s: float,
     chunk of the random and the one-bucket digits: each wrapper call (its
     two ``__global__`` launches) by ``kernel_ms``, and the random case once
     by the profiler (``device_ms``); and the chain floor of
-    ``msm_window_reduce``: c (K - 1) doublings at the latency of one, from
-    ``point_double_k`` on one lane."""
+    ``msm_window_reduce``'s schedule: c (K - 1) quad doublings on one warp
+    (``cpzk_msm_quad_chain``), checked against the plain doublings."""
     import random
 
     import numpy as np
@@ -2714,7 +2715,7 @@ def msm_kernels_vs_plain(dev, ms, c: int, chunk: int, int32_ops_per_s: float,
 
     from cpzk_tpu_torch.core import edwards
     from cpzk_tpu_torch.core.scalars import L
-    from cpzk_tpu_torch.ops import curve, msm, msm_kernels as mk, point_kernels as pk
+    from cpzk_tpu_torch.ops import curve, limbs, msm, msm_kernels as mk, point_kernels as pk
     from cpzk_tpu_torch.ops.backend import _chunk_bounds, _chunk_point
 
     t_start = time.perf_counter()
@@ -2791,16 +2792,37 @@ def msm_kernels_vs_plain(dev, ms, c: int, chunk: int, int32_ops_per_s: float,
         for case, dg in (("random", digits), ("top_bucket", top)):
             check(ms[0], cc, case, dg, pts, ms[0], False)
 
-    # the chain floor: c (K - 1) doublings of the top window, one after
-    # another, at one doubling's latency (point_double_k on one lane)
+    # the chain floor of msm_window_reduce's schedule: c (K - 1) doublings
+    # of the top window, one after another, each shared by a quad of lanes
+    # as the scale kernel shares them (cpzk_msm_quad_chain, one warp)
     k = msm.num_windows(c)
     doublings = c * (k - 1)
     one = tuple(x[:, :1].contiguous() for x in base)
-    lat = kernel_ms(lambda: pk.point_double_k(one, doublings), None, 10)
+    words = pk.words_of_limbs(torch.stack([limbs.canonical(x)[:, 0] for x in one]))
+    words = words.reshape(-1).contiguous()
+    got = torch.empty_like(words)
+    lib = pk.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def chain() -> None:
+        rc = lib.cpzk_msm_quad_chain(words.data_ptr(), got.data_ptr(), doublings, stream)
+        if rc:
+            raise RuntimeError(f"cpzk_msm_quad_chain failed: CUDA error {rc}")
+
+    chain()
+    synchronize()
+    lim = pk.limbs_of_words(got.reshape(4, 8))
+    want = pk.point_double_k_plain(one, doublings)
+    if err(tuple(lim[i][:, None] for i in range(4)), want):
+        raise AssertionError(f"cpzk_msm_quad_chain: {doublings} doublings differ from "
+                             "point_double_k_plain")
+    lat = kernel_ms(chain, None, 10)
     floor = {"c": c, "windows": k, "doublings": doublings,
              "double_us": lat["ms"] * 1e3 / doublings, "chain_floor_ms": lat["ms"],
-             "adds_after": (k - 1).bit_length(),
-             "timed_by": "point_double_k on one lane, k = c (K - 1), by kernel_ms"}
+             "ms_runs": lat["ms_runs"], "adds_after": (k - 1).bit_length(),
+             "timed_by": "cpzk_msm_quad_chain (one warp, a quad a doubling, the scale "
+                         "kernel's schedule), c (K - 1) rounds, by kernel_ms",
+             "floor_of": "msm_window_reduce's quad schedule, not of every design"}
     for row in rows["msm_window_reduce"]:
         if "ms" in row:
             row["chain_floor"] = floor

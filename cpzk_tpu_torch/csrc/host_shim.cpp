@@ -56,56 +56,8 @@ void store_sc(int32_t* dst, const Sc& v, int n, int j) {
   for (int i = 0; i < NL; ++i) dst[(long)i * n + j] = l[i];
 }
 
-// msm_ops.cu's seg_reduce over ns slots, one level after another.
-uint32_t* seg_reduce(uint32_t* a, int* ha, uint32_t* b, int* hb, const int* key, int ns,
-                     int** has_out) {
-  for (int d = 1; d < ns; d <<= 1) {
-    bool took = false;
-    for (int i = 0; i < ns; ++i) took |= cpzk::msm_seg_level(b, hb, a, ha, key, ns, i, d);
-    std::swap(a, b);
-    std::swap(ha, hb);
-    if (!took) break;
-  }
-  *has_out = ha;
-  return a;
-}
-
-// msm_window_reduce_totals_kernel's walk with one thread's adds (a quad's
-// equal them word for word): a segment of buckets at positions lo .. hi - 1
-// of one window (position q holds bucket q + 1, at lane base + q of
-// [20, lanes] limbs), from the top: run = the sum of its buckets, tot =
-// sum over it of (q - lo + 1) bucket_(q+1).
-void msm_segment(Fe run[4], Fe tot[4], int lo, int hi, const int32_t* const buckets[4],
-                 long lanes, long base) {
-  cpzk::pt_identity(run);
-  cpzk::pt_identity(tot);
-  for (int q = hi - 1; q >= lo; --q) {
-    Fe b[4];
-    cpzk::load_point(b, buckets, lanes, base + q);
-    cpzk::pt_add_into(run, b);
-    cpzk::pt_add_into(tot, run);
-  }
-}
-
-// msm_ops.cu's quad_double_k and quad_add_into with the four lanes run one
-// after another and the shuffles as arrays.
-void quad_double_k(Fe p[4], int k) {
-  for (int round = 0; round < k; ++round) {
-    Fe s[4], efgh[4], prod[4];
-    for (int r = 0; r < 4; ++r) cpzk::quad_dbl_square(s[r], p, r);
-    cpzk::quad_dbl_efgh(efgh, s);
-    for (int r = 0; r < 4; ++r) cpzk::quad_product(prod[r], efgh, r);
-    cpzk::pt_copy(p, prod);
-  }
-}
-
-void quad_add_into(Fe acc[4], const Fe q[4]) {
-  Fe w[4], efgh[4], prod[4];
-  for (int r = 0; r < 4; ++r) cpzk::quad_add_first(w[r], acc, q, r);
-  cpzk::quad_add_efgh(efgh, w);
-  for (int r = 0; r < 4; ++r) cpzk::quad_product(prod[r], efgh, r);
-  cpzk::pt_copy(acc, prod);
-}
+// The whole quad in one call (msm_w32.cuh's Quad on the host).
+constexpr cpzk::Quad kQuad = {0, 0xFu};
 
 }  // namespace
 
@@ -350,12 +302,12 @@ void host_msm_bucket(const int32_t* x, const int32_t* y, const int32_t* z,
   std::vector<uint32_t> pw((long)m * PT_WORDS), counts(nb + 1), part(nt), grp(32);
   std::vector<int32_t> keys((long)m), ents((long)m);
   for (long i = 0; i < m; ++i) cpzk::msm_point_words(pw.data(), coords, m, i);
-  std::vector<uint32_t> buf0((long)(threads + 1) * PT_WORDS), buf1(buf0.size());
-  std::vector<uint32_t> lbuf((long)threads * PT_WORDS);
-  std::vector<int> key(threads + 1), has0(threads + 1), has1(threads + 1);
-  std::vector<int> lkey(threads), lhas(threads);
+  // a block's slots (its threads' or, in the join, the window's blocks')
+  const int slots = std::max(threads, parts) + 1;
+  std::vector<uint32_t> buf0((long)slots * PT_WORDS), buf1(buf0.size()), lbuf(buf0.size());
+  std::vector<int> key(slots), has0(slots), has1(slots), lkey(slots), lhas(slots);
   std::vector<uint32_t> pieces((long)2 * parts * PT_WORDS);
-  std::vector<int> pkey(2 * parts), phas(2 * parts);
+  std::vector<int32_t> pkey(2 * parts), phas(2 * parts);
   for (int w = 0; w < k; ++w) {
     const int32_t* row = digits + (long)w * m;
     const long base = (long)w * nb;
@@ -377,149 +329,89 @@ void host_msm_bucket(const int32_t* x, const int32_t* y, const int32_t* z,
       const long lo = cpzk::msm_split(n, p, parts), hi = cpzk::msm_split(n, p + 1, parts);
       uint32_t* mine = pieces.data() + (long)2 * p * PT_WORDS;
       if (lo < hi) {
-        const long len = hi - lo;
         for (int r = 0; r < threads; ++r)
-          cpzk::msm_run(buf0.data(), key.data(), has0.data(), lbuf.data(), lkey.data(),
-                        lhas.data(), r, keys.data(), ents.data(), n,
-                        lo + cpzk::msm_split(len, r, threads),
-                        lo + cpzk::msm_split(len, r + 1, threads), pw.data(), out, stride,
-                        base);
+          cpzk::msm_thread_run(buf0.data(), key.data(), has0.data(), lbuf.data(), lkey.data(),
+                               lhas.data(), r, threads, keys.data(), ents.data(), n, lo, hi,
+                               pw.data(), out, stride, base);
         for (int i = 0; i <= threads; ++i)
           cpzk::msm_seg_join(buf0.data(), key.data(), has0.data(), lbuf.data(), lkey.data(),
                              lhas.data(), threads, i);
         int* has;
-        const uint32_t* v = seg_reduce(buf0.data(), has0.data(), buf1.data(), has1.data(),
-                                       key.data(), threads + 1, &has);
-        for (int i = 0; i <= threads; ++i) {
-          if (!cpzk::msm_seg_head(key.data(), i)) continue;
-          Fe pt[4];
-          cpzk::msm_slot_point(pt, v, has, i);
-          cpzk::msm_place_head(pt, key[i], keys.data(), n, lo, hi, out, stride, base, mine);
-        }
+        const uint32_t* v = cpzk::msm_seg_reduce(buf0.data(), has0.data(), buf1.data(),
+                                                 has1.data(), key.data(), threads + 1, 0, 1,
+                                                 &has);
+        for (int i = 0; i <= threads; ++i)
+          cpzk::msm_place_slot(v, has, key.data(), i, keys.data(), n, lo, hi, out, stride, base,
+                               mine);
       }
       cpzk::msm_block_pieces(pkey.data() + 2 * p, phas.data() + 2 * p, keys.data(), n, lo, hi);
     }
-    // the last block of the window joins the blocks' pieces
-    std::vector<uint32_t> j0((long)(parts + 1) * PT_WORDS), j1(j0.size()),
-        jl((long)parts * PT_WORDS);
-    std::vector<int> jkey(parts + 1), h0(parts + 1), h1(parts + 1), jlkey(parts), jlhas(parts);
-    for (int q = 0; q < parts; ++q) {
-      std::copy(pieces.begin() + (long)2 * q * PT_WORDS,
-                pieces.begin() + (long)(2 * q + 1) * PT_WORDS, j0.begin() + (long)q * PT_WORDS);
-      std::copy(pieces.begin() + (long)(2 * q + 1) * PT_WORDS,
-                pieces.begin() + (long)(2 * q + 2) * PT_WORDS, jl.begin() + (long)q * PT_WORDS);
-      jkey[q] = pkey[2 * q];
-      h0[q] = phas[2 * q];
-      jlkey[q] = pkey[2 * q + 1];
-      jlhas[q] = phas[2 * q + 1];
-    }
+    // the window's last block joins the blocks' pieces
+    for (int q = 0; q < parts; ++q)
+      cpzk::msm_load_pieces(buf0.data(), key.data(), has0.data(), lbuf.data(), lkey.data(),
+                            lhas.data(), pieces.data(), pkey.data(), phas.data(), q);
     for (int i = 0; i <= parts; ++i)
-      cpzk::msm_seg_join(j0.data(), jkey.data(), h0.data(), jl.data(), jlkey.data(),
-                         jlhas.data(), parts, i);
+      cpzk::msm_seg_join(buf0.data(), key.data(), has0.data(), lbuf.data(), lkey.data(),
+                         lhas.data(), parts, i);
     int* has;
-    const uint32_t* v = seg_reduce(j0.data(), h0.data(), j1.data(), h1.data(), jkey.data(),
-                                   parts + 1, &has);
-    for (int i = 0; i <= parts; ++i) {
-      if (!cpzk::msm_seg_head(jkey.data(), i)) continue;
-      Fe pt[4];
-      cpzk::msm_slot_point(pt, v, has, i);
-      cpzk::store_point(out, stride, base + jkey[i] - 1, pt);
-    }
+    const uint32_t* v = cpzk::msm_seg_reduce(buf0.data(), has0.data(), buf1.data(),
+                                             has1.data(), key.data(), parts + 1, 0, 1, &has);
+    for (int i = 0; i <= parts; ++i) cpzk::msm_store_slot(v, has, key.data(), i, out, stride, base);
   }
 }
 
-// msm_window_reduce's two kernels: buckets [20, k 2^(c-1)] x 4 -> the
-// [20, 1] result, with `segments` segments a window (a power of two
-// dividing 2^(c-1); the card's: min(2^(c-1), 64)) and `quads` quads for
-// the scaled windows (at most k; the card's: min(k, 64)).  The totals'
-// quads add as point_add does, word for word, so their serial bodies
-// stand in for them here.
+// msm_window_reduce's two kernels over every quad and step, in their order:
+// buckets [20, k 2^(c-1)] x 4 -> the [20, 1] result, with `segments`
+// segments a window (a power of two dividing 2^(c-1); the card's:
+// msm_totals_segments(c)) and `quads` quads for the scaled windows (at
+// most k; the card's: msm_scale_quads(k)).
 void host_msm_window_reduce(const int32_t* bx, const int32_t* by, const int32_t* bz,
                             const int32_t* bt, int32_t* ox, int32_t* oy, int32_t* oz,
                             int32_t* ot, int k, int c, int segments, int quads) {
   const int nb = 1 << (c - 1);
-  int log_g = 0;
-  while ((segments << log_g) < nb) ++log_g;
+  const int log_g = cpzk::msm_totals_log_g(c, segments);
   const int32_t* const coords[4] = {bx, by, bz, bt};
   const long lanes = (long)k * nb;
-  std::vector<uint32_t> totals((long)k * PT_WORDS);
-  std::vector<uint32_t> sr((long)segments * PT_WORDS), sr2(sr.size()), sx(sr.size());
-  std::vector<Fe> run((long)segments * 4);
+  const bool staged = nb <= cpzk::MSM_TOTALS_STAGED_BUCKETS;
+  std::vector<uint32_t> totals((long)k * PT_WORDS), sb(staged ? (long)nb * PT_WORDS : 0);
+  std::vector<uint32_t> sr0((long)segments * PT_WORDS), sr1(sr0.size()), sx(sr0.size());
+  std::vector<Fe> run((long)segments * 4), x((long)segments * 4);
   // msm_window_reduce_totals_kernel's block w
   for (int w = 0; w < k; ++w) {
-    for (int sg = 0; sg < segments; ++sg) {
-      Fe tot[4];
-      msm_segment(&run[(long)sg * 4], tot, sg << log_g, (sg + 1) << log_g, coords,
-                        lanes, (long)w * nb);
-      cpzk::pt_store_words(&sx[(long)sg * PT_WORDS], tot);
-      cpzk::pt_store_words(&sr[(long)sg * PT_WORDS], &run[(long)sg * 4]);
-    }
+    const long base = (long)w * nb;
+    if (staged) cpzk::msm_totals_stage(sb.data(), coords, lanes, base, nb, 0, 1);
+    uint32_t* ra = sr0.data();
+    uint32_t* rb = sr1.data();
+    for (int sg = 0; sg < segments; ++sg)
+      cpzk::msm_totals_segment(&run[(long)sg * 4], ra, sx.data(), staged ? sb.data() : nullptr,
+                               coords, lanes, base, sg, log_g, kQuad);
     for (int d = 1; d < segments; d <<= 1) {
-      sr2 = sr;
-      for (int sg = 0; sg + d < segments; ++sg) {
-        Fe q[4];
-        cpzk::pt_load_words(q, &sr2[(long)(sg + d) * PT_WORDS]);
-        cpzk::pt_add_into(&run[(long)sg * 4], q);
-        cpzk::pt_store_words(&sr[(long)sg * PT_WORDS], &run[(long)sg * 4]);
-      }
+      for (int sg = 0; sg < segments; ++sg)
+        cpzk::msm_totals_scan_level(&run[(long)sg * 4], rb, ra, sg, segments, d, kQuad);
+      std::swap(ra, rb);
     }
-    for (int sg = 0; sg < segments; ++sg) {
-      Fe x[4], tot[4];
-      if (sg + 1 < segments) {
-        cpzk::pt_load_words(x, &sr[(long)(sg + 1) * PT_WORDS]);
-      } else {
-        cpzk::pt_identity(x);
-      }
-      cpzk::pt_load_words(tot, &sx[(long)sg * PT_WORDS]);
-      // segment sg holds buckets sg g + 1 .. sg g + g: x = g later + tot
-      if (log_g > 0) cpzk::point_double_k(x, log_g);
-      cpzk::pt_add_into(x, tot);
-      cpzk::pt_store_words(&sx[(long)sg * PT_WORDS], x);
-    }
+    for (int sg = 0; sg < segments; ++sg)
+      cpzk::msm_totals_weight(&x[(long)sg * 4], sx.data(), ra, sg, segments, log_g, kQuad);
     for (int h = segments >> 1; h >= 1; h >>= 1) {
-      for (int sg = 0; sg < h; ++sg) {
-        Fe x[4], q[4];
-        cpzk::pt_load_words(x, &sx[(long)sg * PT_WORDS]);
-        cpzk::pt_load_words(q, &sx[(long)(sg + h) * PT_WORDS]);
-        cpzk::pt_add_into(x, q);
-        cpzk::pt_store_words(&sx[(long)sg * PT_WORDS], x);
-      }
+      for (int sg = 0; sg < segments; ++sg)
+        cpzk::msm_tree_level(&x[(long)sg * 4], sx.data(), sg, h, segments, kQuad);
     }
-    std::copy(sx.begin(), sx.begin() + PT_WORDS, totals.begin() + (long)w * PT_WORDS);
+    cpzk::pt_store_words(&totals[(long)w * PT_WORDS], &x[0]);
   }
   // msm_window_reduce_scale_kernel's quads
   std::vector<uint32_t> sq((long)quads * PT_WORDS);
-  for (int q = 0; q < quads; ++q) {
-    Fe acc[4];
-    int w = q + (k - 1 - q) / quads * quads;
-    cpzk::pt_load_words(acc, &totals[(long)w * PT_WORDS]);
-    for (w -= quads; w >= 0; w -= quads) {
-      quad_double_k(acc, c * quads);
-      Fe t[4];
-      cpzk::pt_load_words(t, &totals[(long)w * PT_WORDS]);
-      quad_add_into(acc, t);
-    }
-    quad_double_k(acc, c * q);
-    cpzk::pt_store_words(&sq[(long)q * PT_WORDS], acc);
+  std::vector<Fe> acc((long)quads * 4);
+  for (int q = 0; q < quads; ++q)
+    cpzk::msm_scale_horner(&acc[(long)q * 4], sq.data(), totals.data(), k, c, q, quads, kQuad);
+  for (int h = cpzk::msm_tree_top(quads) >> 1; h >= 1; h >>= 1) {
+    for (int q = 0; q < quads; ++q)
+      cpzk::msm_tree_level(&acc[(long)q * 4], sq.data(), q, h, quads, kQuad);
   }
-  int top = 1;
-  while (top < quads) top <<= 1;
-  for (int h = top >> 1; h >= 1; h >>= 1) {
-    for (int q = 0; q < h && q + h < quads; ++q) {
-      Fe acc[4], o[4];
-      cpzk::pt_load_words(acc, &sq[(long)q * PT_WORDS]);
-      cpzk::pt_load_words(o, &sq[(long)(q + h) * PT_WORDS]);
-      quad_add_into(acc, o);
-      cpzk::pt_store_words(&sq[(long)q * PT_WORDS], acc);
-    }
-  }
-  Fe acc[4];
-  cpzk::pt_load_words(acc, sq.data());
   int32_t* const out[4] = {ox, oy, oz, ot};
-  cpzk::store_point(out, 1, 0, acc);
+  cpzk::store_point(out, 1, 0, &acc[0]);
 }
 
-// The quad doubling and add of msm_window_reduce_scale_kernel per lane:
+// msm_w32.cuh's quad doubling and add per lane:
 // k doublings of [20, n] x 3, and p + q of [20, n] x 4 each.
 void host_quad_double_k(const int32_t* x, const int32_t* y, const int32_t* z, int32_t* ox,
                         int32_t* oy, int32_t* oz, int32_t* ot, int n, int k) {
@@ -529,7 +421,7 @@ void host_quad_double_k(const int32_t* x, const int32_t* y, const int32_t* z, in
     load_fe(p[1], y, n, j);
     load_fe(p[2], z, n, j);
     p[3] = p[0];  // not read: a doubling takes X, Y, Z
-    quad_double_k(p, k);
+    cpzk::quad_double_k(p, k, kQuad);
     store_fe(ox, p[0], n, j);
     store_fe(oy, p[1], n, j);
     store_fe(oz, p[2], n, j);
@@ -550,7 +442,7 @@ void host_quad_add(const int32_t* x1, const int32_t* y1, const int32_t* z1, cons
     load_fe(q[1], y2, n, j);
     load_fe(q[2], z2, n, j);
     load_fe(q[3], t2, n, j);
-    quad_add_into(p, q);
+    cpzk::quad_add_into(p, q, kQuad);
     store_fe(ox, p[0], n, j);
     store_fe(oy, p[1], n, j);
     store_fe(oz, p[2], n, j);

@@ -18,6 +18,8 @@
 //                                      on 64 quads of lanes
 //     msm_window_reduce_scale_kernel   one block: each total times 2^(c w)
 //                                      on a quad of lanes, then a tree sum
+//   msm_quad_chain_kernel  no wrapper: the quads' doubling chain alone, the
+//                          floor of the scale kernel's schedule, for timing
 //
 // Layout: points are [20, m] limb-major int32 coordinates, digits [k, m]
 // signed c-bit digits (LSB window first), buckets [20, k B] with bucket j of
@@ -54,7 +56,6 @@
 namespace {
 
 using cpzk::Fe;
-using cpzk::NW;
 using cpzk::PT_WORDS;
 
 constexpr int kSortThreads = cpzk::MSM_SORT_THREADS;
@@ -64,11 +65,7 @@ constexpr int kRanges = kAddThreads;  // one run a thread
 // blocks per SM at most (registers and shared memory allow three)
 constexpr int kEntriesPerThread = 16;
 constexpr int kAddBlocksPerSm = 3;
-constexpr int kTotalsQuads = 64;
-// buckets a window of msm_window_reduce_totals_kernel stages in shared
-// memory at most (c <= 11: 128 KB)
-constexpr int kTotalsStagedBuckets = 1024;
-constexpr int kMaxQuads = 64;
+constexpr int kTotalsQuads = cpzk::MSM_TOTALS_QUADS;
 
 // SMs of the current device, read once per device.
 int sm_count() {
@@ -148,7 +145,10 @@ BucketScratch bucket_scratch(void* base, long m, int k, int parts) {
 
 // dynamic shared memory the sort may ask for: its histogram and scan, and
 // where they fit beside them, the sorted entries (scattered in shared
-// memory, then copied out in order)
+// memory, then copied out in order: on an H100 the sort of a 16,384-term
+// chunk at c = 11 took 21.7 us so and 54.9 us scattering straight to
+// global scratch, with random digits; with one bucket a window the whole
+// call was within 1% either way)
 constexpr int kSortSmemMax = 200 * 1024;
 
 int sort_smem(int nb) { return (nb + 1 + kSortThreads + 32) * 4; }
@@ -210,28 +210,6 @@ msm_bucket_sort_kernel(const int32_t* __restrict__ x, const int32_t* __restrict_
   }
 }
 
-// The segmented reduction over ns slots in shared memory, double-buffered
-// (a, ha) -> (b, hb) level by level; returns the buffer holding the result
-// (its has flags in *has_out).
-__device__ uint32_t* seg_reduce(uint32_t* a, int* ha, uint32_t* b, int* hb, const int* key,
-                                int ns, int** has_out) {
-  for (int d = 1; d < ns; d <<= 1) {
-    bool took = false;
-    for (int i = threadIdx.x; i < ns; i += blockDim.x)
-      took |= cpzk::msm_seg_level(b, hb, a, ha, key, ns, i, d);
-    took = __syncthreads_or(took);
-    uint32_t* tw = a;
-    a = b;
-    b = tw;
-    int* th = ha;
-    ha = hb;
-    hb = th;
-    if (!took) break;
-  }
-  *has_out = ha;
-  return a;
-}
-
 // Shared memory of msm_bucket_add_kernel: two buffers of the kRanges + 1
 // joined slots, the kRanges last pieces, and their keys and has flags.
 int add_smem() { return ((2 * (kRanges + 1) + kRanges) * PT_WORDS + 5 * kRanges + 3) * 4; }
@@ -261,23 +239,18 @@ msm_bucket_add_kernel(BucketScratch s, int32_t* __restrict__ ox, int32_t* __rest
   const long piece0 = ((long)w * parts + p) * 2;
 
   if (lo < hi) {
-    const long len = hi - lo;
-    cpzk::msm_run(buf0, key, has0, lbuf, lkey, lhas, tid, keys, ents, n,
-                  lo + cpzk::msm_split(len, tid, kRanges),
-                  lo + cpzk::msm_split(len, tid + 1, kRanges), s.pw, out, stride, base);
+    cpzk::msm_thread_run(buf0, key, has0, lbuf, lkey, lhas, tid, kRanges, keys, ents, n, lo,
+                         hi, s.pw, out, stride, base);
     __syncthreads();
     for (int i = tid; i <= kRanges; i += kAddThreads)
       cpzk::msm_seg_join(buf0, key, has0, lbuf, lkey, lhas, kRanges, i);
     __syncthreads();
     int* has;
-    const uint32_t* v = seg_reduce(buf0, has0, buf1, has1, key, kRanges + 1, &has);
-    for (int i = tid; i <= kRanges; i += kAddThreads) {
-      if (!cpzk::msm_seg_head(key, i)) continue;
-      Fe pt[4];
-      cpzk::msm_slot_point(pt, v, has, i);
-      cpzk::msm_place_head(pt, key[i], keys, n, lo, hi, out, stride, base,
+    const uint32_t* v =
+        cpzk::msm_seg_reduce(buf0, has0, buf1, has1, key, kRanges + 1, tid, kAddThreads, &has);
+    for (int i = tid; i <= kRanges; i += kAddThreads)
+      cpzk::msm_place_slot(v, has, key, i, keys, n, lo, hi, out, stride, base,
                            s.parts + piece0 * PT_WORDS);
-    }
   }
   if (tid == 0) cpzk::msm_block_pieces(s.pkey + piece0, s.phas + piece0, keys, n, lo, hi);
 
@@ -290,209 +263,97 @@ msm_bucket_add_kernel(BucketScratch s, int32_t* __restrict__ ox, int32_t* __rest
   if (!last) return;
   __threadfence();
   const long first = (long)w * parts * 2;
-  for (int q = tid; q < parts; q += kAddThreads) {
-    const uint4* src = reinterpret_cast<const uint4*>(s.parts + (first + 2 * q) * PT_WORDS);
-    uint4* fd = reinterpret_cast<uint4*>(buf0 + (long)q * PT_WORDS);
-    uint4* ld = reinterpret_cast<uint4*>(lbuf + (long)q * PT_WORDS);
-#pragma unroll
-    for (int u = 0; u < PT_WORDS / 4; ++u) {
-      fd[u] = __ldcg(src + u);
-      ld[u] = __ldcg(src + PT_WORDS / 4 + u);
-    }
-    key[q] = __ldcg(s.pkey + first + 2 * q);
-    has0[q] = __ldcg(s.phas + first + 2 * q);
-    lkey[q] = __ldcg(s.pkey + first + 2 * q + 1);
-    lhas[q] = __ldcg(s.phas + first + 2 * q + 1);
-  }
+  for (int q = tid; q < parts; q += kAddThreads)
+    cpzk::msm_load_pieces(buf0, key, has0, lbuf, lkey, lhas, s.parts + first * PT_WORDS,
+                          s.pkey + first, s.phas + first, q);
   __syncthreads();
   for (int i = tid; i <= parts; i += kAddThreads)
     cpzk::msm_seg_join(buf0, key, has0, lbuf, lkey, lhas, parts, i);
   __syncthreads();
   int* has;
-  const uint32_t* v = seg_reduce(buf0, has0, buf1, has1, key, parts + 1, &has);
-  for (int i = tid; i <= parts; i += kAddThreads) {
-    if (!cpzk::msm_seg_head(key, i)) continue;
-    Fe pt[4];
-    cpzk::msm_slot_point(pt, v, has, i);
-    cpzk::store_point(out, stride, base + key[i] - 1, pt);
-  }
+  const uint32_t* v =
+      cpzk::msm_seg_reduce(buf0, has0, buf1, has1, key, parts + 1, tid, kAddThreads, &has);
+  for (int i = tid; i <= parts; i += kAddThreads)
+    cpzk::msm_store_slot(v, has, key, i, out, stride, base);
 }
 
-// The four values of a quad, one from each lane (lane r of the quad gives
-// out[r]); mask names the quad's lanes.
-__device__ __forceinline__ void quad_gather(Fe out[4], const Fe& v, unsigned mask) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int i = 0; i < NW; ++i) out[r].w[i] = __shfl_sync(mask, v.w[i], r, 4);
-  }
-}
-
-// k >= 0 doublings of p (every lane holds it) shared by a quad.
-__device__ void quad_double_k(Fe p[4], int k, int r, unsigned mask) {
-  for (int round = 0; round < k; ++round) {
-    Fe sq, s[4], efgh[4], prod;
-    cpzk::quad_dbl_square(sq, p, r);
-    quad_gather(s, sq, mask);
-    cpzk::quad_dbl_efgh(efgh, s);
-    cpzk::quad_product(prod, efgh, r);
-    quad_gather(p, prod, mask);
-  }
-}
-
-// acc += q (every lane holds both) shared by a quad.
-__device__ void quad_add_into(Fe acc[4], const Fe q[4], int r, unsigned mask) {
-  Fe w1, w[4], efgh[4], prod;
-  cpzk::quad_add_first(w1, acc, q, r);
-  quad_gather(w, w1, mask);
-  cpzk::quad_add_efgh(efgh, w);
-  cpzk::quad_product(prod, efgh, r);
-  quad_gather(acc, prod, mask);
-}
-
-// Segments (quads) per window of msm_window_reduce_totals_kernel (a power
-// of two, at most kTotalsQuads) for window size c.
-int totals_segments(int c) {
-  const int nb = 1 << (c - 1);
-  return nb < kTotalsQuads ? nb : kTotalsQuads;
-}
-
-// One block per window, a quad of lanes per segment of g = 2^log_g
-// buckets.  Segment s holds buckets s g + 1 .. s g + g; walked from the
-// top it gives run_s (the sum of its buckets) and tot_s (sum over it of
-// (j - s g) B_j), so it contributes tot_s + s g run_s to sum_j j B_j.
-// Over all segments that is sum_s x_s with x_s = tot_s + g later_s, where
-// later_s is the sum of the runs after s: a suffix scan of the runs, then
-// the tree sum of the x_s, every add and doubling shared by the quad.
+// One block per window, a quad of lanes per segment (msm_w32.cuh's
+// msm_totals_* steps in order, a barrier after each).
 __global__ void __launch_bounds__(4 * kTotalsQuads)
 msm_window_reduce_totals_kernel(const int32_t* __restrict__ bx, const int32_t* __restrict__ by,
                                 const int32_t* __restrict__ bz, const int32_t* __restrict__ bt,
-                                uint32_t* __restrict__ totals, int k, int c, int log_g,
-                                bool staged) {
-  __shared__ uint4 sr_vec[kTotalsQuads * PT_WORDS / 4], sx_vec[kTotalsQuads * PT_WORDS / 4];
-  uint32_t* sr = (uint32_t*)sr_vec;
+                                uint32_t* __restrict__ totals, int k, int c, bool staged) {
+  __shared__ uint4 sr_vec[2][kTotalsQuads * PT_WORDS / 4], sx_vec[kTotalsQuads * PT_WORDS / 4];
+  uint32_t* ra = (uint32_t*)sr_vec[0];
+  uint32_t* rb = (uint32_t*)sr_vec[1];
   uint32_t* sx = (uint32_t*)sx_vec;
-  const int nb = 1 << (c - 1);
-  const int nseg = nb >> log_g;
-  const int w = blockIdx.x, sg = threadIdx.x >> 2, r = threadIdx.x & 3;
-  const unsigned mask = 0xFu << (threadIdx.x & 28);
-  const bool on = sg < nseg;
   extern __shared__ uint4 staged_vec[];
-  uint32_t* sb = (uint32_t*)staged_vec;
+  uint32_t* sb = staged ? (uint32_t*)staged_vec : nullptr;
+  const int nb = 1 << (c - 1);
+  const int nseg = cpzk::msm_totals_segments(c);
+  const int log_g = cpzk::msm_totals_log_g(c, nseg);
+  const int w = blockIdx.x, sg = threadIdx.x >> 2;
+  const cpzk::Quad qd = cpzk::quad_of_thread(threadIdx.x);
+  const bool on = sg < nseg;
   const int32_t* const coords[4] = {bx, by, bz, bt};
-  const long lanes = (long)k * nb;
-  // the window's buckets in the kernels' form, read once with coalesced
-  // loads, where they fit
-  if (staged) {
-    for (int q = threadIdx.x; q < nb; q += blockDim.x) {
-      Fe b[4];
-      cpzk::load_point(b, coords, lanes, (long)w * nb + q);
-      cpzk::pt_store_words(sb + (long)q * PT_WORDS, b);
-    }
+  const long lanes = (long)k * nb, base = (long)w * nb;
+  if (sb) {
+    cpzk::msm_totals_stage(sb, coords, lanes, base, nb, threadIdx.x, blockDim.x);
     __syncthreads();
   }
   Fe run[4], x[4];
-  if (on) {
-    Fe tot[4];
-    cpzk::pt_identity(run);
-    cpzk::pt_identity(tot);
-    for (int q = ((sg + 1) << log_g) - 1; q >= sg << log_g; --q) {
-      Fe b[4];
-      if (staged) {
-        cpzk::pt_load_words(b, sb + (long)q * PT_WORDS);
-      } else {
-        cpzk::load_point(b, coords, lanes, (long)w * nb + q);
-      }
-      quad_add_into(run, b, r, mask);
-      quad_add_into(tot, run, r, mask);
-    }
-    if (r == 0) {
-      cpzk::pt_store_words(sx + (long)sg * PT_WORDS, tot);
-      cpzk::pt_store_words(sr + (long)sg * PT_WORDS, run);
-    }
-  }
+  if (on) cpzk::msm_totals_segment(run, ra, sx, sb, coords, lanes, base, sg, log_g, qd);
   __syncthreads();
-  // the inclusive suffix scan of the runs
   for (int d = 1; d < nseg; d <<= 1) {
-    const bool take = on && sg + d < nseg;
-    Fe q[4];
-    if (take) cpzk::pt_load_words(q, sr + (long)(sg + d) * PT_WORDS);
+    if (on) cpzk::msm_totals_scan_level(run, rb, ra, sg, nseg, d, qd);
     __syncthreads();
-    if (take) {
-      quad_add_into(run, q, r, mask);
-      if (r == 0) cpzk::pt_store_words(sr + (long)sg * PT_WORDS, run);
-    }
-    __syncthreads();
+    uint32_t* t = ra;
+    ra = rb;
+    rb = t;
   }
-  if (on) {
-    if (sg + 1 < nseg) {
-      cpzk::pt_load_words(x, sr + (long)(sg + 1) * PT_WORDS);
-    } else {
-      cpzk::pt_identity(x);
-    }
-    Fe tot[4];
-    cpzk::pt_load_words(tot, sx + (long)sg * PT_WORDS);
-    quad_double_k(x, log_g, r, mask);
-    quad_add_into(x, tot, r, mask);
-  }
-  __syncthreads();
-  if (on && r == 0) cpzk::pt_store_words(sx + (long)sg * PT_WORDS, x);
+  if (on) cpzk::msm_totals_weight(x, sx, ra, sg, nseg, log_g, qd);
   __syncthreads();
   for (int h = nseg >> 1; h >= 1; h >>= 1) {
-    if (sg < h) {
-      Fe q[4];
-      cpzk::pt_load_words(q, sx + (long)(sg + h) * PT_WORDS);
-      quad_add_into(x, q, r, mask);
-      if (r == 0) cpzk::pt_store_words(sx + (long)sg * PT_WORDS, x);
-    }
+    if (on) cpzk::msm_tree_level(x, sx, sg, h, nseg, qd);
     __syncthreads();
   }
   if (threadIdx.x == 0) cpzk::pt_store_words(totals + (long)w * PT_WORDS, x);
 }
 
-// Quads (and threads) of msm_window_reduce_scale_kernel for k windows.
-__host__ __device__ int scale_quads(int k) { return k < kMaxQuads ? k : kMaxQuads; }
-
-__global__ void __launch_bounds__(4 * kMaxQuads)
+// One block: a quad for each stride of windows (msm_scale_horner), then
+// their tree sum.
+__global__ void __launch_bounds__(4 * kTotalsQuads)
 msm_window_reduce_scale_kernel(const uint32_t* __restrict__ totals, int32_t* __restrict__ ox,
                                int32_t* __restrict__ oy, int32_t* __restrict__ oz,
                                int32_t* __restrict__ ot, int k, int c) {
-  __shared__ uint4 scale_smem_vec[kMaxQuads * PT_WORDS / 4];
+  __shared__ uint4 scale_smem_vec[kTotalsQuads * PT_WORDS / 4];
   uint32_t* sq = (uint32_t*)scale_smem_vec;
-  const int nq = scale_quads(k);
-  const int q = threadIdx.x >> 2, r = threadIdx.x & 3;
-  const unsigned mask = 0xFu << (threadIdx.x & 28);
+  const int nq = cpzk::msm_scale_quads(k);
+  const int q = threadIdx.x >> 2;
+  const cpzk::Quad qd = cpzk::quad_of_thread(threadIdx.x);
   Fe acc[4];
-  if (q < nq) {
-    // windows q, q + nq, ...: Horner over them with stride nq, from the top,
-    // then 2^(c q); a quad's chain is at most c (k - 1) doublings
-    int w = q + (k - 1 - q) / nq * nq;
-    cpzk::pt_load_words(acc, totals + (long)w * PT_WORDS);
-    for (w -= nq; w >= 0; w -= nq) {
-      quad_double_k(acc, c * nq, r, mask);
-      Fe t[4];
-      cpzk::pt_load_words(t, totals + (long)w * PT_WORDS);
-      quad_add_into(acc, t, r, mask);
-    }
-    quad_double_k(acc, c * q, r, mask);
-    if (r == 0) cpzk::pt_store_words(sq + (long)q * PT_WORDS, acc);
-  }
+  if (q < nq) cpzk::msm_scale_horner(acc, sq, totals, k, c, q, nq, qd);
   __syncthreads();
-  int top = 1;
-  while (top < nq) top <<= 1;
-  for (int h = top >> 1; h >= 1; h >>= 1) {
-    if (q < h && q + h < nq) {
-      Fe o[4];
-      cpzk::pt_load_words(o, sq + (long)(q + h) * PT_WORDS);
-      quad_add_into(acc, o, r, mask);
-      if (r == 0) cpzk::pt_store_words(sq + (long)q * PT_WORDS, acc);
-    }
+  for (int h = cpzk::msm_tree_top(nq) >> 1; h >= 1; h >>= 1) {
+    if (q < nq) cpzk::msm_tree_level(acc, sq, q, h, nq, qd);
     __syncthreads();
   }
   if (threadIdx.x == 0) {
     int32_t* const out[4] = {ox, oy, oz, ot};
     cpzk::store_point(out, 1, 0, acc);
   }
+}
+
+// One warp, every quad: `rounds` quad doublings of the point at in (32
+// words), quad 0's result to out.  Not on any path: it measures the
+// latency of the doubling chain that bounds msm_window_reduce_scale_kernel.
+__global__ void __launch_bounds__(32)
+msm_quad_chain_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int rounds) {
+  const cpzk::Quad qd = cpzk::quad_of_thread(threadIdx.x);
+  Fe p[4];
+  cpzk::pt_load_words(p, in);
+  cpzk::quad_double_k(p, rounds, qd);
+  if (threadIdx.x == 0) cpzk::pt_store_words(out, p);
 }
 
 bool sort_smem_set[64], add_smem_set[64], totals_smem_set[64];
@@ -538,23 +399,31 @@ extern "C" int cpzk_msm_window_reduce(const void* bx, const void* by, const void
                                       const void* bt, void* scratch, void* ox, void* oy,
                                       void* oz, void* ot, int k, int c, void* stream) {
   if (k < 1 || c < 2 || c > 16) return (int)cudaErrorInvalidValue;
-  const int segments = totals_segments(c);
-  int log_g = 0;
-  while ((segments << log_g) < (1 << (c - 1))) ++log_g;
+  const int segments = cpzk::msm_totals_segments(c);
   const int threads = (4 * segments + 31) / 32 * 32;
   const cudaStream_t st = (cudaStream_t)stream;
   const int nb = 1 << (c - 1);
-  const bool staged = nb <= kTotalsStagedBuckets;
-  if (allow_smem(msm_window_reduce_totals_kernel, kTotalsStagedBuckets * PT_WORDS * 4,
-                 totals_smem_set))
+  const bool staged = nb <= cpzk::MSM_TOTALS_STAGED_BUCKETS;
+  if (allow_smem(msm_window_reduce_totals_kernel,
+                 cpzk::MSM_TOTALS_STAGED_BUCKETS * PT_WORDS * 4, totals_smem_set))
     return (int)cudaErrorInvalidValue;
   msm_window_reduce_totals_kernel<<<k, threads, staged ? nb * PT_WORDS * 4 : 0, st>>>(
       (const int32_t*)bx, (const int32_t*)by, (const int32_t*)bz, (const int32_t*)bt,
-      (uint32_t*)scratch, k, c, log_g, staged);
+      (uint32_t*)scratch, k, c, staged);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int quads = scale_quads(k);
+  const int quads = cpzk::msm_scale_quads(k);
   msm_window_reduce_scale_kernel<<<1, (4 * quads + 31) / 32 * 32, 0, st>>>(
       (const uint32_t*)scratch, (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (int32_t*)ot, k, c);
+  return (int)cudaGetLastError();
+}
+
+// `rounds` quad doublings of one point (32 words at in, the kernels' form)
+// into out, on one warp: a probe of the doubling chain's latency, launched
+// by no wrapper.
+extern "C" int cpzk_msm_quad_chain(const void* in, void* out, int rounds, void* stream) {
+  if (rounds < 0) return (int)cudaErrorInvalidValue;
+  msm_quad_chain_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const uint32_t*)in,
+                                                             (uint32_t*)out, rounds);
   return (int)cudaGetLastError();
 }

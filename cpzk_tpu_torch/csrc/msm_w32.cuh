@@ -27,14 +27,24 @@
 //      over the blocks of a window (msm_place_head decides where a joined
 //      piece goes).
 // msm_window_reduce in two: the window totals sum_j j B_j by segments, a
-// suffix scan and a tree sum, then each window total times 2^(c w) and
-// their tree sum; four lanes of a warp share each add and doubling of both
-// (quad_*; the walks themselves are in msm_ops.cu).
+// suffix scan and a tree sum (msm_totals_*, msm_tree_level), then each
+// window total times 2^(c w) and their tree sum (msm_scale_horner,
+// msm_tree_level); four lanes of a warp share each add and doubling of
+// both (Quad, quad_*).  The kernels only sequence these bodies between
+// barriers, so the host drivers run the code the card runs.
 #pragma once
 
 #include <stdint.h>
 
 #include "fe25519_w32.cuh"
+
+// Bodies with loops of adds or doublings: the compiler may keep them out of
+// line.
+#if defined(__CUDACC__)
+#define MSM_FN inline __host__ __device__
+#else
+#define MSM_FN static inline
+#endif
 
 namespace cpzk {
 
@@ -452,6 +462,97 @@ FE_FN void msm_block_pieces(int* key, int* has, const int32_t* keys, long n, lon
 // The even split of a count into parts: the start of part p of np.
 FE_FN long msm_split(long n, long p, long np) { return n * p / np; }
 
+// Thread r of nr in a block's entries [lo, hi): its run (msm_run) over its
+// even share of them.
+FE_FN void msm_thread_run(uint32_t* fslot, int* fkey, int* fhas, uint32_t* lslot, int* lkey,
+                          int* lhas, int r, int nr, const int32_t* keys, const int32_t* ents,
+                          long n, long lo, long hi, const uint32_t* pw, int32_t* const out[4],
+                          long stride, long base) {
+  const long len = hi - lo;
+  msm_run(fslot, fkey, fhas, lslot, lkey, lhas, r, keys, ents, n, lo + msm_split(len, r, nr),
+          lo + msm_split(len, r + 1, nr), pw, out, stride, base);
+}
+
+// The segmented reduction over ns slots, double-buffered (a, ha) -> (b, hb)
+// level by level (msm_seg_level), thread t of nt taking slots t, t + nt, ...
+// of each level: on the card a block's threads with a barrier between
+// levels, on the host one thread (t = 0, nt = 1) taking every slot.
+// Returns the buffer holding the result, its has flags in *has_out.
+MSM_FN uint32_t* msm_seg_reduce(uint32_t* a, int* ha, uint32_t* b, int* hb, const int* key,
+                                int ns, int t, int nt, int** has_out) {
+  for (int d = 1; d < ns; d <<= 1) {
+    bool took = false;
+    for (int i = t; i < ns; i += nt) took |= msm_seg_level(b, hb, a, ha, key, ns, i, d);
+#if defined(__CUDA_ARCH__)
+    took = __syncthreads_or(took);
+#endif
+    uint32_t* tw = a;
+    a = b;
+    b = tw;
+    int* th = ha;
+    ha = hb;
+    hb = th;
+    if (!took) break;
+  }
+  *has_out = ha;
+  return a;
+}
+
+// Slot i after a block's reduction (words v, flags has): where it starts
+// its bucket's slots, its sum placed as msm_place_head places it.
+FE_FN void msm_place_slot(const uint32_t* v, const int* has, const int* key, int i,
+                          const int32_t* keys, long n, long lo, long hi, int32_t* const out[4],
+                          long stride, long base, uint32_t* part) {
+  if (!msm_seg_head(key, i)) return;
+  Fe pt[4];
+  msm_slot_point(pt, v, has, i);
+  msm_place_head(pt, key[i], keys, n, lo, hi, out, stride, base, part);
+}
+
+// Slot i after the window's join of its blocks' pieces: where it starts its
+// bucket's slots, its sum is the whole bucket.
+FE_FN void msm_store_slot(const uint32_t* v, const int* has, const int* key, int i,
+                          int32_t* const out[4], long stride, long base) {
+  if (!msm_seg_head(key, i)) return;
+  Fe pt[4];
+  msm_slot_point(pt, v, has, i);
+  store_point(out, stride, base + key[i] - 1, pt);
+}
+
+// The window's last block, for block q of the window: its first and last
+// pieces (words at pieces + 2 q PT_WORDS, keys and has flags at 2 q) into
+// the join's slot q and last piece q.  Other blocks wrote them, so the card
+// reads them past the L1.
+FE_FN void msm_load_pieces(uint32_t* fbuf, int* fkey, int* fhas, uint32_t* lbuf, int* lkey,
+                           int* lhas, const uint32_t* pieces, const int32_t* pkey,
+                           const int32_t* phas, int q) {
+  const uint32_t* src = pieces + 2L * q * PT_WORDS;
+#if defined(__CUDA_ARCH__)
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* fd = reinterpret_cast<uint4*>(fbuf + (long)q * PT_WORDS);
+  uint4* ld = reinterpret_cast<uint4*>(lbuf + (long)q * PT_WORDS);
+#pragma unroll
+  for (int u = 0; u < PT_WORDS / 4; ++u) {
+    fd[u] = __ldcg(s + u);
+    ld[u] = __ldcg(s + PT_WORDS / 4 + u);
+  }
+  fkey[q] = __ldcg(pkey + 2 * q);
+  fhas[q] = __ldcg(phas + 2 * q);
+  lkey[q] = __ldcg(pkey + 2 * q + 1);
+  lhas[q] = __ldcg(phas + 2 * q + 1);
+#else
+  for (int u = 0; u < PT_WORDS; ++u) {
+    fbuf[(long)q * PT_WORDS + u] = src[u];
+    lbuf[(long)q * PT_WORDS + u] = src[PT_WORDS + u];
+  }
+  fkey[q] = pkey[2 * q];
+  fhas[q] = phas[2 * q];
+  lkey[q] = pkey[2 * q + 1];
+  lhas[q] = phas[2 * q + 1];
+#endif
+}
+
+
 // ---------------------------------------------------------------------------
 // msm_window_reduce: four lanes share each doubling and each add
 // ---------------------------------------------------------------------------
@@ -464,8 +565,18 @@ FE_FN long msm_split(long n, long p, long np) { return n * p / np; }
 // (A, B, T1 T2, Z1 Z2), gathers them, runs C = T1 T2 2d in every lane, and
 // multiplies one product per lane.  So a doubling costs the latency of two
 // field operations and an add three, where one thread runs seven and nine
-// (in batches); the gathers are warp shuffles on the card, arrays on the
-// host.  The results equal point_double_k's and point_add's word for word.
+// (in batches).  The gathers are warp shuffles on the card; on the host one
+// call runs the four lanes one after another.  The results equal
+// point_double_k's and point_add's word for word.
+
+// This lane's place r in its quad and the mask of the quad's lanes (on the
+// host r is 0 and unused: a call there is the whole quad).
+struct Quad {
+  int r;
+  unsigned mask;
+};
+
+FE_FN Quad quad_of_thread(int tid) { return Quad{tid & 3, 0xFu << (tid & 28)}; }
 
 // Lane r's pick of four values, word by word (a lane-indexed array would
 // live in local memory on the card).
@@ -524,6 +635,196 @@ FE_FN void quad_add_efgh(Fe efgh[4], const Fe w[4]) {
   fe_sub(efgh[1], Dv, C);        // F = D - C
   fe_add(efgh[2], Dv, C);        // G = D + C
   fe_add(efgh[3], w[1], w[0]);   // H = B + A
+}
+
+#if defined(__CUDA_ARCH__)
+// The four values of a quad, one from each lane (lane r of the quad gives
+// out[r]).
+__device__ __forceinline__ void quad_gather(Fe out[4], const Fe& v, unsigned mask) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) out[r].w[i] = __shfl_sync(mask, v.w[i], r, 4);
+  }
+}
+#endif
+
+// k >= 0 doublings of p (every lane of the quad holds it).
+MSM_FN void quad_double_k(Fe p[4], int k, Quad qd) {
+  for (int round = 0; round < k; ++round) {
+#if defined(__CUDA_ARCH__)
+    Fe sq, s[4], efgh[4], prod;
+    quad_dbl_square(sq, p, qd.r);
+    quad_gather(s, sq, qd.mask);
+    quad_dbl_efgh(efgh, s);
+    quad_product(prod, efgh, qd.r);
+    quad_gather(p, prod, qd.mask);
+#else
+    (void)qd;
+    Fe s[4], efgh[4], prod[4];
+    for (int r = 0; r < 4; ++r) quad_dbl_square(s[r], p, r);
+    quad_dbl_efgh(efgh, s);
+    for (int r = 0; r < 4; ++r) quad_product(prod[r], efgh, r);
+    pt_copy(p, prod);
+#endif
+  }
+}
+
+// acc += q (every lane of the quad holds both).
+MSM_FN void quad_add_into(Fe acc[4], const Fe q[4], Quad qd) {
+#if defined(__CUDA_ARCH__)
+  Fe w1, w[4], efgh[4], prod;
+  quad_add_first(w1, acc, q, qd.r);
+  quad_gather(w, w1, qd.mask);
+  quad_add_efgh(efgh, w);
+  quad_product(prod, efgh, qd.r);
+  quad_gather(acc, prod, qd.mask);
+#else
+  (void)qd;
+  Fe w[4], efgh[4], prod[4];
+  for (int r = 0; r < 4; ++r) quad_add_first(w[r], acc, q, r);
+  quad_add_efgh(efgh, w);
+  for (int r = 0; r < 4; ++r) quad_product(prod[r], efgh, r);
+  pt_copy(acc, prod);
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// msm_window_reduce, step 1: the window totals (a block a window, a quad a
+// segment of g = 2^log_g buckets; every step runs for every quad before
+// the next starts)
+// ---------------------------------------------------------------------------
+//
+// Segment s holds buckets s g + 1 .. s g + g; walked from the top it gives
+// run_s (the sum of its buckets) and tot_s (sum over it of (j - s g) B_j),
+// so it contributes tot_s + s g run_s to sum_j j B_j.  Over all segments
+// that is sum_s x_s with x_s = tot_s + g later_s, where later_s is the sum
+// of the runs after s: a suffix scan of the runs, then the tree sum of the
+// x_s.
+
+// quads (segments) a window at most, and the buckets a window stages in
+// shared memory at most (c <= 11: 128 KB)
+constexpr int MSM_TOTALS_QUADS = 64;
+constexpr int MSM_TOTALS_STAGED_BUCKETS = 1024;
+
+// Segments a window for window size c (a power of two dividing 2^(c-1)).
+FE_FN int msm_totals_segments(int c) {
+  const int nb = 1 << (c - 1);
+  return nb < MSM_TOTALS_QUADS ? nb : MSM_TOTALS_QUADS;
+}
+
+// log2 of the buckets a segment of nseg segments holds for window size c.
+FE_FN int msm_totals_log_g(int c, int nseg) {
+  int log_g = 0;
+  while ((nseg << log_g) < (1 << (c - 1))) ++log_g;
+  return log_g;
+}
+
+// Step 0, thread t of nt: the window's nb buckets (limbs at lanes base ..
+// base + nb - 1 of [20, lanes]) into sb in the kernels' form, read once
+// with coalesced loads.
+FE_FN void msm_totals_stage(uint32_t* sb, const int32_t* const coords[4], long lanes, long base,
+                            int nb, int t, int nt) {
+  for (int q = t; q < nb; q += nt) {
+    Fe b[4];
+    load_point(b, coords, lanes, base + q);
+    pt_store_words(sb + (long)q * PT_WORDS, b);
+  }
+}
+
+// Step 1, quad sg: its segment's walk from the top bucket (staged in sb,
+// or the limbs where sb is null), run and tot into sr[sg] and sx[sg].
+MSM_FN void msm_totals_segment(Fe run[4], uint32_t* sr, uint32_t* sx, const uint32_t* sb,
+                               const int32_t* const coords[4], long lanes, long base, int sg,
+                               int log_g, Quad qd) {
+  Fe tot[4];
+  pt_identity(run);
+  pt_identity(tot);
+  for (int q = ((sg + 1) << log_g) - 1; q >= sg << log_g; --q) {
+    Fe b[4];
+    if (sb) {
+      pt_load_words(b, sb + (long)q * PT_WORDS);
+    } else {
+      load_point(b, coords, lanes, base + q);
+    }
+    quad_add_into(run, b, qd);
+    quad_add_into(tot, run, qd);
+  }
+  if (qd.r == 0) {
+    pt_store_words(sx + (long)sg * PT_WORDS, tot);
+    pt_store_words(sr + (long)sg * PT_WORDS, run);
+  }
+}
+
+// Step 2, one level (distance d) of the inclusive suffix scan of the nseg
+// runs, quad sg: run += src[sg + d] where that exists; run into dst[sg].
+MSM_FN void msm_totals_scan_level(Fe run[4], uint32_t* dst, const uint32_t* src, int sg,
+                                  int nseg, int d, Quad qd) {
+  if (sg + d < nseg) {
+    Fe q[4];
+    pt_load_words(q, src + (long)(sg + d) * PT_WORDS);
+    quad_add_into(run, q, qd);
+  }
+  if (qd.r == 0) pt_store_words(dst + (long)sg * PT_WORDS, run);
+}
+
+// Step 3, quad sg: x = 2^log_g later_sg + tot_sg (sr the scanned runs, sx
+// the tots), into sx[sg].
+MSM_FN void msm_totals_weight(Fe x[4], uint32_t* sx, const uint32_t* sr, int sg, int nseg,
+                              int log_g, Quad qd) {
+  if (sg + 1 < nseg) {
+    pt_load_words(x, sr + (long)(sg + 1) * PT_WORDS);
+  } else {
+    pt_identity(x);
+  }
+  Fe tot[4];
+  pt_load_words(tot, sx + (long)sg * PT_WORDS);
+  quad_double_k(x, log_g, qd);
+  quad_add_into(x, tot, qd);
+  if (qd.r == 0) pt_store_words(sx + (long)sg * PT_WORDS, x);
+}
+
+// Steps 4 (the x_s) and the scale kernel's sum: one level (half h) of the
+// tree sum of n points in s, quad i: x += s[i + h] for i < h and
+// i + h < n, into s[i] (x holds s[i]).
+MSM_FN void msm_tree_level(Fe x[4], uint32_t* s, int i, int h, int n, Quad qd) {
+  if (i >= h || i + h >= n) return;
+  Fe q[4];
+  pt_load_words(q, s + (long)(i + h) * PT_WORDS);
+  quad_add_into(x, q, qd);
+  if (qd.r == 0) pt_store_words(s + (long)i * PT_WORDS, x);
+}
+
+// The least power of two >= n: the tree sum's first level is half of it.
+FE_FN int msm_tree_top(int n) {
+  int top = 1;
+  while (top < n) top <<= 1;
+  return top;
+}
+
+// ---------------------------------------------------------------------------
+// msm_window_reduce, step 2: each window total times 2^(c w), summed (one
+// block, a quad for each of nq strides of windows)
+// ---------------------------------------------------------------------------
+
+// quads of the scale step for k windows
+FE_FN int msm_scale_quads(int k) { return k < MSM_TOTALS_QUADS ? k : MSM_TOTALS_QUADS; }
+
+// Quad q of nq: Horner over windows q, q + nq, ... (totals, 32 words each)
+// from the top with stride nq, then times 2^(c q), into sq[q]; a quad's
+// chain is at most c (k - 1) doublings.
+MSM_FN void msm_scale_horner(Fe acc[4], uint32_t* sq, const uint32_t* totals, int k, int c,
+                             int q, int nq, Quad qd) {
+  int w = q + (k - 1 - q) / nq * nq;
+  pt_load_words(acc, totals + (long)w * PT_WORDS);
+  for (w -= nq; w >= 0; w -= nq) {
+    quad_double_k(acc, c * nq, qd);
+    Fe t[4];
+    pt_load_words(t, totals + (long)w * PT_WORDS);
+    quad_add_into(acc, t, qd);
+  }
+  quad_double_k(acc, c * q, qd);
+  if (qd.r == 0) pt_store_words(sq + (long)q * PT_WORDS, acc);
 }
 
 }  // namespace cpzk

@@ -39,12 +39,15 @@ index j - 1.  Outputs are group elements equal to the plain version's;
 the order of the adds differs (and within a bucket follows the sort's
 atomics), so the limbs may differ (compare encodings).
 
-What bounds them on an H100: ``msm_bucket`` one point add per non-zero
-digit (int32 operations, :func:`msm_bucket_work`; the sort's traffic is
-not counted); ``msm_window_reduce`` two adds a bucket and the doublings
+What bounds them on an H100: ``msm_bucket`` the adds of cached points
+that the digits need, one fewer than a bucket's terms (int32 operations,
+:func:`msm_bucket_work`; the sort's traffic is not counted);
+``msm_window_reduce`` two adds a bucket and the doublings
 (:func:`msm_window_reduce_work`), but in time the chain of c (k - 1)
 doublings of the top window, one after another, which the quads shorten
-and no schedule of this algorithm removes.
+and no schedule of this algorithm removes.  ``cpzk_msm_quad_chain`` in the
+library runs that chain alone on one warp's quads, to time it; no wrapper
+launches it.
 
 Routing: each wrapper runs the plain version for tensors on the CPU and
 launches its kernel for CUDA tensors; any other device raises, and a failed
@@ -57,8 +60,8 @@ import torch
 
 from .limbs import NLIMBS
 from .point_kernels import (
-    ADD_OPS_PER_LANE, _check, _lanes, count_launch, double_k_ops_per_lane, library,
-    on_card)
+    ADD_OPS_PER_LANE, LINEAR_OPS, MUL_OPS, W32_LINEAR_OPS, W32_MUL_OPS, _check, _lanes,
+    count_launch, double_k_ops_per_lane, library, on_card)
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernels (one call, the
@@ -74,6 +77,14 @@ GLOBALS = {"msm_bucket": ("msm_bucket_sort_kernel", "msm_bucket_add_kernel"),
 #: bytes of one point's four coordinates as [20] int32 limbs each
 POINT_BYTES = 4 * NLIMBS * 4
 
+#: int32 operations (the fewer of the two schedules' counts, as
+#: :data:`.point_kernels.ADD_OPS_PER_LANE`) of a point's cached form
+#: (Y - X, Y + X, 2d T, 2 Z: a multiply and three linear ops), of adding a
+#: cached point (8 multiplies and 6 linear ops) and of negating one (one)
+CACHED_OPS = min(MUL_OPS + 3 * LINEAR_OPS, W32_MUL_OPS + 3 * W32_LINEAR_OPS)
+CACHED_ADD_OPS = min(8 * MUL_OPS + 6 * LINEAR_OPS, 8 * W32_MUL_OPS + 6 * W32_LINEAR_OPS)
+NEGATE_OPS = min(LINEAR_OPS, W32_LINEAR_OPS)
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -83,11 +94,18 @@ def reset_launches() -> None:
 def msm_bucket_work(digits: torch.Tensor, c: int) -> tuple[int, int]:
     """(bytes, int32 operations) of ``msm_bucket`` on these digits: the m
     points and the [K, m] digits read once and the K 2^(c-1) buckets
-    written once; one point add per non-zero digit (what this data needs)."""
+    written once; what this data needs of the operations: a bucket of n
+    terms n - 1 adds of cached points (its first term starts it), the
+    cached form of every point with a non-zero digit, and a negation per
+    negative digit."""
     k, m = digits.shape
-    adds = int((digits != 0).sum())
-    return (POINT_BYTES * m + 4 * k * m + POINT_BYTES * k * (1 << (c - 1)),
-            adds * ADD_OPS_PER_LANE)
+    nz = digits != 0
+    buckets = digits.abs().to(torch.int64) + (1 << c) * torch.arange(
+        k, dtype=torch.int64, device=digits.device)[:, None]
+    adds = int(nz.sum()) - int(torch.unique(buckets[nz]).numel())
+    ops = (adds * CACHED_ADD_OPS + int(nz.any(0).sum()) * CACHED_OPS
+           + int((digits < 0).sum()) * NEGATE_OPS)
+    return POINT_BYTES * m + 4 * k * m + POINT_BYTES * k * (1 << (c - 1)), ops
 
 
 def msm_window_reduce_work(k: int, c: int) -> tuple[int, int]:

@@ -363,6 +363,7 @@ ENTRY_POINTS = {
     "cpzk_msm_bucket": [_P] * 10 + [_I] * 3 + [_P],
     "cpzk_msm_bucket_scratch": [_I] * 3,
     "cpzk_msm_window_reduce": [_P] * 9 + [_I] * 2 + [_P],
+    "cpzk_msm_quad_chain": [_P, _P, _I, _P],
     "cpzk_reduce_wide": [_P, _I, _P, _I, _P],
     "cpzk_keccak_chain": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
     "cpzk_comb_tables": [_P] * 6,

@@ -138,6 +138,26 @@ def test_msm_kernels_match_plain_on_card(dev, m, c, kind):
     assert mk.LAUNCHES == {"msm_bucket": 2, "msm_window_reduce": 2}
 
 
+@pytest.mark.parametrize("rounds", [1, 64, 253])
+def test_msm_quad_chain_matches_plain_on_card(dev, rounds):
+    """The library's quad doubling chain (one warp, a quad a doubling, the
+    schedule of msm_window_reduce's scale step) against the plain
+    doublings, as group elements; no wrapper counts it."""
+    pts, _ = msm_case(dev, 1, 11, rounds)
+    words = pk.words_of_limbs(torch.stack([limbs.canonical(x)[:, 0] for x in pts]))
+    words = words.reshape(-1).contiguous()
+    got = torch.empty_like(words)
+    mk.reset_launches()
+    rc = pk.library().cpzk_msm_quad_chain(words.data_ptr(), got.data_ptr(), rounds,
+                                          torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    lim = pk.limbs_of_words(got.reshape(4, 8))
+    out = tuple(lim[i][:, None] for i in range(4))
+    assert torch.equal(curve.encode(out), curve.encode(pk.point_double_k_plain(pts, rounds)))
+    assert mk.LAUNCHES == {"msm_bucket": 0, "msm_window_reduce": 0}
+
+
 @pytest.mark.parametrize("n", [1, 127, 4096])
 def test_keccak_chain_matches_plain_on_card(dev, n):
     rng = np.random.default_rng(n)

@@ -620,9 +620,15 @@ class TestSplit:
 # --- proof-log rotation + shipping ------------------------------------------------
 
 
+#: the first seeded record's time (2023-11-14 22:13:20 UTC)
+SEEDED_PROOFS_T0 = 1_700_000_000
+
+
 def seeded_proofs(pkg, n: int, seed: int, users: int):
     """``n`` proof-record payloads over seeded contexts and a seeded
-    prover (the same bytes for either package)."""
+    prover (the same bytes for either package: the records' times are
+    fixed too, so that the two runs' digests do not depend on whether they
+    fall in the same second)."""
     log, _ = audit_mods(pkg)
     stmts = Statements(pkg, seed)
     prover = stmts.prover()
@@ -634,7 +640,8 @@ def seeded_proofs(pkg, n: int, seed: int, users: int):
         t.append_context(ctx)
         wire = prover.prove_with_transcript(stmts.gen, t).to_bytes()
         out.append(log.proof_record(f"u{i % users}", eb(prover.statement.y1),
-                                    eb(prover.statement.y2), ctx, wire, True))
+                                    eb(prover.statement.y2), ctx, wire, True,
+                                    now=SEEDED_PROOFS_T0 + i))
     return out
 
 

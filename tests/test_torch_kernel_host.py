@@ -303,7 +303,9 @@ def test_scalar_recodes_match_plain(host_lib, c):
 def msm_inputs(seed, m, c):
     """m random valid points (one the identity) and [K, m] digits from
     random scalars with 0, 1 and l - 1 among them; window 1's digits set to
-    +-2^(c-1) (the top bucket), window 2's all equal (one crowded bucket)."""
+    +-2^(c-1) (the top bucket), window 2's all equal (one crowded bucket),
+    and the last window's non-zero, of both signs (scalars below l leave it
+    nearly empty, and the reduction must count it too)."""
     rng = random.Random(seed)
     pts = [he.pt_scalar_mul(he.BASEPOINT, rng.randrange(L)) for _ in range(m - 1)]
     pts.append(he.IDENTITY)
@@ -312,6 +314,7 @@ def msm_inputs(seed, m, c):
     half = 1 << (c - 1)
     digits[1] = [half if i % 3 else -half for i in range(m)]
     digits[2] = min(3, half)
+    digits[-1] = [(1 + i % half) * (1 if i % 2 else -1) for i in range(m)]
     return curve.points_to_device(pts, "cpu"), torch.from_numpy(digits)
 
 

@@ -21,7 +21,7 @@ import jax.numpy as jnp
 from cpzk_tpu.ops import curve as jcurve, msm as jmsm
 from cpzk_tpu_torch.core import edwards as he
 from cpzk_tpu_torch.core import scalars as hs
-from cpzk_tpu_torch.ops import curve, msm, msm_kernels as mk
+from cpzk_tpu_torch.ops import curve, msm, msm_kernels as mk, point_kernels as pk
 
 RNG = random.Random(20261017)
 
@@ -162,6 +162,25 @@ def test_wrappers_route_by_device():
         mk.msm_bucket(meta, digits.to("meta"), 4)
     with pytest.raises(ValueError):
         mk.msm_bucket(pts, digits, 17)
+
+
+def test_msm_bucket_work_counts_what_the_digits_need():
+    """msm_bucket's bound counts, per window, one cached add fewer than a
+    bucket's terms, the cached form of every point with a non-zero digit
+    and a negation per negative digit: here window 0 has buckets {1: 3
+    terms, 2: 1} and window 1 {4: 2}, so 2 + 0 + 1 adds; points 0, 1, 2, 3
+    have non-zero digits; two digits are negative."""
+    digits = torch.tensor([[1, -1, 1, 2, 0], [4, 0, 0, -4, 0]], dtype=torch.int32)
+    nbytes, ops = mk.msm_bucket_work(digits, 4)
+    assert nbytes == mk.POINT_BYTES * 5 + 4 * 2 * 5 + mk.POINT_BYTES * 2 * 8
+    assert ops == 3 * mk.CACHED_ADD_OPS + 4 * mk.CACHED_OPS + 2 * mk.NEGATE_OPS
+    # the 8x32-bit schedule's counts: 8 multiplies and 6 linear ops an add
+    assert (mk.CACHED_ADD_OPS, mk.CACHED_OPS, mk.NEGATE_OPS) == (1398, 213, 17)
+    # one bucket a window: m - 1 adds each, fewer than one general add a digit
+    same = torch.full((3, 100), 5, dtype=torch.int32)
+    _, ops = mk.msm_bucket_work(same, 4)
+    assert ops == 3 * 99 * mk.CACHED_ADD_OPS + 100 * mk.CACHED_OPS
+    assert ops < 300 * pk.ADD_OPS_PER_LANE
 
 
 def test_backend_pippenger_path():
