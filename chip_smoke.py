@@ -12,11 +12,11 @@ seconds since the script started):
    max SM clock);
 2. ``build``   — seconds to build the kernel library (one ``nvcc`` per
    source, all started together, then one link), and per kernel (the two
-   point kernels, the three scalar kernels, the two MSM kernels, the
-   Keccak chain and the prover's two kernels) the
-   compiler's registers and spills (``-Xptxas -v``), and for the point
-   kernels the block size they are launched with at each lane count of
-   phase 3;
+   point kernels, the three ladder kernels, the three scalar kernels, the
+   two MSM kernels, the Keccak chain, the prover's two kernels and DECODE)
+   the compiler's registers and spills (``-Xptxas -v``), and for the point
+   kernels and the lane-a-thread ladder kernels the block size they are
+   launched with at each lane count of phase 3;
    ``host_core`` — seconds to build and load the host core (g++), its
    library name and the threads its pools use; the 256-proof corpus made
    by the port's prover on the core's constant-time comb;
@@ -52,7 +52,16 @@ seconds since the script started):
    4096, 16,384} lanes (bytes identical, and equal to the host core's comb
    on a sample), ``keccak_chain`` with 3 masks (a state per row and one
    shared) and ``reduce_wide`` of random 64-byte values: exact; device
-   times at 4096 and 16,384;
+   times at 4096 and 16,384; and the per-row ladder kernels
+   (``ladder_combined``, ``ladder_partials_identity``, ``ladder_each``)
+   against their plain versions, the step-by-step composition over the
+   point kernels, on rows tiling the corpus: the combined check at 127,
+   6,144 (4096 rows) and 16,384 lanes, valid and tampered (chunk totals
+   equal as group elements, verdicts exact), the per-row check at 127,
+   4096 and 16,384 lanes with three tampered rows and g, h shared and per
+   lane (bits exact), the partials of the 16,384-row check's two chunks;
+   times by ``kernel_ms`` beside the bounds and each ladder's chain floor
+   (the kernel at one lane);
    ``vectors`` — the pinned vectors of ``tests/vectors`` on the card:
    ``commitments`` (with ``comb_tables`` of G and H) gives the 8
    ``scalarmult_base`` points of ``sodium_vectors.json`` (libsodium's),
@@ -104,8 +113,8 @@ seconds since the script started):
    device ms from CUDA events, download, challenges, responses, framing),
    the card's interval and idle share in one ``prove()`` (CUDA events
    around the prover's work on the card, which it reports as the serving
-   plane's batches do), and the point kernels' launches in the
-   verification;
+   plane's batches do), and the ladder kernels' launches in the
+   verification (its one combined check spans two lane chunks);
    ``device_challenges`` — the 20,480 proofs' columns through
    ``derive_challenges_device`` on the card (every row's 64 bytes equal to
    the host core's) and ``sclimbs.reduce_wide`` on the card (equal to the
@@ -129,9 +138,9 @@ seconds since the script started):
    expectation (``None``, or ``InvalidParams("Proof verification
    failed")``); it fails if the breaker left CLOSED, if
    ``tpu.backend.failover`` or ``degraded_seconds`` is above 0, if the
-   host fallback was called at all, or if either kernel was not launched
-   by the served traffic.  Printed: entries/s, request latency p50/p99,
-   batch count and sizes, the stage histograms from the port's metrics,
+   host fallback was called at all, or if ``ladder_combined`` or
+   ``ladder_each`` was not launched by the served traffic.  Printed:
+   entries/s, request latency p50/p99, batch count and sizes, the stage histograms from the port's metrics,
    the dispatch gap and the card's work intervals (first launch to last,
    CUDA events, idle stretches included) from the flight recorder,
    and the kernel launches;
@@ -149,7 +158,8 @@ seconds since the script started):
    minted for the entries that pass.  Every verdict must equal its
    expectation, every session validate to its user, a replay of the first
    message fail at the consume for all 1000 entries with no row reaching
-   the card, both kernels be launched by the login traffic, and the breaker
+   the card, ``ladder_combined`` and ``ladder_each`` be launched by the
+   login traffic, and the breaker
    stay CLOSED with no fallback call.  Printed: registrations/s,
    challenges/s, native parse µs per entry, the state seconds of consume
    and lookup and of sessions, logins/s from parse to session, GC pauses
@@ -167,7 +177,8 @@ seconds since the script started):
    expectation with one session per valid entry, a replay of the first RPC
    be refused for all 1000 entries, the flight records (``/flightrec``)
    cover the 4096 entries with a device interval above 0, ``/metrics``
-   show no failover and both kernels launched by the logins, and the
+   show no failover and ``ladder_combined`` and ``ladder_each`` launched by
+   the logins, and the
    daemon (not the shards) hold a CUDA context (``libcuda`` in the
    processes' maps; one ``nvidia-smi --query-compute-apps`` row more than
    before the daemon, and the daemon's PID among them where ``nvidia-smi``
@@ -177,12 +188,12 @@ seconds since the script started):
    same logins again through the shards; a fourth, with
    ``CPZK_PIPPENGER_MIN=2 CPZK_DEVICE_RLC=1`` in the daemon's environment,
    must answer them with every verdict and the sessions equal to the first
-   boot's and ``/metrics`` showing all six kernels launched by the
-   logins; every batch of that wave holds tampered entries, so its
-   combined check fails and the per-row ladders decide, and the boot then
-   logs in the last 1000 users in one all-valid ``VerifyProofBatch``,
-   which must give every entry a session with the four scalar and MSM
-   kernels launched and no ``point_double_k`` (no per-row ladder): the
+   boot's and ``/metrics`` showing the four scalar and MSM kernels and
+   ``ladder_each`` launched by the logins; every batch of that wave holds
+   tampered entries, so its combined check fails and the per-row ladders
+   decide, and the boot then logs in the last 1000 users in one all-valid
+   ``VerifyProofBatch``, which must give every entry a session with the
+   four scalar and MSM kernels launched and no ladder kernel: the
    Pippenger check itself passed.  Printed: boot and shutdown
    seconds, registrations/s, challenges/s, logins/s from the first
    ``VerifyProofBatch`` sent to the last answer, RPC latency p50/p99, the
@@ -206,7 +217,8 @@ seconds since the script started):
    users and every acknowledged session (``/statusz``) with nothing
    quarantined, log in every acknowledged challenge, the 512 held and the
    512 killed ones by id, in concurrent ``VerifyProofBatch`` RPCs on the
-   card (both point kernels launched), refuse a valid proof over a
+   card (``ladder_combined`` launched: every one is valid), refuse a valid
+   proof over a
    challenge consumed before the kill without a batch, and exit 0 on
    SIGTERM with the WAL at 0 bytes.  Printed:
    registrations/s, logins/s and ``VerifyProofBatch`` p50/p99 beside the
@@ -222,8 +234,9 @@ seconds since the script started):
    calls (one tampered); SIGTERM must log "audit trail closed at seq N"
    with N the verdicts received; the trail directory replays in process
    through ``run_audit(..., backend="tpu")`` on the card to N records,
-   none mismatched, the planted tampers rejected, both point kernels
-   launched (counts set to 0 just before, read just after).  Then ``python
+   none mismatched, the planted tampers rejected, ``ladder_combined`` and
+   ``ladder_each`` launched (counts set to 0 just before, read just
+   after).  Then ``python
    -m cpzk_tpu_torch.audit generate`` writes 16,384 records (1% rejects,
    0.5% lying verdicts), replayed at quantum 4096: A on the card in
    process (the liars mismatched); B by the CLI on the card, SIGKILLed
@@ -241,7 +254,7 @@ seconds since the script started):
    ``[audit]``, ``[fleet]`` on a map from ``python -m cpzk_tpu_torch.fleet
    init`` and ``set-standby``): partition 0 is the pair A→B, partition 1
    C→D.  The port's ``AuthClient`` with the map registers 65,536 users and
-   logs 4096 in (about 1% tampered): every verdict exact, a client holding
+   logs 2048 in (about 1% tampered): every verdict exact, a client holding
    a one-partition map converges in one redirect, B and D refuse auth RPCs
    ("standby replica: not promoted"), each standby's ``applied_seq`` equal
    to its primary's WAL seq.  SIGTERM to A hands partition 0 over (B at
@@ -249,8 +262,9 @@ seconds since the script started):
    sealed proof-log segments at B byte for byte); 1024 ``CreateChallenge``
    calls at C with a SIGKILL once 512 are acknowledged, D promoting after
    the lease and logging every acknowledged challenge in; then B and D
-   answer a 4096-login wave each with exact verdicts, both point kernels
-   launched by those logins (their ``/metrics``) and no failover; each of
+   answer a 2048-login wave each with exact verdicts, ``ladder_combined``
+   and ``ladder_each`` launched by those logins (their ``/metrics``) and no
+   failover; each of
    the four daemons holds a CUDA context of its own.  Printed: boot
    seconds, registrations/s, logins/s at the primaries and at the promoted
    standbys, the handover's milliseconds and SIGTERM to the first write at
@@ -260,15 +274,21 @@ seconds since the script started):
    launches; the daemons'
    output goes to ``chiprun_out/daemon_repl_*.log``;
 6. ``profile`` — one 4096-row combined check: wall time unprofiled, then
-   device time by kernel under torch.profiler (the table goes to
-   ``chiprun_out/profile_4096.txt``) and the device's idle share;
+   device time by kernel under torch.profiler (the table goes to the
+   output directory's ``profile_4096.txt``): the ladder kernels by name,
+   every kernel launched, the busy time and the device's idle share, and
+   the card's interval by CUDA events, beside the step-by-step
+   composition's 8,533 launches and 24.3-24.6 ms busy (PERF.md, section 5);
    ``pippenger_ab`` — the combined check at 4096 and 16,384 rows as per-row
    ladders, as a Pippenger MSM, and as one with the device scalar plane,
    in turns (3 reps after a warm turn): wall time and kernel launches per
    check; then one 4096-row Pippenger check's device time by kernel and
    idle share (``chiprun_out/profile_pippenger_4096.txt``).
 
-Then the ``kernels`` line (``launches`` counted over phases 4-5 only,
+Then the ``kernels`` line (``launches`` counted over phases 4-5 only:
+the ladder kernels carry them, and the point kernels, which run on no
+per-row route any more, show 0 there and their launches on the Pippenger,
+lanes, mesh and multihost paths; for the ladder kernels
 ``launches_in_serving_plane`` over the served traffic of phase 5b,
 ``launches_in_login_state`` over the login traffic of phase 5c,
 ``launches_in_daemon`` and ``launches_in_daemon_sharded`` over the
@@ -282,7 +302,7 @@ all six ``launches_in_pippenger`` (the same count) and
 prover's kernels ``launches`` over ``batch_prove``'s path and for
 ``keccak_chain`` and ``reduce_wide`` over ``device_challenges``', both
 also as ``launches_in_batch_prove`` and ``launches_in_device_challenges``,
-and for the point kernels ``launches_in_batch_prove_verify`` and
+and for the ladder kernels ``launches_in_batch_prove_verify`` and
 ``launches_in_audit_trail_replay`` / ``launches_in_audit_synthetic_replay``,
 the audit phase's replays of the daemon's trail and of A, and
 ``launches_in_replication_primaries`` / ``launches_in_replication_promoted_b``
@@ -352,11 +372,22 @@ MAIN_N = 16384
 CHUNK_4096_N = 6144
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_OPS_PER_SM_CLOCK = 64
-#: the kernels of the per-row path (the Pallas kernels' ports), then those of
-#: the device scalar plane and of the Pippenger MSM; together, and in
-#: ``REPLACES`` and ``SOURCES``, they must be the library's kernels
-#: (``point_kernels.kernel_names()``), which ``main`` checks first
+#: the Pallas kernels' ports, then the per-row route's ladder kernels, then
+#: those of the device scalar plane and of the Pippenger MSM; together, and
+#: in ``REPLACES`` and ``SOURCES``, they must be the library's kernels
+#: (``point_kernels.kernel_names()``), which ``main`` checks first.  The
+#: point kernels run on no serving path's per-row route any more (the
+#: Pippenger route's chunk partials and a mesh's slice partials still sum
+#: through ``point_add``)
 POINT_KERNELS = ("point_add", "point_double_k")
+#: the per-row route: a combined check launches ``ladder_combined`` a lane
+#: chunk (and ``ladder_partials_identity`` past one chunk), a batch whose
+#: combined check fails ``ladder_each``
+LADDER_KERNELS = ("ladder_combined", "ladder_partials_identity", "ladder_each")
+#: what a wave of 4096 logins (or a served stream) with tampered entries
+#: launches: one lane chunk a batch, so no partials kernel; the kernels each
+#: serving path's launch check names
+SERVED_KERNELS = ("ladder_combined", "ladder_each")
 PIPPENGER_KERNELS = ("rlc_scalars", "scalar_recode", "msm_bucket", "msm_window_reduce")
 #: the batch prover's kernels, then the device challenges'
 PROVER_KERNELS = ("comb_tables", "commitments")
@@ -365,6 +396,9 @@ CHALLENGE_KERNELS = ("keccak_chain", "reduce_wide")
 DECODE_KERNELS = ("ristretto_decode",)
 REPLACES = {"point_add": "cpzk_tpu/ops/pallas_kernels.py:51",
             "point_double_k": "cpzk_tpu/ops/pallas_kernels.py:87",
+            "ladder_combined": "cpzk_tpu/ops/verify.py:85",
+            "ladder_partials_identity": "cpzk_tpu/ops/backend.py:619",
+            "ladder_each": "cpzk_tpu/ops/verify.py:58",
             "rlc_scalars": "cpzk_tpu/ops/backend.py:468",
             "scalar_recode": "cpzk_tpu/ops/backend.py:481",
             "msm_bucket": "cpzk_tpu/ops/msm.py:103",
@@ -375,9 +409,14 @@ REPLACES = {"point_add": "cpzk_tpu/ops/pallas_kernels.py:51",
             "reduce_wide": "cpzk_tpu/ops/sclimbs.py:136",
             "ristretto_decode": "cpzk_tpu/ops/curve.py:351"}
 _CSRC = "cpzk_tpu_torch/csrc/"
+_LADDER_SOURCES = [_CSRC + "ladder_ops.cu", _CSRC + "ladder_w32.cuh", _CSRC + "msm_w32.cuh",
+                   _CSRC + "ristretto_w32.cuh", _CSRC + "fe25519_w32.cuh"]
 SOURCES = {
     "point_add": [_CSRC + "point_ops.cu", _CSRC + "fe25519_w32.cuh"],
     "point_double_k": [_CSRC + "point_ops.cu", _CSRC + "fe25519_w32.cuh"],
+    "ladder_combined": _LADDER_SOURCES,
+    "ladder_partials_identity": _LADDER_SOURCES,
+    "ladder_each": _LADDER_SOURCES,
     "rlc_scalars": [_CSRC + "scalar_ops.cu", _CSRC + "sc25519_w32.cuh"],
     "scalar_recode": [_CSRC + "scalar_ops.cu", _CSRC + "sc25519_w32.cuh"],
     "msm_bucket": [_CSRC + "msm_ops.cu", _CSRC + "msm_w32.cuh", _CSRC + "fe25519_w32.cuh"],
@@ -391,6 +430,13 @@ SOURCES = {
     "ristretto_decode": [_CSRC + "decode_ops.cu", _CSRC + "ristretto_w32.cuh",
                          _CSRC + "fe25519_w32.cuh"],
 }
+#: the ladder kernels' checks: the combined check's lane widths (ragged, a
+#: 4096-row check's 4097 lanes padded, one full lane chunk), the per-row
+#: check's (ragged, 4096 rows, a full chunk), and the launches a timed run
+#: makes (the chain floors: one lane)
+LADDER_COMBINED_NS = (127, CHUNK_4096_N, MAIN_N)
+LADDER_EACH_NS = (127, SERVING_N, MAIN_N)
+LADDER_REPS = 10
 #: the scalar kernels' checks: row counts, window sizes of the digit recode,
 #: and the row counts timed (the 4096- and 16,384-row checks)
 SCALAR_NS = (1, 127, 4096, 16384)
@@ -446,10 +492,13 @@ AUDIT_QUANTUM = 4096
 #: the replication phase: users registered across the two-partition fleet,
 #: the CreateChallenge calls started at partition 1's primary before its
 #: SIGKILL and how many of them must be acknowledged first, the lease and
-#: renewal of ``[replication]`` (the reference's defaults), and the size at
-#: which each primary's proof log seals a segment (its ~2,000 login
-#: records seal several, which ship to its standby)
+#: renewal of ``[replication]`` (the reference's defaults), the size at
+#: which each primary's proof log seals a segment (its ~1,000 login records
+#: seal two, which ship to its standby), and the logins of each wave (4096
+#: before the per-row ladders became kernels: halved, with the controller
+#: phase's, to keep the whole script inside its time limit)
 REPL_USERS = 65536
+REPL_LOGINS = 2048
 REPL_FURTHER = 1024
 REPL_KILL_AFTER = 512
 REPL_LEASE_MS = 3000.0
@@ -506,7 +555,7 @@ def synchronize() -> None:
     torch.cuda.synchronize()
 
 
-def launches_of(fn, names=POINT_KERNELS):
+def launches_of(fn, names=LADDER_KERNELS):
     """(fn(), kernel launches per wrapper of ``names`` during it)."""
     from cpzk_tpu_torch.ops.point_kernels import all_launches
 
@@ -1138,7 +1187,7 @@ def serving_plane(params, corpus, n: int, closed_total: int, clients: int,
 
     from cpzk_tpu_torch import InvalidParams, Ristretto255, Statement
     from cpzk_tpu_torch.observability import get_flight_recorder
-    from cpzk_tpu_torch.ops import point_kernels as pk
+    from cpzk_tpu_torch.ops import ladder_kernels as lk
     from cpzk_tpu_torch.ops.backend import TorchBackend
     from cpzk_tpu_torch.protocol.batch import BatchEntry
     from cpzk_tpu_torch.protocol.gadgets import Proof
@@ -1265,7 +1314,7 @@ def serving_plane(params, corpus, n: int, closed_total: int, clients: int,
     out = {"n": n, "tampered": len(bad), "closed_total": closed_total,
            "clients": clients, "group": group, "tolerance": "exact"}
     failover0 = metrics.read("tpu.backend.failover")
-    before = dict(pk.LAUNCHES)
+    before = dict(lk.LAUNCHES)
     bare, _ = build_backend(TpuSettings(backend="tpu", prewarm_quanta=""))
     if type(bare) is not TorchBackend:
         raise AssertionError(f"build_backend with no fallback served {type(bare).__name__}")
@@ -1274,11 +1323,11 @@ def serving_plane(params, corpus, n: int, closed_total: int, clients: int,
         t0 = time.perf_counter()
         backend, batcher = build_backend(settings(2), fallback=counting_fallback(fallback_calls))
         out["build_backend_s"] = time.perf_counter() - t0
-        out["prewarm_launches"] = {k: pk.LAUNCHES[k] - before[k] for k in before}
+        out["prewarm_launches"] = {k: lk.LAUNCHES[k] - before[k] for k in before}
         backend1, batcher1 = build_backend(settings(1), fallback=counting_fallback(fallback_calls))
 
         # the served traffic, with the launch counts set to 0 just before it
-        pk.reset_launches()
+        lk.reset_launches()
 
         async def depth2():
             batcher.start()
@@ -1297,7 +1346,7 @@ def serving_plane(params, corpus, n: int, closed_total: int, clients: int,
         out["burst"], out["closed_loop_depth2"] = asyncio.run(depth2())
         out["closed_loop_depth1"] = asyncio.run(depth1())
         torch.cuda.synchronize()
-        out["launches_in_serving_plane"] = dict(pk.LAUNCHES)
+        out["launches_in_serving_plane"] = dict(lk.LAUNCHES)
     out["prewarm_s"] = [r.prewarm_s for r in logs.records
                         if hasattr(r, "prewarm_s")]
     out["warnings"] = [r.getMessage() for r in logs.records if r.levelno >= 30]
@@ -1313,8 +1362,8 @@ def serving_plane(params, corpus, n: int, closed_total: int, clients: int,
                              f"failover {out['failover']}, warnings {out['warnings']}")
     if fallback_calls[0]:
         raise AssertionError(f"the host fallback was called {fallback_calls[0]} times")
-    for name, count in out["launches_in_serving_plane"].items():
-        if count < 1:
+    for name in SERVED_KERNELS:
+        if out["launches_in_serving_plane"][name] < 1:
             raise AssertionError(f"{name} was never launched by the served traffic")
     return out
 
@@ -1366,7 +1415,7 @@ def login_state(params, corpus, provers, n: int, max_batch_rpc: int, device=None
     from cpzk_tpu_torch.core.scalars import L
     from cpzk_tpu_torch.errors import InvalidProofEncoding
     from cpzk_tpu_torch.observability import get_flight_recorder
-    from cpzk_tpu_torch.ops import point_kernels as pk
+    from cpzk_tpu_torch.ops import ladder_kernels as lk
     from cpzk_tpu_torch.protocol.batch import BatchEntry
     from cpzk_tpu_torch.protocol.gadgets import Proof
     from cpzk_tpu_torch.resilience import BreakerState
@@ -1537,7 +1586,7 @@ def login_state(params, corpus, provers, n: int, max_batch_rpc: int, device=None
             recorder.clear()
             # the login traffic, with the launch counts set to 0 just before it
             torch.cuda.synchronize()
-            pk.reset_launches()
+            lk.reset_launches()
             pauses = GcPauses()
             pauses.start()
             t0 = time.perf_counter()
@@ -1547,13 +1596,13 @@ def login_state(params, corpus, provers, n: int, max_batch_rpc: int, device=None
             finally:
                 pauses.stop()
             torch.cuda.synchronize()
-            launches = dict(pk.LAUNCHES)
+            launches = dict(lk.LAUNCHES)
             batches = [r.batch for r in recorder.snapshot()]
             # the replay: the first message again
             rows0 = sum(counter.calls)
             _, replay = await login(messages[0])
             torch.cuda.synchronize()
-            replay_launches = {k: pk.LAUNCHES[k] - launches[k] for k in launches}
+            replay_launches = {k: lk.LAUNCHES[k] - launches[k] for k in launches}
             return (answers, wall, pauses.seconds, launches, batches, replay,
                     sum(counter.calls) - rows0, replay_launches)
         finally:
@@ -1591,8 +1640,8 @@ def login_state(params, corpus, provers, n: int, max_batch_rpc: int, device=None
                              f"launches {replay_launches})")
     if batches != [n]:
         raise AssertionError(f"login_state: dispatched as {batches}, not one batch of {n}")
-    for name, count in launches.items():
-        if count < 1:
+    for name in SERVED_KERNELS:
+        if launches[name] < 1:
             raise AssertionError(f"{name} was never launched by the login traffic")
     if backend.state is not BreakerState.CLOSED or fallback_calls[0]:
         raise AssertionError(f"login_state left the card: breaker {backend.state.value}, "
@@ -1704,7 +1753,7 @@ def scraped(text: str, name: str, labels: str = "") -> float:
     return float(m.group(1)) if m else 0.0
 
 
-def kernel_launches(ops_port: int, names=POINT_KERNELS) -> dict:
+def kernel_launches(ops_port: int, names=LADDER_KERNELS) -> dict:
     text = http_get(ops_port, "/metrics")
     return {k: int(scraped(text, "tpu_kernel_launches", f'{{kernel="{k}"}}'))
             for k in names}
@@ -2023,9 +2072,11 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
         procs.append(proc)
         return proc.wait_listening(DAEMON_BOOT_TIMEOUT_S)
 
-    def served(proc: DaemonProcess, register: bool, kernels=POINT_KERNELS) -> dict:
+    def served(proc: DaemonProcess, register: bool, kernels=LADDER_KERNELS,
+               required=SERVED_KERNELS) -> dict:
         """A wave of logins with the launch counts of ``kernels`` and the
-        flight records read just before and just after it."""
+        flight records read just before and just after it; each of
+        ``required`` must have been launched."""
         seq0 = last_flight_seq(proc.ops_port)
         launches0 = kernel_launches(proc.ops_port, kernels)
         wave = asyncio.run(daemon_logins(proc.port, user_ids, corpus, provers, rpc_max, gen,
@@ -2039,8 +2090,8 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
             raise AssertionError(f"daemon {proc.name}: flight records "
                                  f"{[(r['batch'], r['device_interval_s']) for r in records]}")
         if on_card:
-            for name, count in launches.items():
-                if count < 1:
+            for name in required:
+                if launches[name] < 1:
                     raise AssertionError(f"{name} was never launched by the daemon's logins")
         metrics_text = http_get(proc.ops_port, "/metrics")
         failover = scraped(metrics_text, "tpu_backend_failover_total")
@@ -2145,7 +2196,11 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
         # the device scalar plane, from the daemon's environment
         pip = boot("pippenger", ["--port", "0"],
                    {"CPZK_PIPPENGER_MIN": "2", "CPZK_DEVICE_RLC": "1"})
-        wave = served(pip, register=False, kernels=POINT_KERNELS + PIPPENGER_KERNELS)
+        # the Pippenger check of a batch past one chunk of terms sums its
+        # chunk partials with point_add; the per-row checks run ladder_each
+        kernels = POINT_KERNELS + LADDER_KERNELS + PIPPENGER_KERNELS
+        wave = served(pip, register=False, kernels=kernels,
+                      required=("ladder_each",) + PIPPENGER_KERNELS)
         if verdicts["pippenger"] != verdicts["first"] or wave["sessions"] != out["first"][
                 "sessions"]:
             raise AssertionError("daemon pippenger: verdicts or sessions differ from the "
@@ -2153,9 +2208,8 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
         # every batch of the wave holds tampered entries, so its combined
         # check fails and the per-row ladders decide; one all-valid batch
         # must pass the Pippenger check itself: its MSM kernels launched and
-        # no ladder (point_double_k) run, every entry given a session.  The
-        # last rpc_max users: the first has the most sessions already
-        kernels = POINT_KERNELS + PIPPENGER_KERNELS
+        # no ladder kernel run, every entry given a session.  The last
+        # rpc_max users: the first has the most sessions already
         seq0 = last_flight_seq(pip.ops_port)
         launches0 = kernel_launches(pip.ops_port, kernels)
         sheds: dict = {}
@@ -2169,7 +2223,7 @@ def daemon_phase(corpus, provers, n: int, rpc_max: int, shards: int,
             raise AssertionError(f"daemon pippenger: the all-valid batch gave {sessions} "
                                  f"sessions of {rpc_max}: "
                                  f"{[r.message for r in results if not r.success][:3]}")
-        if on_card and (launches["point_double_k"] != 0
+        if on_card and (any(launches[k] != 0 for k in LADDER_KERNELS)
                         or any(launches[k] < 1 for k in PIPPENGER_KERNELS)):
             raise AssertionError("daemon pippenger: the all-valid batch did not pass the "
                                  f"Pippenger check alone: launches {launches}")
@@ -2499,7 +2553,7 @@ def durable_daemon_phase(corpus, provers, users: int, n: int, rpc_max: int, held
         records = flight_records(first.ops_port, seq0)
         if sum(r["batch"] for r in records) != n:
             raise AssertionError(f"durable_daemon: flight records {[r['batch'] for r in records]}")
-        if on_card and min(launches.values()) < 1:
+        if on_card and min(launches[k] for k in SERVED_KERNELS) < 1:
             raise AssertionError(f"a kernel was never launched by boot A's logins: {launches}")
         acked_a = wave.pop("acked")
         wave.pop("verdicts")
@@ -2573,9 +2627,10 @@ def durable_daemon_phase(corpus, provers, users: int, n: int, rpc_max: int, held
         records = flight_records(second.ops_port, seq0)
         if sum(r["batch"] for r in records) != len(acked_c):
             raise AssertionError(f"durable_daemon: flight records {[r['batch'] for r in records]}")
-        if on_card and min(launches.values()) < 1:
-            raise AssertionError(f"a kernel was never launched by the recovered logins: "
-                                 f"{launches}")
+        # every recovered login is valid: the combined check passes alone
+        if on_card and launches["ladder_combined"] < 1:
+            raise AssertionError(f"ladder_combined was never launched by the recovered "
+                                 f"logins: {launches}")
         logins.update(launches=launches, batches=[r["batch"] for r in records],
                       device_interval_s=[r["device_interval_s"] for r in records])
         recovered["logins"] = logins
@@ -2829,6 +2884,168 @@ def msm_kernels_vs_plain(dev, ms, c: int, chunk: int, int32_ops_per_s: float,
     return {**rows, "seconds": time.perf_counter() - t_start}
 
 
+def ladder_kernels_vs_plain(dev, params, corpus, int32_ops_per_s: float, gen) -> dict:
+    """Phase 3f: the per-row ladder kernels against their plain versions on
+    the same card tensors.  The plain versions (``verify.*_plain``) are the
+    step-by-step composition the main path ran before these kernels: a
+    ``point_double_k`` and a ``point_add`` launch a ladder step and term,
+    torch table gathers, ``tree_sum`` (the point kernels themselves held
+    against their plain PyTorch versions above).  Rows tile the corpus
+    (fresh alphas, beta) and are marshalled as the backend marshals them.
+
+    ``ladder_combined`` at each of :data:`LADDER_COMBINED_NS` lanes (the
+    correction row at lane n - 1, or after the 4096 rows with identity
+    padding to 6,144), valid and with one response off by one: the chunk
+    total equal to the plain one as a group element (its canonical encoding
+    the same bytes), the identity test equal to the plain one and to the
+    expectation.  ``ladder_each`` at each of :data:`LADDER_EACH_NS` lanes,
+    three rows tampered (a response, a commitment of each equation), with
+    g and h shared ([20, 1]) and per lane (every row's six points scaled by
+    a random u (G's side) and v (H's side) per lane on the card, which keeps
+    each equation's truth): bits equal to the plain ones and to the
+    expectation.  ``ladder_partials_identity`` on the 16,384-row check's two
+    chunk totals (its 16,385 lanes padded to 18,432), written by
+    ``ladder_combined`` into their columns, valid and tampered: equal to the
+    plain tree-sum and identity test.  Times by ``kernel_ms`` at the paths'
+    widths beside the bounds (:mod:`.ladder_kernels`' ``*_work``), and each
+    lane ladder's chain floor: the kernel at one lane (one thread)."""
+    import torch
+
+    from cpzk_tpu_torch.core.ristretto import Scalar
+    from cpzk_tpu_torch.core.scalars import L
+    from cpzk_tpu_torch.ops import backend as bk, curve, ladder_kernels as lk, limbs, verify
+    from cpzk_tpu_torch.protocol.batch import BatchRow
+
+    t_start = time.perf_counter()
+    pool, beta = north_star_rows(params, corpus, max(LADDER_COMBINED_NS + LADDER_EACH_NS), gen)
+    g = curve.points_to_device([params.generator_g.point], dev)
+    h = curve.points_to_device([params.generator_h.point], dev)
+
+    def tampered(rows, marks: dict):
+        """Row k off by one in its response ("s"), or its r1 (r2) replaced
+        by its r2 (r1)."""
+        out = list(rows)
+        for k, kind in marks.items():
+            r = out[k]
+            s, r1, r2 = r.s, r.r1, r.r2
+            if kind == "s":
+                s = Scalar(r.s.value + 1)
+            elif kind == "r1":
+                r1 = r.r2
+            else:
+                r2 = r.r1
+            out[k] = BatchRow(r.g, r.h, r.y1, r.y2, r1, r2, s, r.c, r.alpha)
+        return out
+
+    def windows(values, lanes):
+        return curve.scalar_windows(values, lanes, dev)
+
+    def combined_args(rows, lanes):
+        a, ac, ba, bac, corr0, corr1 = bk._host_rlc_scalars(rows, beta)
+        return (bk._elems_soa([r.r1 for r in rows] + [rows[0].g], lanes, dev),
+                bk._elems_soa([r.y1 for r in rows] + [rows[0].h], lanes, dev),
+                bk._elems_soa([r.r2 for r in rows], lanes, dev),
+                bk._elems_soa([r.y2 for r in rows], lanes, dev),
+                windows(a + [corr0], lanes), windows(ac + [corr1], lanes),
+                windows(ba, lanes), windows(bac, lanes))
+
+    def each_args(rows, lanes):
+        return ((g, h) + tuple(bk._elems_soa([getattr(r, k) for r in rows], lanes, dev)
+                               for k in ("y1", "y2", "r1", "r2"))
+                + (windows([r.s.value for r in rows], lanes),
+                   windows([r.c.value for r in rows], lanes)))
+
+    def per_lane(args, lanes):
+        u, v = (windows([int.from_bytes(gen.fill_bytes(32), "little") % (L - 1) + 1
+                         for _ in range(lanes)], lanes) for _ in range(2))
+        gg, hh, y1, y2, r1, r2, ws, wc = args
+        wide = [tuple(c.expand(limbs.NLIMBS, lanes).contiguous() for c in p) for p in (gg, hh)]
+        return (curve.scalar_mul(wide[0], u), curve.scalar_mul(wide[1], v),
+                curve.scalar_mul(y1, u), curve.scalar_mul(y2, v),
+                curve.scalar_mul(r1, u), curve.scalar_mul(r2, v), ws, wc)
+
+    def encoding_err(p, q) -> int:
+        return int((curve.encode(p) - curve.encode(q)).abs().max())
+
+    def timed(kernel, plain, work) -> dict:
+        return {**bound_of(*work, int32_ops_per_s), **kernel_ms(kernel, plain, LADDER_REPS)}
+
+    out = {name: [] for name in LADDER_KERNELS}
+    for n in LADDER_COMBINED_NS:
+        rows = pool[:SERVING_N if n == CHUNK_4096_N else n - 1]
+        for case, marks in (("valid", {}), ("tampered", {len(rows) // 3: "s"})):
+            args = combined_args(tampered(rows, marks), n)
+            total, ok = lk.ladder_combined(*args)
+            synchronize()
+            ref = verify.combined_partial_kernel_plain(*args)
+            ref_ok = bool(curve.is_identity(tuple(c[:, 0] for c in ref)))
+            err = encoding_err(total, ref)
+            if err or bool(ok) is not ref_ok or ref_ok is not (case == "valid"):
+                raise AssertionError(f"ladder_combined n={n} {case}: encoding error {err}, "
+                                     f"verdict {bool(ok)}, plain {ref_ok}")
+            row = {"n": n, "rows": len(rows), "case": case, "max_abs_err": err,
+                   "verdict": bool(ok)}
+            if case == "valid" and n != LADDER_COMBINED_NS[0]:
+                row.update(timed(lambda a=args: lk.ladder_combined(*a),
+                                 lambda a=args: verify.combined_partial_kernel_plain(*a),
+                                 lk.combined_work(n)))
+            out["ladder_combined"].append(row)
+    for n in LADDER_EACH_NS:
+        marks = {1: "s", n // 2: "r1", n - 2: "r2"}
+        want = [i not in marks for i in range(n)]
+        shared = each_args(tampered(pool[:n], marks), n)
+        for case, args in (("shared_generators", shared),
+                           ("per_lane_generators", per_lane(shared, n))):
+            bits = lk.ladder_each(*args)
+            synchronize()
+            ref = verify.verify_each_kernel_plain(*args)
+            err = int((bits.int() - ref.int()).abs().max())
+            if err or bits.tolist() != want:
+                raise AssertionError(f"ladder_each n={n} {case}: {err} bits differ from the "
+                                     "plain version, or from the expectation")
+            row = {"n": n, "case": case, "tampered_rows": sorted(marks), "max_abs_err": err}
+            if n != LADDER_EACH_NS[0]:
+                row.update(timed(lambda a=args: lk.ladder_each(*a),
+                                 lambda a=args: verify.verify_each_kernel_plain(*a),
+                                 lk.each_work(n, case == "shared_generators")))
+            out["ladder_each"].append(row)
+    # the 16,384-row check's two chunk totals
+    pad = bk._pad_lanes(NORTH_STAR_N + 1)
+    bounds = list(bk._chunk_bounds(pad))
+    for case, marks in (("valid", {}), ("tampered", {NORTH_STAR_N // 2: "s"})):
+        args = combined_args(tampered(pool[:NORTH_STAR_N], marks), pad)
+        parts = tuple(torch.empty((limbs.NLIMBS, len(bounds)), dtype=torch.int32, device=dev)
+                      for _ in range(4))
+        for i, (lo, hi) in enumerate(bounds):
+            lk.ladder_combined(*(bk._chunk_point(p, lo, hi) for p in args[:4]),
+                               *(w[:, lo:hi] for w in args[4:]),
+                               out=bk._chunk_point(parts, i, i + 1))
+        ok = bool(lk.ladder_partials_identity(parts))
+        ref = bool(verify.partials_identity_plain(parts))
+        if ok is not ref or ref is not (case == "valid"):
+            raise AssertionError(f"ladder_partials_identity {case}: {ok}, plain {ref}")
+        row = {"k": len(bounds), "lanes": pad, "case": case, "max_abs_err": 0, "verdict": ok}
+        if case == "valid":
+            row.update(timed(lambda: lk.ladder_partials_identity(parts),
+                             lambda: verify.partials_identity_plain(parts),
+                             lk.partials_work(len(bounds))))
+        out["ladder_partials_identity"].append(row)
+    # the chain floors: one lane, one thread
+    two = combined_args(pool[:1], 2)
+    one_c = (tuple(bk._chunk_point(p, 0, 1) for p in two[:4])
+             + tuple(w[:, :1] for w in two[4:]))
+    one_e = each_args(pool[:1], 1)
+    floors = {"ladder_combined": kernel_ms(lambda: lk.ladder_combined(*one_c), None, 5),
+              "ladder_each": kernel_ms(lambda: lk.ladder_each(*one_e), None, 5)}
+    for name, lat in floors.items():
+        for row in out[name]:
+            if "ms" in row:
+                row["chain_floor_ms"] = lat["ms"]
+                row["chain_floor_runs"] = lat["ms_runs"]
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def batch_verdicts(backend, params, corpus, n: int) -> dict:
     """Phase 4's n entries through ``BatchVerifier`` on ``backend``: the
     all-valid batch (eager parse) and the mixed one (deferred), each as
@@ -2901,14 +3118,16 @@ def pippenger_phase(params, corpus, rows, beta, n: int, chunk: int,
         with device_rlc(on):
             got, out["launches_by_scalar_plane"][label] = launches_of(
                 lambda: batch_verdicts(pip, params, corpus, n),
-                POINT_KERNELS + PIPPENGER_KERNELS)
+                POINT_KERNELS + LADDER_KERNELS + PIPPENGER_KERNELS)
         if got["valid"][0] != [None] * n:
             raise AssertionError(f"pippenger ({label}): a valid entry was rejected")
         if got["mixed"][0] != ref["mixed"][0]:
             raise AssertionError(f"pippenger ({label}): mixed results differ from per-row")
         out[f"pippenger_{label}_s"] = {k: v[1] for k, v in got.items()}
     out["launches"] = all_launches()
-    for name in PIPPENGER_KERNELS + POINT_KERNELS:
+    # a 4096-row check is two chunks of terms, whose partials point_add
+    # sums; the mixed batches' per-row checks run ladder_each
+    for name in PIPPENGER_KERNELS + ("point_add", "ladder_each"):
         if on_card and out["launches"][name] < 1:
             raise AssertionError(f"{name} was never launched on the pippenger path")
 
@@ -2926,7 +3145,7 @@ def pippenger_phase(params, corpus, rows, beta, n: int, chunk: int,
                                ("per_row_device_rlc", per_row, True)):
         with device_rlc(on):
             ok, launches = launches_of(lambda b=backend: b.verify_combined(rows, beta),
-                                       POINT_KERNELS + PIPPENGER_KERNELS)
+                                       POINT_KERNELS + LADDER_KERNELS + PIPPENGER_KERNELS)
             ok_bad = backend.verify_combined(bad_rows, beta)
         if ok is not True or ok_bad is not False:
             raise AssertionError(f"{label}: {big}-row check gave {ok}, tampered {ok_bad}")
@@ -2962,8 +3181,9 @@ def pippenger_ab(rows, beta, ns, reps: int) -> dict:
                 with device_rlc(on):
                     synchronize()
                     t0 = time.perf_counter()
-                    ok, launches = launches_of(lambda: backend.verify_combined(sub, beta),
-                                               POINT_KERNELS + PIPPENGER_KERNELS)
+                    ok, launches = launches_of(
+                        lambda: backend.verify_combined(sub, beta),
+                        POINT_KERNELS + LADDER_KERNELS + PIPPENGER_KERNELS)
                     synchronize()
                     wall = (time.perf_counter() - t0) * 1e3
                 if ok is not True:
@@ -2992,7 +3212,7 @@ def pippenger_ab(rows, beta, ns, reps: int) -> dict:
     # by wrapper: the MSM pair's calls launch two __global__ functions each
     ours = {}
     for k, (ms, count) in by_kernel.items():
-        for name in POINT_KERNELS + PIPPENGER_KERNELS:
+        for name in POINT_KERNELS + LADDER_KERNELS + PIPPENGER_KERNELS:
             if any(f"::{g}(" in k for g in MSM_GLOBALS.get(name, (f"{name}_kernel",))):
                 prev = ours.get(name, (0.0, 0))
                 ours[name] = (prev[0] + ms, prev[1] + count)
@@ -3010,33 +3230,67 @@ def pippenger_ab(rows, beta, ns, reps: int) -> dict:
     return out
 
 
+#: combined checks in phase 6's traced step (its figures are per check)
+PROFILED_CHECKS = 3
+
+
 def profile_combined(backend, rows, beta) -> dict:
-    """Phase 6: wall time of one combined check, then its device time by
-    kernel under the profiler."""
+    """Phase 6: wall time of one combined check, its kernel launches (the
+    wrappers' counts) and the card's interval in it (CUDA events around the
+    backend's device work, the flight recorder's device sink) with the idle
+    share they give, then its device time by kernel under the profiler
+    over a step of :data:`PROFILED_CHECKS` checks (traced again, up to three
+    times in all, until it sees the ladder kernel; its figures are null
+    where it never did), per check: the ladder kernels by name, every
+    kernel launched (device events other than copies and memsets), the
+    busy time and the idle share, beside the step-by-step composition's
+    8,533 launches and 24.3-24.6 ms busy (PERF.md section 5)."""
+    from cpzk_tpu_torch.observability import flightrec
+
     backend.verify_combined(rows, beta)  # warm
     synchronize()
-    t0 = time.perf_counter()
-    backend.verify_combined(rows, beta)
-    synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {key: (us / 1e3, count) for key, us, count in
-                 profiled(lambda: backend.verify_combined(rows, beta))}
+    sink, token = flightrec.install_sink()
+    try:
+        t0 = time.perf_counter()
+        _, launches = launches_of(lambda: backend.verify_combined(rows, beta),
+                                  POINT_KERNELS + LADDER_KERNELS)
+        synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        flightrec.uninstall_sink(token)
+    # a traced step of PROFILED_CHECKS checks: the profiler has dropped a
+    # step of a few launches whole
+    for attempt in range(3):
+        by_kernel = {key: (us / 1e3 / PROFILED_CHECKS, count / PROFILED_CHECKS)
+                     for key, us, count in profiled(lambda: [
+                         backend.verify_combined(rows, beta) for _ in range(PROFILED_CHECKS)])}
+        if any("::ladder_combined_kernel(" in k for k in by_kernel):
+            break
     busy_ms = sum(v[0] for v in by_kernel.values())
     ours = {name: v for k, v in by_kernel.items()
-            for name in ("point_add", "point_double_k") if f"::{name}_kernel(" in k}
+            for name in POINT_KERNELS + LADDER_KERNELS if f"::{name}_kernel(" in k}
+    kernels = {k: v for k, v in by_kernel.items()
+               if not k.startswith(("Memcpy", "Memset"))}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile_4096.txt"), "w") as f:
         for key, (ms, count) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0]):
-            f.write(f"{ms:10.3f} ms {count:6d}  {key}\n")
+            f.write(f"{ms:10.3f} ms {count:8.2f}  {key}\n")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    seen = bool(ours)
     return {
-        "rows": len(rows), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": 1 - busy_ms / wall_ms,
-        "point_kernels_ms": {k: v[0] for k, v in ours.items()},
-        "point_kernel_launches": {k: v[1] for k, v in ours.items()},
-        "other_device_ms": busy_ms - sum(v[0] for v in ours.values()),
-        "other_kernel_launches": sum(v[1] for v in by_kernel.values()) - sum(
-            v[1] for v in ours.values()),
+        "rows": len(rows), "wall_ms": wall_ms, "launches": launches,
+        "device_interval_ms": sink.device_interval_s * 1e3,
+        "device_idle_share_by_events": 1 - sink.device_interval_s * 1e3 / wall_ms,
+        "profiler_traces": attempt + 1, "profiler_saw_the_ladder_kernel": seen,
+        "device_busy_ms": busy_ms if seen else None,
+        "device_idle_share": 1 - busy_ms / wall_ms if seen else None,
+        "ladder_kernels_ms": {k: v[0] for k, v in ours.items()},
+        "ladder_kernel_launches": {k: v[1] for k, v in ours.items()},
+        "kernel_launches": sum(v[1] for v in kernels.values()) if seen else None,
+        "kernel_ms": sum(v[0] for v in kernels.values()) if seen else None,
+        "copies_and_memsets": {k: v for k, v in by_kernel.items() if k not in kernels},
+        "step_by_step": {"kernel_launches": 8533, "device_busy_ms": [24.3, 24.6],
+                         "source": "PERF.md section 5"},
         "top": [[k[:100], v[0], v[1]] for k, v in top],
     }
 
@@ -3268,7 +3522,7 @@ def batch_prove_phase(params, n_statements: int, n_proofs: int, plain_n: int,
             bv.add_with_context(params, st, Proof.from_bytes(wire), ctx)
         synchronize()
         t0 = time.perf_counter()
-        results, launches = launches_of(lambda: bv.verify(SecureRng()), POINT_KERNELS)
+        results, launches = launches_of(lambda: bv.verify(SecureRng()))
         synchronize()
         verdicts[label] = {"s": time.perf_counter() - t0, "backend_calls": recorder.calls,
                            "launches": launches}
@@ -3282,8 +3536,11 @@ def batch_prove_phase(params, n_statements: int, n_proofs: int, plain_n: int,
     if verdicts["valid"]["backend_calls"] != [n_proofs]:
         raise AssertionError(f"valid proofs: not one combined check "
                              f"({verdicts['valid']['backend_calls']})")
-    if on_card and min(verdicts["valid"]["launches"].values()) < 1:
-        raise AssertionError("the verification launched no point kernel")
+    # the valid proofs' one combined check spans two lane chunks
+    if on_card and min(verdicts["valid"]["launches"][k] for k in
+                       ("ladder_combined", "ladder_partials_identity")) < 1:
+        raise AssertionError("the verification launched no ladder kernel: "
+                             f"{verdicts['valid']['launches']}")
     out["verify"] = verdicts
     out["tampered"] = len(tampered)
     for i in range(0, n_proofs, max(1, n_proofs // host_sample)):
@@ -3805,8 +4062,8 @@ def audit_phase(corpus, provers, n: int, rpc_max: int, stream_users: int = AUDIT
     with N the verdicts the clients received.  The trail directory (sealed
     segments and the active tail) replays in process through
     ``run_audit(..., backend="tpu")``: N records, none mismatched, the
-    planted tampers rejected, both point kernels launched (counts set to 0
-    just before, read just after), records/s and the card's interval and
+    planted tampers rejected, both served ladder kernels launched (counts
+    set to 0 just before, read just after), records/s and the card's interval and
     idle share from a flight-recorder device sink.
 
     Then a synthetic log of ``synth_n`` records (``python -m
@@ -3882,15 +4139,15 @@ def audit_phase(corpus, provers, n: int, rpc_max: int, stream_users: int = AUDIT
         finally:
             flightrec.uninstall_sink(token)
         wall = time.perf_counter() - t0
-        launches = {k: all_launches()[k] for k in POINT_KERNELS}
+        launches = {k: all_launches()[k] for k in LADDER_KERNELS}
         row = {"records": report["totals"]["records"], "seconds": wall,
                "records_per_s": report["totals"]["records"] / wall,
                "launches": launches, "totals": report["totals"], "digest": report["digest"]}
         if backend == "tpu":
             row.update(device_interval_s=sink.device_interval_s,
                        device_idle_share=1 - sink.device_interval_s / wall)
-            if on_card and any(c < 1 for c in launches.values()):
-                raise AssertionError(f"audit {name}: point kernels not launched: {launches}")
+            if on_card and any(launches[k] < 1 for k in SERVED_KERNELS):
+                raise AssertionError(f"audit {name}: ladder kernels not launched: {launches}")
         return report, row
 
     key = os.path.join(workdir, "audit.key")
@@ -4242,8 +4499,9 @@ def replication_phase(corpus, provers, users: int, n: int, rpc_max: int, further
        ``kill_after`` are acknowledged: D promotes after the lease and
        every acknowledged challenge logs in at D;
     4. B and D answer an ``n``-login wave each (exact verdicts), their
-       ``/metrics`` showing both point kernels launched by those logins
-       and no failover; each of the four daemons held a CUDA context;
+       ``/metrics`` showing both served ladder kernels launched by those
+       logins and no failover; each of the four daemons held a CUDA
+       context;
     5. each promoted standby's proof-log directory replays on the card
        (``run_audit``) as one whole log from seq 1: its primary's shipped
        segments, then every verdict it served itself, none mismatched.
@@ -4361,7 +4619,7 @@ def replication_phase(corpus, provers, users: int, n: int, rpc_max: int, further
         wave = asyncio.run(fleet_logins(pmap, wave_users, index, provers, rpc_max, gen))
         wave["launches"] = {k: {name: v - launches0[k][name] for name, v in
                                 kernel_launches(procs[k].ops_port).items()} for k in ("a", "c")}
-        if on_card and min(min(v.values()) for v in wave["launches"].values()) < 1:
+        if on_card and min(v[k] for v in wave["launches"].values() for k in SERVED_KERNELS) < 1:
             raise AssertionError(f"replication: a kernel was not launched by the primaries' "
                                  f"logins: {wave['launches']}")
         out["wave"] = wave
@@ -4486,7 +4744,7 @@ def replication_phase(corpus, provers, users: int, n: int, rpc_max: int, further
             records = flight_records(proc.ops_port, seq0)
             metrics_text = http_get(proc.ops_port, "/metrics")
             failover = scraped(metrics_text, "tpu_backend_failover_total")
-            if on_card and min(launches.values()) < 1:
+            if on_card and min(launches[k] for k in SERVED_KERNELS) < 1:
                 raise AssertionError(f"replication: a kernel was not launched by {name}'s "
                                      f"logins: {launches}")
             if failover:
@@ -4575,6 +4833,13 @@ MESH_STATEMENTS = (16384, 65536)
 #: the two-rank job: rows of its batches
 MULTIHOST_ROWS = 16384
 MULTIHOST_TIMEOUT_S = 300.0
+#: what each rank of the job launches: its slices of the mesh's Pippenger
+#: MSM, and of the mixed batch's per-row checks
+MULTIHOST_KERNELS = ("ladder_each", "msm_bucket", "msm_window_reduce")
+#: what the mesh phase launches: the per-row route's sharded checks and
+#: the Pippenger MSM, whose slice partials point_add sums
+MESH_KERNELS = ("ladder_combined", "ladder_each", "point_add", "msm_bucket",
+                "msm_window_reduce")
 #: the controller phase: users registered at A, the user count at which
 #: its controller splits the partition (a choice of this phase, not a
 #: measured capacity), the controller's tick, and the login wave per
@@ -4582,7 +4847,7 @@ MULTIHOST_TIMEOUT_S = 300.0
 CTL_USERS = 65536
 CTL_SPLIT_THRESHOLD = 32768
 CTL_TICK_MS = 100.0
-CTL_LOGINS_PER_PARTITION = 2048
+CTL_LOGINS_PER_PARTITION = 1024
 
 
 def lanes_phase(params, corpus, n: int, closed_total: int, clients: int, group: int,
@@ -4834,9 +5099,12 @@ def lanes_phase(params, corpus, n: int, closed_total: int, clients: int, group: 
             or out["lane_rows"][sick]["probes"] < 1):
         raise AssertionError(f"lanes: lane {sick} after the fault {out['lane_rows'][sick]}")
     on_card = torch.device(devices[0]).type == "cuda"
-    if on_card and min(min(lane.launches.get(k, 0) for k in POINT_KERNELS)
-                       for lane in lanes) < 1:
-        raise AssertionError(f"lanes: a lane launched no point kernel: {out['launches_per_lane']}")
+    # every lane runs combined checks; the batches that hold tampered
+    # entries run the per-row ladders on whichever lane drew them
+    if on_card and (min(lane.launches.get("ladder_combined", 0) for lane in lanes) < 1
+                    or sum(lane.launches.get("ladder_each", 0) for lane in lanes) < 1):
+        raise AssertionError(f"lanes: a lane launched no ladder kernel: "
+                             f"{out['launches_per_lane']}")
     return out
 
 
@@ -5105,7 +5373,7 @@ def multihost_phase(n: int, world: int = MULTI_DEVICES, corpus_n: int = CORPUS,
         if doc["world"] != world or len(doc["mesh"]) != world:
             raise AssertionError(f"multihost: rank {doc['rank']} saw {doc['mesh']}")
         if local is None and min(doc["valid_launches"][k] + doc["mixed_launches"][k]
-                                 for k in POINT_KERNELS) < 1:
+                                 for k in MULTIHOST_KERNELS) < 1:
             raise AssertionError(f"multihost: rank {doc['rank']} launched "
                                  f"{doc['valid_launches']}")
     return {"world": world, "rows": n, "exit_codes": [r[0] for r in results],
@@ -5134,8 +5402,8 @@ def controller_phase(corpus, provers, users: int, threshold: int, logins: int, r
     from the ``partition-1.state.json``, WAL and epoch file the split wrote
     beside the map.  Then ``logins`` users of each partition log in through
     a client holding the old map (following the redirects): every verdict
-    exact, both point kernels launched on both daemons.  After both stop,
-    their final snapshots hold every acknowledged registration at its
+    exact, both served ladder kernels launched on both daemons.  After both
+    stop, their final snapshots hold every acknowledged registration at its
     owner and no user at both."""
     from cpzk_tpu_torch.fleet import PartitionMap
     from cpzk_tpu_torch.server.__main__ import DRAIN_SECONDS
@@ -5232,7 +5500,7 @@ def controller_phase(corpus, provers, users: int, threshold: int, logins: int, r
                 map_refresh=lambda: new_map))
             waves[name]["launches"] = {k: v - launches0[k] for k, v in
                                        kernel_launches(proc.ops_port).items()}
-            if on_card and min(waves[name]["launches"].values()) < 1:
+            if on_card and min(waves[name]["launches"][k] for k in SERVED_KERNELS) < 1:
                 raise AssertionError(f"controller: a kernel was not launched at {name}: "
                                      f"{waves[name]['launches']}")
             steps[f"logged_in_at_{name}"] = time.perf_counter() - t_phase
@@ -5340,9 +5608,9 @@ def main() -> int:
         return 1
 
     names = set(pk.kernel_names())
-    for table, keys in (("POINT_KERNELS + PIPPENGER_KERNELS + PROVER_KERNELS + "
-                         "CHALLENGE_KERNELS + DECODE_KERNELS",
-                         POINT_KERNELS + PIPPENGER_KERNELS + PROVER_KERNELS
+    for table, keys in (("POINT_KERNELS + LADDER_KERNELS + PIPPENGER_KERNELS + "
+                         "PROVER_KERNELS + CHALLENGE_KERNELS + DECODE_KERNELS",
+                         POINT_KERNELS + LADDER_KERNELS + PIPPENGER_KERNELS + PROVER_KERNELS
                          + CHALLENGE_KERNELS + DECODE_KERNELS),
                         ("REPLACES", REPLACES), ("SOURCES", SOURCES)):
         if set(keys) != names:
@@ -5370,7 +5638,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in report.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     per_kernel = pk.ptxas_report(report)
-    for name in POINT_KERNELS:
+    for name in POINT_KERNELS + ("ladder_combined", "ladder_each"):
         per_kernel.setdefault(name, {})["block_threads"] = {
             n: pk.block_threads(n, dev) for n in KERNEL_NS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -5398,26 +5666,38 @@ def main() -> int:
     emit({"phase": "kernels_vs_plain", "kernels": "prover and challenges",
           "tolerance": "exact (bytes, words, limbs; tables after canonicalization)", **card,
           "results": prover_rows})
+    ladder_rows = ladder_kernels_vs_plain(dev, params, corpus, int32_ops_per_s,
+                                          SeededRng(SEED + 41))
+    emit({"phase": "kernels_vs_plain", "kernels": "ladders",
+          "seconds": ladder_rows.pop("seconds"),
+          "tolerance": "bits and verdicts exact; chunk totals equal as group elements "
+                       "(canonical encodings)", **card, "results": ladder_rows})
     kernel_rows.update(scalar_rows)
     kernel_rows.update(msm_rows)
     kernel_rows.update(prover_rows)
+    kernel_rows.update(ladder_rows)
     # 3e. the pinned vectors of tests/vectors on the card
     emit({"phase": "vectors", **vectors_check(dev), **card})
 
     rows, beta = north_star_rows(params, corpus, NORTH_STAR_N, SecureRng())
 
-    # 4-5. the main path, with the launch counts set to 0 just before it
+    # 4-5. the main path, with the launch counts set to 0 just before it:
+    # the ladder kernels carry it, the point kernels are on none of it
     backend = TorchBackend()
-    pk.reset_launches()
+    pk.reset_all_launches()
     parse, serving = serving_batch(backend, params, corpus, SERVING_N, SUB_BATCH_N)
     emit({"phase": "serving_parse", **parse, **card})
     emit({"phase": "serving_batch", **serving, **card})
     star = north_star(backend, rows, beta)
-    launches = dict(pk.LAUNCHES)
+    launches = pk.all_launches()
     emit({"phase": "north_star", **star, "launches": launches, **card})
-    for name, count in launches.items():
-        if count < 1:
+    for name in LADDER_KERNELS:
+        if launches[name] < 1:
             raise AssertionError(f"{name} was never launched on the main path")
+    for name in POINT_KERNELS:
+        if launches[name]:
+            raise AssertionError(f"{name} was launched on the main path: the ladders "
+                                 "run as the ladder kernels")
 
     # 5a. this slice's path: the combined check as a Pippenger MSM, with the
     # host and the device scalar plane (every count set to 0 inside just
@@ -5484,7 +5764,7 @@ def main() -> int:
     # on the card, a planned handover and a SIGKILL failover (launch counts
     # read from each daemon's ops plane just before and just after each
     # wave of logins)
-    replicated = replication_phase(corpus, provers, REPL_USERS, SERVING_N, LOGIN_RPC_MAX,
+    replicated = replication_phase(corpus, provers, REPL_USERS, REPL_LOGINS, LOGIN_RPC_MAX,
                                    REPL_FURTHER, REPL_KILL_AFTER)
     emit({"phase": "replication", **replicated, **card})
 
@@ -5494,6 +5774,8 @@ def main() -> int:
     # partition live.  Every count set to 0 just before each and read just
     # after (the daemons' from their ops planes around each wave).
     phase_launches = {}
+    path_kernels = {"lanes": SERVED_KERNELS, "mesh": MESH_KERNELS,
+                    "multihost": MULTIHOST_KERNELS, "controller": SERVED_KERNELS}
     for name, run_phase in (
             ("lanes", lambda: lanes_phase(params, corpus, SERVING_N, CLOSED_LOOP_N, CLIENTS,
                                           GROUP_N, MESH_ROWS)),
@@ -5511,14 +5793,14 @@ def main() -> int:
         emit({"phase": name, **result, "launches_in_process": phase_launches[name], **card})
         if name == "controller":
             counts = {k: sum(w["launches"][k] for w in result["logins"].values())
-                      for k in POINT_KERNELS}
+                      for k in LADDER_KERNELS}
         elif name == "multihost":
             counts = {k: sum(r["valid_launches"][k] + r["mixed_launches"][k]
-                             for r in result["ranks"]) for k in POINT_KERNELS}
+                             for r in result["ranks"]) for k in pk.kernel_names()}
         else:
             counts = phase_launches[name]
         phase_launches[name] = counts
-        for k in POINT_KERNELS:
+        for k in path_kernels[name]:
             if counts[k] < 1:
                 raise AssertionError(f"{k} was never launched on the {name} path")
 
@@ -5529,6 +5811,9 @@ def main() -> int:
     emit({"phase": "pippenger_ab", **ab, **card})
 
     kernels = []
+    # the point kernels: on no serving path's per-row route since the ladder
+    # kernels (0 launches on the main path); the Pippenger route's chunk
+    # partials and a mesh's slice partials still sum through point_add
     for name in POINT_KERNELS:
         results = kernel_rows[name]
         main_row = next(r for r in results if r["n"] == MAIN_N)
@@ -5542,6 +5827,37 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None, "n": MAIN_N,
             f"ms_{CHUNK_4096_N}": chunk_row["ms"], f"bound_ms_{CHUNK_4096_N}": chunk_row["bound_ms"],
+            "registers": per_kernel[name].get("registers"),
+            "spill_bytes": per_kernel[name].get("spill_store_bytes"),
+            "launches_in_pippenger": pip["launches"][name],
+            "launches_per_16384_pippenger_check":
+                pip["big_check"]["launches"]["pippenger_device_rlc"][name],
+            "launches_in_daemon_pippenger": served["pippenger"]["launches"][name],
+            "launches_in_daemon_all_valid_batch":
+                served["pippenger"]["all_valid_batch"]["launches"][name],
+            **{f"launches_in_{p}": phase_launches[p][name] for p in ("lanes", "mesh", "multihost")},
+        })
+    # the ladder kernels: the main path and every serving path's per-row route
+    for name in LADDER_KERNELS:
+        results = kernel_rows[name]
+        timed = [r for r in results if "ms" in r]
+        # a 4096-row check's shapes: the combined check's 6,144 lanes, the
+        # per-row check's 4096, the 16,384-row check's two chunk totals
+        main_row = timed[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": SOURCES[name][0], "sources": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": None,
+            "shape": {k: main_row[k] for k in ("n", "rows", "k", "lanes", "case")
+                      if k in main_row},
+            "timed": [{k: r[k] for k in ("n", "k", "case", "ms", "ms_runs", "plain_ms",
+                                         "bound_ms", "bound_by", "chain_floor_ms") if k in r}
+                      for r in timed],
+            "chain_floor_ms": main_row.get("chain_floor_ms"),
             "registers": per_kernel[name].get("registers"),
             "spill_bytes": per_kernel[name].get("spill_store_bytes"),
             "launches_per_4096_verify": serving["valid_launches"][name],
@@ -5562,6 +5878,7 @@ def main() -> int:
                 sum(w[name] for w in replicated["wave"]["launches"].values()),
             "launches_in_replication_promoted_b": replicated["promoted"]["b"]["launches"][name],
             "launches_in_replication_promoted_d": replicated["promoted"]["d"]["launches"][name],
+            "launches_in_batch_prove_verify": proved["verify"]["valid"]["launches"][name],
             **{f"launches_in_{p}": phase_launches[p][name] for p in phase_launches},
         })
     from cpzk_tpu_torch.ops.msm_kernels import GLOBALS as MSM_GLOBALS
@@ -5649,9 +5966,6 @@ def main() -> int:
             "spill_bytes": per_kernel[name].get("spill_store_bytes"),
             "launches_in_decode": decoded["launches"][name],
         })
-    for entry in kernels[:len(POINT_KERNELS)]:
-        entry["launches_in_batch_prove_verify"] = \
-            proved["verify"]["valid"]["launches"][entry["name"]]
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -3,7 +3,7 @@ of their sources, in one run on one card; then the scalar and MSM kernels
 against their plain versions.
 
     python -m cpzk_tpu_torch.bench_kernels [--ns 1,6144,16384] [--reps 50]
-        [--rounds 4] [--sass] [--no-pippenger] [NAME=CSRC_DIR ...]
+        [--rounds 4] [--sass] [--no-pippenger] [--ladder] [NAME=CSRC_DIR ...]
 
 Each ``NAME=CSRC_DIR`` names a directory holding a ``point_ops.cu`` with the
 C launch interface of ``cpzk_tpu_torch/csrc/point_ops.cu``, for example an
@@ -43,6 +43,16 @@ challenges a second of the host core's ``challenge_batch``, of
 reduced mod l on the card, best of ``rounds`` at each of 4096 and 16,384
 rows.  One JSON line, then the card's ``nvidia-smi`` name and power limit.
 Needs a CUDA device.
+
+With ``--ladder``, instead of all that, the A/B of the per-row ladder
+kernels (``ladder_combined``, ``ladder_each``) of each build (a directory
+holding the package's ``csrc`` sources, the ladder kernels among them) at
+each lane count: random valid points (sums of multiples of the base point)
+and random windows, each build first checked against the plain versions
+(the combined total equal as a group element, the per-row bits equal),
+then timed in turns (A B B A ...) by :func:`event_ms`, ``reps`` launches
+held behind a spin kernel; with ``--sass``, each kernel's static SASS
+instruction count.  One JSON line, then the ``nvidia-smi`` line.
 """
 
 from __future__ import annotations
@@ -128,9 +138,9 @@ def _device_us(launch, reps: int, name: str) -> tuple[float, int]:
     return (total / count if count else None), count
 
 
-def sass_counts(lib_path: Path) -> dict:
+def sass_counts(lib_path: Path, kernels=KERNELS) -> dict:
     """Static SASS instruction count and the ten most frequent opcodes of
-    each kernel in a built library."""
+    each of ``kernels`` in a built library."""
     cuobjdump = Path(pk._nvcc()).parent / "cuobjdump"
     res = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                          capture_output=True, text=True, timeout=300, check=True)
@@ -139,7 +149,7 @@ def sass_counts(lib_path: Path) -> dict:
     for line in res.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            current = next((k for k in KERNELS if f"{k}_kernel" in m.group(1)), None)
+            current = next((k for k in kernels if f"{k}_kernel" in m.group(1)), None)
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m and current:
@@ -331,6 +341,111 @@ def prover_kernels(dev: torch.device, reps: int, rounds: int) -> dict:
             "challenges": rates}
 
 
+LADDER_KERNELS = ("ladder_combined", "ladder_each")
+
+
+def _ladder_inputs(dev: torch.device, n: int, seed: int):
+    """Four [20, n] points (sums of two of 64 random multiples of the base
+    point) and four [64, n] random windows."""
+    import random
+
+    from .core import edwards
+    from .core.scalars import L
+    from .ops import curve
+
+    rng = random.Random(seed)
+    base = curve.points_to_device(
+        [edwards.pt_scalar_mul(edwards.BASEPOINT, rng.randrange(L)) for _ in range(64)], dev)
+    idx = torch.from_numpy(np.random.default_rng(seed).integers(0, 64, (8, n))).to(dev)
+    pts = [pk.point_add_plain(tuple(x[:, idx[2 * k]] for x in base),
+                              tuple(x[:, idx[2 * k + 1]] for x in base)) for k in range(4)]
+    wins = [torch.from_numpy(np.random.default_rng(seed + k).integers(0, 16, (64, n))
+                             .astype(np.int32)).to(dev) for k in range(4)]
+    return pts, wins
+
+
+def _ladder_launcher(lib, name: str, pts, wins, dev: torch.device):
+    """A launch of ``name`` from ``lib`` on these inputs (the combined check
+    on the four points and windows; the per-row check with g, h, y1, y2, r1,
+    r2 = the points 0, 1, 0, 1, 2, 3 and the first two windows), and its
+    outputs."""
+    from .ops import ladder_kernels as lk
+
+    combined = name == "ladder_combined"
+    wkeep, wptrs, wlds, n = lk._windows(name, wins if combined else wins[:2], dev)
+    points = pts if combined else [pts[0], pts[1], pts[0], pts[1], pts[2], pts[3]]
+    keep, ptrs, lds, steps = lk._points(name, points, n, dev)
+    scratch = torch.empty((lib.cpzk_ladder_scratch_words(n, int(not combined)),),
+                          dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if combined:
+        out = [torch.empty((20, 1), dtype=torch.int32, device=dev) for _ in range(4)]
+        ok = torch.empty((), dtype=torch.bool, device=dev)
+        optrs, old = lk._ptrs([o.data_ptr() for o in out]), lk._i64([1])
+
+        def launch():
+            rc = lib.cpzk_ladder_combined(ptrs, lds, steps, wptrs, wlds, scratch.data_ptr(),
+                                          optrs, old, ok.data_ptr(), n, stream)
+            if rc:
+                raise RuntimeError(f"ladder_combined launch failed: CUDA error {rc}")
+        return launch, (out, ok), (keep, wkeep, scratch)
+    bits = torch.empty((n,), dtype=torch.bool, device=dev)
+
+    def launch():
+        rc = lib.cpzk_ladder_each(ptrs, lds, steps, wptrs, wlds, scratch.data_ptr(),
+                                  bits.data_ptr(), n, stream)
+        if rc:
+            raise RuntimeError(f"ladder_each launch failed: CUDA error {rc}")
+    return launch, bits, (keep, wkeep, scratch)
+
+
+def ladder_ab(dev: torch.device, specs, ns, reps: int, rounds: int, sass: bool) -> dict:
+    """The ``--ladder`` A/B (see the module docstring)."""
+    from .ops import curve, verify
+
+    data = {n: _ladder_inputs(dev, n, n) for n in ns}
+    refs = {}
+    for n, (pts, wins) in data.items():
+        refs[n] = (verify.combined_partial_kernel_plain(*pts, *wins),
+                   verify.verify_each_kernel_plain(pts[0], pts[1], pts[0], pts[1], pts[2],
+                                                   pts[3], wins[0], wins[1]))
+    builds = {}
+    for name, csrc in specs:
+        path, report = pk.build(Path(csrc))
+        lib = pk.load(path)
+        launchers = {}
+        for k in LADDER_KERNELS:
+            for n in ns:
+                launch, out, keep = _ladder_launcher(lib, k, *data[n], dev)
+                launch()
+                torch.cuda.synchronize()
+                if k == "ladder_combined":
+                    total = tuple(c[:, 0] for c in out[0])
+                    if not bool(curve.eq(total, tuple(c[:, 0] for c in refs[n][0]))):
+                        raise AssertionError(f"{name} {k} n={n}: total differs from plain")
+                elif not torch.equal(out, refs[n][1]):
+                    raise AssertionError(f"{name} {k} n={n}: bits differ from plain")
+                launchers[(k, n)] = (launch, keep)
+        builds[name] = {"launchers": launchers, "csrc": csrc,
+                        "ptxas": {k: v for k, v in pk.ptxas_report(report).items()
+                                  if k.startswith("ladder")},
+                        "sass": sass_counts(path, LADDER_KERNELS) if sass else None,
+                        "ms": {f"{k}/{n}": [] for k in LADDER_KERNELS for n in ns}}
+    order = list(builds)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            b = builds[name]
+            for (k, n), (launch, _) in b["launchers"].items():
+                b["ms"][f"{k}/{n}"].append(event_ms(launch, reps, hold=True))
+    return {"ladder_ab": {name: {"csrc": b["csrc"], "ptxas": b["ptxas"], "sass": b["sass"],
+                                 "reps": reps, "rounds": rounds,
+                                 "timed_by": "event_ms, launches held behind a spin kernel",
+                                 "ms_per_launch": {key: {"median": statistics.median(v),
+                                                         "runs": v}
+                                                   for key, v in b["ms"].items()}}
+                          for name, b in builds.items()}}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ns", default="1,6144,16384")
@@ -338,6 +453,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--no-pippenger", action="store_true")
+    ap.add_argument("--ladder", action="store_true")
     ap.add_argument("builds", nargs="*", metavar="NAME=CSRC_DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -346,6 +462,13 @@ def main(argv: list[str] | None = None) -> int:
     dev = torch.device("cuda", 0)
     ns = [int(x) for x in args.ns.split(",")]
     specs = [b.split("=", 1) for b in args.builds] or [["this", str(pk.CSRC)]]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    if args.ladder:
+        print(json.dumps(ladder_ab(dev, specs, ns, args.reps, args.rounds, args.sass)),
+              flush=True)
+        print(smi.stdout.strip().splitlines()[0], flush=True)
+        return 0
 
     builds = {}
     for name, csrc in specs:
@@ -397,8 +520,6 @@ def main(argv: list[str] | None = None) -> int:
     if not args.no_pippenger:
         print(json.dumps(pippenger_kernels(dev, args.reps, args.rounds)), flush=True)
     print(json.dumps(prover_kernels(dev, args.reps, args.rounds)), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     return 0
 

@@ -302,28 +302,32 @@ FE_FN void point_add(Fe out[4], const Fe p[4], const Fe q[4]) {
   mul_n<4>(out, u, v);
 }
 
+// One a=-1 doubling round (dbl-2008-hwcd) of p's X, Y, Z in place, a batch
+// of four squares and a batch of three multiplies; E and H are kept for
+// the T = E H of the last round.
+FE_FN void point_double_round(Fe p[4], Fe& E, Fe& H) {
+  Fe s[4];
+  s[0] = p[0];
+  s[1] = p[1];
+  s[2] = p[2];
+  fe_add(s[3], p[0], p[1]);
+  sq_n<4>(s, s);  // A = X^2, B = Y^2, Z^2, (X + Y)^2
+  Fe C, F, G;
+  fe_mul2(C, s[2]);
+  fe_add(H, s[0], s[1]);
+  fe_sub(E, H, s[3]);
+  fe_sub(G, s[0], s[1]);
+  fe_add(F, C, G);
+  const Fe a[3] = {E, G, F}, b[3] = {F, H, G};
+  mul_n<3>(p, a, b);
+}
+
 // k >= 1 fused a=-1 doublings (dbl-2008-hwcd) of p in place, the formulas
-// of cpzk_tpu/ops/pallas_kernels.py::_double_k_kernel, each round a batch
-// of four squares and a batch of three multiplies: only X, Y, Z pass
+// of cpzk_tpu/ops/pallas_kernels.py::_double_k_kernel: only X, Y, Z pass
 // between rounds; T comes from the last round.
 FE_FN void point_double_k(Fe p[4], int k) {
   Fe E, H;
-  for (int r = 0; r < k; ++r) {
-    Fe s[4];
-    s[0] = p[0];
-    s[1] = p[1];
-    s[2] = p[2];
-    fe_add(s[3], p[0], p[1]);
-    sq_n<4>(s, s);  // A = X^2, B = Y^2, Z^2, (X + Y)^2
-    Fe C, F, G;
-    fe_mul2(C, s[2]);
-    fe_add(H, s[0], s[1]);
-    fe_sub(E, H, s[3]);
-    fe_sub(G, s[0], s[1]);
-    fe_add(F, C, G);
-    const Fe a[3] = {E, G, F}, b[3] = {F, H, G};
-    mul_n<3>(p, a, b);
-  }
+  for (int r = 0; r < k; ++r) point_double_round(p, E, H);
   fe_mul(p[3], E, H);
 }
 

@@ -1,10 +1,10 @@
 // Test-only host build of fe25519_w32.cuh, sc25519_w32.cuh, msm_w32.cuh,
-// ristretto_w32.cuh, prove_w32.cuh and keccak_u64.cuh:
+// ristretto_w32.cuh, prove_w32.cuh, keccak_u64.cuh and ladder_w32.cuh:
 // a C interface over limb-major [20, n] int32 arrays, looping over lanes on
 // the CPU, so the tests can hold the kernels' field, point and scalar
 // arithmetic, the Pippenger thread bodies, ristretto encode and decode, the prover's
-// comb and walk bodies and the Keccak chain against the plain PyTorch
-// versions with a host C++ compiler:
+// comb and walk bodies, the Keccak chain and the per-row ladders' bodies
+// against the plain PyTorch versions with a host C++ compiler:
 //
 //   g++ -std=c++17 -O2 -shared -fPIC host_shim.cpp -o libfe25519_host.so
 //
@@ -19,6 +19,7 @@
 
 #include "fe25519_w32.cuh"
 #include "keccak_u64.cuh"
+#include "ladder_w32.cuh"
 #include "msm_w32.cuh"
 #include "prove_w32.cuh"
 #include "ristretto_w32.cuh"
@@ -58,6 +59,23 @@ void store_sc(int32_t* dst, const Sc& v, int n, int j) {
 
 // The whole quad in one call (msm_w32.cuh's Quad on the host).
 constexpr cpzk::Quad kQuad = {0, 0xFu};
+
+// Point operand `k` of a flat list of [20, n] coordinate pointers (4 a
+// point), per lane or shared (step 0: a [20, 1] array).
+cpzk::LadderPt ladder_pt(const int32_t* const* c, int k, int n, int step) {
+  cpzk::LadderPt p;
+  for (int i = 0; i < 4; ++i) {
+    p.c[i] = c[4 * k + i];
+    p.ld[i] = step ? n : 1;
+  }
+  p.step = step;
+  return p;
+}
+
+// Window operand t of [nt, 64, n] windows.
+cpzk::LadderWin ladder_win(const int32_t* w, int t, int n) {
+  return cpzk::LadderWin{w + (long)t * cpzk::LADDER_STEPS * n, n};
+}
 
 }  // namespace
 
@@ -448,6 +466,139 @@ void host_quad_add(const int32_t* x1, const int32_t* y1, const int32_t* z1, cons
     store_fe(oz, p[2], n, j);
     store_fe(ot, p[3], n, j);
   }
+}
+
+// ladder_w32.cuh's table body per lane: [20, n] x 4 -> the 16 cached
+// entries as limbs, [16, 4, 20, n] (entry e, coordinate c at (4 e + c) 20 n).
+void host_ladder_table(const int32_t* const* pts, int32_t* out, int n) {
+  std::vector<uint32_t> tab(cpzk::LADDER_TABLE_WORDS);
+  for (int j = 0; j < n; ++j) {
+    Fe p[4];
+    cpzk::ladder_load(p, ladder_pt(pts, 0, n, 1), j);
+    cpzk::ladder_table(tab.data(), p);
+    for (int e = 0; e < cpzk::LADDER_ENTRIES; ++e) {
+      Fe c[4];
+      cpzk::pt_load_words(c, tab.data() + (long)e * PT_WORDS);
+      for (int k = 0; k < 4; ++k) store_fe(out + (long)(4 * e + k) * NL * n, c[k], n, j);
+    }
+  }
+}
+
+// nt (2 or 4) terms per lane: pts holds nt points ([20, n] x 4 each), w
+// [nt, 64, n] windows.  steps < 0: the whole ladder (ladder_run) into out;
+// steps = s: one ladder_step with the windows of step s on the point acc
+// ([20, n] x 4), into out.
+void host_ladder_steps(const int32_t* const* pts, const int32_t* w, const int32_t* const* acc,
+                       int nt, int s, int32_t* const* out, int n) {
+  std::vector<uint32_t> tabs((long)nt * cpzk::LADDER_TABLE_WORDS);
+  for (int j = 0; j < n; ++j) {
+    const uint32_t* t[4];
+    cpzk::LadderWin win[4];
+    for (int k = 0; k < nt; ++k) {
+      Fe p[4];
+      cpzk::ladder_load(p, ladder_pt(pts, k, n, 1), j);
+      t[k] = tabs.data() + (long)k * cpzk::LADDER_TABLE_WORDS;
+      cpzk::ladder_table(tabs.data() + (long)k * cpzk::LADDER_TABLE_WORDS, p);
+      win[k] = ladder_win(w, k, n);
+    }
+    Fe x[4];
+    if (s < 0) {
+      if (nt == 2) cpzk::ladder_run<2>(x, t, win, j);
+      else cpzk::ladder_run<4>(x, t, win, j);
+    } else {
+      cpzk::ladder_load(x, ladder_pt(acc, 0, n, 1), j);
+      int32_t ws[4];
+      for (int k = 0; k < nt; ++k) ws[k] = win[k].w[(long)s * win[k].ld + j];
+      if (nt == 2) cpzk::ladder_step<2>(x, t, ws);
+      else cpzk::ladder_step<4>(x, t, ws);
+    }
+    cpzk::store_point(out, n, j, x);
+  }
+}
+
+// ladder_is_identity per lane of [20, n] x 4 points (0 or 1).
+void host_ladder_is_identity(const int32_t* const* pts, int32_t* out, int n) {
+  for (int j = 0; j < n; ++j) {
+    Fe p[4];
+    cpzk::ladder_load(p, ladder_pt(pts, 0, n, 1), j);
+    out[j] = (int32_t)cpzk::ladder_is_identity(p);
+  }
+}
+
+// ladder_combined_kernel over every block of `threads` threads and every
+// phase, in its order: r1, y1, r2, y2 ([20, n] x 4 each, in pts), windows
+// [4, 64, n] -> the chunk's total ([20, 1] x 4) and its identity test.
+void host_ladder_combined(const int32_t* const* pts, const int32_t* w, int32_t* const* out,
+                          uint8_t* ok, int n, int threads) {
+  const int blocks = (n + threads - 1) / threads;
+  std::vector<uint32_t> tables((long)n * cpzk::LADDER_COMBINED_WORDS);
+  std::vector<uint32_t> s((long)threads * PT_WORDS), parts((long)blocks * PT_WORDS);
+  std::vector<Fe> acc((long)threads * 4);
+  cpzk::LadderPt pt[4];
+  cpzk::LadderWin win[4];
+  for (int k = 0; k < 4; ++k) {
+    pt[k] = ladder_pt(pts, k, n, 1);
+    win[k] = ladder_win(w, k, n);
+  }
+  for (int b = 0; b < blocks; ++b) {
+    for (int tid = 0; tid < threads; ++tid) {
+      const long j = (long)b * threads + tid;
+      Fe* x = &acc[(long)tid * 4];
+      if (j < n) {
+        cpzk::ladder_combined_lane(x, pt, win, tables.data() + j * cpzk::LADDER_COMBINED_WORDS,
+                                   j);
+      } else {
+        cpzk::pt_identity(x);
+      }
+      cpzk::pt_store_words(s.data() + (long)tid * PT_WORDS, x);
+    }
+    for (int h = cpzk::msm_tree_top(threads) >> 1; h >= 1; h >>= 1) {
+      for (int tid = 0; tid < threads; ++tid)
+        cpzk::ladder_tree_level(&acc[(long)tid * 4], s.data(), tid, h, threads);
+    }
+    cpzk::pt_store_words(parts.data() + (long)b * PT_WORDS, &acc[0]);
+  }
+  // the last block
+  for (int tid = 0; tid < threads; ++tid) {
+    cpzk::ladder_parts_sum(&acc[(long)tid * 4], parts.data(), blocks, tid, threads);
+    cpzk::pt_store_words(s.data() + (long)tid * PT_WORDS, &acc[(long)tid * 4]);
+  }
+  const int m = std::min(blocks, threads);
+  for (int h = cpzk::msm_tree_top(m) >> 1; h >= 1; h >>= 1) {
+    for (int tid = 0; tid < threads; ++tid)
+      cpzk::ladder_tree_level(&acc[(long)tid * 4], s.data(), tid, h, m);
+  }
+  cpzk::ladder_finish(out, 1, ok, &acc[0]);
+}
+
+// ladder_partials_identity_kernel's block of `threads` threads over k
+// totals ([20, k] x 4 in pts) -> ok.
+void host_ladder_partials_identity(const int32_t* const* pts, uint8_t* ok, int k, int threads) {
+  std::vector<uint32_t> s((long)threads * PT_WORDS);
+  std::vector<Fe> acc((long)threads * 4);
+  const cpzk::LadderPt pt = ladder_pt(pts, 0, k, 1);
+  for (int tid = 0; tid < threads; ++tid) {
+    cpzk::ladder_limbs_sum(&acc[(long)tid * 4], pt, k, tid, threads);
+    cpzk::pt_store_words(s.data() + (long)tid * PT_WORDS, &acc[(long)tid * 4]);
+  }
+  for (int h = threads >> 1; h >= 1; h >>= 1) {
+    for (int tid = 0; tid < threads; ++tid)
+      cpzk::ladder_tree_level(&acc[(long)tid * 4], s.data(), tid, h, threads);
+  }
+  *ok = (uint8_t)cpzk::ladder_is_identity(&acc[0]);
+}
+
+// ladder_each_kernel's lanes: g, h, y1, y2, r1, r2 in pts (steps[k] 0: a
+// shared [20, 1] point), windows [2, 64, n] (s, c) -> one byte a lane.
+void host_ladder_each(const int32_t* const* pts, const int32_t* steps, const int32_t* w,
+                      uint8_t* out, int n) {
+  std::vector<uint32_t> tables((long)n * cpzk::LADDER_EACH_WORDS);
+  cpzk::LadderPt pt[6];
+  for (int k = 0; k < 6; ++k) pt[k] = ladder_pt(pts, k, n, steps[k]);
+  const cpzk::LadderWin win[2] = {ladder_win(w, 0, n), ladder_win(w, 1, n)};
+  for (int j = 0; j < n; ++j)
+    out[j] = (uint8_t)cpzk::ladder_each_lane(pt, win,
+                                             tables.data() + (long)j * cpzk::LADDER_EACH_WORDS, j);
 }
 
 }  // extern "C"

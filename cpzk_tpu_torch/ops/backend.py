@@ -6,9 +6,9 @@ SoA limb marshalling of the row points from their wire bytes (the host
 core's batch decode, :func:`.curve.wires_to_device`) and, by default, the
 RLC scalar products mod l (Python ints) with their window or digit
 decomposition.  Device side: the verification ladders of :mod:`.verify`,
-whose point adds and doublings are the CUDA kernels of
-:mod:`.point_kernels`; if it fails, ``verify_each`` decides per row, so
-accept/reject is per-proof ground truth.
+the CUDA kernels of :mod:`.ladder_kernels` (a launch a lane chunk); if it
+fails, ``verify_each`` decides per row, so accept/reject is per-proof
+ground truth.
 
 The combined RLC check takes one of two routes, as in the reference:
 
@@ -64,6 +64,7 @@ from ..protocol.batch import BatchRow, VerifierBackend
 from ..server import metrics
 from . import curve, msm, point_kernels, scalar_kernels, verify
 from . import sclimbs as sc
+from .limbs import NLIMBS
 
 #: Lane-chunk size and lane-pad quantum.  These are the JAX package's
 #: values, chosen on a TPU (the chunk sidesteps a TPU compiler defect on
@@ -178,19 +179,22 @@ def _elems_soa(elems: list, pad: int, device) -> curve.Point:
 def chunked_combined_identity(pad: int, chunk: int, r1, y1, r2, y2,
                               w_a, w_ac, w_ba, w_bac) -> bool:
     """The chunked per-row combined check: one partial point per lane chunk
-    (identity-padded lanes contribute the identity), then one tree-sum and
-    identity test over the partials."""
+    (identity-padded lanes contribute the identity), each written into its
+    column of one ``[20, chunks]`` array, then one sum and identity test
+    over the partials (on a card: a ``ladder_combined`` launch a chunk and
+    one ``ladder_partials_identity``)."""
     if pad <= chunk:
         return bool(verify.combined_kernel(r1, y1, r2, y2, w_a, w_ac, w_ba, w_bac))
-    parts = [
+    bounds = list(_chunk_bounds(pad, chunk))
+    parts = tuple(torch.empty((NLIMBS, len(bounds)), dtype=torch.int32, device=w_a.device)
+                  for _ in range(4))
+    for i, (lo, hi) in enumerate(bounds):
         verify.combined_partial_kernel(
             _chunk_point(r1, lo, hi), _chunk_point(y1, lo, hi),
             _chunk_point(r2, lo, hi), _chunk_point(y2, lo, hi),
-            w_a[:, lo:hi], w_ac[:, lo:hi], w_ba[:, lo:hi], w_bac[:, lo:hi])
-        for lo, hi in _chunk_bounds(pad, chunk)
-    ]
-    stacked = tuple(torch.cat([p[k] for p in parts], dim=-1) for k in range(4))
-    return bool(curve.is_identity(curve.tree_sum(stacked, axis=-1)))
+            w_a[:, lo:hi], w_ac[:, lo:hi], w_ba[:, lo:hi], w_bac[:, lo:hi],
+            out=_chunk_point(parts, i, i + 1))
+    return bool(verify.partials_identity(parts))
 
 
 def chunked_msm_identity(c: int, pts: curve.Point, digits: torch.Tensor,
@@ -486,17 +490,18 @@ class TorchBackend(VerifierBackend):
             if sharded:
                 mask = self._sharded_each(g, h, y1, y2, r1, r2, ws, wc)
                 return [bool(v) for v in mask[:n].tolist()]
-            # per-row checks are lane-independent: tile and concatenate
-            masks = []
+            # per-row checks are lane-independent: each lane chunk writes
+            # its slice of one mask
+            mask = torch.empty((pad,), dtype=torch.bool, device=dev)
             for lo, hi in _chunk_bounds(pad, self.lane_chunk):
                 cg = g if shared else _chunk_point(g, lo, hi)
                 ch = h if shared else _chunk_point(h, lo, hi)
-                masks.append(verify.verify_each_kernel(
+                verify.verify_each_kernel(
                     cg, ch,
                     _chunk_point(y1, lo, hi), _chunk_point(y2, lo, hi),
                     _chunk_point(r1, lo, hi), _chunk_point(r2, lo, hi),
-                    ws[:, lo:hi], wc[:, lo:hi]))
-            mask = torch.cat(masks, dim=-1)[:n].cpu()
+                    ws[:, lo:hi], wc[:, lo:hi], out=mask[lo:hi])
+            mask = mask[:n].cpu()
         return [bool(v) for v in mask.tolist()]
 
 

@@ -12,11 +12,11 @@ Sources: ``csrc/fe25519_w32.cuh`` (field and point arithmetic for one lane,
 ``__host__ __device__``) and ``csrc/point_ops.cu`` (the ``__global__``
 kernels, their block size and a plain C launch interface).  This module
 also builds the kernel library of the whole package: every ``csrc/*.cu``
-(these kernels, :mod:`.scalar_kernels`', :mod:`.msm_kernels`',
-:mod:`.keccak_kernels`' and :mod:`.prove_kernels`') compiled
-with ``nvcc`` for ``sm_90a``, in parallel, and linked into one shared
-library at first use (:func:`build`, :func:`library`), loaded with
-``ctypes``.
+(these kernels, :mod:`.ladder_kernels`', :mod:`.scalar_kernels`',
+:mod:`.msm_kernels`', :mod:`.keccak_kernels`', :mod:`.prove_kernels`' and
+:mod:`.decode_kernels`') compiled with ``nvcc`` for ``sm_90a``, in
+parallel, and linked into one shared library at first use (:func:`build`,
+:func:`library`), loaded with ``ctypes``.
 
 Design.  One thread per lane (batch column) of the limb-major ``[20, n]``
 layout, so a warp's load of one limb is 32 consecutive words.  The thread
@@ -230,10 +230,10 @@ def _nvcc() -> str:
 
 def build(csrc: Path = CSRC) -> tuple[Path, str]:
     """Compile every ``*.cu`` of ``csrc`` (by default the package's own
-    sources: the point, scalar, MSM, Keccak and prover kernels) into
-    ``_build/`` unless a library for those sources already exists: one
-    ``nvcc -c`` per source, all started together, then one link into a
-    shared library.  Returns the library path and the compiler's report
+    sources: the point, ladder, scalar, MSM, Keccak, prover and DECODE
+    kernels) into ``_build/`` unless a library for those sources already
+    exists: one ``nvcc -c`` per source, all started together, then one link
+    into a shared library.  Returns the library path and the compiler's report
     (``-Xptxas -v``: registers and spills per kernel), kept beside the
     library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
@@ -280,13 +280,15 @@ def build(csrc: Path = CSRC) -> tuple[Path, str]:
 
 
 def kernel_modules() -> tuple:
-    """The modules of the library's kernels: this one, :mod:`.scalar_kernels`,
-    :mod:`.msm_kernels`, :mod:`.keccak_kernels`, :mod:`.prove_kernels` and
-    :mod:`.decode_kernels`.  The one registry of the kernels: each module's
-    ``LAUNCHES`` keys are its kernels' wrapper names."""
-    from . import decode_kernels, keccak_kernels, msm_kernels, prove_kernels, scalar_kernels
+    """The modules of the library's kernels: this one, :mod:`.ladder_kernels`,
+    :mod:`.scalar_kernels`, :mod:`.msm_kernels`, :mod:`.keccak_kernels`,
+    :mod:`.prove_kernels` and :mod:`.decode_kernels`.  The one registry of
+    the kernels: each module's ``LAUNCHES`` keys are its kernels' wrapper
+    names."""
+    from . import (decode_kernels, keccak_kernels, ladder_kernels, msm_kernels, prove_kernels,
+                   scalar_kernels)
 
-    return (sys.modules[__name__], scalar_kernels, msm_kernels, keccak_kernels,
+    return (sys.modules[__name__], ladder_kernels, scalar_kernels, msm_kernels, keccak_kernels,
             prove_kernels, decode_kernels)
 
 
@@ -369,6 +371,10 @@ ENTRY_POINTS = {
     "cpzk_comb_tables": [_P] * 6,
     "cpzk_commitments": [_P] * 5 + [_I, _P],
     "cpzk_ristretto_decode": [_P, _I, _P, _P, _P],
+    "cpzk_ladder_scratch_words": [_I, _I],
+    "cpzk_ladder_combined": [_P] * 9 + [_I, _P],
+    "cpzk_ladder_partials_identity": [_P] * 3 + [_I, _P],
+    "cpzk_ladder_each": [_P] * 7 + [_I, _P],
 }
 
 

@@ -14,15 +14,22 @@ data-dependent control flow:
 
 All tensors are limb-major ([20, n] coords, [64, n] windows).  Scalar
 decomposition (mod l) happens on the host; the device sees only public
-4-bit windows.  Each ladder step is one ``double_k`` kernel launch and one
-``add`` kernel launch per term (:mod:`.point_kernels`).
+4-bit windows.
+
+On a CUDA tensor each function is one launch of a kernel of
+:mod:`.ladder_kernels` (``ladder_each``; ``ladder_combined`` a lane chunk;
+``ladder_partials_identity`` for :func:`partials_identity`).  On a CPU
+tensor it runs its plain version, the ``*_plain`` function beside it: the
+JAX package's composition (a shared-doubling ladder of ``double_k`` and
+``add`` per step over ``curve.build_table`` tables, ``tree_sum``),
+bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import curve
+from . import curve, ladder_kernels
 from .curve import Point, WINDOW_BITS, build_table, table_gather
 
 
@@ -49,11 +56,27 @@ def verify_each_kernel(
     r2: Point,
     ws: torch.Tensor,
     wc: torch.Tensor,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Per-proof checks -> [n] bool.
 
     ``g``/``h`` are [20, 1] (shared, broadcast) or [20, n] points;
-    ``y*``/``r*`` are [20, n]; ``ws``/``wc`` are [64, n] windows of s and c."""
+    ``y*``/``r*`` are [20, n]; ``ws``/``wc`` are [64, n] windows of s and c.
+    ``out``: an [n] bool tensor the bits are written into, and returned."""
+    return ladder_kernels.ladder_each(g, h, y1, y2, r1, r2, ws, wc, out=out)
+
+
+def verify_each_kernel_plain(
+    g: Point,
+    h: Point,
+    y1: Point,
+    y2: Point,
+    r1: Point,
+    r2: Point,
+    ws: torch.Tensor,
+    wc: torch.Tensor,
+) -> torch.Tensor:
+    """The plain version of :func:`verify_each_kernel`."""
     tg = build_table(g)
     th = build_table(h)
     tny1 = build_table(curve.negate(y1))
@@ -75,11 +98,28 @@ def combined_partial_kernel(
     w_ac: torch.Tensor,
     w_ba: torch.Tensor,
     w_bac: torch.Tensor,
+    out: Point | None = None,
 ) -> Point:
     """Partial sum of the combined check over one lane chunk -> [20, 1].
 
     Identity-padded lanes (zero windows, identity points) contribute the
-    identity, so chunk partials add up to the full batch total."""
+    identity, so chunk partials add up to the full batch total.  ``out``:
+    four [20, 1] tensors (column views of a chunk-partials array) the
+    partial is written into, and returned."""
+    return ladder_kernels.ladder_combined(r1, y1, r2, y2, w_a, w_ac, w_ba, w_bac, out=out)[0]
+
+
+def combined_partial_kernel_plain(
+    r1: Point,
+    y1: Point,
+    r2: Point,
+    y2: Point,
+    w_a: torch.Tensor,
+    w_ac: torch.Tensor,
+    w_ba: torch.Tensor,
+    w_bac: torch.Tensor,
+) -> Point:
+    """The plain version of :func:`combined_partial_kernel`."""
     rows = _msm_rows(
         [build_table(r1), build_table(y1), build_table(r2), build_table(y2)],
         [w_a, w_ac, w_ba, w_bac],
@@ -103,5 +143,31 @@ def combined_kernel(
     Callers append the correction row (points G, H, O, O with windows of
     ``-sum(a*s)``, ``-b*sum(a*s)``, 0, 0) before invoking, so acceptance is
     ``total == O``."""
-    total = combined_partial_kernel(r1, y1, r2, y2, w_a, w_ac, w_ba, w_bac)
+    return ladder_kernels.ladder_combined(r1, y1, r2, y2, w_a, w_ac, w_ba, w_bac)[1]
+
+
+def combined_kernel_plain(
+    r1: Point,
+    y1: Point,
+    r2: Point,
+    y2: Point,
+    w_a: torch.Tensor,
+    w_ac: torch.Tensor,
+    w_ba: torch.Tensor,
+    w_bac: torch.Tensor,
+) -> torch.Tensor:
+    """The plain version of :func:`combined_kernel`."""
+    total = combined_partial_kernel_plain(r1, y1, r2, y2, w_a, w_ac, w_ba, w_bac)
     return curve.is_identity(tuple(c[..., 0] for c in total))
+
+
+def partials_identity(parts: Point) -> torch.Tensor:
+    """Whether the sum of k chunk partials (``[20, k]`` coords) is the
+    identity coset -> scalar bool tensor."""
+    return ladder_kernels.ladder_partials_identity(parts)
+
+
+def partials_identity_plain(parts: Point) -> torch.Tensor:
+    """The plain version of :func:`partials_identity`: one tree-sum and
+    identity test over the partials."""
+    return curve.is_identity(curve.tree_sum(parts, axis=-1))

@@ -7,8 +7,12 @@ The Keccak chain and the wide reduction exact; the comb tables equal
 after canonicalization; the commitments' bytes identical (and equal to the
 host core's comb).  The ristretto DECODE kernel's canonical words and
 validity exact, on valid, random and rejected encodings; the matmulfold
-multiply bit for bit the schoolbook one in float64 on the card.  Also the
-launch counters and the block size.  Needs an NVIDIA GPU
+multiply bit for bit the schoolbook one in float64 on the card.  The
+per-row ladder kernels against their plain versions (the step-by-step
+composition over the point kernels): per-row bits and combined verdicts
+exact, chunk totals equal as group elements (``curve.eq``), on valid and
+tampered rows, shared and per-lane generators, ragged widths and a check of
+three lane chunks.  Also the launch counters and the block size.  Needs an NVIDIA GPU
 with nvcc: marked ``cuda`` and skipped elsewhere.  On the machine with the
 card (no JAX there, so without tests/conftest.py):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q``."""
@@ -25,6 +29,8 @@ from cpzk_tpu_torch.ops import curve, limbs, msm, msm_kernels as mk, point_kerne
 from cpzk_tpu_torch.ops import scalar_kernels as sk, sclimbs as sc
 from cpzk_tpu_torch.ops import decode_kernels as dk
 from cpzk_tpu_torch.ops import keccak_kernels as kk, prove_kernels as pvk
+from cpzk_tpu_torch.ops import backend, ladder_kernels as lk, verify
+from torch_ladder_inputs import combined_inputs, each_inputs, make_rows, tile, weights
 
 pytestmark = pytest.mark.cuda
 
@@ -255,3 +261,75 @@ def test_matmulfold_matches_schoolbook_on_card(dev, monkeypatch):
     monkeypatch.setattr(limbs, "MUL_VARIANT", "matmulfold")
     assert torch.equal(limbs.mul(a, b), school)
     assert torch.equal(limbs._mul_matmulfold(a, b), limbs._raw_schoolbook(a, b, 20))
+
+
+@pytest.fixture(scope="module")
+def ladder_rows():
+    """33 rows (a response off by one at row 5, a swapped commitment of each
+    equation at rows 9 and 20) and 33 valid rows, with per-lane generators
+    for the per-row check."""
+    tampered = {5: "s", 9: "r1", 20: "r2"}
+    return (make_rows(200, 33), make_rows(201, 33, tampered), tampered,
+            make_rows(202, 33, tampered, per_lane_generators=True))
+
+
+def on_card(dev, arrays, points):
+    return ([tuple(torch.from_numpy(c).to(dev) for c in p) for p in arrays[:points]]
+            + [torch.from_numpy(w).to(dev) for w in arrays[points:]])
+
+
+@pytest.mark.parametrize("n", [1, 127, 2048])
+def test_ladder_each_matches_plain_on_card(dev, ladder_rows, n):
+    _, bad, tampered, per_lane = ladder_rows
+    for rows, shared in ((bad, True), (per_lane, False)):
+        args = on_card(dev, each_inputs(tile(rows, n), n, shared), 6)
+        lk.reset_launches()
+        pk.reset_launches()
+        bits = verify.verify_each_kernel(*args)
+        torch.cuda.synchronize()
+        assert lk.LAUNCHES == {"ladder_combined": 0, "ladder_partials_identity": 0,
+                               "ladder_each": 1}
+        assert pk.LAUNCHES == {"point_add": 0, "point_double_k": 0}
+        assert bits.device == dev and bits.dtype == torch.bool and bits.shape == (n,)
+        assert torch.equal(bits, verify.verify_each_kernel_plain(*args))
+        assert bits.tolist() == [i % 33 not in tampered for i in range(n)]
+
+
+@pytest.mark.parametrize("n", [7, 127, 6144])
+def test_ladder_combined_matches_plain_on_card(dev, ladder_rows, n):
+    good, bad, _, _ = ladder_rows
+    for rows, want in ((good, True), (bad, False)):
+        rows = tile(rows, n - 1)
+        alphas, beta = weights(n, n - 1)
+        args = on_card(dev, combined_inputs(rows, alphas, beta, n), 4)
+        lk.reset_launches()
+        total, ok = lk.ladder_combined(*args)
+        torch.cuda.synchronize()
+        assert lk.LAUNCHES["ladder_combined"] == 1
+        ref = verify.combined_partial_kernel_plain(*args)
+        assert bool(curve.eq(tuple(c[:, 0] for c in total), tuple(c[:, 0] for c in ref)))
+        assert bool(ok) is bool(verify.combined_kernel_plain(*args)) is want
+        assert bool(verify.combined_kernel(*args)) is want
+
+
+def test_ladder_chunked_check_on_card(dev, ladder_rows):
+    """Three lane chunks (chunk 2048, pad 6144): three ``ladder_combined``
+    launches writing their columns and one ``ladder_partials_identity``,
+    no point kernel; the verdict equals the plain partials' identity test."""
+    good, bad, _, _ = ladder_rows
+    for rows, want in ((good, True), (bad, False)):
+        rows = tile(rows, 6000)
+        alphas, beta = weights(7, 6000)
+        args = on_card(dev, combined_inputs(rows, alphas, beta, 6144), 4)
+        lk.reset_launches()
+        pk.reset_launches()
+        assert backend.chunked_combined_identity(6144, 2048, *args) is want
+        assert lk.LAUNCHES == {"ladder_combined": 3, "ladder_partials_identity": 1,
+                               "ladder_each": 0}
+        assert pk.LAUNCHES == {"point_add": 0, "point_double_k": 0}
+        parts = [verify.combined_partial_kernel_plain(
+            *(tuple(c[:, lo:lo + 2048] for c in p) for p in args[:4]),
+            *(w[:, lo:lo + 2048] for w in args[4:])) for lo in (0, 2048, 4096)]
+        stacked = tuple(torch.cat([p[k] for p in parts], dim=-1) for k in range(4))
+        assert bool(verify.partials_identity_plain(stacked)) is want
+        assert bool(verify.partials_identity(stacked)) is want

@@ -71,9 +71,14 @@ def run(coro):
 
 @pytest.fixture(autouse=True)
 def _fresh_rings():
+    """Both packages' trace rings start empty (the reference's is
+    process-global too, and tests of other files share the worker)."""
+    from cpzk_tpu.observability import get_tracer as j_get_tracer
+
     tracer = get_tracer()
     prev_slow = tracer.slow_request_s
     tracer.clear()
+    j_get_tracer().clear()
     get_flight_recorder().clear()
     yield
     tracer.clear()

@@ -28,7 +28,21 @@ plain tables after canonicalization, and ``commitments_kernel``'s lane body
 identical); and ``ristretto_decode``'s lane body (``csrc/ristretto_w32.cuh``)
 on ``chip_smoke.py``'s decode inputs against the plain and the JAX
 ``curve.decode``, the host core's ``batch_decode`` and the pure decode
-(validity equal, canonical words exact).  Skips where g++ is missing."""
+(validity equal, canonical words exact).
+
+And the per-row ladders' thread bodies (``csrc/ladder_w32.cuh``), the code
+``ladder_combined``, ``ladder_partials_identity`` and ``ladder_each`` run
+on the card, sequenced by the shim's ``host_ladder_*`` functions over
+every block and thread in the kernels' order: the table build, one ladder step and a lane's whole
+ladder against :mod:`cpzk_tpu_torch.ops.verify`'s plain composition
+(coordinates equal after canonicalization: the cached adds run the plain
+adds' formulas on the same values mod p), the identity test against
+``curve.is_identity`` on non-canonical coordinates, and the kernels' whole
+bodies (the lane sum of blocks and of the last block, at block sizes that
+leave blocks partly empty and more blocks than threads): chunk totals
+equal as group elements (``curve.eq``), identity tests and per-row bits
+exact, tampered rows and per-lane generators included.  Skips where g++
+is missing."""
 
 import ctypes
 import random
@@ -44,6 +58,8 @@ from cpzk_tpu_torch.core.scalars import L
 from cpzk_tpu_torch.ops import curve, limbs, msm, point_kernels as pk, sclimbs as sc
 from cpzk_tpu_torch.ops import decode_kernels as dk
 from cpzk_tpu_torch.ops import keccak, keccak_kernels as kk, prove_kernels as pvk
+from cpzk_tpu_torch.ops import verify
+from torch_ladder_inputs import combined_inputs, each_inputs, make_rows, weights
 
 N = 96
 BOUND = limbs.BOUND
@@ -103,6 +119,12 @@ def host_lib(tmp_path_factory):
     lib.host_comb_window.argtypes = [P_] * 4 + [I, P_]
     lib.host_commitments.argtypes = [P_] * 5 + [I]
     lib.host_keccak_chain.argtypes = [P_, P_, I, P_, P_, I, I, P_, P_]
+    lib.host_ladder_table.argtypes = [P_, P_, I]
+    lib.host_ladder_steps.argtypes = [P_, P_, P_, I, I, P_, I]
+    lib.host_ladder_is_identity.argtypes = [P_, P_, I]
+    lib.host_ladder_combined.argtypes = [P_, P_, P_, P_, I, I]
+    lib.host_ladder_partials_identity.argtypes = [P_, P_, I, I]
+    lib.host_ladder_each.argtypes = [P_, P_, P_, P_, I]
     for fn in (lib.host_d2, lib.host_to_words, lib.host_fe_op, lib.host_point_add,
                lib.host_point_double_k, lib.host_sc_op, lib.host_sc_reduce_wide,
                lib.host_sc_windows, lib.host_sc_signed_digits, lib.host_msm_bucket,
@@ -110,7 +132,9 @@ def host_lib(tmp_path_factory):
                lib.host_quad_add, lib.host_fe_is_negative,
                lib.host_fe_sqrt_ratio_m1, lib.host_ristretto_encode,
                lib.host_ristretto_decode, lib.host_comb_window,
-               lib.host_commitments, lib.host_keccak_chain):
+               lib.host_commitments, lib.host_keccak_chain, lib.host_ladder_table,
+               lib.host_ladder_steps, lib.host_ladder_is_identity, lib.host_ladder_combined,
+               lib.host_ladder_partials_identity, lib.host_ladder_each):
         fn.restype = None
     return lib
 
@@ -687,3 +711,158 @@ def test_keccak_chain_matches_plain(host_lib, k, shared):
         for j in range(n):
             assert [int(v) for v in got[j]] == host_keccak.keccak_f1600(
                 [int(v) for v in lanes[j]])
+
+
+# -- the per-row ladders (ladder_w32.cuh) -------------------------------------
+
+def ptr_array(tensors):
+    """A C array of the tensors' data pointers (kept alive by the caller)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def cached_plain(p):
+    """The adds' cached form of plain points: (Y - X, Y + X, 2d T, 2 Z)."""
+    X, Y, Z, T = p
+    return (limbs.sub(Y, X), limbs.add(Y, X), limbs.mul(T, limbs.D2.expand_as(T)),
+            limbs.mul_small(Z, 2))
+
+
+def test_ladder_table_matches_plain(host_lib):
+    """The table body (14 cached adds) on arbitrary coordinates, the edge
+    values among them: every entry's cached form equals that of the plain
+    ``curve.build_table``'s entry after canonicalization."""
+    p = limb_inputs(40, 4)
+    out = torch.empty((16, 4, 20, N), dtype=torch.int32)
+    arr = ptr_array(p)
+    host_lib.host_ladder_table(arr, ptr(out), N)
+    table = curve.build_table(tuple(p))
+    for e in range(16):
+        want = cached_plain(tuple(c[e] for c in table))
+        for k in range(4):
+            assert_canonical_equal(out[e, k], want[k])
+
+
+@pytest.mark.parametrize("terms", [2, 4])
+def test_ladder_step_and_run_match_plain(host_lib, terms):
+    """One ladder step (four doublings, a cached table add a term) on an
+    arbitrary accumulator, and a lane's whole 64-step ladder from the
+    identity, against the plain ``_msm_rows`` composition: equal after
+    canonicalization.  Windows random in [0, 16) with the extremes 0 and 15
+    in whole rows."""
+    n = 24
+    rng = np.random.default_rng(41 + terms)
+    pts = [tuple(c[:, :n].contiguous() for c in limb_inputs(50 + t, 4)) for t in range(terms)]
+    acc = tuple(c[:, :n].contiguous() for c in limb_inputs(60, 4))
+    w = rng.integers(0, 16, size=(terms, 64, n)).astype(np.int32)
+    w[:, 0] = 15
+    w[:, 1] = 0
+    w = torch.from_numpy(w)
+    arr = ptr_array([c for p in pts for c in p])
+    acc_arr = ptr_array(acc)
+    tables = [curve.build_table(p) for p in pts]
+    for s in (5, -1):
+        outs = [torch.empty((20, n), dtype=torch.int32) for _ in range(4)]
+        host_lib.host_ladder_steps(arr, ptr(w), acc_arr, terms, s, ptr_array(outs), n)
+        if s < 0:
+            want = verify._msm_rows(tables, list(w))
+        else:
+            want = pk.point_double_k_plain(acc, 4)
+            for t in range(terms):
+                want = pk.point_add_plain(want, curve.table_gather(tables[t], w[t, s]))
+        for o, r in zip(outs, want):
+            assert_canonical_equal(o, r)
+
+
+def test_ladder_is_identity_matches_plain(host_lib):
+    """The identity test on coordinates that are 0 mod p but not 0 (p, 2p,
+    2^256 - 38 ...), on random ones and on the identity: equal to
+    ``curve.is_identity``."""
+    zeros = [0, P, 2 * P, -P, 2**255 - 19, 2**256 - 38]
+    n = len(zeros) * 3
+    x, y, z, t = limb_inputs(70, 4)
+    # random columns (the first lanes hold the edge values, zeros among them)
+    x, y, z, t = (c[:, 40:40 + n].clone() for c in (x, y, z, t))
+    for i, v in enumerate(zeros):
+        x[:, i] = torch.from_numpy(value_limbs(v))
+        y[:, len(zeros) + i] = torch.from_numpy(value_limbs(v))
+    out = torch.empty((n,), dtype=torch.int32)
+    host_lib.host_ladder_is_identity(ptr_array([x, y, z, t]), ptr(out), n)
+    want = curve.is_identity((x, y, z, t))
+    assert torch.equal(out.bool(), want)
+    assert out[:2 * len(zeros)].all() and not out[2 * len(zeros):].any()
+
+
+def host_combined(lib, arrays, threads):
+    pts = [torch.from_numpy(c) for p in arrays[:4] for c in p]
+    win = torch.from_numpy(np.stack(arrays[4:]))
+    n = win.shape[-1]
+    outs = [torch.empty((20, 1), dtype=torch.int32) for _ in range(4)]
+    ok = torch.empty((1,), dtype=torch.uint8)
+    lib.host_ladder_combined(ptr_array(pts), ptr(win), ptr_array(outs), ptr(ok), n, threads)
+    return tuple(outs), bool(ok[0])
+
+
+@pytest.mark.parametrize("tampered,threads", [(False, 4), (True, 2), (True, 32)],
+                         ids=["valid_4_threads", "tampered_2_threads", "tampered_one_block"])
+def test_ladder_combined_body_matches_plain(host_lib, tampered, threads):
+    """ladder_combined_kernel's phases over every block: 11 rows and the
+    correction row in 14 lanes (two identity-padded), at block sizes of 4
+    (a block partly past the end), 2 (7 blocks: the last block sums several
+    partials a thread) and 32 (one block): the total equals the plain
+    version's as a group element, the identity test its verdict.  A valid
+    total is the identity whatever the order, so the tampered cases are the
+    ones that hold the sums' bookkeeping."""
+    rows = make_rows(80, 11, {3: "s"} if tampered else None)
+    alphas, beta = weights(81, 11)
+    arrays = combined_inputs(rows, alphas, beta, 14)
+    total, ok = host_combined(host_lib, arrays, threads)
+    port = [tuple(torch.from_numpy(c) for c in p) for p in arrays[:4]] + [
+        torch.from_numpy(w) for w in arrays[4:]]
+    want = verify.combined_partial_kernel_plain(*port)
+    assert bool(curve.eq(tuple(c[:, 0] for c in total), tuple(c[:, 0] for c in want)))
+    assert ok is bool(verify.combined_kernel_plain(*port)) is (not tampered)
+    for c in total:
+        assert int(c.min()) >= 0 and int(c.max()) <= limbs.LIMB_MASK
+
+
+@pytest.mark.parametrize("threads", [2, 32])
+def test_ladder_partials_identity_body_matches_plain(host_lib, threads):
+    """ladder_partials_identity_kernel's block over k totals: P, -P, Q, -Q
+    and the identity sum to the identity (in non-canonical coordinates:
+    scaled by random factors), one more point does not; equal to the plain
+    tree-sum and identity test."""
+    rng = random.Random(90)
+    p = he.pt_scalar_mul(he.BASEPOINT, rng.randrange(L))
+    q = he.pt_scalar_mul(he.BASEPOINT, rng.randrange(L))
+    neg = lambda a: ((-a[0]) % he.P, a[1], a[2], (-a[3]) % he.P)  # noqa: E731
+    for pts, want in (([p, neg(p), q, he.IDENTITY, neg(q)], True),
+                      ([p, neg(p), q, he.IDENTITY, neg(q), p], False)):
+        scaled = []
+        for a in pts:
+            f = rng.randrange(1, he.P)
+            scaled.append((a[0] * f % he.P, a[1] * f % he.P, a[2] * f % he.P,
+                           a[3] * f % he.P))
+        parts = curve.points_to_device(scaled, "cpu")
+        ok = torch.empty((1,), dtype=torch.uint8)
+        host_lib.host_ladder_partials_identity(ptr_array(parts), ptr(ok), len(pts), threads)
+        assert bool(ok[0]) is bool(verify.partials_identity_plain(parts)) is want
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared_generators", "per_lane"])
+def test_ladder_each_body_matches_plain(host_lib, shared):
+    """ladder_each_kernel's lanes: 9 rows (a response off by one, a swapped
+    commitment of each equation) in 11 lanes, g and h shared ([20, 1]) or
+    per lane: bits equal to the plain version's and to the expectation."""
+    tampered = {1: "s", 4: "r1", 7: "r2"}
+    rows = make_rows(100 if shared else 101, 9, tampered, per_lane_generators=not shared)
+    arrays = each_inputs(rows, 11, shared)
+    pts = [torch.from_numpy(c) for p in arrays[:6] for c in p]
+    steps = torch.tensor([0 if shared else 1] * 2 + [1] * 4, dtype=torch.int32)
+    win = torch.from_numpy(np.stack(arrays[6:]))
+    out = torch.empty((11,), dtype=torch.uint8)
+    host_lib.host_ladder_each(ptr_array(pts), ptr(steps), ptr(win), ptr(out), 11)
+    port = [tuple(torch.from_numpy(c) for c in p) for p in arrays[:6]] + [
+        torch.from_numpy(w) for w in arrays[6:]]
+    want = verify.verify_each_kernel_plain(*port)
+    assert torch.equal(out.bool(), want)
+    assert out.tolist() == [int(i not in tampered) for i in range(9)] + [1, 1]

@@ -91,20 +91,22 @@ def test_wrapper_broadcasts_and_rejects(pts):
 
 
 def test_kernel_registry_names_every_kernel_and_routes_one_way():
-    """The registry: the eleven kernels, named by their modules' ``LAUNCHES``
+    """The registry: the fourteen kernels, named by their modules' ``LAUNCHES``
     keys, counted and reset together, each found in a build report; and
     the one routing rule of every wrapper (CPU plain, CUDA kernel, any
     other device raises)."""
     import torch
 
     from cpzk_tpu_torch.ops import decode_kernels as dk
-    from cpzk_tpu_torch.ops import keccak_kernels as kk, msm_kernels as mk
+    from cpzk_tpu_torch.ops import keccak_kernels as kk, ladder_kernels as lk
+    from cpzk_tpu_torch.ops import msm_kernels as mk
     from cpzk_tpu_torch.ops import prove_kernels as pvk, scalar_kernels as sk
 
-    names = ("point_add", "point_double_k", "rlc_scalars", "scalar_recode", "reduce_wide",
+    names = ("point_add", "point_double_k", "ladder_combined", "ladder_partials_identity",
+             "ladder_each", "rlc_scalars", "scalar_recode", "reduce_wide",
              "msm_bucket", "msm_window_reduce", "keccak_chain", "comb_tables", "commitments",
              "ristretto_decode")
-    assert pk.kernel_modules() == (pk, sk, mk, kk, pvk, dk)
+    assert pk.kernel_modules() == (pk, lk, sk, mk, kk, pvk, dk)
     assert pk.kernel_names() == names
     saved = pk.all_launches()
     try:

@@ -426,10 +426,10 @@ def test_prewarm_zero_compiles_on_lane_n_gt_0(monkeypatch):
     made = []
     kernel = verify_mod.verify_each_kernel
 
-    def recording(g, h, y1, *rest):
+    def recording(g, h, y1, *rest, **kw):
         made.append((threading.current_thread().name,
-                     {str(t.device) for t in (*g, *h, *y1, *rest[-2:])}))
-        return kernel(g, h, y1, *rest)
+                     {str(t.device) for t in (*g, *h, *y1, *rest[-2:], *kw.values())}))
+        return kernel(g, h, y1, *rest, **kw)
 
     monkeypatch.setattr(verify_mod, "verify_each_kernel", recording)
     backends = [TorchBackend(device="cpu"), TorchBackend(device=torch.device("cpu"))]
