@@ -2908,7 +2908,8 @@ def ladder_kernels_vs_plain(dev, params, corpus, int32_ops_per_s: float, gen) ->
     ``ladder_combined`` into their columns, valid and tampered: equal to the
     plain tree-sum and identity test.  Times by ``kernel_ms`` at the paths'
     widths beside the bounds (:mod:`.ladder_kernels`' ``*_work``), and each
-    lane ladder's chain floor: the kernel at one lane (one thread)."""
+    lane ladder's chain floor: the kernel at one lane (one quad of threads,
+    two for a per-row lane), its result checked against the plain one."""
     import torch
 
     from cpzk_tpu_torch.core.ristretto import Scalar
@@ -3030,14 +3031,26 @@ def ladder_kernels_vs_plain(dev, params, corpus, int32_ops_per_s: float, gen) ->
                              lambda: verify.partials_identity_plain(parts),
                              lk.partials_work(len(bounds))))
         out["ladder_partials_identity"].append(row)
-    # the chain floors: one lane, one thread
+    # the chain floors: one lane (one quad; two for a per-row lane), each
+    # checked first: the one-lane total against the plain one, the per-row
+    # bit valid and with the response off by one
     two = combined_args(pool[:1], 2)
     one_c = (tuple(bk._chunk_point(p, 0, 1) for p in two[:4])
              + tuple(w[:, :1] for w in two[4:]))
     one_e = each_args(pool[:1], 1)
+    total, _ = lk.ladder_combined(*one_c)
+    err = encoding_err(total, verify.combined_partial_kernel_plain(*one_c))
+    for rows, want in ((pool[:1], True), (tampered(pool[:1], {0: "s"}), False)):
+        args = each_args(rows, 1)
+        bits = lk.ladder_each(*args)
+        if bits.tolist() != [want] or not torch.equal(bits, verify.verify_each_kernel_plain(*args)):
+            err = max(err, 1)
+    if err:
+        raise AssertionError(f"one lane: the kernels differ from the plain versions ({err})")
     floors = {"ladder_combined": kernel_ms(lambda: lk.ladder_combined(*one_c), None, 5),
               "ladder_each": kernel_ms(lambda: lk.ladder_each(*one_e), None, 5)}
     for name, lat in floors.items():
+        out[name].append({"n": 1, "case": "one lane (the chain floor)", "max_abs_err": 0})
         for row in out[name]:
             if "ms" in row:
                 row["chain_floor_ms"] = lat["ms"]

@@ -48,7 +48,8 @@ With ``--ladder``, instead of all that, the A/B of the per-row ladder
 kernels (``ladder_combined``, ``ladder_each``) of each build (a directory
 holding the package's ``csrc`` sources, the ladder kernels among them) at
 each lane count: random valid points (sums of multiples of the base point)
-and random windows, each build first checked against the plain versions
+and random windows, the per-row check also with g and h shared
+(``ladder_each_shared``), each build first checked against the plain versions
 (the combined total equal as a group element, the per-row bits equal),
 then timed in turns (A B B A ...) by :func:`event_ms`, ``reps`` launches
 held behind a spin kernel; with ``--sass``, each kernel's static SASS
@@ -342,6 +343,9 @@ def prover_kernels(dev: torch.device, reps: int, rounds: int) -> dict:
 
 
 LADDER_KERNELS = ("ladder_combined", "ladder_each")
+#: the A/B's cases: the kernels, and the per-row check with g and h shared
+#: (the serving path's case)
+LADDER_CASES = LADDER_KERNELS + ("ladder_each_shared",)
 
 
 def _ladder_inputs(dev: torch.device, n: int, seed: int):
@@ -365,17 +369,24 @@ def _ladder_inputs(dev: torch.device, n: int, seed: int):
 
 
 def _ladder_launcher(lib, name: str, pts, wins, dev: torch.device):
-    """A launch of ``name`` from ``lib`` on these inputs (the combined check
-    on the four points and windows; the per-row check with g, h, y1, y2, r1,
-    r2 = the points 0, 1, 0, 1, 2, 3 and the first two windows), and its
-    outputs."""
+    """A launch of case ``name`` (:data:`LADDER_CASES`) from ``lib`` on these
+    inputs (the combined check on the four points and windows; the per-row
+    check with g, h, y1, y2, r1, r2 = the points 0, 1, 0, 1, 2, 3 and the
+    first two windows, or with g and h lane 0's points 0 and 1, shared), and
+    its outputs."""
     from .ops import ladder_kernels as lk
 
     combined = name == "ladder_combined"
     wkeep, wptrs, wlds, n = lk._windows(name, wins if combined else wins[:2], dev)
-    points = pts if combined else [pts[0], pts[1], pts[0], pts[1], pts[2], pts[3]]
+    g, h = pts[0], pts[1]
+    if name == "ladder_each_shared":
+        g, h = (tuple(c[:, :1].contiguous() for c in p) for p in (g, h))
+    points = pts if combined else [g, h, pts[0], pts[1], pts[2], pts[3]]
     keep, ptrs, lds, steps = lk._points(name, points, n, dev)
-    scratch = torch.empty((lib.cpzk_ladder_scratch_words(n, int(not combined)),),
+    # g and h shared (steps 0) keep only the -Y tables in the scratch; a
+    # build whose function takes two arguments ignores the third
+    shared = not combined and steps[0] == 0 and steps[1] == 0
+    scratch = torch.empty((lib.cpzk_ladder_scratch_words(n, int(not combined), int(shared)),),
                           dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if combined:
@@ -395,7 +406,7 @@ def _ladder_launcher(lib, name: str, pts, wins, dev: torch.device):
         rc = lib.cpzk_ladder_each(ptrs, lds, steps, wptrs, wlds, scratch.data_ptr(),
                                   bits.data_ptr(), n, stream)
         if rc:
-            raise RuntimeError(f"ladder_each launch failed: CUDA error {rc}")
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return launch, bits, (keep, wkeep, scratch)
 
 
@@ -406,15 +417,18 @@ def ladder_ab(dev: torch.device, specs, ns, reps: int, rounds: int, sass: bool) 
     data = {n: _ladder_inputs(dev, n, n) for n in ns}
     refs = {}
     for n, (pts, wins) in data.items():
+        first = [tuple(c[:, :1] for c in p) for p in pts[:2]]
         refs[n] = (verify.combined_partial_kernel_plain(*pts, *wins),
                    verify.verify_each_kernel_plain(pts[0], pts[1], pts[0], pts[1], pts[2],
-                                                   pts[3], wins[0], wins[1]))
+                                                   pts[3], wins[0], wins[1]),
+                   verify.verify_each_kernel_plain(*first, pts[0], pts[1], pts[2], pts[3],
+                                                   wins[0], wins[1]))
     builds = {}
     for name, csrc in specs:
         path, report = pk.build(Path(csrc))
         lib = pk.load(path)
         launchers = {}
-        for k in LADDER_KERNELS:
+        for k in LADDER_CASES:
             for n in ns:
                 launch, out, keep = _ladder_launcher(lib, k, *data[n], dev)
                 launch()
@@ -423,14 +437,14 @@ def ladder_ab(dev: torch.device, specs, ns, reps: int, rounds: int, sass: bool) 
                     total = tuple(c[:, 0] for c in out[0])
                     if not bool(curve.eq(total, tuple(c[:, 0] for c in refs[n][0]))):
                         raise AssertionError(f"{name} {k} n={n}: total differs from plain")
-                elif not torch.equal(out, refs[n][1]):
+                elif not torch.equal(out, refs[n][1 if k == "ladder_each" else 2]):
                     raise AssertionError(f"{name} {k} n={n}: bits differ from plain")
                 launchers[(k, n)] = (launch, keep)
         builds[name] = {"launchers": launchers, "csrc": csrc,
                         "ptxas": {k: v for k, v in pk.ptxas_report(report).items()
                                   if k.startswith("ladder")},
                         "sass": sass_counts(path, LADDER_KERNELS) if sass else None,
-                        "ms": {f"{k}/{n}": [] for k in LADDER_KERNELS for n in ns}}
+                        "ms": {f"{k}/{n}": [] for k in LADDER_CASES for n in ns}}
     order = list(builds)
     for r in range(rounds):
         for name in (order if r % 2 == 0 else order[::-1]):

@@ -484,33 +484,73 @@ void host_ladder_table(const int32_t* const* pts, int32_t* out, int n) {
   }
 }
 
-// nt (2 or 4) terms per lane: pts holds nt points ([20, n] x 4 each), w
-// [nt, 64, n] windows.  steps < 0: the whole ladder (ladder_run) into out;
-// steps = s: one ladder_step with the windows of step s on the point acc
-// ([20, n] x 4), into out.
+// msm_w32.cuh's cached add per lane, one thread's and the quad's: p + q of
+// [20, n] x 4 each (q turned into the cached form) -> the words of both,
+// [4, 8, n] uint32 each.
+void host_quad_add_cached(const int32_t* const* p, const int32_t* const* q, uint32_t* out_pt,
+                          uint32_t* out_quad, int n) {
+  for (int j = 0; j < n; ++j) {
+    Fe a[4], b[4], c[4], x[4], y[4];
+    cpzk::ladder_load(a, ladder_pt(p, 0, n, 1), j);
+    cpzk::ladder_load(b, ladder_pt(q, 0, n, 1), j);
+    cpzk::pt_cached(c, b);
+    cpzk::pt_copy(x, a);
+    cpzk::pt_add_cached_into(x, c);
+    cpzk::QuadCached qc;
+    cpzk::quad_cached_pick(qc, c, kQuad);
+    cpzk::pt_copy(y, a);
+    cpzk::quad_add_cached_into(y, qc, kQuad);
+    for (int k = 0; k < 4; ++k) {
+      for (int i = 0; i < NW; ++i) {
+        out_pt[((long)k * NW + i) * n + j] = x[k].w[i];
+        out_quad[((long)k * NW + i) * n + j] = y[k].w[i];
+      }
+    }
+  }
+}
+
+// nt (2 or 4) terms per lane on its quad: pts holds nt points ([20, n] x 4
+// each; four terms' tables built by the combined check's four threads, two
+// one after the other), w [nt, 64, n] windows.  s < 0: the whole ladder
+// (ladder_quad_run) into out; s >= 0: one ladder_quad_step with the entries
+// of step s on the point acc ([20, n] x 4), into out.
 void host_ladder_steps(const int32_t* const* pts, const int32_t* w, const int32_t* const* acc,
                        int nt, int s, int32_t* const* out, int n) {
   std::vector<uint32_t> tabs((long)nt * cpzk::LADDER_TABLE_WORDS);
   for (int j = 0; j < n; ++j) {
     const uint32_t* t[4];
+    cpzk::LadderPt pt[4];
     cpzk::LadderWin win[4];
     for (int k = 0; k < nt; ++k) {
-      Fe p[4];
-      cpzk::ladder_load(p, ladder_pt(pts, k, n, 1), j);
+      pt[k] = ladder_pt(pts, k, n, 1);
       t[k] = tabs.data() + (long)k * cpzk::LADDER_TABLE_WORDS;
-      cpzk::ladder_table(tabs.data() + (long)k * cpzk::LADDER_TABLE_WORDS, p);
       win[k] = ladder_win(w, k, n);
+    }
+    if (nt == 4) {
+      cpzk::ladder_combined_tables(tabs.data(), pt, j, kQuad);
+    } else {
+      for (int k = 0; k < nt; ++k) {
+        Fe p[4];
+        cpzk::ladder_load(p, pt[k], j);
+        cpzk::ladder_table(tabs.data() + (long)k * cpzk::LADDER_TABLE_WORDS, p);
+      }
     }
     Fe x[4];
     if (s < 0) {
-      if (nt == 2) cpzk::ladder_run<2>(x, t, win, j);
-      else cpzk::ladder_run<4>(x, t, win, j);
+      if (nt == 2) cpzk::ladder_quad_run<2>(x, t, win, j, kQuad);
+      else cpzk::ladder_quad_run<4>(x, t, win, j, kQuad);
     } else {
       cpzk::ladder_load(x, ladder_pt(acc, 0, n, 1), j);
       int32_t ws[4];
-      for (int k = 0; k < nt; ++k) ws[k] = win[k].w[(long)s * win[k].ld + j];
-      if (nt == 2) cpzk::ladder_step<2>(x, t, ws);
-      else cpzk::ladder_step<4>(x, t, ws);
+      cpzk::QuadCached e[4];
+      for (int k = 0; k < nt; ++k) ws[k] = cpzk::ladder_window(win[k], s, j);
+      if (nt == 2) {
+        cpzk::ladder_quad_entries<2>(e, t, ws, kQuad);
+        cpzk::ladder_quad_step<2>(x, e, kQuad);
+      } else {
+        cpzk::ladder_quad_entries<4>(e, t, ws, kQuad);
+        cpzk::ladder_quad_step<4>(x, e, kQuad);
+      }
     }
     cpzk::store_point(out, n, j, x);
   }
@@ -525,50 +565,77 @@ void host_ladder_is_identity(const int32_t* const* pts, int32_t* out, int n) {
   }
 }
 
-// ladder_combined_kernel over every block of `threads` threads and every
-// phase, in its order: r1, y1, r2, y2 ([20, n] x 4 each, in pts), windows
-// [4, 64, n] -> the chunk's total ([20, 1] x 4) and its identity test.
+// ladder_combined_kernel over every block of `threads` threads (a multiple
+// of 4, at least 8: four a lane) and every phase, in its order, blocks
+// finishing in index order: r1, y1, r2, y2 ([20, n] x 4 each, in pts),
+// windows [4, 64, n] -> the chunk's total ([20, 1] x 4) and its identity
+// test.
 void host_ladder_combined(const int32_t* const* pts, const int32_t* w, int32_t* const* out,
                           uint8_t* ok, int n, int threads) {
-  const int blocks = (n + threads - 1) / threads;
+  const int nq = threads / 4;
+  const long blocks = (4L * n + threads - 1) / threads;
+  long ntickets;
+  const long points = cpzk::ladder_reduce_points(blocks, nq, &ntickets);
   std::vector<uint32_t> tables((long)n * cpzk::LADDER_COMBINED_WORDS);
-  std::vector<uint32_t> s((long)threads * PT_WORDS), parts((long)blocks * PT_WORDS);
-  std::vector<Fe> acc((long)threads * 4);
+  std::vector<uint32_t> s((long)nq * PT_WORDS), parts((points + 1) * PT_WORDS);
+  std::vector<unsigned> tickets(ntickets + 1, 0u);
+  std::vector<Fe> acc((long)nq * 4);
   cpzk::LadderPt pt[4];
   cpzk::LadderWin win[4];
   for (int k = 0; k < 4; ++k) {
     pt[k] = ladder_pt(pts, k, n, 1);
     win[k] = ladder_win(w, k, n);
   }
-  for (int b = 0; b < blocks; ++b) {
-    for (int tid = 0; tid < threads; ++tid) {
-      const long j = (long)b * threads + tid;
-      Fe* x = &acc[(long)tid * 4];
+  for (long b = 0; b < blocks; ++b) {
+    for (int q = 0; q < nq; ++q) {
+      const long j = b * nq + q;
+      if (j < n)
+        cpzk::ladder_combined_tables(tables.data() + j * cpzk::LADDER_COMBINED_WORDS, pt, j,
+                                     kQuad);
+    }
+    for (int q = 0; q < nq; ++q) {
+      const long j = b * nq + q;
+      Fe* x = &acc[(long)q * 4];
       if (j < n) {
-        cpzk::ladder_combined_lane(x, pt, win, tables.data() + j * cpzk::LADDER_COMBINED_WORDS,
-                                   j);
+        cpzk::ladder_combined_quad(x, tables.data() + j * cpzk::LADDER_COMBINED_WORDS, win, j,
+                                   kQuad);
       } else {
         cpzk::pt_identity(x);
       }
-      cpzk::pt_store_words(s.data() + (long)tid * PT_WORDS, x);
+      cpzk::pt_store_words(s.data() + (long)q * PT_WORDS, x);
     }
-    for (int h = cpzk::msm_tree_top(threads) >> 1; h >= 1; h >>= 1) {
-      for (int tid = 0; tid < threads; ++tid)
-        cpzk::ladder_tree_level(&acc[(long)tid * 4], s.data(), tid, h, threads);
+    for (int h = cpzk::msm_tree_top(nq) >> 1; h >= 1; h >>= 1) {
+      for (int q = 0; q < nq; ++q)
+        cpzk::msm_tree_level(&acc[(long)q * 4], s.data(), q, h, nq, kQuad);
     }
-    cpzk::pt_store_words(parts.data() + (long)b * PT_WORDS, &acc[0]);
+    // the groups of partials: this block goes on while it is its group's last
+    uint32_t* level = parts.data();
+    unsigned* tk = tickets.data();
+    long idx = b;
+    bool total = true;
+    for (long count = blocks; count > 1;) {
+      cpzk::pt_store_words(level + idx * PT_WORDS, &acc[0]);
+      const long group = idx / nq, groups = (count + nq - 1) / nq;
+      const int size = (int)std::min<long>(nq, count - group * nq);
+      if (tk[group]++ != (unsigned)(size - 1)) {
+        total = false;
+        break;
+      }
+      for (int q = 0; q < nq; ++q) {
+        cpzk::ladder_group_load(&acc[(long)q * 4], level, group * nq, size, q);
+        cpzk::pt_store_words(s.data() + (long)q * PT_WORDS, &acc[(long)q * 4]);
+      }
+      for (int h = cpzk::msm_tree_top(size) >> 1; h >= 1; h >>= 1) {
+        for (int q = 0; q < nq; ++q)
+          cpzk::msm_tree_level(&acc[(long)q * 4], s.data(), q, h, size, kQuad);
+      }
+      level += count * PT_WORDS;
+      tk += groups;
+      idx = group;
+      count = groups;
+    }
+    if (total) cpzk::ladder_finish(out, 1, ok, &acc[0]);
   }
-  // the last block
-  for (int tid = 0; tid < threads; ++tid) {
-    cpzk::ladder_parts_sum(&acc[(long)tid * 4], parts.data(), blocks, tid, threads);
-    cpzk::pt_store_words(s.data() + (long)tid * PT_WORDS, &acc[(long)tid * 4]);
-  }
-  const int m = std::min(blocks, threads);
-  for (int h = cpzk::msm_tree_top(m) >> 1; h >= 1; h >>= 1) {
-    for (int tid = 0; tid < threads; ++tid)
-      cpzk::ladder_tree_level(&acc[(long)tid * 4], s.data(), tid, h, m);
-  }
-  cpzk::ladder_finish(out, 1, ok, &acc[0]);
 }
 
 // ladder_partials_identity_kernel's block of `threads` threads over k
@@ -588,17 +655,38 @@ void host_ladder_partials_identity(const int32_t* const* pts, uint8_t* ok, int k
   *ok = (uint8_t)cpzk::ladder_is_identity(&acc[0]);
 }
 
-// ladder_each_kernel's lanes: g, h, y1, y2, r1, r2 in pts (steps[k] 0: a
-// shared [20, 1] point), windows [2, 64, n] (s, c) -> one byte a lane.
+// ladder_each_kernel over every block of `threads` threads (a multiple of
+// 8: two quads a lane) and both phases, in its order: g, h, y1, y2, r1, r2
+// in pts (steps[k] 0: a shared [20, 1] point; g and h both shared: their
+// tables once a block), windows [2, 64, n] (s, c) -> one byte a lane.
 void host_ladder_each(const int32_t* const* pts, const int32_t* steps, const int32_t* w,
-                      uint8_t* out, int n) {
-  std::vector<uint32_t> tables((long)n * cpzk::LADDER_EACH_WORDS);
+                      uint8_t* out, int n, int threads) {
+  const bool shared = steps[0] == 0 && steps[1] == 0;
+  const long words = shared ? cpzk::LADDER_EACH_SHARED_WORDS : cpzk::LADDER_EACH_WORDS;
+  const int lanes = threads / 8;
+  const long blocks = (8L * n + threads - 1) / threads;
+  std::vector<uint32_t> tables((long)n * words), gh(2L * cpzk::LADDER_TABLE_WORDS);
   cpzk::LadderPt pt[6];
   for (int k = 0; k < 6; ++k) pt[k] = ladder_pt(pts, k, n, steps[k]);
   const cpzk::LadderWin win[2] = {ladder_win(w, 0, n), ladder_win(w, 1, n)};
-  for (int j = 0; j < n; ++j)
-    out[j] = (uint8_t)cpzk::ladder_each_lane(pt, win,
-                                             tables.data() + (long)j * cpzk::LADDER_EACH_WORDS, j);
+  for (long b = 0; b < blocks; ++b) {
+    for (int l = 0; l < lanes; ++l) {
+      const long j = b * lanes + l;
+      if (j >= n) continue;
+      for (int e = 0; e < 2; ++e)
+        cpzk::ladder_each_tables(tables.data() + j * words, gh.data(), pt, j, l, e, shared,
+                                 kQuad);
+    }
+    for (int l = 0; l < lanes; ++l) {
+      const long j = b * lanes + l;
+      if (j >= n) continue;
+      uint32_t bit = 1;
+      for (int e = 0; e < 2; ++e)
+        bit &= cpzk::ladder_each_quad(tables.data() + j * words, gh.data(), pt, win, j, e,
+                                      shared, kQuad);
+      out[j] = (uint8_t)bit;
+    }
+  }
 }
 
 }  // extern "C"

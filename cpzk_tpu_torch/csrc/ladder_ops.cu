@@ -17,35 +17,46 @@
 // Layout: every point coordinate is a [20, *] int32 limb array with its own
 // row stride (lane chunks are column slices of the batch's arrays), every
 // window array [64, *] with its own; a point shared by every lane is
-// [20, 1].  One thread owns one lane and runs ladder_w32.cuh's bodies: it
-// builds the lane's tables into a global scratch (2 KB a table), then runs
-// the 64-step ladder with its accumulator in registers.
+// [20, 1].  A lane runs on a quad of threads (ladder_w32.cuh's bodies): its
+// tables go into a global scratch (2 KB a table), then the quad runs the
+// 64-step ladder with the accumulator in every thread's registers.
 //
-// ladder_combined_kernel: after its lane's ladder, each block sums its
-// threads' points in shared memory (a tree of log2(threads) levels) and
-// stores the block's partial; the last block to finish (an atomic ticket
-// the entry point zeroes) sums the blocks' partials and writes the chunk's
-// total as [20, 1] limbs and its identity test.  ladder_partials_identity:
-// one block sums k chunk totals and tests the identity.  ladder_each: one
-// bit a lane, no reduction.
+// ladder_combined_kernel: four threads a lane; thread r builds term r's
+// table, so the four build side by side.  After the ladders each block sums
+// its quads' points by a tree of quad adds in shared memory; the blocks'
+// sums are then summed in groups of as many as the block has quads, the
+// last block of a group to arrive (an atomic ticket a group, zeroed by the
+// entry point) summing its group into a partial of the next level, until
+// one block holds the chunk's total and writes it as [20, 1] limbs with
+// its identity test.  ladder_partials_identity: one block sums k chunk
+// totals and tests the identity (one thread a total).  ladder_each: eight
+// threads a lane, one quad an equation, run at once; the lane's bit is the
+// AND of its quads'.  With g and h shared ([20, 1]) their tables are built
+// once a block into shared memory, by two threads of the block's first
+// lane while the lanes build their -Y tables; per lane, each lane builds
+// all four.
 //
 // What bounds them (ops/ladder_kernels.py counts them): a lane of the
 // combined check reads 2.3 KB and needs about 745k int32 operations (four
 // tables of 14 cached adds, 64 doubling rounds of four and 256 cached
 // adds), a lane of the per-row check 1.8 KB and about 1.0M, so both are
 // bound by operations (0.27 and 0.25 ms at 6,144 and 4,096 lanes on 132
-// SMs at 1980 MHz).  But each lane is one thread's dependent chain of
-// point operations (about 570 combined, 830 per row): at the main path's
-// widths (4,096 to 16,384 lanes, 128 to 512 warps for the card's 528
-// schedulers) a warp is about alone on its scheduler, so the time is that
-// chain's latency (one thread at n = 1, the chain floor), not the card's
-// throughput.  So the design keeps one lane a thread with one-warp blocks
-// (the point kernels' block_threads), interleaves each formula's
-// independent multiplies (fe25519_w32.cuh), keeps the ladder step's rounds
-// and terms as loops so its code stays in the instruction cache
-// (ladder_w32.cuh), and lets ptxas use as many registers as it likes
-// (__launch_bounds__(256, 1)).  The tables' traffic (about 40 KB a lane
-// through L2) is under the operations bound.
+// SMs at 1980 MHz).  But a lane is a dependent chain of about 570 point
+// operations (830 per row), and at the main path's widths (4,096 to
+// 16,384 lanes) one thread a lane would leave about one warp on each of
+// the card's 528 schedulers, and the time would be that chain's latency
+// (the kernel at one lane, the chain floor), not the card's throughput.
+// The quads cut
+// the chain: a quad doubling round is two dependent field operations, a
+// quad cached add two, where one thread runs seven and eight (in batches),
+// and a quad's table entry is 32 bytes a thread, so the next step's entries
+// are loaded while a step runs instead of each add waiting on a load whose
+// address came from a window just read.  Four (eight) threads a lane also
+// fill four (eight) times the warps: past about 8,000 lanes the kernels
+// are issue-bound, and a quad's repeated linear work costs more issue a
+// lane than one thread's would.  The step's rounds and terms stay loops, so
+// its code stays in the instruction cache.  The tables' traffic (about 40
+// KB a lane through L2) is under the operations bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,63 +69,89 @@ using cpzk::LadderPt;
 using cpzk::LadderWin;
 using cpzk::PT_WORDS;
 
-constexpr int kMaxThreads = 256;
+// Threads a block: one warp (8 combined lanes, 4 per-row lanes).  A small
+// launch spreads over the SMs, and the register file holds whole warps:
+// blocks of up to 256 threads (point_ops.cu's cpzk_block_threads) left
+// part of it empty (at 16,384 per-row lanes 224-thread blocks of 152
+// registers fit one an SM) and ran 1.3x (per row) and 1.5x (combined) as
+// long at that width on an H100, the same at the main path's (PERF.md,
+// section 6).
+constexpr int kThreads = 32;
 constexpr int kPartialsThreads = 32;
+// lanes a call at most (eight threads a lane stay within an int)
+constexpr int kMaxLanes = 1 << 27;
 
 struct CombinedArgs {
-  LadderPt pts[4];  // r1, y1, r2, y2
+  LadderPt pts[4];   // r1, y1, r2, y2
   LadderWin win[4];  // a, a c, b a, b a c
   uint32_t* tables;  // n x LADDER_COMBINED_WORDS
-  uint32_t* parts;   // blocks x 32 words
-  unsigned* ticket;  // blocks done
+  uint32_t* parts;   // the lane sum's partials, every level (ladder_reduce_points)
+  unsigned* tickets;  // one a group of every level, zeroed
   int32_t* out[4];   // the chunk's total, column 0 of [20, *]
   long out_ld;
   uint8_t* ok;
 };
 
 struct EachArgs {
-  LadderPt pts[6];  // g, h, y1, y2, r1, r2
+  LadderPt pts[6];   // g, h, y1, y2, r1, r2
   LadderWin win[2];  // s, c
-  uint32_t* tables;  // n x LADDER_EACH_WORDS
+  uint32_t* tables;  // n x LADDER_EACH_WORDS (LADDER_EACH_SHARED_WORDS when shared)
   uint8_t* out;      // [n]
+  int shared;        // g and h shared: their tables in shared memory
 };
 
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// At most 128 registers (16 warps an SM; ptxas spills 128 bytes): on an
+// H100 7% faster at 16,384 lanes than the 208 it takes unbounded, 3% at
+// 6,144.
+__global__ void __launch_bounds__(kThreads, 16)
 ladder_combined_kernel(CombinedArgs a, int n) {
   extern __shared__ uint4 smem_vec[];
   uint32_t* s = reinterpret_cast<uint32_t*>(smem_vec);
   __shared__ bool last;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const long j = (long)blockIdx.x * nt + tid;
+  const int tid = threadIdx.x, nq = blockDim.x >> 2, q = tid >> 2;
+  const cpzk::Quad qd = cpzk::quad_of_thread(tid);
+  const long j = (long)blockIdx.x * nq + q;
+  uint32_t* tabs = a.tables + j * cpzk::LADDER_COMBINED_WORDS;
   Fe acc[4];
+  if (j < n) cpzk::ladder_combined_tables(tabs, a.pts, j, qd);
+  __syncwarp(qd.mask);
   if (j < n) {
-    cpzk::ladder_combined_lane(acc, a.pts, a.win, a.tables + j * cpzk::LADDER_COMBINED_WORDS, j);
+    cpzk::ladder_combined_quad(acc, tabs, a.win, j, qd);
   } else {
     cpzk::pt_identity(acc);  // past the ragged end: the identity
   }
-  cpzk::pt_store_words(s + tid * PT_WORDS, acc);
+  if (qd.r == 0) cpzk::pt_store_words(s + q * PT_WORDS, acc);
   __syncthreads();
-  for (int h = cpzk::msm_tree_top(nt) >> 1; h >= 1; h >>= 1) {
-    cpzk::ladder_tree_level(acc, s, tid, h, nt);
+  for (int h = cpzk::msm_tree_top(nq) >> 1; h >= 1; h >>= 1) {
+    cpzk::msm_tree_level(acc, s, q, h, nq, qd);
     __syncthreads();
   }
-  if (tid == 0) cpzk::pt_store_words(a.parts + (long)blockIdx.x * PT_WORDS, acc);
-  // the last block sums the blocks' partials (each block's store fenced
+  // the blocks' sums in groups of nq a level (each partial's store fenced
   // before its ticket)
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const int k = gridDim.x;
-  cpzk::ladder_parts_sum(acc, a.parts, k, tid, nt);
-  cpzk::pt_store_words(s + tid * PT_WORDS, acc);
-  __syncthreads();
-  const int m = k < nt ? k : nt;
-  for (int h = cpzk::msm_tree_top(m) >> 1; h >= 1; h >>= 1) {
-    cpzk::ladder_tree_level(acc, s, tid, h, m);
+  uint32_t* level = a.parts;
+  unsigned* tickets = a.tickets;
+  long idx = blockIdx.x;
+  for (long count = gridDim.x; count > 1;) {
+    if (tid == 0) cpzk::pt_store_words(level + idx * PT_WORDS, acc);
+    __threadfence();
     __syncthreads();
+    const long group = idx / nq, groups = (count + nq - 1) / nq;
+    const int size = (int)(count - group * nq < nq ? count - group * nq : nq);
+    if (tid == 0) last = atomicAdd(tickets + group, 1u) == (unsigned)(size - 1);
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    cpzk::ladder_group_load(acc, level, group * nq, size, q);
+    if (qd.r == 0) cpzk::pt_store_words(s + q * PT_WORDS, acc);
+    __syncthreads();
+    for (int h = cpzk::msm_tree_top(size) >> 1; h >= 1; h >>= 1) {
+      cpzk::msm_tree_level(acc, s, q, h, size, qd);
+      __syncthreads();
+    }
+    level += count * PT_WORDS;
+    tickets += groups;
+    idx = group;
+    count = groups;
   }
   if (tid == 0) cpzk::ladder_finish(a.out, a.out_ld, a.ok, acc);
 }
@@ -135,12 +172,26 @@ ladder_partials_identity_kernel(LadderPt parts, int k, uint8_t* ok) {
   if (tid == 0) *ok = (uint8_t)cpzk::ladder_is_identity(acc);
 }
 
-__global__ void __launch_bounds__(kMaxThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 ladder_each_kernel(EachArgs a, int n) {
-  const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ uint4 gh_vec[];
+  uint32_t* gh = reinterpret_cast<uint32_t*>(gh_vec);
+  const int tid = threadIdx.x, l = tid >> 3, e = (tid >> 2) & 1;
+  const cpzk::Quad qd = cpzk::quad_of_thread(tid);
+  const long j = (long)blockIdx.x * (blockDim.x >> 3) + l;
+  const bool shared = a.shared != 0;
+  uint32_t* tabs =
+      a.tables + j * (shared ? cpzk::LADDER_EACH_SHARED_WORDS : cpzk::LADDER_EACH_WORDS);
+  if (j < n) cpzk::ladder_each_tables(tabs, gh, a.pts, j, l, e, shared, qd);
+  if (shared) {
+    __syncthreads();
+  } else {
+    __syncwarp(qd.mask);
+  }
   if (j >= n) return;
-  a.out[j] = (uint8_t)cpzk::ladder_each_lane(a.pts, a.win,
-                                             a.tables + j * cpzk::LADDER_EACH_WORDS, j);
+  uint32_t ok = cpzk::ladder_each_quad(tabs, gh, a.pts, a.win, j, e, shared, qd);
+  ok &= __shfl_xor_sync(0xFFu << (tid & 24), ok, 4);  // the lane's other quad
+  if ((tid & 7) == 0) a.out[j] = (uint8_t)ok;
 }
 
 LadderPt point_operand(const void* const* ptrs, const long long* lds, int step) {
@@ -153,21 +204,37 @@ LadderPt point_operand(const void* const* ptrs, const long long* lds, int step) 
   return p;
 }
 
+// The combined check's launch for n lanes: blocks, and the lane sum's
+// partials and tickets.
+struct CombinedShape {
+  long blocks, points, tickets;
+};
+
+CombinedShape combined_shape(int n) {
+  CombinedShape c;
+  c.blocks = (4L * n + kThreads - 1) / kThreads;
+  c.points = cpzk::ladder_reduce_points(c.blocks, kThreads / 4, &c.tickets);
+  return c;
+}
+
+constexpr int kGeneratorTableBytes = 2 * cpzk::LADDER_TABLE_WORDS * sizeof(uint32_t);
+
 }  // namespace
 
-// cpzk_block_threads (point_ops.cu): the block size of every lane-per-thread
-// kernel of the library.
-extern "C" int cpzk_block_threads(int n);
-
 // Scratch words of an n-lane call: the tables, and for the combined check
-// the blocks' partials and the ticket (each = 1: the per-row check); -1 when
-// that does not fit an int.
-extern "C" int cpzk_ladder_scratch_words(int n, int each) {
-  if (n < 1) return -1;
-  const long tables = (long)n * (each ? cpzk::LADDER_EACH_WORDS : cpzk::LADDER_COMBINED_WORDS);
-  const int threads = cpzk_block_threads(n);
-  const long blocks = (n + threads - 1) / threads;
-  const long words = each ? tables : tables + blocks * PT_WORDS + 4;
+// (each = 0) the lane sum's partials and tickets; a per-row check (each =
+// 1) with g and h shared (shared_generators = 1) keeps only the -Y tables
+// there.  -1 when that does not fit an int.
+extern "C" int cpzk_ladder_scratch_words(int n, int each, int shared_generators) {
+  if (n < 1 || n > kMaxLanes) return -1;
+  long words;
+  if (each) {
+    words = (long)n * (shared_generators ? cpzk::LADDER_EACH_SHARED_WORDS
+                                         : cpzk::LADDER_EACH_WORDS);
+  } else {
+    const CombinedShape c = combined_shape(n);
+    words = (long)n * cpzk::LADDER_COMBINED_WORDS + c.points * PT_WORDS + c.tickets;
+  }
   return words > 0x7fffffffL ? -1 : (int)words;
 }
 
@@ -184,7 +251,7 @@ extern "C" int cpzk_ladder_combined(const void* const* ptrs, const long long* ld
                                     const long long* wlds, void* scratch,
                                     void* const* out, const long long* out_ld, void* ok,
                                     int n, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kMaxLanes) return (int)cudaErrorInvalidValue;
   CombinedArgs a;
   for (int k = 0; k < 4; ++k) {
     a.pts[k] = point_operand(ptrs + 4 * k, lds + 4 * k, steps[k]);
@@ -193,15 +260,17 @@ extern "C" int cpzk_ladder_combined(const void* const* ptrs, const long long* ld
   }
   a.out_ld = (long)*out_ld;
   a.ok = (uint8_t*)ok;
-  const int threads = cpzk_block_threads(n);
-  const int blocks = (n + threads - 1) / threads;
+  const CombinedShape c = combined_shape(n);
   a.tables = (uint32_t*)scratch;
   a.parts = a.tables + (long)n * cpzk::LADDER_COMBINED_WORDS;
-  a.ticket = (unsigned*)(a.parts + (long)blocks * PT_WORDS);
-  cudaError_t rc = cudaMemsetAsync(a.ticket, 0, sizeof(unsigned), (cudaStream_t)stream);
-  if (rc != cudaSuccess) return (int)rc;
-  ladder_combined_kernel<<<blocks, threads, threads * PT_WORDS * sizeof(uint32_t),
-                           (cudaStream_t)stream>>>(a, n);
+  a.tickets = (unsigned*)(a.parts + c.points * PT_WORDS);
+  if (c.tickets > 0) {
+    cudaError_t rc = cudaMemsetAsync(a.tickets, 0, c.tickets * sizeof(unsigned),
+                                     (cudaStream_t)stream);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const size_t smem = kThreads / 4 * PT_WORDS * sizeof(uint32_t);
+  ladder_combined_kernel<<<(unsigned)c.blocks, kThreads, smem, (cudaStream_t)stream>>>(a, n);
   return (int)cudaGetLastError();
 }
 
@@ -216,17 +285,19 @@ extern "C" int cpzk_ladder_partials_identity(const void* const* ptrs, const long
 }
 
 // The per-row checks of n lanes: one byte a lane into out (1: both
-// equations hold).
+// equations hold).  g and h (the first two points) are shared when both
+// steps are 0; the scratch is cpzk_ladder_scratch_words(n, 1, shared).
 extern "C" int cpzk_ladder_each(const void* const* ptrs, const long long* lds, const int* steps,
                                 const void* const* wins, const long long* wlds, void* scratch,
                                 void* out, int n, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kMaxLanes) return (int)cudaErrorInvalidValue;
   EachArgs a;
   for (int k = 0; k < 6; ++k) a.pts[k] = point_operand(ptrs + 4 * k, lds + 4 * k, steps[k]);
   for (int k = 0; k < 2; ++k) a.win[k] = LadderWin{(const int32_t*)wins[k], (long)wlds[k]};
   a.tables = (uint32_t*)scratch;
   a.out = (uint8_t*)out;
-  const int threads = cpzk_block_threads(n);
-  ladder_each_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(a, n);
+  a.shared = steps[0] == 0 && steps[1] == 0;
+  ladder_each_kernel<<<(8 * n + kThreads - 1) / kThreads, kThreads,
+                       a.shared ? kGeneratorTableBytes : 0, (cudaStream_t)stream>>>(a, n);
   return (int)cudaGetLastError();
 }

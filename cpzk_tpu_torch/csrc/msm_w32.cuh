@@ -567,7 +567,8 @@ FE_FN void msm_load_pieces(uint32_t* fbuf, int* fkey, int* fhas, uint32_t* lbuf,
 // field operations and an add three, where one thread runs seven and nine
 // (in batches).  The gathers are warp shuffles on the card; on the host one
 // call runs the four lanes one after another.  The results equal
-// point_double_k's and point_add's word for word.
+// point_double_k's and point_add's word for word.  The per-row ladders
+// (ladder_w32.cuh) run on the same doubling and on quad_add_cached_into.
 
 // This lane's place r in its quad and the mask of the quad's lanes (on the
 // host r is 0 and unused: a call there is the whole quad).
@@ -649,25 +650,28 @@ __device__ __forceinline__ void quad_gather(Fe out[4], const Fe& v, unsigned mas
 }
 #endif
 
+// One doubling of p (every lane of the quad holds it).
+FE_FN void quad_double_round(Fe p[4], Quad qd) {
+#if defined(__CUDA_ARCH__)
+  Fe sq, s[4], efgh[4], prod;
+  quad_dbl_square(sq, p, qd.r);
+  quad_gather(s, sq, qd.mask);
+  quad_dbl_efgh(efgh, s);
+  quad_product(prod, efgh, qd.r);
+  quad_gather(p, prod, qd.mask);
+#else
+  (void)qd;
+  Fe s[4], efgh[4], prod[4];
+  for (int r = 0; r < 4; ++r) quad_dbl_square(s[r], p, r);
+  quad_dbl_efgh(efgh, s);
+  for (int r = 0; r < 4; ++r) quad_product(prod[r], efgh, r);
+  pt_copy(p, prod);
+#endif
+}
+
 // k >= 0 doublings of p (every lane of the quad holds it).
 MSM_FN void quad_double_k(Fe p[4], int k, Quad qd) {
-  for (int round = 0; round < k; ++round) {
-#if defined(__CUDA_ARCH__)
-    Fe sq, s[4], efgh[4], prod;
-    quad_dbl_square(sq, p, qd.r);
-    quad_gather(s, sq, qd.mask);
-    quad_dbl_efgh(efgh, s);
-    quad_product(prod, efgh, qd.r);
-    quad_gather(p, prod, qd.mask);
-#else
-    (void)qd;
-    Fe s[4], efgh[4], prod[4];
-    for (int r = 0; r < 4; ++r) quad_dbl_square(s[r], p, r);
-    quad_dbl_efgh(efgh, s);
-    for (int r = 0; r < 4; ++r) quad_product(prod[r], efgh, r);
-    pt_copy(p, prod);
-#endif
-  }
+  for (int round = 0; round < k; ++round) quad_double_round(p, qd);
 }
 
 // acc += q (every lane of the quad holds both).
@@ -684,6 +688,90 @@ MSM_FN void quad_add_into(Fe acc[4], const Fe q[4], Quad qd) {
   Fe w[4], efgh[4], prod[4];
   for (int r = 0; r < 4; ++r) quad_add_first(w[r], acc, q, r);
   quad_add_efgh(efgh, w);
+  for (int r = 0; r < 4; ++r) quad_product(prod[r], efgh, r);
+  pt_copy(acc, prod);
+#endif
+}
+
+// A point in the adds' cached form (pt_cached) as a quad holds it for
+// quad_add_cached_into: on the card lane r holds coordinate r only (8
+// words; the quad's four 32-byte loads of an entry make one 128-byte
+// line); on the host, where one call is the whole quad, all four.
+struct QuadCached {
+#if defined(__CUDA_ARCH__)
+  Fe c;
+#else
+  Fe c[4];
+#endif
+};
+
+// This lane's part of the cached point at src (32 words, 16-byte aligned;
+// global or shared memory).  On the card the load is an inline-PTX
+// generic load, so the compiler issues it where it stands and does not
+// sink it towards its first use: the ladder loads a step's entries one
+// step ahead.
+FE_FN void quad_load_cached(QuadCached& q, const uint32_t* src, Quad qd) {
+#if defined(__CUDA_ARCH__)
+  const uint32_t* s = src + qd.r * NW;
+  uint32_t* w = q.c.w;
+  asm volatile("ld.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "l"(s) : "memory");
+  asm volatile("ld.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(w[4]), "=r"(w[5]), "=r"(w[6]), "=r"(w[7]) : "l"(s + 4) : "memory");
+#else
+  (void)qd;
+  for (int k = 0; k < 4; ++k) {
+    for (int i = 0; i < NW; ++i) q.c[k].w[i] = src[k * NW + i];
+  }
+#endif
+}
+
+// This lane's part of the cached point c (every lane holds all of it).
+FE_FN void quad_cached_pick(QuadCached& q, const Fe c[4], Quad qd) {
+#if defined(__CUDA_ARCH__)
+  fe_pick(q.c, c[0], c[1], c[2], c[3], qd.r);
+#else
+  (void)qd;
+  for (int k = 0; k < 4; ++k) q.c[k] = c[k];
+#endif
+}
+
+// Cached add, lane r's first product: (Y1 - X1) Q0, (Y1 + X1) Q1, T1 Q2,
+// Z1 Q3 (A, B, C, D of pt_add_cached_into), qr the entry's coordinate r.
+FE_FN void quad_add_cached_first(Fe& out, const Fe p[4], const Fe& qr, int r) {
+  Fe pd, ps, u;
+  fe_sub(pd, p[1], p[0]);
+  fe_add(ps, p[1], p[0]);
+  fe_pick(u, pd, ps, p[3], p[2], r);
+  fe_mul(out, u, qr);
+}
+
+// Cached add, every lane: (E, F, G, H) from A, B, C, D with adds alone (the
+// entry carries 2d T).
+FE_FN void quad_cached_efgh(Fe efgh[4], const Fe w[4]) {
+  fe_sub(efgh[0], w[1], w[0]);   // E = B - A
+  fe_sub(efgh[1], w[3], w[2]);   // F = D - C
+  fe_add(efgh[2], w[3], w[2]);   // G = D + C
+  fe_add(efgh[3], w[1], w[0]);   // H = B + A
+}
+
+// acc += Q, Q cached (every lane of the quad holds acc, each its part of
+// Q): pt_add_cached_into's formulas, one product a lane, a gather, E F G H
+// in every lane, one product a lane, a gather.  Equal to
+// pt_add_cached_into word for word.
+FE_FN void quad_add_cached_into(Fe acc[4], const QuadCached& q, Quad qd) {
+#if defined(__CUDA_ARCH__)
+  Fe w1, w[4], efgh[4], prod;
+  quad_add_cached_first(w1, acc, q.c, qd.r);
+  quad_gather(w, w1, qd.mask);
+  quad_cached_efgh(efgh, w);
+  quad_product(prod, efgh, qd.r);
+  quad_gather(acc, prod, qd.mask);
+#else
+  (void)qd;
+  Fe w[4], efgh[4], prod[4];
+  for (int r = 0; r < 4; ++r) quad_add_cached_first(w[r], acc, q.c[r], r);
+  quad_cached_efgh(efgh, w);
   for (int r = 0; r < 4; ++r) quad_product(prod[r], efgh, r);
   pt_copy(acc, prod);
 #endif

@@ -22,28 +22,39 @@ interface), on the point arithmetic of ``csrc/fe25519_w32.cuh`` and
 ``csrc/msm_w32.cuh``, built into the package's kernel library by
 :func:`.point_kernels.library`.
 
-Design.  One launch a lane chunk, one thread a lane: the thread builds its
-lane's 16-entry tables (in the adds' cached form) into a global scratch this
-module allocates, then runs the 64-step shared-doubling ladder with the
-accumulator in registers.  ``ladder_combined`` then sums its lanes (a tree
-in each block's shared memory, then the last block to finish sums the
-blocks') and returns the chunk's total and whether it is the identity;
-``ladder_partials_identity`` sums k chunk totals and tests the identity;
-``ladder_each`` returns a bit a lane.  Operands keep the JAX layout
-(``[20, n]`` int32 limbs, ``[64, n]`` windows, most significant first) and
-may be column slices of larger arrays (each with its row stride), so a lane
-chunk is passed without a copy; ``g``/``h`` of the per-row check are
-``[20, 1]`` (shared) or ``[20, n]``.  The lane ladders equal the plain
-version's coordinates after :func:`.limbs.canonical`; the lane sum adds in
-another order than ``tree_sum``'s halving, so a total is the same group
-element in other coordinates (compare with :func:`.curve.eq`).
+Design.  One launch a lane chunk, a quad of four threads a lane (each
+thread holds the accumulator; a doubling round and a table add cost two
+dependent field operations, where one thread runs seven and eight): the
+quad builds its lane's 16-entry tables (in the adds' cached form) into a
+global scratch this module allocates, thread r term r's, then runs the
+64-step shared-doubling ladder, loading each step's table entries (a
+thread its own coordinate, 32 bytes) while the step before runs.
+``ladder_combined`` then sums its lanes (a tree of quad adds in each
+block's shared memory, then the blocks' sums in groups, the last block of a
+group to finish summing it, until one holds the total) and returns the
+chunk's total and whether it is the identity; ``ladder_partials_identity``
+sums k chunk totals and tests the identity; ``ladder_each`` runs a lane's
+two equations on two quads at once and returns a bit a lane, with shared
+generators' tables built once a block in shared memory.  Operands keep
+the JAX layout (``[20, n]`` int32 limbs, ``[64, n]`` windows, most
+significant first) and may be column slices of larger arrays (each with
+its row stride), so a lane chunk is passed without a copy; ``g``/``h`` of
+the per-row check are ``[20, 1]`` (shared) or ``[20, n]``.  The lane
+ladders equal the plain version's coordinates after
+:func:`.limbs.canonical`; the lane sum adds in another order than
+``tree_sum``'s halving, so a total is the same group element in other
+coordinates (compare with :func:`.curve.eq`).
 
 What bounds them on an H100: operations (:func:`combined_work`,
-:func:`each_work`); but each lane is one thread's chain of point
-operations (about 570 in the combined check, 830 in the per-row one), and
-at the main path's widths a warp is about alone on its scheduler, so the
-time is that chain's latency (the kernel at one lane), not the card's
-throughput.
+:func:`each_work`, which count the work, not a design's shuffles or
+repeated tables); but a lane is a dependent chain of point operations
+(about 570 in the combined check, 830 in the per-row one), and at the
+main path's widths one thread a lane would leave a warp about alone on
+its scheduler, and the time would be that chain's latency.  The quads
+halve the chain and fill four (eight) times the warps; the time is still
+bounded below by the kernel at one lane (one quad, two for a per-row
+lane: the chain floor), and past about 8,000 lanes by the issue of the
+work each quad repeats in its four threads.
 
 Routing: each wrapper runs the plain version for tensors on the CPU and
 launches its kernel for CUDA tensors; any other device raises, and a failed
@@ -103,9 +114,10 @@ def each_work(n: int, shared_generators: bool) -> tuple[int, int]:
     """(bytes, int32 operations) of ``ladder_each`` over n lanes: y1, y2,
     r1, r2 and the two window columns a lane read once (g and h once when
     every lane shares them), a byte a lane written; the tables of -y1, -y2
-    a lane and of g, h once when shared (else a lane), two 64-step ladders
-    of two terms, the negations, the adds of -r1 and -r2 (cached), and two
-    identity tests a lane."""
+    a lane and of g, h once when shared (else a lane; the kernel builds
+    shared ones once a block, which the bound does not count), two 64-step
+    ladders of two terms, the negations, the adds of -r1 and -r2 (cached),
+    and two identity tests a lane."""
     gh = 2 if shared_generators else 2 * n
     # an equation: its ladder, -y and -r (two negations each), the cached
     # form of -r, its add and the identity test
@@ -171,8 +183,10 @@ def _windows(name: str, windows, device: torch.device):
     return keep, _ptrs([w.data_ptr() for w in keep]), _i64([w.stride(0) for w in keep]), n
 
 
-def _scratch(name: str, n: int, each: bool, device: torch.device) -> torch.Tensor:
-    words = library().cpzk_ladder_scratch_words(n, int(each))
+def _scratch(name: str, n: int, each: bool, shared: bool, device: torch.device) -> torch.Tensor:
+    """The call's scratch: tables and the lane sum's partials (``each``: the
+    per-row check's tables, only the -Y tables when g and h are ``shared``)."""
+    words = library().cpzk_ladder_scratch_words(n, int(each), int(shared))
     if words < 0:
         raise ValueError(f"{name}: {n} lanes is too large")
     return torch.empty((words,), dtype=torch.int32, device=device)
@@ -213,7 +227,7 @@ def ladder_combined(r1, y1, r2, y2, w_a: torch.Tensor, w_ac: torch.Tensor,
         raise ValueError("ladder_combined: out must be four [20, 1] int32 tensors on "
                          f"{device} with one row stride")
     ok = torch.empty((), dtype=torch.bool, device=device)
-    scratch = _scratch("ladder_combined", n, False, device)
+    scratch = _scratch("ladder_combined", n, False, False, device)
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -268,7 +282,7 @@ def ladder_each(g, h, y1, y2, r1, r2, ws: torch.Tensor, wc: torch.Tensor,
     if out.dtype != torch.bool or out.device != device or tuple(out.shape) != (n,) \
             or out.stride(0) != 1:
         raise ValueError(f"ladder_each: out must be a contiguous [{n}] bool tensor on {device}")
-    scratch = _scratch("ladder_each", n, True, device)
+    scratch = _scratch("ladder_each", n, True, steps[0] == 0 and steps[1] == 0, device)
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -371,7 +371,7 @@ ENTRY_POINTS = {
     "cpzk_comb_tables": [_P] * 6,
     "cpzk_commitments": [_P] * 5 + [_I, _P],
     "cpzk_ristretto_decode": [_P, _I, _P, _P, _P],
-    "cpzk_ladder_scratch_words": [_I, _I],
+    "cpzk_ladder_scratch_words": [_I, _I, _I],
     "cpzk_ladder_combined": [_P] * 9 + [_I, _P],
     "cpzk_ladder_partials_identity": [_P] * 3 + [_I, _P],
     "cpzk_ladder_each": [_P] * 7 + [_I, _P],

@@ -11,7 +11,8 @@ multiply bit for bit the schoolbook one in float64 on the card.  The
 per-row ladder kernels against their plain versions (the step-by-step
 composition over the point kernels): per-row bits and combined verdicts
 exact, chunk totals equal as group elements (``curve.eq``), on valid and
-tampered rows, shared and per-lane generators, ragged widths and a check of
+tampered rows, shared and per-lane generators, ragged widths (lane counts
+that are no multiple of a warp's lanes, one lane, a full chunk) and a check of
 three lane chunks.  Also the launch counters and the block size.  Needs an NVIDIA GPU
 with nvcc: marked ``cuda`` and skipped elsewhere.  On the machine with the
 card (no JAX there, so without tests/conftest.py):
@@ -278,7 +279,7 @@ def on_card(dev, arrays, points):
             + [torch.from_numpy(w).to(dev) for w in arrays[points:]])
 
 
-@pytest.mark.parametrize("n", [1, 127, 2048])
+@pytest.mark.parametrize("n", [1, 127, 2048, 13, 16384])
 def test_ladder_each_matches_plain_on_card(dev, ladder_rows, n):
     _, bad, tampered, per_lane = ladder_rows
     for rows, shared in ((bad, True), (per_lane, False)):
@@ -295,10 +296,11 @@ def test_ladder_each_matches_plain_on_card(dev, ladder_rows, n):
         assert bits.tolist() == [i % 33 not in tampered for i in range(n)]
 
 
-@pytest.mark.parametrize("n", [7, 127, 6144])
+@pytest.mark.parametrize("n", [7, 127, 6144, 2, 13, 16384])
 def test_ladder_combined_matches_plain_on_card(dev, ladder_rows, n):
-    good, bad, _, _ = ladder_rows
-    for rows, want in ((good, True), (bad, False)):
+    good, bad, tampered, _ = ladder_rows
+    # n - 1 rows of the tampered set hold a tampered one from n = 7 on
+    for rows, want in ((good, True), (bad, not any(i % 33 in tampered for i in range(n - 1)))):
         rows = tile(rows, n - 1)
         alphas, beta = weights(n, n - 1)
         args = on_card(dev, combined_inputs(rows, alphas, beta, n), 4)

@@ -33,8 +33,9 @@ on ``chip_smoke.py``'s decode inputs against the plain and the JAX
 And the per-row ladders' thread bodies (``csrc/ladder_w32.cuh``), the code
 ``ladder_combined``, ``ladder_partials_identity`` and ``ladder_each`` run
 on the card, sequenced by the shim's ``host_ladder_*`` functions over
-every block and thread in the kernels' order: the table build, one ladder step and a lane's whole
-ladder against :mod:`cpzk_tpu_torch.ops.verify`'s plain composition
+every block and quad of threads in the kernels' order: the quad's cached
+add against one thread's (words identical), the table build, one ladder
+step and a lane's whole ladder against :mod:`cpzk_tpu_torch.ops.verify`'s plain composition
 (coordinates equal after canonicalization: the cached adds run the plain
 adds' formulas on the same values mod p), the identity test against
 ``curve.is_identity`` on non-canonical coordinates, and the kernels' whole
@@ -124,7 +125,8 @@ def host_lib(tmp_path_factory):
     lib.host_ladder_is_identity.argtypes = [P_, P_, I]
     lib.host_ladder_combined.argtypes = [P_, P_, P_, P_, I, I]
     lib.host_ladder_partials_identity.argtypes = [P_, P_, I, I]
-    lib.host_ladder_each.argtypes = [P_, P_, P_, P_, I]
+    lib.host_ladder_each.argtypes = [P_, P_, P_, P_, I, I]
+    lib.host_quad_add_cached.argtypes = [P_] * 4 + [I]
     for fn in (lib.host_d2, lib.host_to_words, lib.host_fe_op, lib.host_point_add,
                lib.host_point_double_k, lib.host_sc_op, lib.host_sc_reduce_wide,
                lib.host_sc_windows, lib.host_sc_signed_digits, lib.host_msm_bucket,
@@ -134,7 +136,8 @@ def host_lib(tmp_path_factory):
                lib.host_ristretto_decode, lib.host_comb_window,
                lib.host_commitments, lib.host_keccak_chain, lib.host_ladder_table,
                lib.host_ladder_steps, lib.host_ladder_is_identity, lib.host_ladder_combined,
-               lib.host_ladder_partials_identity, lib.host_ladder_each):
+               lib.host_ladder_partials_identity, lib.host_ladder_each,
+               lib.host_quad_add_cached):
         fn.restype = None
     return lib
 
@@ -488,6 +491,31 @@ def test_quad_add_matches_plain(host_lib):
         assert_canonical_equal(o, r)
 
 
+@pytest.mark.parametrize("case", ["random", "identity"])
+def test_quad_add_cached_matches_one_thread(host_lib, case):
+    """The quad's cached add (one product a lane, a gather, E F G H in every
+    lane, one product a lane, a gather) equals one thread's
+    ``pt_add_cached_into`` word for word, on loose limbs (edge values among
+    them) and with the identity as either operand (the first half of the
+    lanes its second, the rest its first); both equal the plain add mod p."""
+    a = limb_inputs(58, 8)
+    p, q = tuple(a[:4]), tuple(a[4:])
+    if case == "identity":
+        ident = curve.identity((N,), "cpu")
+        h = N // 2
+        p = tuple(torch.cat([c[:, :h], i[:, h:]], dim=1).contiguous() for c, i in zip(p, ident))
+        q = tuple(torch.cat([i[:, :h], c[:, h:]], dim=1).contiguous() for c, i in zip(q, ident))
+    one = torch.empty((4, 8, N), dtype=torch.int32)
+    quad = torch.empty((4, 8, N), dtype=torch.int32)
+    host_lib.host_quad_add_cached(ptr_array(p), ptr_array(q), ptr(one), ptr(quad), N)
+    assert torch.equal(one, quad)
+    ref = pk.point_add_plain(p, q)
+    words = quad.numpy().view(np.uint32).astype(object)
+    for k in range(4):
+        got = [sum(int(words[k, i, j]) << (32 * i) for i in range(8)) % P for j in range(N)]
+        assert got == limbs.limbs_to_ints(limbs.canonical(ref[k]))
+
+
 # -- ristretto encode (ristretto_w32.cuh) ------------------------------------
 
 def test_canonical_sign_neg_abs_pow_match_plain(host_lib):
@@ -802,16 +830,22 @@ def host_combined(lib, arrays, threads):
     return tuple(outs), bool(ok[0])
 
 
-@pytest.mark.parametrize("tampered,threads", [(False, 4), (True, 2), (True, 32)],
-                         ids=["valid_4_threads", "tampered_2_threads", "tampered_one_block"])
+@pytest.mark.parametrize("tampered,threads", [
+    (False, 16), (True, 8), (True, 128), (True, 32), (True, 12), (False, 8)],
+    ids=["valid_4_threads", "tampered_2_threads", "tampered_one_block", "tampered_one_warp",
+         "tampered_3_quads", "valid_2_quads"])
 def test_ladder_combined_body_matches_plain(host_lib, tampered, threads):
-    """ladder_combined_kernel's phases over every block: 11 rows and the
-    correction row in 14 lanes (two identity-padded), at block sizes of 4
-    (a block partly past the end), 2 (7 blocks: the last block sums several
-    partials a thread) and 32 (one block): the total equals the plain
-    version's as a group element, the identity test its verdict.  A valid
-    total is the identity whatever the order, so the tampered cases are the
-    ones that hold the sums' bookkeeping."""
+    """ladder_combined_kernel's phases over every block, a quad of threads a
+    lane: 11 rows and the correction row in 14 lanes (two identity-padded),
+    in blocks of 4 quads (the last block partly past the end; one group of
+    4 partials), 2 quads (7 blocks: groups of two over three levels, the
+    last group ragged), 32 quads (one block), 8 quads (the card's one-warp
+    block: two blocks), 3 quads (5 blocks, groups of three) and 2 quads
+    valid: the total equals the plain version's as a group element, the
+    identity test its verdict.  A valid total is the identity whatever the
+    order, so the tampered cases are the ones that hold the sums'
+    bookkeeping.  (The first three ids keep their names: their counts are
+    the blocks' quads.)"""
     rows = make_rows(80, 11, {3: "s"} if tampered else None)
     alphas, beta = weights(81, 11)
     arrays = combined_inputs(rows, alphas, beta, 14)
@@ -848,21 +882,44 @@ def test_ladder_partials_identity_body_matches_plain(host_lib, threads):
         assert bool(ok[0]) is bool(verify.partials_identity_plain(parts)) is want
 
 
-@pytest.mark.parametrize("shared", [True, False], ids=["shared_generators", "per_lane"])
-def test_ladder_each_body_matches_plain(host_lib, shared):
-    """ladder_each_kernel's lanes: 9 rows (a response off by one, a swapped
-    commitment of each equation) in 11 lanes, g and h shared ([20, 1]) or
-    per lane: bits equal to the plain version's and to the expectation."""
+def host_each(lib, shared, seed, threads, n=11):
+    """ladder_each_kernel's phases over blocks of `threads` threads: 9 rows
+    (a response off by one, a swapped commitment of each equation) in n
+    lanes, g and h shared ([20, 1]) or per lane -> (the bits, the plain
+    version's, the expectation)."""
     tampered = {1: "s", 4: "r1", 7: "r2"}
-    rows = make_rows(100 if shared else 101, 9, tampered, per_lane_generators=not shared)
-    arrays = each_inputs(rows, 11, shared)
+    rows = make_rows(seed, 9, tampered, per_lane_generators=not shared)
+    arrays = each_inputs(rows, n, shared)
     pts = [torch.from_numpy(c) for p in arrays[:6] for c in p]
     steps = torch.tensor([0 if shared else 1] * 2 + [1] * 4, dtype=torch.int32)
     win = torch.from_numpy(np.stack(arrays[6:]))
-    out = torch.empty((11,), dtype=torch.uint8)
-    host_lib.host_ladder_each(ptr_array(pts), ptr(steps), ptr(win), ptr(out), 11)
+    out = torch.empty((n,), dtype=torch.uint8)
+    lib.host_ladder_each(ptr_array(pts), ptr(steps), ptr(win), ptr(out), n, threads)
     port = [tuple(torch.from_numpy(c) for c in p) for p in arrays[:6]] + [
         torch.from_numpy(w) for w in arrays[6:]]
-    want = verify.verify_each_kernel_plain(*port)
-    assert torch.equal(out.bool(), want)
-    assert out.tolist() == [int(i not in tampered) for i in range(9)] + [1, 1]
+    want = [int(i not in tampered) for i in range(9)] + [1] * (n - 9)
+    return out, verify.verify_each_kernel_plain(*port), want
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared_generators", "per_lane"])
+def test_ladder_each_body_matches_plain(host_lib, shared):
+    """ladder_each_kernel's lanes, two quads (one an equation) a lane, in
+    blocks of four lanes (the last partly past the end): 9 rows (a response
+    off by one, a swapped commitment of each equation) in 11 lanes, g and h
+    shared ([20, 1], their tables once a block) or per lane: bits equal to
+    the plain version's and to the expectation."""
+    out, ref, want = host_each(host_lib, shared, 100 if shared else 101, 32)
+    assert torch.equal(out.bool(), ref)
+    assert out.tolist() == want
+
+
+@pytest.mark.parametrize("shared,threads", [(True, 8), (True, 256), (False, 24)],
+                         ids=["shared_lane_a_block", "shared_one_block", "per_lane_3_lanes"])
+def test_ladder_each_body_blocks(host_lib, shared, threads):
+    """ladder_each_kernel's phases at other block sizes: one lane a block
+    (every block builds the shared generators' tables), one block of 32
+    lanes (21 past the end), three lanes a block with per-lane generators:
+    bits equal to the plain version's and to the expectation."""
+    out, ref, want = host_each(host_lib, shared, 102 if shared else 103, threads)
+    assert torch.equal(out.bool(), ref)
+    assert out.tolist() == want
