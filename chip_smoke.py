@@ -47,12 +47,13 @@ seconds since the script started):
    on the random and the one-bucket digits, and once by the profiler,
    with the chain floor of ``msm_window_reduce``'s quad schedule, checked
    and timed on its own); and the batch prover's and
-   the device challenges' kernels: ``comb_tables`` for G and H (tables equal to the
-   plain ones after canonicalization), ``commitments`` at n in {1, 127,
-   4096, 16,384} lanes (bytes identical, and equal to the host core's comb
-   on a sample), ``keccak_chain`` with 3 masks (a state per row and one
-   shared) and ``reduce_wide`` of random 64-byte values: exact; device
-   times at 4096 and 16,384; and the per-row ladder kernels
+   the device challenges' kernels: ``comb_tables`` for G and H (tables equal to
+   ``table_words`` of the plain ones, the kernel's layout; its chain floor,
+   252 doublings on one quad), ``commitments`` at n in {1, 127, 4096,
+   16,384} lanes (bytes identical, and equal to the host core's comb on a
+   sample; its chain floor, one lane), ``keccak_chain`` with 3 masks (a
+   state per row and one shared) and ``reduce_wide`` of random 64-byte
+   values: exact; device times at 4096 and 16,384; and the per-row ladder kernels
    (``ladder_combined``, ``ladder_partials_identity``, ``ladder_each``)
    against their plain versions, the step-by-step composition over the
    point kernels, on rows tiling the corpus: the combined check at 127,
@@ -99,7 +100,7 @@ seconds since the script started):
    at least once; each 16,384-row check is counted on its own;
    ``batch_prove`` — the bulk prover on the card (``BatchProver()``, 16,384
    lanes a launch): two ``comb_tables`` launches build the tables (equal to
-   the plain prover's after canonicalization); ``statements()`` of 65,536
+   ``table_words`` of the plain prover's); ``statements()`` of 65,536
    witnesses (4 chunks), every (y1, y2) byte-equal to the host core's
    comb; ``prove()`` of 20,480 witnesses with their own 32-byte contexts
    (a full chunk and 4096); ``BatchVerifier(TorchBackend())`` accepts
@@ -411,6 +412,10 @@ REPLACES = {"point_add": "cpzk_tpu/ops/pallas_kernels.py:51",
 _CSRC = "cpzk_tpu_torch/csrc/"
 _LADDER_SOURCES = [_CSRC + "ladder_ops.cu", _CSRC + "ladder_w32.cuh", _CSRC + "msm_w32.cuh",
                    _CSRC + "ristretto_w32.cuh", _CSRC + "fe25519_w32.cuh"]
+#: the prover's kernels share their sources: the bodies in prove_w32.cuh,
+#: the quad doubling of msm_w32.cuh (the table's chain) and ENCODE
+_PROVE_SOURCES = [_CSRC + "prove_ops.cu", _CSRC + "prove_w32.cuh", _CSRC + "msm_w32.cuh",
+                  _CSRC + "ristretto_w32.cuh", _CSRC + "fe25519_w32.cuh"]
 SOURCES = {
     "point_add": [_CSRC + "point_ops.cu", _CSRC + "fe25519_w32.cuh"],
     "point_double_k": [_CSRC + "point_ops.cu", _CSRC + "fe25519_w32.cuh"],
@@ -422,9 +427,8 @@ SOURCES = {
     "msm_bucket": [_CSRC + "msm_ops.cu", _CSRC + "msm_w32.cuh", _CSRC + "fe25519_w32.cuh"],
     "msm_window_reduce": [_CSRC + "msm_ops.cu", _CSRC + "msm_w32.cuh",
                           _CSRC + "fe25519_w32.cuh"],
-    "comb_tables": [_CSRC + "prove_ops.cu", _CSRC + "prove_w32.cuh", _CSRC + "fe25519_w32.cuh"],
-    "commitments": [_CSRC + "prove_ops.cu", _CSRC + "prove_w32.cuh",
-                    _CSRC + "ristretto_w32.cuh", _CSRC + "fe25519_w32.cuh"],
+    "comb_tables": _PROVE_SOURCES,
+    "commitments": _PROVE_SOURCES,
     "keccak_chain": [_CSRC + "keccak_ops.cu", _CSRC + "keccak_u64.cuh"],
     "reduce_wide": [_CSRC + "scalar_ops.cu", _CSRC + "sc25519_w32.cuh"],
     "ristretto_decode": [_CSRC + "decode_ops.cu", _CSRC + "ristretto_w32.cuh",
@@ -2746,6 +2750,40 @@ def scalar_kernels_vs_plain(dev, ns, cs, timed_ns, int32_ops_per_s: float) -> di
     return rows
 
 
+def quad_chain_floor(dev, point, doublings: int) -> dict:
+    """A chain of ``doublings`` dependent doublings of a ``[20, 1]`` point on
+    one quad (``cpzk_msm_quad_chain``, one warp, a quad a doubling, the
+    schedule of the MSM scale kernel and of ``comb_tables``' bases),
+    checked against ``point_double_k_plain`` (canonical coordinates equal)
+    and timed by ``kernel_ms``: the chain floor of a kernel that runs it."""
+    import torch
+
+    from cpzk_tpu_torch.ops import limbs, point_kernels as pk
+
+    words = pk.words_of_limbs(torch.stack([limbs.canonical(x)[:, 0] for x in point]))
+    words = words.reshape(-1).contiguous()
+    got = torch.empty_like(words)
+    lib = pk.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def chain() -> None:
+        rc = lib.cpzk_msm_quad_chain(words.data_ptr(), got.data_ptr(), doublings, stream)
+        if rc:
+            raise RuntimeError(f"cpzk_msm_quad_chain failed: CUDA error {rc}")
+
+    chain()
+    synchronize()
+    lim = pk.limbs_of_words(got.reshape(4, 8))
+    want = pk.point_double_k_plain(point, doublings)
+    if not all(torch.equal(limbs.canonical(lim[i][:, None]), limbs.canonical(want[i]))
+               for i in range(4)):
+        raise AssertionError(f"cpzk_msm_quad_chain: {doublings} doublings differ from "
+                             "point_double_k_plain")
+    lat = kernel_ms(chain, None, 10)
+    return {"doublings": doublings, "chain_floor_ms": lat["ms"], "ms_runs": lat["ms_runs"],
+            "double_us": lat["ms"] * 1e3 / doublings}
+
+
 def msm_kernels_vs_plain(dev, ms, c: int, chunk: int, int32_ops_per_s: float,
                          other_cs=MSM_OTHER_CS) -> dict:
     """Phase 3c: the MSM kernels against the plain MSM on every lane chunk
@@ -2770,7 +2808,7 @@ def msm_kernels_vs_plain(dev, ms, c: int, chunk: int, int32_ops_per_s: float,
 
     from cpzk_tpu_torch.core import edwards
     from cpzk_tpu_torch.core.scalars import L
-    from cpzk_tpu_torch.ops import curve, limbs, msm, msm_kernels as mk, point_kernels as pk
+    from cpzk_tpu_torch.ops import curve, msm, msm_kernels as mk, point_kernels as pk
     from cpzk_tpu_torch.ops.backend import _chunk_bounds, _chunk_point
 
     t_start = time.perf_counter()
@@ -2852,29 +2890,8 @@ def msm_kernels_vs_plain(dev, ms, c: int, chunk: int, int32_ops_per_s: float,
     # as the scale kernel shares them (cpzk_msm_quad_chain, one warp)
     k = msm.num_windows(c)
     doublings = c * (k - 1)
-    one = tuple(x[:, :1].contiguous() for x in base)
-    words = pk.words_of_limbs(torch.stack([limbs.canonical(x)[:, 0] for x in one]))
-    words = words.reshape(-1).contiguous()
-    got = torch.empty_like(words)
-    lib = pk.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def chain() -> None:
-        rc = lib.cpzk_msm_quad_chain(words.data_ptr(), got.data_ptr(), doublings, stream)
-        if rc:
-            raise RuntimeError(f"cpzk_msm_quad_chain failed: CUDA error {rc}")
-
-    chain()
-    synchronize()
-    lim = pk.limbs_of_words(got.reshape(4, 8))
-    want = pk.point_double_k_plain(one, doublings)
-    if err(tuple(lim[i][:, None] for i in range(4)), want):
-        raise AssertionError(f"cpzk_msm_quad_chain: {doublings} doublings differ from "
-                             "point_double_k_plain")
-    lat = kernel_ms(chain, None, 10)
-    floor = {"c": c, "windows": k, "doublings": doublings,
-             "double_us": lat["ms"] * 1e3 / doublings, "chain_floor_ms": lat["ms"],
-             "ms_runs": lat["ms_runs"], "adds_after": (k - 1).bit_length(),
+    lat = quad_chain_floor(dev, tuple(x[:, :1].contiguous() for x in base), doublings)
+    floor = {"c": c, "windows": k, **lat, "adds_after": (k - 1).bit_length(),
              "timed_by": "cpzk_msm_quad_chain (one warp, a quad a doubling, the scale "
                          "kernel's schedule), c (K - 1) rounds, by kernel_ms",
              "floor_of": "msm_window_reduce's quad schedule, not of every design"}
@@ -3311,9 +3328,11 @@ def profile_combined(backend, rows, beta) -> dict:
 def prover_kernels_vs_plain(dev, ns, timed_ns, k: int, int32_ops_per_s: float) -> dict:
     """Phase 3d: the batch prover's and the device challenges' kernels
     against their plain versions on the card.  ``comb_tables`` for G and H:
-    tables equal after canonicalization; ``commitments`` at each lane count
-    (digits of random scalars with 0, 1 and l - 1, both tables): bytes
-    identical, and equal to the host core's comb on a sample;
+    tables equal to ``table_words`` of the plain tables (exact, the kernel's
+    layout), with its chain floor (the 252 doublings of its bases on one
+    quad); ``commitments`` at each lane count (digits of random scalars with
+    0, 1 and l - 1, both tables): bytes identical, and equal to the host
+    core's comb on a sample, with its chain floor (one lane);
     ``keccak_chain`` (random states, one a row and one shared, k random
     masks) and ``reduce_wide`` (random 64-byte values, the largest
     included): exact (``torch.equal``).  Device times at ``timed_ns``."""
@@ -3325,7 +3344,7 @@ def prover_kernels_vs_plain(dev, ns, timed_ns, k: int, int32_ops_per_s: float) -
     from cpzk_tpu_torch import Parameters, Ristretto255, Scalar
     from cpzk_tpu_torch.bench_kernels import event_ms
     from cpzk_tpu_torch.core.scalars import L
-    from cpzk_tpu_torch.ops import curve, keccak_kernels as kk, limbs
+    from cpzk_tpu_torch.ops import curve, keccak_kernels as kk
     from cpzk_tpu_torch.ops import prove_kernels as pvk, scalar_kernels as sk, sclimbs as sc
     from cpzk_tpu_torch.ops.prove import _windows_lsb
 
@@ -3333,7 +3352,7 @@ def prover_kernels_vs_plain(dev, ns, timed_ns, k: int, int32_ops_per_s: float) -
     np_rng = np.random.default_rng(SEED + 7)
     rows = {name: [] for name in PROVER_KERNELS + CHALLENGE_KERNELS}
     params = Parameters.new()
-    tables = {}
+    tables, plain_tables = {}, {}
     for gen_name, elem in (("H", params.generator_h), ("G", params.generator_g)):
         p = curve.points_to_device([elem.point], dev)
         got = pvk.comb_tables(p)
@@ -3343,27 +3362,33 @@ def prover_kernels_vs_plain(dev, ns, timed_ns, k: int, int32_ops_per_s: float) -
         box = []
         plain_ms = event_ms(lambda p=p: box.append(pvk.comb_tables_plain(p)))
         ref = box[0]
-        err = max(int((limbs.canonical(a[..., 0].movedim(-1, 0))
-                       - limbs.canonical(b[..., 0].movedim(-1, 0))).abs().max())
-                  for a, b in zip(pvk.table_limbs(got), ref))
+        err = int((pvk.table_words(got).to(torch.int64)
+                   - pvk.table_words(ref).to(torch.int64)).abs().max())
         if err:
-            raise AssertionError(f"comb_tables {gen_name}: canonical error {err}")
+            raise AssertionError(f"comb_tables {gen_name}: words differ by {err}")
         row = {"generator": gen_name, "max_abs_err": err}
         if gen_name == "G":
             row.update(bound_of(*pvk.comb_tables_work(), int32_ops_per_s))
             row.update(kernel_ms(lambda: pvk.comb_tables(p), plain_ms, 3))
+            if dev.type == "cuda":  # the quad chain runs on the card only
+                row["chain_floor"] = {
+                    **quad_chain_floor(dev, p, 4 * 63),
+                    "timed_by": "cpzk_msm_quad_chain (one warp, a quad a doubling), the "
+                                "252 doublings of the window bases, by kernel_ms"}
+                row["chain_floor_ms"] = row["chain_floor"]["chain_floor_ms"]
         rows["comb_tables"].append(row)
-        tables[gen_name] = got
+        tables[gen_name], plain_tables[gen_name] = got, ref
     tg, th = tables["G"], tables["H"]
-    plain_tables = pvk.table_limbs(tg), pvk.table_limbs(th)
+    plain_tables = plain_tables["G"], plain_tables["H"]
 
     def ints(shape):
         return torch.from_numpy(np_rng.integers(-2**31, 2**31, shape, dtype=np.int64)
                                 .astype(np.int32)).to(dev)
 
     for n in ns:
+        # 2^256 - 1: every nibble 15, the top window's digit 16 (two steps)
         vals = [rng.randrange(L) for _ in range(n)]
-        vals[:min(n, 3)] = [0, 1, L - 1][:min(n, 3)]
+        vals[:min(n, 4)] = [0, 1, L - 1, 2**256 - 1][:min(n, 4)]
         digits = torch.from_numpy(_windows_lsb(vals)).to(dev)
         got = pvk.commitments(tg, th, digits)
         synchronize()
@@ -3375,7 +3400,7 @@ def prover_kernels_vs_plain(dev, ns, timed_ns, k: int, int32_ops_per_s: float) -
         cols = [np.ascontiguousarray(g.cpu().numpy().T) for g in got]
         for j in range(0, n, max(1, n // 16)):
             y1, y2 = Ristretto255.double_base_mul(params.generator_g, params.generator_h,
-                                                  Scalar(vals[j]))
+                                                  Scalar(vals[j] % L))
             if (cols[0][j].tobytes(), cols[1][j].tobytes()) != (y1.wire(), y2.wire()):
                 raise AssertionError(f"commitments n={n} lane {j}: not the host core's comb")
         row = {"n": n, "max_abs_err": err, "host_comb_sample": len(range(0, n, max(1, n // 16)))}
@@ -3419,6 +3444,18 @@ def prover_kernels_vs_plain(dev, ns, timed_ns, k: int, int32_ops_per_s: float) -
             row.update(kernel_ms(lambda: sc.reduce_wide(wide),
                                  lambda: sc.reduce_wide_plain(wide), 20))
         rows["reduce_wide"].append(row)
+    # commitments' chain floor: one lane (a thread a point, G and H on two
+    # blocks), after checking it
+    one = torch.from_numpy(_windows_lsb([L - 1])).to(dev)
+    got = pvk.commitments(tg, th, one)
+    ref = pvk.commitments_plain(*plain_tables, one)
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError("commitments at one lane: bytes differ from the plain version")
+    floor = kernel_ms(lambda: pvk.commitments(tg, th, one), None, 10)
+    for row in rows["commitments"]:
+        if "ms" in row:
+            row["chain_floor_ms"] = floor["ms"]
+            row["chain_floor_runs"] = floor["ms_runs"]
     return rows
 
 
@@ -3433,8 +3470,8 @@ def commitment_columns(wires: list[bytes]):
 def batch_prove_phase(params, n_statements: int, n_proofs: int, plain_n: int,
                       tamper_every: int, host_sample: int, on_card: bool = True) -> dict:
     """The ``batch_prove`` phase: ``BatchProver()`` on cuda:0 (two
-    ``comb_tables`` launches; its tables equal the plain prover's after
-    canonicalization), ``statements()`` of ``n_statements`` witnesses
+    ``comb_tables`` launches; its tables equal ``table_words`` of the plain
+    prover's), ``statements()`` of ``n_statements`` witnesses
     (byte-equal to the host core's comb), ``prove()`` of ``n_proofs``
     witnesses with their own 32-byte contexts (accepted by
     ``BatchVerifier(TorchBackend())`` in one combined check on the card; a
@@ -3457,7 +3494,7 @@ def batch_prove_phase(params, n_statements: int, n_proofs: int, plain_n: int,
     from cpzk_tpu_torch.core.scalars import L
     from cpzk_tpu_torch.core.transcript import derive_challenges_batch
     from cpzk_tpu_torch.observability import flightrec
-    from cpzk_tpu_torch.ops import backend as backend_mod, limbs, prove_kernels as pvk
+    from cpzk_tpu_torch.ops import backend as backend_mod, prove_kernels as pvk
     from cpzk_tpu_torch.ops.backend import TorchBackend
     from cpzk_tpu_torch.ops.point_kernels import all_launches, reset_all_launches
     from cpzk_tpu_torch.ops.prove import BatchProver, _columns, _windows_lsb
@@ -3496,10 +3533,8 @@ def batch_prove_phase(params, n_statements: int, n_proofs: int, plain_n: int,
     plain = BatchProver(params, device="cpu")
     out["plain_init_s"] = time.perf_counter() - t0
     for mine, ref in ((bp._tg, plain._tg), (bp._th, plain._th)):
-        for a, b in zip(pvk.table_limbs(mine), ref):
-            if not torch.equal(limbs.canonical(a[..., 0].movedim(-1, 0)).cpu(),
-                               limbs.canonical(b[..., 0].movedim(-1, 0))):
-                raise AssertionError("comb tables differ from the plain prover's")
+        if not torch.equal(pvk.table_words(mine).cpu(), pvk.table_words(ref)):
+            raise AssertionError("comb tables differ from the plain prover's")
     small = witnesses[:plain_n]
     small_ctx = contexts[:plain_n]
     if plain.prove(small, small_ctx, SeededRng(SEED + 13)) != bp.prove(
@@ -3612,6 +3647,19 @@ def batch_prove_phase(params, n_statements: int, n_proofs: int, plain_n: int,
     if framed != proofs:
         raise AssertionError("prove()'s stages, run one by one, give other bytes")
     out["prove_stages_without_statements"] = stages
+    if events:
+        # the card's time in statements(): its chunks' commitments launches
+        # between two events, on the witnesses' digits
+        pad_s = backend_mod._pad_lanes(n_statements, chunk)
+        wd = torch.from_numpy(_windows_lsb([w.value for w in witnesses]
+                                           + [0] * (pad_s - n_statements))).to(bp.device)
+        synchronize()
+        events[0].record()
+        for lo, hi in backend_mod._chunk_bounds(pad_s, chunk):
+            pvk.commitments(bp._tg, bp._th, wd[:, lo:hi])
+        events[1].record()
+        synchronize()
+        out["statements_commitments_device_ms"] = events[0].elapsed_time(events[1])
 
     # the card's interval and idle share in one prove() (statements given, as
     # a caller holding registered statements runs it): the prover reports the
@@ -5677,7 +5725,7 @@ def main() -> int:
     prover_rows = prover_kernels_vs_plain(dev, PROVE_KERNEL_NS, PROVE_TIMED_NS,
                                           CHALLENGE_MASKS, int32_ops_per_s)
     emit({"phase": "kernels_vs_plain", "kernels": "prover and challenges",
-          "tolerance": "exact (bytes, words, limbs; tables after canonicalization)", **card,
+          "tolerance": "exact (bytes, words, limbs; tables in the kernel's layout)", **card,
           "results": prover_rows})
     ladder_rows = ladder_kernels_vs_plain(dev, params, corpus, int32_ops_per_s,
                                           SeededRng(SEED + 41))
@@ -5957,6 +6005,7 @@ def main() -> int:
             "shape": {k: main_row[k] for k in ("n", "k", "rows", "generator") if k in main_row},
             "timed": [{k: r[k] for k in ("n", "ms", "plain_ms", "bound_ms", "bound_by")
                        if k in r} for r in results if "ms" in r],
+            "chain_floor_ms": main_row.get("chain_floor_ms"),
             "registers": per_kernel[name].get("registers"),
             "spill_bytes": per_kernel[name].get("spill_store_bytes"),
             "launches_in_batch_prove": proved["launches"][name],

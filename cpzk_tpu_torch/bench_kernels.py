@@ -3,7 +3,8 @@ of their sources, in one run on one card; then the scalar and MSM kernels
 against their plain versions.
 
     python -m cpzk_tpu_torch.bench_kernels [--ns 1,6144,16384] [--reps 50]
-        [--rounds 4] [--sass] [--no-pippenger] [--ladder] [NAME=CSRC_DIR ...]
+        [--rounds 4] [--sass] [--no-pippenger] [--ladder | --prove]
+        [NAME=CSRC_DIR ...]
 
 Each ``NAME=CSRC_DIR`` names a directory holding a ``point_ops.cu`` with the
 C launch interface of ``cpzk_tpu_torch/csrc/point_ops.cu``, for example an
@@ -54,6 +55,18 @@ and random windows, the per-row check also with g and h shared
 then timed in turns (A B B A ...) by :func:`event_ms`, ``reps`` launches
 held behind a spin kernel; with ``--sass``, each kernel's static SASS
 instruction count.  One JSON line, then the ``nvidia-smi`` line.
+
+With ``--prove``, instead, the A/B of the batch prover's kernels of each
+build: ``comb_tables`` of G (``n`` 1 in the output) and ``commitments`` at
+each lane count (``--ns``; digits of random scalars with 0, 1, l - 1 and
+2^256 - 1, the G and H tables the build's own ``comb_tables`` made), each
+build first checked (its bytes equal to ``commitments_plain``'s at every
+lane count; its tables equal to the plain tables in its layout:
+``table_words``', or the parent's 64 x 16 extended entries after
+canonicalization), then timed in turns by :func:`event_ms`, ``reps``
+launches held behind a spin kernel.  With ``--sass``, each kernel's static
+SASS count; registers and spills from ``-Xptxas -v``.  One JSON line, then
+the ``nvidia-smi`` line.
 """
 
 from __future__ import annotations
@@ -260,7 +273,7 @@ def prover_kernels(dev: torch.device, reps: int, rounds: int) -> dict:
     g = curve.points_to_device([params.generator_g.point], dev)
     h = curve.points_to_device([params.generator_h.point], dev)
     tg, th = pvk.comb_tables(g), pvk.comb_tables(h)
-    plain_tables = pvk.table_limbs(tg), pvk.table_limbs(th)
+    plain_tables = pvk.comb_tables_plain(g), pvk.comb_tables_plain(h)
     digits = torch.from_numpy(_windows_lsb([rng.randrange(L) for _ in range(n)])).to(dev)
 
     def ints(shape):
@@ -283,9 +296,7 @@ def prover_kernels(dev: torch.device, reps: int, rounds: int) -> dict:
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         if name == "comb_tables":
-            ok = all(torch.equal(limbs.canonical(a[..., 0].movedim(-1, 0)),
-                                 limbs.canonical(b[..., 0].movedim(-1, 0)))
-                     for a, b in zip(pvk.table_limbs(got), ref))
+            ok = torch.equal(got, pvk.table_words(ref))
         else:
             ok = torch.equal(got, ref) if isinstance(got, torch.Tensor) else all(
                 torch.equal(a, b) for a, b in zip(got, ref))
@@ -460,6 +471,105 @@ def ladder_ab(dev: torch.device, specs, ns, reps: int, rounds: int, sass: bool) 
                           for name, b in builds.items()}}
 
 
+PROVE_KERNELS = ("comb_tables", "commitments")
+
+
+def _canonical_extended(lim: torch.Tensor) -> torch.Tensor:
+    """``[64, 16, 4, 20]`` limbs -> the same, each coordinate canonical."""
+    return limbs.canonical(lim.movedim(-1, 0)).movedim(0, -1)
+
+
+def prove_ab(dev: torch.device, specs, ns, reps: int, rounds: int, sass: bool) -> dict:
+    """The ``--prove`` A/B (see the module docstring)."""
+    import random
+
+    from .core.scalars import L
+    from .ops import curve, prove_kernels as pvk
+    from .ops.prove import _windows_lsb
+    from .protocol.gadgets import Parameters
+
+    params = Parameters.new()
+    gens = [curve.points_to_device([e.point], dev)
+            for e in (params.generator_g, params.generator_h)]
+    # the plain tables on the host (seconds), then on the card
+    plain = [tuple(c.to(dev) for c in pvk.comb_tables_plain(
+        tuple(c.cpu() for c in p))) for p in gens]
+    # a build's tables in either layout: the package's words exactly, or the
+    # parent's 64 x 16 extended entries (words of the value mod p) after
+    # canonicalization
+    words = [pvk.table_words(t).reshape(-1) for t in plain]
+    extended = [_canonical_extended(torch.stack([c[..., 0] for c in t], dim=2))
+                for t in plain]
+    size = 64 * 16 * 4 * 8
+    layouts = {
+        "affine, 9 entries": lambda t, k: torch.equal(t[:words[k].numel()], words[k]),
+        "extended, 16 entries": lambda t, k: torch.equal(_canonical_extended(
+            pk.limbs_of_words(t.reshape(64, 16, 4, 8))), extended[k]),
+    }
+    rng = random.Random(18)
+    digits, refs = {}, {}
+    for n in ns:
+        vals = [0, 1, L - 1, 2**256 - 1][:n] + [rng.randrange(L) for _ in range(n - 4)]
+        digits[n] = torch.from_numpy(_windows_lsb(vals)).to(dev)
+        refs[n] = pvk.commitments_plain(*plain, digits[n])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    builds = {}
+    for name, csrc in specs:
+        path, report = pk.build(Path(csrc))
+        lib = pk.load(path)
+        tables = [torch.empty((size,), dtype=torch.int32, device=dev) for _ in gens]
+
+        def comb(k, lib=lib, tables=tables):
+            rc = lib.cpzk_comb_tables(*(c.data_ptr() for c in gens[k]), tables[k].data_ptr(),
+                                      stream)
+            if rc:
+                raise RuntimeError(f"comb_tables launch failed: CUDA error {rc}")
+
+        for k in range(2):
+            comb(k)
+        torch.cuda.synchronize()
+        layout = next((lay for lay, same in layouts.items()
+                       if all(same(t, k) for k, t in enumerate(tables))), None)
+        if layout is None:
+            raise AssertionError(f"{name} comb_tables: the tables differ from plain in "
+                                 f"every layout")
+        launchers = {("comb_tables", 1): lambda comb=comb: comb(0)}
+        for n in ns:
+            out = [torch.empty((32, n), dtype=torch.uint8, device=dev) for _ in range(2)]
+
+            def commit(lib=lib, tables=tables, n=n, out=out):
+                rc = lib.cpzk_commitments(tables[0].data_ptr(), tables[1].data_ptr(),
+                                          digits[n].data_ptr(), out[0].data_ptr(),
+                                          out[1].data_ptr(), n, stream)
+                if rc:
+                    raise RuntimeError(f"commitments launch failed: CUDA error {rc}")
+
+            commit()
+            torch.cuda.synchronize()
+            if not (torch.equal(out[0], refs[n][0]) and torch.equal(out[1], refs[n][1])):
+                raise AssertionError(f"{name} commitments n={n}: bytes differ from plain")
+            launchers[("commitments", n)] = commit
+        builds[name] = {"launchers": launchers, "csrc": csrc, "layout": layout,
+                        "ptxas": {k: v for k, v in pk.ptxas_report(report).items()
+                                  if k in PROVE_KERNELS},
+                        "sass": sass_counts(path, PROVE_KERNELS) if sass else None,
+                        "ms": {f"{k}/{n}": [] for k, n in launchers}}
+    order = list(builds)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            b = builds[name]
+            for (k, n), launch in b["launchers"].items():
+                b["ms"][f"{k}/{n}"].append(event_ms(launch, reps, hold=True))
+    return {"prove_ab": {name: {key: b[key] for key in ("csrc", "layout", "ptxas", "sass")}
+                         | {"reps": reps, "rounds": rounds,
+                            "timed_by": "event_ms, launches held behind a spin kernel",
+                            "ms_per_launch": {key: {"median": statistics.median(v), "runs": v}
+                                              for key, v in b["ms"].items()}}
+                         for name, b in builds.items()},
+            "checked": "each build's commitments bytes equal to the plain version's at "
+                       "every n; its tables equal to the plain tables in its layout"}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ns", default="1,6144,16384")
@@ -468,6 +578,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--no-pippenger", action="store_true")
     ap.add_argument("--ladder", action="store_true")
+    ap.add_argument("--prove", action="store_true")
     ap.add_argument("builds", nargs="*", metavar="NAME=CSRC_DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -478,9 +589,9 @@ def main(argv: list[str] | None = None) -> int:
     specs = [b.split("=", 1) for b in args.builds] or [["this", str(pk.CSRC)]]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    if args.ladder:
-        print(json.dumps(ladder_ab(dev, specs, ns, args.reps, args.rounds, args.sass)),
-              flush=True)
+    if args.ladder or args.prove:
+        ab = ladder_ab if args.ladder else prove_ab
+        print(json.dumps(ab(dev, specs, ns, args.reps, args.rounds, args.sass)), flush=True)
         print(smi.stdout.strip().splitlines()[0], flush=True)
         return 0
 

@@ -210,35 +210,61 @@ void host_ristretto_decode(const uint8_t* wire, uint32_t* words, uint8_t* valid,
   }
 }
 
-// comb_tables_kernel's thread w: window w of the table of the [20, 1] point
-// p, into out (512 words)
-void host_comb_window(const int32_t* x, const int32_t* y, const int32_t* z,
-                      const int32_t* t, int w, uint32_t* out) {
+// comb_tables_kernel's phases for the [20, 1] point p, every thread of
+// each in the kernel's order: the bases on one quad, the entries level by
+// level, then each window's affine form, into out (COMB_TABLE_WORDS words)
+void host_comb_tables(const int32_t* x, const int32_t* y, const int32_t* z,
+                      const int32_t* t, uint32_t* out) {
   Fe p[4];
   load_fe(p[0], x, 1, 0);
   load_fe(p[1], y, 1, 0);
   load_fe(p[2], z, 1, 0);
   load_fe(p[3], t, 1, 0);
-  cpzk::comb_window(out, p, w);
+  std::vector<uint32_t> ext(cpzk::COMB_EXT_WORDS, 0u);
+  cpzk::comb_bases(ext.data(), p, cpzk::Quad{0, 0u});
+  for (int l = 1; l <= cpzk::COMB_LEVELS; ++l) {
+    const int lo = cpzk::comb_level_lo(l), count = cpzk::comb_level_hi(l) - lo + 1;
+    for (int k = 0; k < cpzk::COMB_WINDOWS * count; ++k)
+      cpzk::comb_entry(ext.data(), k / count, lo + k % count);
+  }
+  for (int w = 0; w < cpzk::COMB_WINDOWS; ++w)
+    cpzk::comb_normalise(out + w * cpzk::COMB_WINDOW_WORDS,
+                         ext.data() + w * cpzk::COMB_ENTRIES * PT_WORDS);
 }
 
-// commitments_kernel's thread body for every lane j < n, reading the
-// tables' windows in place: [64, n] digits -> two [32, n] encodings
+// commitments_kernel's thread body for every thread (lane j < n, generator
+// g), reading the tables in place: [64, n] digits -> two [32, n] encodings
 void host_commitments(const uint32_t* tg, const uint32_t* th, const int32_t* digits,
                       uint8_t* r1, uint8_t* r2, int n) {
-  for (int j = 0; j < n; ++j) {
-    for (int g = 0; g < 2; ++g) {
-      const uint32_t* table = g == 0 ? tg : th;
+  for (int g = 0; g < 2; ++g) {
+    const uint32_t* table = g == 0 ? tg : th;
+    for (int j = 0; j < n; ++j) {
+      cpzk::CombDigits d;
+      cpzk::comb_digits_load(d, digits, n, j, true);
       Fe acc[4];
-      cpzk::pt_set_identity(acc);
-      for (int w = 0; w < cpzk::COMB_WINDOWS; ++w) {
-        cpzk::comb_step(acc, table + (long)w * cpzk::COMB_WINDOW_WORDS,
-                        (uint32_t)digits[(long)w * n + j]);
+      cpzk::pt_identity(acc);
+      for (int s = 0; s < cpzk::COMB_STEPS; ++s) {
+        const int w = s < cpzk::COMB_WINDOWS ? s : cpzk::COMB_WINDOWS - 1;
+        cpzk::comb_step(acc, d, table + w * cpzk::COMB_WINDOW_WORDS, s);
       }
       uint8_t b[32];
       cpzk::ristretto_encode(b, acc);
       uint8_t* out = g == 0 ? r1 : r2;
       for (int i = 0; i < 32; ++i) out[(long)i * n + j] = b[i];
+    }
+  }
+}
+
+// The walk's digits of every lane j < n: [64, n] nibbles -> [65, n] digits
+// e_s, one a step (comb_next_digit's magnitude with its sign)
+void host_comb_recode(const int32_t* digits, int32_t* out, int n) {
+  for (int j = 0; j < n; ++j) {
+    cpzk::CombDigits d;
+    cpzk::comb_digits_load(d, digits, n, j, true);
+    for (int s = 0; s < cpzk::COMB_STEPS; ++s) {
+      uint32_t mag, neg;
+      cpzk::comb_next_digit(d, s, mag, neg);
+      out[(long)s * n + j] = neg ? -(int32_t)mag : (int32_t)mag;
     }
   }
 }

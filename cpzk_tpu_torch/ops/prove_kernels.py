@@ -10,30 +10,36 @@ kernel                  replaces
                         ``cpzk_tpu/ops/curve.py::encode``, fused)
 ======================  ======================================================
 
-Sources: ``csrc/prove_w32.cuh`` (a comb window's build and a walk step for
-one thread), ``csrc/ristretto_w32.cuh`` (ENCODE on 8 x 32-bit words),
-``csrc/fe25519_w32.cuh`` (field and point arithmetic), all
-``__host__ __device__``, and ``csrc/prove_ops.cu`` (the kernels and their C
-launch interface), built into the package's kernel library by
-:func:`.point_kernels.library`.
+Sources: ``csrc/prove_w32.cuh`` (the table build's and the walk's thread
+bodies), ``csrc/ristretto_w32.cuh`` (ENCODE on 8 x 32-bit words),
+``csrc/msm_w32.cuh`` (the quad doubling) and ``csrc/fe25519_w32.cuh``
+(field and point arithmetic), all ``__host__ __device__``, and
+``csrc/prove_ops.cu`` (the kernels and their C launch interface), built into
+the package's kernel library by :func:`.point_kernels.library`.
 
 Tables.  A fixed-base comb table of P holds T_w[j] = j 16^w P for 64
-windows of 16 entries.  The plain version keeps the reference's layout,
-four ``[64, 16, 20, 1]`` int32 limb tensors (X, Y, Z, T); the kernel its
-own, one ``[64, 16, 4, 8]`` int32 tensor of 32-bit words (a value below
-2^256, not reduced below p; ``csrc/prove_w32.cuh``).  :func:`table_limbs`
-and :func:`table_words` turn either into the other's layout, so tables of
-the two compare after :func:`.limbs.canonical`.
+windows.  The plain version keeps the reference's layout, four
+``[64, 16, 20, 1]`` int32 limb tensors (X, Y, Z, T), entries 0 .. 15; the
+kernel its own, one ``[64, 9, 3, 8]`` int32 tensor of canonical 32-bit
+words: entries 0 .. 8 in affine form as (y - x, y + x, 2d x y)
+(``csrc/prove_w32.cuh``), which the walk reaches with signed digits in
+[-8, 8].  :func:`table_words` maps a plain table into the kernel's layout
+(normalising Z by a plain inversion), so the kernel's table equals it
+exactly.
 
-Design.  ``comb_tables`` runs once per generator: one block, thread w
-builds window w.  ``commitments`` runs one thread per lane: it walks the G
-table over the lane's 64 digits, encodes, then walks the H table and
-encodes, keeping one accumulator; each window of the current table is
-staged in shared memory and an entry is selected by reading all 16 with a
-mask (the digits are nibbles of secret scalars: no address depends on one).
-What bounds them on an H100: :func:`comb_tables_work` and
-:func:`commitments_work` count the bytes and int32 operations (both are
-bound by operations); ``PERF.md`` holds the measured times.
+Design (``csrc/prove_ops.cu``).  ``comb_tables`` runs once per generator
+in one block: one chain of 252 doublings on a quad of threads gives the 64
+window bases, then every entry is one doubling or one add on its own
+thread, then one inversion a window brings them to affine form; the chain
+bounds it (its chain floor, ~0.26 ms).  ``commitments`` runs a thread per
+point, (lane, generator): it recodes the lane's 64 nibbles to signed digits
+as it walks (the top window, unrecoded, over two steps: any nibble is
+taken), selects the entry in constant time (every entry of the
+window read, one kept by a mask; the sign applied by masks), adds it by
+the mixed add (7 multiplies) and encodes the sum; a block copies each
+window into shared memory as it walks.  Both are bound by operations:
+:func:`comb_tables_work` and :func:`commitments_work` count the bytes and
+the int32 operations; ``PERF.md`` holds the measured times.
 
 Routing: each wrapper runs the plain version for tensors on the CPU and
 launches its kernel for CUDA tensors; any other device raises, and a failed
@@ -48,8 +54,9 @@ import torch
 from . import curve, limbs
 from .limbs import NLIMBS
 from .point_kernels import (
-    ADD_OPS_PER_LANE, W32_MUL_OPS, W32_SQ_OPS, _check, count_launch, double_k_ops_per_lane,
-    library, limbs_of_words, on_card, point_add_plain, point_double_k_plain, words_of_limbs,
+    ADD_OPS_PER_LANE, W32_LINEAR_OPS, W32_MUL_OPS, W32_SQ_OPS, _check, count_launch,
+    double_k_ops_per_lane, library, on_card, point_add_plain, point_double_k_plain,
+    words_of_limbs,
 )
 
 Point = curve.Point
@@ -58,8 +65,11 @@ LimbTable = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 NWINDOWS = curve.NWINDOWS
 TABLE = curve.TABLE
-#: the kernel's layout: [window, entry, coordinate, word]
-WORDS_SHAPE = (NWINDOWS, TABLE, 4, 8)
+#: entries a window in the kernel's table: |e| for signed digits e in [-8, 8]
+KERNEL_ENTRIES = 9
+#: the kernel's layout: [window, entry, coordinate (y - x, y + x, 2d x y), word]
+WORDS_SHAPE = (NWINDOWS, KERNEL_ENTRIES, 3, 8)
+TABLE_BYTES = NWINDOWS * KERNEL_ENTRIES * 3 * 8 * 4
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.  A
 #: wrapper adds one where it launches its kernel and nowhere else.
@@ -71,10 +81,16 @@ LAUNCHES = {"comb_tables": 0, "commitments": 0}
 #: squaring and 13 multiplies.  The canonical reductions, selects and byte
 #: stores are not counted.
 ENCODE_OPS = 255 * W32_SQ_OPS + 32 * W32_MUL_OPS
-#: a lane of ``commitments``: 64 point additions and one ENCODE a generator.
-#: The constant-time selects (every entry read, a mask each) are not
-#: counted: a walk needs the additions, and the count is of the least work.
-COMMIT_OPS_PER_LANE = 2 * (NWINDOWS * ADD_OPS_PER_LANE + ENCODE_OPS)
+#: an inversion a^(p-2): 254 squarings and 12 multiplies
+INVERT_OPS = 254 * W32_SQ_OPS + 12 * W32_MUL_OPS
+#: the walk's mixed add (an affine entry, Z2 = 1): 7 multiplies, a doubling
+#: and 6 additions or subtractions
+MIXED_ADD_OPS = 7 * W32_MUL_OPS + 7 * W32_LINEAR_OPS
+#: a point of ``commitments``: 64 mixed adds and one ENCODE.  The
+#: constant-time selects (every entry read, a mask each), the recode and
+#: the kernel's 65th add (the top window's second step) are not counted:
+#: a walk needs the additions, and the count is of the least work.
+COMMIT_OPS_PER_POINT = NWINDOWS * MIXED_ADD_OPS + ENCODE_OPS
 
 
 def reset_launches() -> None:
@@ -84,41 +100,45 @@ def reset_launches() -> None:
 
 def comb_tables_work() -> tuple[int, int]:
     """(bytes, int32 operations) of one ``comb_tables``: the point read
-    once (4 x 80 bytes), the table written once (128 KiB); the least work
-    is the reference's: 63 x 4 doublings between window bases and 14
-    additions a window."""
-    ops = double_k_ops_per_lane(4) * (NWINDOWS - 1) + 14 * NWINDOWS * ADD_OPS_PER_LANE
-    return 4 * NLIMBS * 4 + NWINDOWS * TABLE * 4 * 8 * 4, ops
+    once (4 x 80 bytes), the table written once (55,296 bytes); the least
+    work: 63 x 4 doublings between window bases, a window's 8 entries
+    by 4 doublings and 3 adds, one inversion for the whole table with 3
+    multiplies an entry around it (Montgomery's trick over all 512
+    entries), and 4 multiplies an entry to (y - x, y + x, 2d x y).  (The
+    kernel inverts once a window, 64 inversions, for parallelism.)"""
+    entries = NWINDOWS * (KERNEL_ENTRIES - 1)
+    per_window = 4 * double_k_ops_per_lane(1) + 3 * ADD_OPS_PER_LANE
+    ops = (double_k_ops_per_lane(4) * (NWINDOWS - 1) + NWINDOWS * per_window + INVERT_OPS
+           + 3 * entries * W32_MUL_OPS + 4 * entries * W32_MUL_OPS)
+    return 4 * NLIMBS * 4 + TABLE_BYTES, ops
 
 
 def commitments_work(n: int) -> tuple[int, int]:
     """(bytes, int32 operations) of one ``commitments`` over n lanes: the two
-    tables read once (128 KiB each), 64 int32 digits read and 2 x 32 bytes
-    written a lane, :data:`COMMIT_OPS_PER_LANE` a lane."""
-    return 2 * NWINDOWS * TABLE * 4 * 8 * 4 + 64 * 4 * n + 64 * n, COMMIT_OPS_PER_LANE * n
+    tables read once (55,296 bytes each), 64 int32 digits read and 2 x 32
+    bytes written a lane, :data:`COMMIT_OPS_PER_POINT` a point, two points
+    a lane."""
+    return 2 * TABLE_BYTES + 64 * 4 * n + 64 * n, 2 * COMMIT_OPS_PER_POINT * n
 
 
 # ---------------------------------------------------------------------------
-# table layouts
+# the kernel's table layout
 # ---------------------------------------------------------------------------
-
-def table_limbs(table) -> LimbTable:
-    """Either layout -> the reference's four ``[64, 16, 20, 1]`` limb
-    tensors (kernel words become digits in [0, 2^13) of the same value)."""
-    if not isinstance(table, torch.Tensor):
-        return tuple(table)
-    lim = limbs_of_words(table.reshape(WORDS_SHAPE))  # [64, 16, 4, 20]
-    return tuple(lim[:, :, c, :, None].contiguous() for c in range(4))
-
 
 def table_words(table) -> torch.Tensor:
-    """Either layout -> the kernel's ``[64, 16, 4, 8]`` int32 words (limbs
-    are canonicalized first, so the words hold the value below p)."""
+    """The kernel's ``[64, 9, 3, 8]`` int32 words of a table: a plain limb
+    table's entries 0 .. 8, each brought to affine form (x, y) = (X / Z,
+    Y / Z) by a plain inversion and stored as canonical (y - x, y + x,
+    2d x y); a tensor in the kernel's layout is returned as it is."""
     if isinstance(table, torch.Tensor):
         return table.reshape(WORDS_SHAPE)
-    lim = torch.stack([limbs.canonical(c[..., 0].movedim(-1, 0)).movedim(0, -1)
-                       for c in table], dim=2)  # [64, 16, 4, 20]
-    return words_of_limbs(lim).contiguous()
+    x_, y_, z_ = (c[:, :KERNEL_ENTRIES, :, 0].reshape(-1, NLIMBS).T for c in table[:3])
+    zi = limbs.inv(z_)
+    x, y = limbs.mul(x_, zi), limbs.mul(y_, zi)
+    d2 = limbs.on(limbs.D2, x.device)
+    coords = [limbs.sub(y, x), limbs.add(y, x), limbs.mul(limbs.mul(x, y), d2)]
+    lim = torch.stack([limbs.canonical(c).T for c in coords], dim=1)  # [64 * 9, 3, 20]
+    return words_of_limbs(lim).reshape(WORDS_SHAPE).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -148,11 +168,10 @@ def comb_tables_plain(p: Point) -> LimbTable:
     return tuple(torch.stack([t[i] for t in windows], dim=0) for i in range(4))
 
 
-def fixed_base_plain(table, digits: torch.Tensor) -> Point:
+def fixed_base_plain(table: LimbTable, digits: torch.Tensor) -> Point:
     """sum_w T_w[d_w] per lane, ``digits`` ``[64, n]`` LSB window first, as
     ``_fixed_base_kernel`` computes it (``curve.table_gather``'s select tree
     on the plain addition)."""
-    table = table_limbs(table)
     acc = curve.identity((digits.shape[-1],), digits.device)
     for w in range(NWINDOWS):
         entry = curve.table_gather(tuple(t[w] for t in table), digits[w])
@@ -160,7 +179,8 @@ def fixed_base_plain(table, digits: torch.Tensor) -> Point:
     return acc
 
 
-def commitments_plain(tg, th, digits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def commitments_plain(tg: LimbTable, th: LimbTable,
+                      digits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(encode(sum_w TG_w[d_w]), encode(sum_w TH_w[d_w])) as two ``[32, n]``
     uint8 tensors, as ``_commitments_kernel`` computes them."""
     return tuple(curve.encode(fixed_base_plain(t, digits)).to(torch.uint8)
@@ -172,7 +192,7 @@ def commitments_plain(tg, th, digits: torch.Tensor) -> tuple[torch.Tensor, torch
 # ---------------------------------------------------------------------------
 
 def comb_tables(p: Point):
-    """The comb table of a ``[20, 1]`` point: the kernel's ``[64, 16, 4, 8]``
+    """The comb table of a ``[20, 1]`` point: the kernel's ``[64, 9, 3, 8]``
     words for a point on the card, the plain limb tables on the CPU."""
     device = p[0].device
     for c in p:
@@ -194,9 +214,10 @@ def comb_tables(p: Point):
 
 def commitments(tg, th, digits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The two ``[32, n]`` uint8 encodings of sum_w T_w[d_w] over the G and
-    the H table, ``digits`` ``[64, n]`` int32 in 0..15 (LSB window first);
-    on the card the tables are the kernel's ``[64, 16, 4, 8]`` words (as
-    :func:`comb_tables` gives them there), on the CPU the plain limb
+    the H table, ``digits`` ``[64, n]`` int32 in 0..15 (LSB window first;
+    any nibbles, the top one too); on the card the tables are the kernel's
+    ``[64, 9, 3, 8]`` words
+    (as :func:`comb_tables` gives them there), on the CPU the plain limb
     tables."""
     if digits.dtype != torch.int32 or digits.ndim != 2 or digits.shape[0] != NWINDOWS:
         raise ValueError(f"commitments: digits must be [64, n] int32, got "
@@ -207,7 +228,7 @@ def commitments(tg, th, digits: torch.Tensor) -> tuple[torch.Tensor, torch.Tenso
     for t in (tg, th):
         if (not isinstance(t, torch.Tensor) or tuple(t.shape) != WORDS_SHAPE
                 or t.device != device or t.dtype != torch.int32):
-            raise ValueError(f"commitments: tables must be [64, 16, 4, 8] int32 words on "
+            raise ValueError(f"commitments: tables must be [64, 9, 3, 8] int32 words on "
                              f"{device} (table_words gives them from limb tables)")
     n = digits.shape[1]
     if n < 1:

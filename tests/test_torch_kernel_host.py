@@ -20,10 +20,14 @@ sign, a^((p-5)/8), SQRT_RATIO_M1 with its non-square case, and ENCODE of the
 identity, of points on both branches of the rotation by sqrt(-1) and of
 coordinates at or above p) against :mod:`cpzk_tpu_torch.ops.limbs` and
 ``curve.encode`` (canonical limbs exact, bytes identical);
-``csrc/prove_w32.cuh``'s window build of ``comb_tables_kernel`` against the
-plain tables after canonicalization, and ``commitments_kernel``'s lane body
-(walk and encode) against the plain commitments and the host core's comb
-(bytes identical); and ``csrc/keccak_u64.cuh``'s absorb chain of
+``csrc/prove_w32.cuh``'s phases of ``comb_tables_kernel`` (the quad's
+chain of window bases, the entries level by level, one inversion a window)
+over every thread against ``prove_kernels.table_words`` of the plain tables
+(words identical, G and H), ``commitments_kernel``'s thread body (signed
+recode, constant-time select, mixed add, ENCODE) against the plain
+commitments and the host core's comb (bytes identical, scalars at or
+above 2^255 too), and its recode (65 digits in [-8, 8] summing to the
+scalar); and ``csrc/keccak_u64.cuh``'s absorb chain of
 ``keccak_chain_kernel`` against the plain int32-pair Keccak (words
 identical); and ``ristretto_decode``'s lane body (``csrc/ristretto_w32.cuh``)
 on ``chip_smoke.py``'s decode inputs against the plain and the JAX
@@ -117,8 +121,9 @@ def host_lib(tmp_path_factory):
     lib.host_fe_sqrt_ratio_m1.argtypes = [P_] * 4 + [I]
     lib.host_ristretto_encode.argtypes = [P_] * 5 + [I]
     lib.host_ristretto_decode.argtypes = [P_] * 3 + [I]
-    lib.host_comb_window.argtypes = [P_] * 4 + [I, P_]
+    lib.host_comb_tables.argtypes = [P_] * 5
     lib.host_commitments.argtypes = [P_] * 5 + [I]
+    lib.host_comb_recode.argtypes = [P_, P_, I]
     lib.host_keccak_chain.argtypes = [P_, P_, I, P_, P_, I, I, P_, P_]
     lib.host_ladder_table.argtypes = [P_, P_, I]
     lib.host_ladder_steps.argtypes = [P_, P_, P_, I, I, P_, I]
@@ -133,9 +138,10 @@ def host_lib(tmp_path_factory):
                lib.host_msm_window_reduce, lib.host_quad_double_k,
                lib.host_quad_add, lib.host_fe_is_negative,
                lib.host_fe_sqrt_ratio_m1, lib.host_ristretto_encode,
-               lib.host_ristretto_decode, lib.host_comb_window,
-               lib.host_commitments, lib.host_keccak_chain, lib.host_ladder_table,
-               lib.host_ladder_steps, lib.host_ladder_is_identity, lib.host_ladder_combined,
+               lib.host_ristretto_decode, lib.host_comb_tables,
+               lib.host_commitments, lib.host_comb_recode, lib.host_keccak_chain,
+               lib.host_ladder_table, lib.host_ladder_steps, lib.host_ladder_is_identity,
+               lib.host_ladder_combined,
                lib.host_ladder_partials_identity, lib.host_ladder_each,
                lib.host_quad_add_cached):
         fn.restype = None
@@ -651,61 +657,102 @@ def test_decode_matches_plain_jax_and_host_core(host_lib, decode_inputs):
 # -- the batch prover's thread bodies (prove_w32.cuh) ------------------------
 
 @pytest.fixture(scope="module")
-def g_tables():
-    """The base point's plain comb tables and its [20, 1] coordinates."""
-    g = curve.points_to_device([he.BASEPOINT], "cpu")
-    return g, pvk.comb_tables_plain(g)
+def gen_tables():
+    """G's and H's [20, 1] coordinates and plain comb tables, by name."""
+    from cpzk_tpu_torch import Parameters
+
+    params = Parameters.new()
+    out = {}
+    for name, elem in (("G", params.generator_g), ("H", params.generator_h)):
+        p = curve.points_to_device([elem.point], "cpu")
+        out[name] = (p, pvk.comb_tables_plain(p))
+    return out
 
 
-def host_table(lib, g):
+def host_table(lib, p):
     words = torch.empty(pvk.WORDS_SHAPE, dtype=torch.int32)
-    flat = words.reshape(64, -1)
-    for w in range(64):
-        lib.host_comb_window(*(ptr(c) for c in g), w, ptr(flat[w]))
+    lib.host_comb_tables(*(ptr(c) for c in p), ptr(words))
     return words
 
 
-def test_comb_window_matches_plain(host_lib, g_tables):
-    """comb_tables_kernel's thread w, for every window w (4 w doublings
-    then 14 additions), against the plain tables after canonicalization."""
-    g, ref = g_tables
-    got = pvk.table_limbs(host_table(host_lib, g))
-    for a, b in zip(got, ref):
-        assert torch.equal(limbs.canonical(a[..., 0].movedim(-1, 0)),
-                           limbs.canonical(b[..., 0].movedim(-1, 0)))
-    # the layouts' conversions are inverse to each other
+@pytest.mark.parametrize("gen", ["G", "H"])
+def test_comb_window_matches_plain(host_lib, gen_tables, gen):
+    """comb_tables_kernel's phases over every thread in the kernel's order
+    (the bases on one quad, entries 2..8 by levels, one inversion a window)
+    give exactly the words of ``table_words`` of the plain tables."""
+    p, ref = gen_tables[gen]
     words = pvk.table_words(ref)
-    assert torch.equal(pvk.table_words(pvk.table_limbs(words)), words)
+    assert words.shape == pvk.WORDS_SHAPE
+    assert torch.equal(host_table(host_lib, p), words)
+    # a table in the kernel's layout maps to itself
+    assert torch.equal(pvk.table_words(words), words)
+    # entry 0 is the identity (y - x, y + x, 2d x y) = (1, 1, 0)
+    assert words[:, 0, :, 1:].eq(0).all() and words[:, 0, :2, 0].eq(1).all()
+    assert words[:, 0, 2, 0].eq(0).all()
 
 
-def test_commitments_lane_matches_plain(host_lib, g_tables):
-    """commitments_kernel's lane body (64 constant-time selects and
-    additions, then ENCODE, per table) on the host-built G table and on the
-    plain H table's words: bytes identical to the plain commitments and to
-    the host core's constant-time comb (scalars 0, 1, l - 1, 2^252 and
-    random ones)."""
+SCALAR_CASES = {
+    "edges": [0, 1, L - 1, 2**252, 2**255 - 1, 2**253 - 1, 8 * (16**63 - 1) // 15],
+    # top nibble 8 or more: the top window's digit over two steps
+    "wide": [2**255, 2**256 - 1, 15 * 16**63, 2**255 + 8, 8 * 16**63 + 8 * 16**62,
+             8 * (16**64 - 1) // 15],
+    "random": None,
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCALAR_CASES))
+def test_commitments_lane_matches_plain(host_lib, gen_tables, case):
+    """commitments_kernel's thread body (signed recode, 65 constant-time
+    selects and mixed adds, then ENCODE), over every (lane, generator), on
+    the host-built tables: bytes identical to the plain commitments and to
+    the host core's constant-time comb (the edge scalars 0, 1, l - 1,
+    2^252, 2^255 - 1 (top nibble 7), 2^253 - 1 and all-8 nibbles; scalars
+    at or above 2^255, whose top window takes two steps; random ones)."""
     from cpzk_tpu_torch import Parameters, Ristretto255, Scalar
 
-    g, tg = g_tables
+    (g, tg), (h, th) = gen_tables["G"], gen_tables["H"]
     params = Parameters.new()
     assert Ristretto255.element_to_bytes(params.generator_g) == bytes(
         curve.encode(g).to(torch.uint8)[:, 0].tolist())
-    h = curve.points_to_device([params.generator_h.point], "cpu")
-    th = pvk.comb_tables_plain(h)
     rng = random.Random(33)
-    scalars = [0, 1, L - 1, 2**252] + [rng.randrange(L) for _ in range(6)]
+    scalars = SCALAR_CASES[case] or [rng.randrange(L) for _ in range(9)]
     digits = torch.from_numpy(np.ascontiguousarray(curve.scalars_to_windows(scalars)[::-1]))
     n = len(scalars)
     r1, r2 = (torch.empty((32, n), dtype=torch.uint8) for _ in range(2))
-    gw, hw = host_table(host_lib, g), pvk.table_words(th)
+    gw, hw = host_table(host_lib, g), host_table(host_lib, h)
     host_lib.host_commitments(ptr(gw), ptr(hw), ptr(digits), ptr(r1), ptr(r2), n)
     ref = pvk.commitments_plain(tg, th, digits)
     assert torch.equal(r1, ref[0]) and torch.equal(r2, ref[1])
     for j, k in enumerate(scalars):
+        # the generators' order is l: k and k mod l give the same encoding
         y1, y2 = Ristretto255.double_base_mul(params.generator_g, params.generator_h,
-                                              Scalar(k))
+                                              Scalar(k % L))
         assert bytes(r1[:, j].tolist()) == y1.wire()
         assert bytes(r2[:, j].tolist()) == y2.wire()
+
+
+@pytest.mark.parametrize("seed,bits", [(0, 255), (1, 255), (2, 256)])
+def test_comb_signed_recode(host_lib, seed, bits):
+    """The walk's recode: from the 64 nibbles of scalars below 2^bits
+    (random ones, and nibbles all 15 but the top 7, all 8, all 7, zero,
+    all 15), 65 digits e_s in [-8, 8], below 8 under the top window, the
+    top window's two in [0, 8], with sum_{s < 64} e_s 16^s + e_64 16^63
+    the scalar."""
+    rng = random.Random(60 + seed)
+    scalars = [rng.randrange(2**bits) for _ in range(40)] + [
+        2**255 - 1, 8 * (16**64 - 1) // 15 - 2**255, 7 * (16**64 - 1) // 15, 0, L - 1]
+    if bits > 255:
+        scalars += [2**256 - 1, 8 * (16**64 - 1) // 15, 2**255]
+    digits = torch.from_numpy(np.ascontiguousarray(curve.scalars_to_windows(scalars)[::-1]))
+    n = len(scalars)
+    out = torch.empty((65, n), dtype=torch.int32)
+    host_lib.host_comb_recode(ptr(digits), ptr(out), n)
+    assert int(out.min()) >= -8 and int(out.max()) <= 8
+    assert int(out[:63].max()) <= 7 and int(out[63:].min()) >= 0
+    if bits <= 255:
+        assert not out[64].any()
+    for j, k in enumerate(scalars):
+        assert sum(int(out[s, j]) << (4 * min(s, 63)) for s in range(65)) == k
 
 
 # -- the Keccak chain (keccak_u64.cuh) ---------------------------------------
