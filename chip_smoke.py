@@ -34,7 +34,11 @@ seconds since the script started):
    then the scalar kernels (``rlc_scalars``, ``scalar_recode``) at n in
    {1, 127, 4096, 16384} rows of random scalars with 0, 1 and l - 1, at the
    per-row path's width (windows, corrections at lane n) and the Pippenger
-   path's (digits at c in {4, 11, 13}): exact (``torch.equal``); and the
+   path's (digits at c in {4, 11, 13}), and ``rlc_scalars`` at 77 rows, at
+   130 rows of every scalar l - 1 and at 1,500 rows whose a s sum past
+   2^256: exact (``torch.equal``); ``rlc_scalars`` timed by CUDA events
+   and by the profiler, beside its one-row chain floor and an empty
+   kernel's launch floor; and the
    MSM kernels (``msm_bucket``, ``msm_window_reduce``) against the plain
    MSM at m in {2048, 18432} terms (18,432: the 4096-row check's terms,
    two chunks at c = 11), with the digits of random scalars, the same with
@@ -60,9 +64,10 @@ seconds since the script started):
    6,144 (4096 rows) and 16,384 lanes, valid and tampered (chunk totals
    equal as group elements, verdicts exact), the per-row check at 127,
    4096 and 16,384 lanes with three tampered rows and g, h shared and per
-   lane (bits exact), the partials of the 16,384-row check's two chunks;
+   lane (bits exact), the partials of the 16,384-row check's two chunks
+   and of k in {1, 2, 3, 8, 92} random totals, valid and tampered;
    times by ``kernel_ms`` beside the bounds and each ladder's chain floor
-   (the kernel at one lane);
+   (the kernel at one lane; the partials' at k = 2) and the launch floor;
    ``vectors`` — the pinned vectors of ``tests/vectors`` on the card:
    ``commitments`` (with ``comb_tables`` of G and H) gives the 8
    ``scalarmult_base`` points of ``sodium_vectors.json`` (libsodium's),
@@ -441,11 +446,21 @@ SOURCES = {
 LADDER_COMBINED_NS = (127, CHUNK_4096_N, MAIN_N)
 LADDER_EACH_NS = (127, SERVING_N, MAIN_N)
 LADDER_REPS = 10
+#: ``ladder_partials_identity``'s checks on random totals (pairs P, -P; k =
+#: 92 is about a million rows' lane chunks), and the k timed besides the
+#: 16,384-row check's two chunk totals
+PARTIALS_KS = (1, 2, 3, 8, 92)
+PARTIALS_TIMED_KS = (92,)
 #: the scalar kernels' checks: row counts, window sizes of the digit recode,
-#: and the row counts timed (the 4096- and 16,384-row checks)
+#: and the row counts timed (the 4096- and 16,384-row checks); then
+#: ``rlc_scalars``' edge cases: a row count no block size divides, every
+#: scalar l - 1, and rows whose a s sum past 2^256 (the sum's ninth word)
 SCALAR_NS = (1, 127, 4096, 16384)
 SCALAR_CS = (4, 11, 13)
 SCALAR_TIMED_NS = (4096, 16384)
+RLC_EDGE_CASES = (("random", 77), ("l_minus_1", 130), ("ninth_word", 1500))
+#: launches of each timed run of the small kernels (``kernel_ms``)
+SMALL_REPS = 20
 #: the MSM kernels' checks: term counts (18,432 is the 4096-row check's
 #: 4 x 4096 + 2 terms padded, two chunks), window size, lane chunk
 MSM_MS = (2048, 18432)
@@ -657,6 +672,26 @@ def kernel_ms(kernel, plain, reps: int, turns: int = 3) -> dict:
     return {"ms": statistics.median(runs), "ms_runs": runs, "reps": reps,
             "timed_by": "CUDA events around launches held behind a spin kernel",
             "plain_ms": plain, "plain_timed_by": "CUDA events around one call"}
+
+
+def launch_floor(dev) -> dict:
+    """An empty kernel (``cpzk_launch_floor``, no wrapper, no counter) timed
+    by ``kernel_ms``: what a launch costs under that timer, the floor of the
+    small kernels beside their bounds."""
+    import torch
+
+    from cpzk_tpu_torch.ops import point_kernels as pk
+
+    lib = pk.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch() -> None:
+        rc = lib.cpzk_launch_floor(stream)
+        if rc:
+            raise RuntimeError(f"cpzk_launch_floor failed: CUDA error {rc}")
+
+    lat = kernel_ms(launch, None, SMALL_REPS)
+    return {"launch_floor_ms": lat["ms"], "launch_floor_runs": lat["ms_runs"]}
 
 
 def kernels_vs_plain(dev, ns, int32_ops_per_s: float, gen) -> dict:
@@ -2686,17 +2721,25 @@ def scalar_kernels_vs_plain(dev, ns, cs, timed_ns, int32_ops_per_s: float) -> di
     recode at the per-row path's width (pad_lanes(n + 1), corrections at
     lane n), ``rlc_scalars`` and the digit recode at each c at the
     Pippenger path's (pow2(n) rows, 4 pow2(n) + 2 terms); random scalars
-    with 0, 1 and l - 1 among them.  Device times at ``timed_ns``."""
+    with 0, 1 and l - 1 among them; then ``rlc_scalars`` at
+    :data:`RLC_EDGE_CASES`.  Device times at ``timed_ns``: ``rlc_scalars``
+    by ``kernel_ms`` (a call: its ticket's zeroing and its launch) and by
+    the profiler (its kernel alone), beside its chain floor (one row, by
+    ``kernel_ms``) and the launch floor; ``scalar_recode`` by the
+    profiler."""
     import random
 
+    import numpy as np
     import torch
 
+    from cpzk_tpu_torch.bench_kernels import rlc_case
     from cpzk_tpu_torch.core.scalars import L
     from cpzk_tpu_torch.ops import msm, scalar_kernels as sk, sclimbs as sc
     from cpzk_tpu_torch.ops.backend import _pad_lanes, _pad_pow2
 
     rng = random.Random(SEED + 3)
     rows = {"rlc_scalars": [], "scalar_recode": []}
+    floor = launch_floor(dev)
 
     def exact(label: str, got, ref) -> None:
         if not all(torch.equal(g, r) for g, r in zip(got, ref)):
@@ -2727,12 +2770,20 @@ def scalar_kernels_vs_plain(dev, ns, cs, timed_ns, int32_ops_per_s: float) -> di
             exact(f"scalar_recode digits n={n} c={c}",
                   [sk.rlc_digits(groups, *corr, n, m_pad, c)],
                   [sk.rlc_digits_plain(groups, *corr, n, m_pad, c)])
+        if n == 1:
+            one_row = kernel_ms(lambda: sk.rlc_scalars(*narrow, bl), None, SMALL_REPS)
         if n not in timed_ns:
             continue
         row = {"n": n, "lanes": pw, "max_abs_err": 0, "exact_at_c": list(cs),
                **bound_of(*sk.rlc_scalars_work(pw), int32_ops_per_s)}
-        row.update(device_ms("rlc_scalars", lambda: sk.rlc_scalars(*narrow, bl),
-                             lambda: sk.rlc_scalars_plain(*narrow, bl), 20, 2))
+        row.update(kernel_ms(lambda: sk.rlc_scalars(*narrow, bl),
+                             lambda: sk.rlc_scalars_plain(*narrow, bl), SMALL_REPS))
+        prof = device_ms("rlc_scalars", lambda: sk.rlc_scalars(*narrow, bl),
+                         lambda: sk.rlc_scalars_plain(*narrow, bl), 20, 2)
+        row.update({"profiler_ms": prof["ms"], "profiler_plain_ms": prof["plain_ms"],
+                    "profiled_launches": prof["profiled_launches"],
+                    "chain_floor_ms": one_row["ms"], "chain_floor_runs": one_row["ms_runs"],
+                    **floor})
         rows["rlc_scalars"].append(row)
         nwin = msm.num_windows(MSM_C)
         row = {"n": n, "terms": m_pad, "c": MSM_C, "max_abs_err": 0,
@@ -2747,6 +2798,13 @@ def scalar_kernels_vs_plain(dev, ns, cs, timed_ns, int32_ops_per_s: float) -> di
                           **bound_of(*sk.scalar_recode_work(4 * pad, 64, 4 * pad),
                                      int32_ops_per_s)}
         rows["scalar_recode"].append(row)
+    np_rng = np.random.default_rng(SEED + 5)
+    for case, n in RLC_EDGE_CASES:
+        al, cl, sl, bl = (torch.from_numpy(sc.ints_to_limbs(v)).to(dev)
+                          for v in rlc_case(np_rng, case, n))
+        exact(f"rlc_scalars {case} n={n}", sk.rlc_scalars(al, cl, sl, bl),
+              sk.rlc_scalars_plain(al, cl, sl, bl))
+        rows["rlc_scalars"].append({"n": n, "case": case, "max_abs_err": 0})
     return rows
 
 
@@ -2922,12 +2980,18 @@ def ladder_kernels_vs_plain(dev, params, corpus, int32_ops_per_s: float, gen) ->
     each equation's truth): bits equal to the plain ones and to the
     expectation.  ``ladder_partials_identity`` on the 16,384-row check's two
     chunk totals (its 16,385 lanes padded to 18,432), written by
-    ``ladder_combined`` into their columns, valid and tampered: equal to the
+    ``ladder_combined`` into their columns, and on k random totals for k in
+    :data:`PARTIALS_KS` (pairs P, -P), valid and tampered: equal to the
     plain tree-sum and identity test.  Times by ``kernel_ms`` at the paths'
     widths beside the bounds (:mod:`.ladder_kernels`' ``*_work``), and each
     lane ladder's chain floor: the kernel at one lane (one quad of threads,
-    two for a per-row lane), its result checked against the plain one."""
+    two for a per-row lane), its result checked against the plain one; the
+    partials' chain floor is k = 2 (one quad add), and the launch floor an
+    empty kernel's."""
+    import numpy as np
     import torch
+
+    from cpzk_tpu_torch.bench_kernels import random_totals
 
     from cpzk_tpu_torch.core.ristretto import Scalar
     from cpzk_tpu_torch.core.scalars import L
@@ -3048,6 +3112,28 @@ def ladder_kernels_vs_plain(dev, params, corpus, int32_ops_per_s: float, gen) ->
                              lambda: verify.partials_identity_plain(parts),
                              lk.partials_work(len(bounds))))
         out["ladder_partials_identity"].append(row)
+    # k random totals, valid and with one replaced, from k = 1 (the identity
+    # test alone) to 92 (past the kernel's 32 quads)
+    np_rng = np.random.default_rng(SEED + 19)
+    for k in PARTIALS_KS:
+        for case in ("valid", "tampered"):
+            parts = curve.points_to_device(random_totals(np_rng, k, case == "valid"), dev)
+            ok = bool(lk.ladder_partials_identity(parts))
+            ref = bool(verify.partials_identity_plain(parts))
+            if ok is not ref or ref is not (case == "valid"):
+                raise AssertionError(f"ladder_partials_identity k={k} {case}: {ok}, plain {ref}")
+            row = {"k": k, "case": f"random totals, {case}", "max_abs_err": 0, "verdict": ok}
+            if case == "valid" and k in PARTIALS_TIMED_KS:
+                row.update(timed(lambda p=parts: lk.ladder_partials_identity(p),
+                                 lambda p=parts: verify.partials_identity_plain(p),
+                                 lk.partials_work(k)))
+            out["ladder_partials_identity"].append(row)
+    floor = launch_floor(dev)
+    for row in out["ladder_partials_identity"]:
+        if "ms" in row:
+            # its chain floor: the 16,384-row check's k = 2, one quad add
+            row["chain_floor_ms"] = out["ladder_partials_identity"][0]["ms"]
+            row.update(floor)
     # the chain floors: one lane (one quad; two for a per-row lane), each
     # checked first: the one-lane total against the plain one, the per-row
     # bit valid and with the response off by one
@@ -5916,9 +6002,11 @@ def main() -> int:
             "shape": {k: main_row[k] for k in ("n", "rows", "k", "lanes", "case")
                       if k in main_row},
             "timed": [{k: r[k] for k in ("n", "k", "case", "ms", "ms_runs", "plain_ms",
-                                         "bound_ms", "bound_by", "chain_floor_ms") if k in r}
+                                         "bound_ms", "bound_by", "chain_floor_ms",
+                                         "launch_floor_ms") if k in r}
                       for r in timed],
             "chain_floor_ms": main_row.get("chain_floor_ms"),
+            "launch_floor_ms": main_row.get("launch_floor_ms"),
             "registers": per_kernel[name].get("registers"),
             "spill_bytes": per_kernel[name].get("spill_store_bytes"),
             "launches_per_4096_verify": serving["valid_launches"][name],
@@ -5961,8 +6049,10 @@ def main() -> int:
             "library_ms": None,
             "shape": {k: main_row[k] for k in ("n", "lanes", "terms", "m", "chunk", "c")
                       if k in main_row},
-            "timed": [{k: r[k] for k in ("n", "m", "case", "c", "ms", "plain_ms", "bound_ms",
-                                         "bound_by") if k in r} for r in timed],
+            "timed": [{k: r[k] for k in ("n", "m", "case", "c", "ms", "ms_runs", "plain_ms",
+                                         "bound_ms", "bound_by", "profiler_ms",
+                                         "chain_floor_ms", "launch_floor_ms") if k in r}
+                      for r in timed],
             "registers": per_kernel[name].get("registers"),
             "spill_bytes": per_kernel[name].get("spill_store_bytes"),
             "launches_in_pippenger": pip["launches"][name],
@@ -5971,6 +6061,9 @@ def main() -> int:
             "launches_in_daemon_all_valid_batch":
                 served["pippenger"]["all_valid_batch"]["launches"][name],
         })
+        if name == "rlc_scalars":
+            kernels[-1].update({k: main_row[k] for k in (
+                "ms_runs", "timed_by", "profiler_ms", "chain_floor_ms", "launch_floor_ms")})
         if name in MSM_GLOBALS:
             one = next(r for r in timed if r["case"] == "one_bucket")
             kernels[-1].update({

@@ -3,8 +3,8 @@ of their sources, in one run on one card; then the scalar and MSM kernels
 against their plain versions.
 
     python -m cpzk_tpu_torch.bench_kernels [--ns 1,6144,16384] [--reps 50]
-        [--rounds 4] [--sass] [--no-pippenger] [--ladder | --prove]
-        [NAME=CSRC_DIR ...]
+        [--rounds 4] [--sass] [--no-pippenger] [--ladder | --prove | --small]
+        [--ks 1,2,8,92] [NAME=CSRC_DIR ...]
 
 Each ``NAME=CSRC_DIR`` names a directory holding a ``point_ops.cu`` with the
 C launch interface of ``cpzk_tpu_torch/csrc/point_ops.cu``, for example an
@@ -67,6 +67,23 @@ canonicalization), then timed in turns by :func:`event_ms`, ``reps``
 launches held behind a spin kernel.  With ``--sass``, each kernel's static
 SASS count; registers and spills from ``-Xptxas -v``.  One JSON line, then
 the ``nvidia-smi`` line.
+
+With ``--small``, instead, the A/B of the two small kernels of the verify
+path of each build: ``ladder_partials_identity`` over k random totals for
+each k of ``--ks`` (pairs P, -P of random points in scaled coordinates,
+the identity for odd k) and ``rlc_scalars`` on each of ``--ns`` rows
+(random scalars with 0, 1 and l - 1; its ticket zeroed by a fill launch
+a call, as the parent's wrapper zeroes it, and for a build whose kernel
+leaves its ticket zeroed also without it, ``rlc_scalars_kept_ticket``, as
+this package's wrapper calls it), each build first checked (the partials'
+verdict equal to the plain version's, valid and with one total replaced;
+the scalars equal to ``rlc_scalars_plain``'s, ``torch.equal``), then
+timed in turns by :func:`event_ms`, ``reps`` calls held behind a spin
+kernel; beside them an empty kernel's time (``launch_floor``, from the
+builds that have ``cpzk_launch_floor``).  ``ladder_partials_identity/2``
+is the partials' chain floor (one add), ``rlc_scalars/1`` the scalars'
+(one row).  With ``--sass``, each kernel's static SASS count.  One JSON
+line, then the ``nvidia-smi`` line.
 """
 
 from __future__ import annotations
@@ -570,6 +587,145 @@ def prove_ab(dev: torch.device, specs, ns, reps: int, rounds: int, sass: bool) -
                        "every n; its tables equal to the plain tables in its layout"}
 
 
+SMALL_KERNELS = ("ladder_partials_identity", "rlc_scalars")
+
+
+def random_totals(rng: np.random.Generator, k: int, valid: bool) -> list[tuple]:
+    """k host points (x, y, z, t) summing to the identity: pairs P, -P of
+    random points and, for odd k, the identity, in random order; not
+    ``valid``: one replaced by another random point.  Each point's
+    coordinates are scaled by a random factor (projective, not Z = 1).  The
+    inputs of ``ladder_partials_identity`` here, in ``chip_smoke.py`` and in
+    the tests."""
+    from .core import edwards
+    from .core.scalars import L
+
+    def scalar() -> int:
+        return int.from_bytes(rng.bytes(64), "little") % L
+
+    pts = []
+    for _ in range(k // 2):
+        p = edwards.pt_scalar_mul(edwards.BASEPOINT, scalar())
+        pts += [p, ((-p[0]) % edwards.P, p[1], p[2], (-p[3]) % edwards.P)]
+    pts += [edwards.IDENTITY] * (k % 2)
+    pts = [pts[i] for i in rng.permutation(k)]
+    if not valid:
+        pts[int(rng.integers(k))] = edwards.pt_scalar_mul(edwards.BASEPOINT, scalar())
+    scaled = []
+    for p in pts:
+        f = scalar() % (edwards.P - 1) + 1
+        scaled.append(tuple(c * f % edwards.P for c in p))
+    return scaled
+
+
+def rlc_case(rng: np.random.Generator, case: str, n: int) -> list[list[int]]:
+    """a, c, s (n scalars each) and [beta] of an ``rlc_scalars`` case:
+    ``"random"`` below l with 0, 1 and l - 1 among the first rows,
+    ``"l_minus_1"`` every scalar l - 1, ``"ninth_word"`` a = l - 1 and s =
+    1 in every row, so that the rows' a s sum to n (l - 1): past 2^256 (the
+    kernel's unreduced sum's ninth word) from 14 rows on."""
+    from .core.scalars import L
+
+    def scalars(count: int) -> list[int]:
+        return [int.from_bytes(rng.bytes(64), "little") % L for _ in range(count)]
+
+    if case == "l_minus_1":
+        return [[L - 1] * n for _ in range(3)] + [[L - 1]]
+    if case == "ninth_word":
+        return [[L - 1] * n, scalars(n), [1] * n, scalars(1)]
+    cols = [scalars(n) for _ in range(3)]
+    edges = [0, 1, L - 1]
+    for k, v in enumerate(cols):
+        v[:min(n, 3)] = (edges[k:] + edges[:k])[:min(n, 3)]
+    return cols + [scalars(1)]
+
+
+def small_ab(dev: torch.device, specs, ns, ks, reps: int, rounds: int, sass: bool) -> dict:
+    """The ``--small`` A/B (see the module docstring)."""
+    from .ops import curve, ladder_kernels as lk, scalar_kernels as sk, sclimbs as sc, verify
+
+    rng = np.random.default_rng(19)
+    totals = {(k, valid): curve.points_to_device(random_totals(rng, k, valid), dev)
+              for k in ks for valid in (True, False)}
+    scalars = {n: tuple(torch.from_numpy(sc.ints_to_limbs(v)).to(dev)
+                        for v in rlc_case(rng, "random", n)) for n in ns}
+    refs = {n: sk.rlc_scalars_plain(*args) for n, args in scalars.items()}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    builds = {}
+    for name, csrc in specs:
+        path, report = pk.build(Path(csrc))
+        lib = pk.load(path)
+        launchers = {}
+        for (k, valid), parts in totals.items():
+            keep, ptrs, lds, _ = lk._points("ladder_partials_identity", (parts,), k, dev)
+            ok = torch.empty((), dtype=torch.bool, device=dev)
+
+            def partials(lib=lib, ptrs=ptrs, lds=lds, ok=ok, k=k):
+                rc = lib.cpzk_ladder_partials_identity(ptrs, lds, ok.data_ptr(), k, stream)
+                if rc:
+                    raise RuntimeError(f"ladder_partials_identity launch failed: CUDA error {rc}")
+
+            partials()
+            torch.cuda.synchronize()
+            if bool(ok) is not valid or bool(verify.partials_identity_plain(parts)) is not valid:
+                raise AssertionError(f"{name} ladder_partials_identity k={k} valid={valid}: "
+                                     f"{bool(ok)}")
+            if valid:
+                launchers[("ladder_partials_identity", k)] = (partials, keep)
+        for n, args in scalars.items():
+            out = [torch.empty((20, n), dtype=torch.int32, device=dev) for _ in range(3)]
+            corr = [torch.empty((20, 1), dtype=torch.int32, device=dev) for _ in range(2)]
+            # 9 words a block: this design's partials (the parent's take 8)
+            part = torch.empty((lib.cpzk_rlc_scalars_blocks(n), 9), dtype=torch.int32, device=dev)
+            ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+            ptrs = [t.data_ptr() for t in args[:4]] + [t.data_ptr() for t in out] + [
+                part.data_ptr(), ticket.data_ptr()] + [t.data_ptr() for t in corr]
+
+            def rlc(lib=lib, ptrs=ptrs, ticket=ticket, n=n, zero=True):
+                if zero:
+                    ticket.zero_()
+                rc = lib.cpzk_rlc_scalars(*ptrs, n, stream)
+                if rc:
+                    raise RuntimeError(f"rlc_scalars launch failed: CUDA error {rc}")
+
+            rlc()
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, r) for g, r in zip(out + corr, refs[n])):
+                raise AssertionError(f"{name} rlc_scalars n={n}: differs from plain")
+            launchers[("rlc_scalars", n)] = (rlc, (out, corr, part, ticket))
+            if n > 1 and int(ticket.item()) == 0:
+                # a build whose kernel leaves its ticket zeroed: also the
+                # call as its wrapper makes it, without the fill launch
+                launchers[("rlc_scalars_kept_ticket", n)] = (
+                    lambda rlc=rlc: rlc(zero=False), None)
+        if hasattr(lib, "cpzk_launch_floor"):
+            def empty(lib=lib):
+                rc = lib.cpzk_launch_floor(stream)
+                if rc:
+                    raise RuntimeError(f"cpzk_launch_floor failed: CUDA error {rc}")
+
+            launchers[("launch_floor", 0)] = (empty, None)
+        builds[name] = {"launchers": launchers, "csrc": csrc,
+                        "ptxas": {k: v for k, v in pk.ptxas_report(report).items()
+                                  if k in SMALL_KERNELS},
+                        "sass": sass_counts(path, SMALL_KERNELS) if sass else None,
+                        "ms": {f"{k}/{n}": [] for k, n in launchers}}
+    order = list(builds)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            b = builds[name]
+            for (k, n), (launch, _) in b["launchers"].items():
+                b["ms"][f"{k}/{n}"].append(event_ms(launch, reps, hold=True))
+    return {"small_ab": {name: {key: b[key] for key in ("csrc", "ptxas", "sass")}
+                         | {"reps": reps, "rounds": rounds,
+                            "timed_by": "event_ms, calls held behind a spin kernel",
+                            "ms_per_launch": {key: {"median": statistics.median(v), "runs": v}
+                                              for key, v in b["ms"].items()}}
+                         for name, b in builds.items()},
+            "checked": "each build's partials verdicts (valid and tampered) and "
+                       "rlc_scalars outputs equal to the plain versions'"}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ns", default="1,6144,16384")
@@ -579,6 +735,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--no-pippenger", action="store_true")
     ap.add_argument("--ladder", action="store_true")
     ap.add_argument("--prove", action="store_true")
+    ap.add_argument("--small", action="store_true")
+    ap.add_argument("--ks", default="1,2,8,92")
     ap.add_argument("builds", nargs="*", metavar="NAME=CSRC_DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -589,6 +747,12 @@ def main(argv: list[str] | None = None) -> int:
     specs = [b.split("=", 1) for b in args.builds] or [["this", str(pk.CSRC)]]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
+    if args.small:
+        ks = [int(x) for x in args.ks.split(",")]
+        print(json.dumps(small_ab(dev, specs, ns, ks, args.reps, args.rounds, args.sass)),
+              flush=True)
+        print(smi.stdout.strip().splitlines()[0], flush=True)
+        return 0
     if args.ladder or args.prove:
         ab = ladder_ab if args.ladder else prove_ab
         print(json.dumps(ab(dev, specs, ns, args.reps, args.rounds, args.sass)), flush=True)

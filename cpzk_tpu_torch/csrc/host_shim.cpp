@@ -3,8 +3,8 @@
 // a C interface over limb-major [20, n] int32 arrays, looping over lanes on
 // the CPU, so the tests can hold the kernels' field, point and scalar
 // arithmetic, the Pippenger thread bodies, ristretto encode and decode, the prover's
-// comb and walk bodies, the Keccak chain and the per-row ladders' bodies
-// against the plain PyTorch versions with a host C++ compiler:
+// comb and walk bodies, the Keccak chain, the per-row ladders' bodies and
+// rlc_scalars' against the plain PyTorch versions with a host C++ compiler:
 //
 //   g++ -std=c++17 -O2 -shared -fPIC host_shim.cpp -o libfe25519_host.so
 //
@@ -14,6 +14,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <array>
 #include <utility>
 #include <vector>
 
@@ -70,6 +71,38 @@ cpzk::LadderPt ladder_pt(const int32_t* const* c, int k, int n, int step) {
   }
   p.step = step;
   return p;
+}
+
+// A 9-word sum of rlc_scalars (sc25519_w32.cuh's RLC_SUM_WORDS).
+using Sum9 = std::array<uint32_t, cpzk::RLC_SUM_WORDS>;
+
+// A warp's shuffle levels of half from / 2 .. 1 as __shfl_down_sync gives
+// them to rlc_scalars_kernel's warp_sum9 (lane i reads lane i + off, its
+// own value past the warp), each lane's sc9_add.
+void warp_sum9(Sum9* x, int from) {
+  for (int off = from / 2; off >= 1; off >>= 1) {
+    Sum9 y[32];
+    for (int i = 0; i < 32; ++i) y[i] = x[i + off < 32 ? i + off : i];
+    for (int i = 0; i < 32; ++i) cpzk::sc9_add(x[i].data(), y[i].data());
+  }
+}
+
+// rlc_scalars_kernel's block_sum9 over a block's `threads` values (whole
+// warps): thread 0's sum.
+Sum9 block_sum9(std::vector<Sum9>& x, int threads) {
+  const int warps = threads / 32;
+  for (int w = 0; w < warps; ++w) warp_sum9(&x[32L * w], 32);
+  if (warps == 1) return x[0];
+  Sum9 lanes[32];
+  for (int l = 0; l < 32; ++l) {
+    if (l < warps) {
+      lanes[l] = x[32L * l];
+    } else {
+      lanes[l].fill(0);
+    }
+  }
+  warp_sum9(lanes, warps);
+  return lanes[0];
 }
 
 // Window operand t of [nt, 64, n] windows.
@@ -329,6 +362,41 @@ void host_sc_signed_digits(const int32_t* a, int c, int nwin, int32_t* out, int 
     load_sc(x, a, n, j);
     cpzk::sc_signed_digits(out + j, n, x, c, nwin);
   }
+}
+
+// rlc_scalars_kernel over every block of `threads` threads (whole warps;
+// 0: the kernel's RLC_THREADS), two a row, then its last block, in its
+// order: [20, n] a, c, s and [20, 1] beta -> [20, n] a c, b a, b a c and
+// [20, 1] -S, -b S (S = sum a s mod l).
+void host_rlc_scalars(const int32_t* a, const int32_t* c, const int32_t* s, const int32_t* bl,
+                      int32_t* ac, int32_t* ba, int32_t* bac, int32_t* corr0, int32_t* corr1,
+                      int n, int threads) {
+  if (threads == 0) threads = cpzk::RLC_THREADS;
+  const cpzk::RlcRows rows{a, c, s, ac, ba, bac, n};
+  Sc b;
+  cpzk::sc_load(b, bl, 1, 0);
+  const long blocks = (2L * n + threads - 1) / threads;
+  std::vector<Sum9> partials(blocks), x(threads);
+  for (long blk = 0; blk < blocks; ++blk) {
+    for (int tid = 0; tid < threads; ++tid) {
+      const long t = blk * threads + tid, j = t >> 1;
+      if (j < n) {
+        cpzk::rlc_row(x[tid].data(), rows, b, j, (int)(t & 1));
+      } else {
+        x[tid].fill(0);
+      }
+    }
+    partials[blk] = block_sum9(x, threads);
+  }
+  Sum9 total = partials[0];
+  if (blocks > 1) {
+    for (int tid = 0; tid < threads; ++tid) {
+      x[tid].fill(0);
+      for (long k = tid; k < blocks; k += threads) cpzk::sc9_add(x[tid].data(), partials[k].data());
+    }
+    total = block_sum9(x, threads);
+  }
+  cpzk::rlc_finish(corr0, corr1, total.data(), b);
 }
 
 // msm_bucket's two kernels over every block, thread and phase, in their
@@ -664,19 +732,33 @@ void host_ladder_combined(const int32_t* const* pts, const int32_t* w, int32_t* 
   }
 }
 
-// ladder_partials_identity_kernel's block of `threads` threads over k
-// totals ([20, k] x 4 in pts) -> ok.
-void host_ladder_partials_identity(const int32_t* const* pts, uint8_t* ok, int k, int threads) {
-  std::vector<uint32_t> s((long)threads * PT_WORDS);
-  std::vector<Fe> acc((long)threads * 4);
+// ladder_partials_identity_kernel's block over k totals ([20, k] x 4 in
+// pts) -> ok: every quad's columns, the levels across warps in shared
+// memory, then warp 0's levels with each quad's partner as the shuffle
+// gives it (its own point past the warp), in the kernel's order.
+void host_ladder_partials_identity(const int32_t* const* pts, uint8_t* ok, int k) {
+  const int nq = cpzk::ladder_partials_quads(k);
+  const int quads = cpzk::ladder_partials_threads(k) / 4, warp = cpzk::LADDER_WARP_QUADS;
+  std::vector<uint32_t> s((long)quads * PT_WORDS);
+  std::vector<Fe> acc((long)quads * 4);
   const cpzk::LadderPt pt = ladder_pt(pts, 0, k, 1);
-  for (int tid = 0; tid < threads; ++tid) {
-    cpzk::ladder_limbs_sum(&acc[(long)tid * 4], pt, k, tid, threads);
-    cpzk::pt_store_words(s.data() + (long)tid * PT_WORDS, &acc[(long)tid * 4]);
+  for (int q = 0; q < quads; ++q)
+    cpzk::ladder_partials_load(&acc[(long)q * 4], pt, k, q, nq, kQuad);
+  int h = cpzk::msm_tree_top(nq) >> 1;
+  if (h >= warp) {
+    for (int q = 0; q < quads; ++q)
+      cpzk::pt_store_words(s.data() + (long)q * PT_WORDS, &acc[(long)q * 4]);
+    for (; h >= warp; h >>= 1) {
+      for (int q = 0; q < quads; ++q)
+        cpzk::msm_tree_level(&acc[(long)q * 4], s.data(), q, h, nq, kQuad);
+    }
   }
-  for (int h = threads >> 1; h >= 1; h >>= 1) {
-    for (int tid = 0; tid < threads; ++tid)
-      cpzk::ladder_tree_level(&acc[(long)tid * 4], s.data(), tid, h, threads);
+  for (; h >= 1; h >>= 1) {
+    for (int q = 0; q < warp; ++q) {
+      Fe y[4];
+      cpzk::pt_copy(y, &acc[(long)(q + h < warp ? q + h : q) * 4]);
+      cpzk::ladder_partials_level(&acc[(long)q * 4], y, q, h, nq, kQuad);
+    }
   }
   *ok = (uint8_t)cpzk::ladder_is_identity(&acc[0]);
 }

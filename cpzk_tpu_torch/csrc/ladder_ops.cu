@@ -57,6 +57,10 @@
 // lane than one thread's would.  The step's rounds and terms stay loops, so
 // its code stays in the instruction cache.  The tables' traffic (about 40
 // KB a lane through L2) is under the operations bound.
+// ladder_partials_identity reads 320 bytes a total and needs k - 1 adds:
+// at the main path's k = 2 (a 16,384-row check) its bound is a fraction of
+// a nanosecond, and its floor is the launch and the ceil(log2 k) dependent
+// quad adds of its tree.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,7 +81,8 @@ using cpzk::PT_WORDS;
 // long at that width on an H100, the same at the main path's (PERF.md,
 // section 6).
 constexpr int kThreads = 32;
-constexpr int kPartialsThreads = 32;
+// ladder_partials_identity: a quad a total, up to 32 quads
+constexpr int kPartialsThreads = 4 * cpzk::LADDER_PARTIALS_QUADS;
 // lanes a call at most (eight threads a lane stay within an int)
 constexpr int kMaxLanes = 1 << 27;
 
@@ -156,18 +161,36 @@ ladder_combined_kernel(CombinedArgs a, int n) {
   if (tid == 0) cpzk::ladder_finish(a.out, a.out_ld, a.ok, acc);
 }
 
+// One block of whole warps, a quad a total up to LADDER_PARTIALS_QUADS
+// (ladder_w32.cuh): a quad a column, the levels that cross warps in shared
+// memory, the last three in warp 0 by shuffles, the identity test where
+// the total ends (quad 0).
 __global__ void __launch_bounds__(kPartialsThreads)
 ladder_partials_identity_kernel(LadderPt parts, int k, uint8_t* ok) {
-  __shared__ uint4 s_vec[kPartialsThreads * PT_WORDS / 4];
+  __shared__ uint4 s_vec[cpzk::LADDER_PARTIALS_QUADS * PT_WORDS / 4];
   uint32_t* s = reinterpret_cast<uint32_t*>(s_vec);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, q = tid >> 2, nq = cpzk::ladder_partials_quads(k);
+  const cpzk::Quad qd = cpzk::quad_of_thread(tid);
   Fe acc[4];
-  cpzk::ladder_limbs_sum(acc, parts, k, tid, kPartialsThreads);
-  cpzk::pt_store_words(s + tid * PT_WORDS, acc);
-  __syncthreads();
-  for (int h = kPartialsThreads >> 1; h >= 1; h >>= 1) {
-    cpzk::ladder_tree_level(acc, s, tid, h, kPartialsThreads);
+  cpzk::ladder_partials_load(acc, parts, k, q, nq, qd);
+  int h = cpzk::msm_tree_top(nq) >> 1;
+  if (h >= cpzk::LADDER_WARP_QUADS) {
+    if (qd.r == 0) cpzk::pt_store_words(s + q * PT_WORDS, acc);
     __syncthreads();
+    for (; h >= cpzk::LADDER_WARP_QUADS; h >>= 1) {
+      cpzk::msm_tree_level(acc, s, q, h, nq, qd);
+      __syncthreads();
+    }
+  }
+  if (tid >= 32) return;
+  for (; h >= 1; h >>= 1) {
+    Fe y[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int w = 0; w < cpzk::NW; ++w) y[c].w[w] = __shfl_down_sync(~0u, acc[c].w[w], 4 * h);
+    }
+    cpzk::ladder_partials_level(acc, y, q, h, nq, qd);
   }
   if (tid == 0) *ok = (uint8_t)cpzk::ladder_is_identity(acc);
 }
@@ -279,7 +302,8 @@ extern "C" int cpzk_ladder_combined(const void* const* ptrs, const long long* ld
 extern "C" int cpzk_ladder_partials_identity(const void* const* ptrs, const long long* lds,
                                              void* ok, int k, void* stream) {
   if (k < 1) return (int)cudaErrorInvalidValue;
-  ladder_partials_identity_kernel<<<1, kPartialsThreads, 0, (cudaStream_t)stream>>>(
+  ladder_partials_identity_kernel<<<1, cpzk::ladder_partials_threads(k), 0,
+                                    (cudaStream_t)stream>>>(
       point_operand(ptrs, lds, 1), k, (uint8_t*)ok);
   return (int)cudaGetLastError();
 }

@@ -322,26 +322,54 @@ FE_FN void ladder_group_load(Fe x[4], const uint32_t* level, long base, int size
 #endif
 }
 
-// One level (half h) of a block's tree sum of n points in s (32 words
-// each), one thread a point (ladder_partials_identity), thread i: x +=
-// s[i + h] for i < h and i + h < n, into s[i] (x holds s[i]).
-FE_FN void ladder_tree_level(Fe x[4], uint32_t* s, int i, int h, int n) {
-  if (i >= h || i + h >= n) return;
-  Fe q[4];
-  pt_load_words(q, s + (long)(i + h) * PT_WORDS);
-  pt_add_into(x, q);
-  pt_store_words(s + (long)i * PT_WORDS, x);
+// ladder_partials_identity: the sum of k chunk totals ([20, k] limbs) on
+// quads of threads, nq = min(k, LADDER_PARTIALS_QUADS) of them.  Quad q
+// starts from column q as it is loaded (no add with the identity) and adds
+// columns q + nq, q + 2 nq, ... in turn; then a tree over the nq quads'
+// points runs only the ceil(log2 nq) levels nq needs, levels whose partner
+// lies in another warp through the block's shared memory (msm_tree_level),
+// the last three (partners within warp 0) by warp shuffles with no
+// barrier.  k = 1 is the identity test alone, k = 2 one quad add.
+constexpr int LADDER_PARTIALS_QUADS = 32;
+constexpr int LADDER_WARP_QUADS = 8;
+
+// The quads that hold a point for k totals, and the block's threads (whole
+// warps).
+FE_FN int ladder_partials_quads(int k) {
+  return k < LADDER_PARTIALS_QUADS ? k : LADDER_PARTIALS_QUADS;
 }
 
-// Thread t of nt: the sum of the points at columns t, t + nt, ... of the k
-// columns of pt ([20, k] limbs) into x.
-LADDER_FN void ladder_limbs_sum(Fe x[4], const LadderPt& pt, int k, int t, int nt) {
-  pt_identity(x);
-  for (int i = t; i < k; i += nt) {
-    Fe q[4];
-    ladder_load(q, pt, i);
-    pt_add_into(x, q);
+FE_FN int ladder_partials_threads(int k) { return (4 * ladder_partials_quads(k) + 31) / 32 * 32; }
+
+// Quad q of nq: columns q, q + nq, ... of the k columns of pt summed into
+// x, the first as loaded, each next column loaded while the add before it
+// runs; the identity for an idle quad (q >= nq: the rest of the block's
+// last warp).
+LADDER_FN void ladder_partials_load(Fe x[4], const LadderPt& pt, int k, int q, int nq,
+                                    Quad qd) {
+  if (q >= nq) {
+    pt_identity(x);
+    return;
   }
+  ladder_load(x, pt, q);
+  if (q + nq >= k) return;
+  Fe y[4];
+  ladder_load(y, pt, q + nq);
+  for (int i = q + 2 * nq;; i += nq) {
+    Fe z[4];
+    const bool more = i < k;
+    if (more) ladder_load(z, pt, i);
+    quad_add_into(x, y, qd);
+    if (!more) break;
+    pt_copy(y, z);
+  }
+}
+
+// A level (half h < LADDER_WARP_QUADS) of the tree within warp 0: quad i
+// adds y, quad i + h's point (a shuffle of the lane 4 h above), for i < h
+// and i + h < nq.
+MSM_FN void ladder_partials_level(Fe x[4], const Fe y[4], int i, int h, int nq, Quad qd) {
+  if (i < h && i + h < nq) quad_add_into(x, y, qd);
 }
 
 // The chunk's total: its limbs into out (column 0 of [20, *] with row

@@ -242,4 +242,98 @@ FE_FN void sc_signed_digits(int32_t* out, long stride, const Sc& a, int c, int n
   }
 }
 
+// ---------------------------------------------------------------------------
+// rlc_scalars (scalar_ops.cu): the bodies its threads run
+// ---------------------------------------------------------------------------
+
+// The sum of a s over the rows is kept as a plain integer in 9 words, with
+// carries and no reduction mod l (the rows' a s mod l are below 2^253, so
+// up to 2^27 rows sum below 2^280), and reduced once, at the end: exact
+// in any order, so the result is that of the sum mod l.
+constexpr int RLC_SUM_WORDS = NW + 1;
+// threads a block (two a row: rlc_row)
+constexpr int RLC_THREADS = 128;
+
+// The operands of one call: [20, n] canonical limbs a, c, s in and a c,
+// b a, b a c out, limb i of row j at i n + j.
+struct RlcRows {
+  const int32_t* a;
+  const int32_t* c;
+  const int32_t* s;
+  int32_t* ac;
+  int32_t* ba;
+  int32_t* bac;
+  long n;
+};
+
+// Limbs of row j (limb i at i stride + j) <-> a scalar.
+FE_FN void sc_load(Sc& out, const int32_t* src, long stride, long j) {
+  int32_t l[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) l[i] = src[(long)i * stride + j];
+  sc_from_limbs(out, l);
+}
+
+FE_FN void sc_store(int32_t* dst, const Sc& v, long stride, long j) {
+  int32_t l[NL];
+  sc_to_limbs(l, v);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) dst[(long)i * stride + j] = l[i];
+}
+
+FE_FN void sc9_zero(uint32_t x[RLC_SUM_WORDS]) {
+#pragma unroll
+  for (int i = 0; i < RLC_SUM_WORDS; ++i) x[i] = 0;
+}
+
+// x += y, carries only (the sums stay far below 2^288).
+FE_FN void sc9_add(uint32_t x[RLC_SUM_WORDS], const uint32_t y[RLC_SUM_WORDS]) {
+  uint64_t t = 0;
+#pragma unroll
+  for (int i = 0; i < RLC_SUM_WORDS; ++i) {
+    t = (uint64_t)x[i] + y[i] + (t >> 32);
+    x[i] = (uint32_t)t;
+  }
+}
+
+// Row j < rows.n as thread `part` (0 or 1) of its two: part 0 a c (into
+// rows.ac) and b (a c) (into rows.bac), part 1 a s (into as, its term of
+// the sum) and b a (into rows.ba), so a row's chain is two products.  Both
+// parts run the same two products on operands picked by the part, so the
+// two threads of a row do not diverge; as is 0 for part 0.
+FE_FN void rlc_row(uint32_t as[RLC_SUM_WORDS], const RlcRows& rows, const Sc& b, long j,
+                   int part) {
+  Sc a, y, t, v, u;
+  sc_load(a, rows.a, rows.n, j);
+  sc_load(y, part ? rows.s : rows.c, rows.n, j);
+  sc_mul(t, a, y);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) v.w[i] = part ? a.w[i] : t.w[i];
+  sc_mul(u, b, v);
+  sc_store(part ? rows.ba : rows.bac, u, rows.n, j);
+  sc9_zero(as);
+  if (part) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) as[i] = t.w[i];
+  } else {
+    sc_store(rows.ac, t, rows.n, j);
+  }
+}
+
+// The last step: S = total mod l (the 9-word sum of every row's a s), then
+// corr0 = -S and corr1 = -b S into [20, 1] limbs.
+FE_FN void rlc_finish(int32_t* corr0, int32_t* corr1, const uint32_t total[RLC_SUM_WORDS],
+                      const Sc& b) {
+  uint32_t w[2 * NW];
+#pragma unroll
+  for (int i = 0; i < 2 * NW; ++i) w[i] = i < RLC_SUM_WORDS ? total[i] : 0u;
+  Sc sum, r;
+  sc_reduce_wide(sum, w);
+  sc_neg(r, sum);
+  sc_store(corr0, r, 1, 0);
+  sc_mul(r, b, sum);
+  sc_neg(r, r);
+  sc_store(corr1, r, 1, 0);
+}
+
 }  // namespace cpzk

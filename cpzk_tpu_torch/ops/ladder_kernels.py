@@ -33,7 +33,10 @@ thread its own coordinate, 32 bytes) while the step before runs.
 block's shared memory, then the blocks' sums in groups, the last block of a
 group to finish summing it, until one holds the total) and returns the
 chunk's total and whether it is the identity; ``ladder_partials_identity``
-sums k chunk totals and tests the identity; ``ladder_each`` runs a lane's
+sums k chunk totals on quads of threads, a quad a total (up to 32), by a
+tree of only the ``ceil(log2 k)`` levels k needs (no add with the
+identity; a warp's levels by shuffles, without a barrier), and tests the
+identity; ``ladder_each`` runs a lane's
 two equations on two quads at once and returns a bit a lane, with shared
 generators' tables built once a block in shared memory.  Operands keep
 the JAX layout (``[20, n]`` int32 limbs, ``[64, n]`` windows, most

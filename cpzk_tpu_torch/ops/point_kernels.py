@@ -361,6 +361,7 @@ ENTRY_POINTS = {
     "cpzk_block_threads": [_I],
     "cpzk_rlc_scalars": [_P] * 11 + [_I, _P],
     "cpzk_rlc_scalars_blocks": [_I],
+    "cpzk_launch_floor": [_P],
     "cpzk_scalar_recode": [_P] * 6 + [_I] * 6 + [_P] * 2,
     "cpzk_msm_bucket": [_P] * 10 + [_I] * 3 + [_P],
     "cpzk_msm_bucket_scratch": [_I] * 3,

@@ -25,11 +25,15 @@ C launch interface), built into the package's kernel library by
 
 The wrappers take and return the reference's tensors: ``[20, pad]`` int32
 canonical limbs in, int32 limbs, windows or digits out; so kernel and plain
-version compare with ``torch.equal``.  Design: one thread per row or lane.
-``rlc_scalars`` runs four Barrett products per row and reduces
-``sum(a s) mod l`` over the grid in the same launch (per-block partials,
-then the last block by an atomic ticket); addition mod l is exact in any
-order.  ``scalar_recode`` reads a lane's scalar (or the correction, at the
+version compare with ``torch.equal``.  Design: one thread per lane;
+``rlc_scalars`` two threads a row, each two of the row's four Barrett
+products (operands picked by the thread's part, so a warp does not
+diverge), and ``sum(a s)`` over the grid in the same launch as a plain
+9-word integer (warp shuffles, one pass over a block's warps, per-block
+partials, then the last block by an atomic ticket, which it leaves zeroed,
+so the wrapper keeps one a stream), reduced mod l once at the end: exact
+in any order, the plain version's result bit for bit.
+``scalar_recode`` reads a lane's scalar (or the correction, at the
 reference's place) and writes its 64 windows or nwin digits.  What bounds
 them on an H100: :func:`rlc_scalars_work` and :func:`scalar_recode_work`
 count the bytes and int32 operations; ``PERF.md`` holds the measured times.
@@ -41,6 +45,8 @@ version.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -63,10 +69,13 @@ SC_MUL_OPS = (64 * 2 + 8) + (81 * 2 + 9) + (44 * 2 + 1) + 9 + 2 * (9 + 9)
 #: one Barrett reduction of a 16-word value (the product's ops of
 #: :data:`SC_MUL_OPS` less the 64 word products and their 8 carries)
 SC_REDUCE_OPS = SC_MUL_OPS - (64 * 2 + 8)
-#: an 8-word add, a 9-word compare and a 9-word subtract
-SC_ADD_OPS = 8 + 9 + 9
+#: words of ``rlc_scalars``' sum and of each block's partial: the rows'
+#: ``a s mod l`` summed as plain integers (below 2^280 for up to 2^27 rows)
+RLC_SUM_WORDS = 9
 #: a row of ``rlc_scalars``: a c, b a, b a c and a s, and a s into the sum
-RLC_OPS_PER_ROW = 4 * SC_MUL_OPS + SC_ADD_OPS
+#: (a 9-word add with carries: the sum is reduced once, at the end, so the
+#: adds need no compare or subtraction of l)
+RLC_OPS_PER_ROW = 4 * SC_MUL_OPS + RLC_SUM_WORDS
 
 
 def reset_launches() -> None:
@@ -150,6 +159,22 @@ def _route(name: str, tensors) -> bool:
     return on_card(name, device)
 
 
+#: ``rlc_scalars``' ticket of each (device, stream): zeroed once when made;
+#: every call leaves it zeroed (its last block resets it), and the calls on
+#: one stream run one after another
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+_TICKETS_LOCK = threading.Lock()
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    with _TICKETS_LOCK:
+        ticket = _TICKETS.get(key)
+        if ticket is None:
+            ticket = _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=device)
+    return ticket
+
+
 def rlc_scalars(al, cl, sl, bl):
     """a c, b a, b a c (``[20, pad]``) and -sum(a s), -b sum(a s)
     (``[20, 1]``) mod l from canonical ``[20, pad]`` limbs a, c, s and
@@ -166,9 +191,9 @@ def rlc_scalars(al, cl, sl, bl):
     lib = library()
     with torch.cuda.device(device):
         blocks = lib.cpzk_rlc_scalars_blocks(pad)
-        partials = torch.empty((blocks, 8), dtype=torch.int32, device=device)
-        ticket = torch.zeros((1,), dtype=torch.int32, device=device)
+        partials = torch.empty((blocks, RLC_SUM_WORDS), dtype=torch.int32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
+        ticket = _ticket(device, stream)
         rc = lib.cpzk_rlc_scalars(
             al.data_ptr(), cl.data_ptr(), sl.data_ptr(), bl.data_ptr(),
             *(o.data_ptr() for o in out), partials.data_ptr(), ticket.data_ptr(),

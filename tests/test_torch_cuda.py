@@ -13,7 +13,9 @@ composition over the point kernels): per-row bits and combined verdicts
 exact, chunk totals equal as group elements (``curve.eq``), on valid and
 tampered rows, shared and per-lane generators, ragged widths (lane counts
 that are no multiple of a warp's lanes, one lane, a full chunk) and a check of
-three lane chunks.  Also the launch counters and the block size.  Needs an NVIDIA GPU
+three lane chunks; the partials' sum over 1 to 92 random totals; the
+scalar products at a ragged row count, at every scalar l - 1 and with the
+rows' a s summing past 2^256.  Also the launch counters and the block size.  Needs an NVIDIA GPU
 with nvcc: marked ``cuda`` and skipped elsewhere.  On the machine with the
 card (no JAX there, so without tests/conftest.py):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q``."""
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from cpzk_tpu_torch.bench_kernels import rlc_case
 from cpzk_tpu_torch.core import edwards as he
 from cpzk_tpu_torch.core.scalars import L
 from cpzk_tpu_torch.ops import curve, limbs, msm, msm_kernels as mk, point_kernels as pk
@@ -31,7 +34,8 @@ from cpzk_tpu_torch.ops import scalar_kernels as sk, sclimbs as sc
 from cpzk_tpu_torch.ops import decode_kernels as dk
 from cpzk_tpu_torch.ops import keccak_kernels as kk, prove_kernels as pvk
 from cpzk_tpu_torch.ops import backend, ladder_kernels as lk, verify
-from torch_ladder_inputs import combined_inputs, each_inputs, make_rows, tile, weights
+from torch_ladder_inputs import (combined_inputs, each_inputs, make_rows, partial_totals, tile,
+                                 weights)
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +107,21 @@ def test_scalar_kernels_match_plain_on_card(dev, n):
         assert torch.equal(sk.rlc_digits(groups, ref[3], ref[4], n, m, c),
                            sk.rlc_digits_plain(groups, ref[3], ref[4], n, m, c))
     assert sk.LAUNCHES == {"rlc_scalars": 1, "scalar_recode": 4, "reduce_wide": 0}
+
+
+@pytest.mark.parametrize("case,n", [("random", 77), ("l_minus_1", 130), ("ninth_word", 1500),
+                                    ("random", 16384)])
+def test_rlc_scalars_edges_on_card(dev, case, n):
+    """``rlc_scalars`` exact against its plain version: 77 rows (no block
+    divides them), every scalar l - 1, rows whose a s sum past 2^256 (a =
+    l - 1, s = 1), and the 16,384-row check's width."""
+    al, cl, sl, bl = (torch.from_numpy(sc.ints_to_limbs(v)).to(dev)
+                      for v in rlc_case(np.random.default_rng(n), case, n))
+    sk.reset_launches()
+    got = sk.rlc_scalars(al, cl, sl, bl)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["rlc_scalars"] == 1
+    assert all(torch.equal(g, r) for g, r in zip(got, sk.rlc_scalars_plain(al, cl, sl, bl)))
 
 
 def msm_case(dev, m, c, seed, kind="mixed"):
@@ -335,3 +354,18 @@ def test_ladder_chunked_check_on_card(dev, ladder_rows):
         stacked = tuple(torch.cat([p[k] for p in parts], dim=-1) for k in range(4))
         assert bool(verify.partials_identity_plain(stacked)) is want
         assert bool(verify.partials_identity(stacked)) is want
+
+
+@pytest.mark.parametrize("valid", [True, False], ids=["valid", "tampered"])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 92])
+def test_ladder_partials_identity_matches_plain_on_card(dev, k, valid):
+    """One ``ladder_partials_identity`` launch over k random totals (pairs P,
+    -P and the identity for odd k, scaled coordinates; one replaced when
+    tampered): the plain version's verdict and the expected one."""
+    parts = tuple(torch.from_numpy(c).to(dev) for c in partial_totals(300 + k, k, valid))
+    lk.reset_launches()
+    ok = verify.partials_identity(parts)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES == {"ladder_combined": 0, "ladder_partials_identity": 1,
+                           "ladder_each": 0}
+    assert bool(ok) is bool(verify.partials_identity_plain(parts)) is valid

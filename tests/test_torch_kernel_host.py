@@ -46,8 +46,12 @@ adds' formulas on the same values mod p), the identity test against
 bodies (the lane sum of blocks and of the last block, at block sizes that
 leave blocks partly empty and more blocks than threads): chunk totals
 equal as group elements (``curve.eq``), identity tests and per-row bits
-exact, tampered rows and per-lane generators included.  Skips where g++
-is missing."""
+exact, tampered rows and per-lane generators included; ``ladder_partials_identity``
+over 1 to 92 totals.  And ``rlc_scalars``' bodies (``csrc/sc25519_w32.cuh``:
+a row's two halves, the unreduced 9-word sum, the last block's reduction),
+sequenced by ``host_rlc_scalars`` over every block, the warps' shuffle
+levels and the last block, against ``rlc_scalars_plain`` limb for limb.
+Skips where g++ is missing."""
 
 import ctypes
 import random
@@ -58,13 +62,14 @@ import numpy as np
 import pytest
 import torch
 
+from cpzk_tpu_torch.bench_kernels import rlc_case
 from cpzk_tpu_torch.core import edwards as he
 from cpzk_tpu_torch.core.scalars import L
 from cpzk_tpu_torch.ops import curve, limbs, msm, point_kernels as pk, sclimbs as sc
 from cpzk_tpu_torch.ops import decode_kernels as dk
 from cpzk_tpu_torch.ops import keccak, keccak_kernels as kk, prove_kernels as pvk
-from cpzk_tpu_torch.ops import verify
-from torch_ladder_inputs import combined_inputs, each_inputs, make_rows, weights
+from cpzk_tpu_torch.ops import scalar_kernels as sk, verify
+from torch_ladder_inputs import combined_inputs, each_inputs, make_rows, partial_totals, weights
 
 N = 96
 BOUND = limbs.BOUND
@@ -129,7 +134,8 @@ def host_lib(tmp_path_factory):
     lib.host_ladder_steps.argtypes = [P_, P_, P_, I, I, P_, I]
     lib.host_ladder_is_identity.argtypes = [P_, P_, I]
     lib.host_ladder_combined.argtypes = [P_, P_, P_, P_, I, I]
-    lib.host_ladder_partials_identity.argtypes = [P_, P_, I, I]
+    lib.host_ladder_partials_identity.argtypes = [P_, P_, I]
+    lib.host_rlc_scalars.argtypes = [P_] * 9 + [I] * 2
     lib.host_ladder_each.argtypes = [P_, P_, P_, P_, I, I]
     lib.host_quad_add_cached.argtypes = [P_] * 4 + [I]
     for fn in (lib.host_d2, lib.host_to_words, lib.host_fe_op, lib.host_point_add,
@@ -142,7 +148,7 @@ def host_lib(tmp_path_factory):
                lib.host_commitments, lib.host_comb_recode, lib.host_keccak_chain,
                lib.host_ladder_table, lib.host_ladder_steps, lib.host_ladder_is_identity,
                lib.host_ladder_combined,
-               lib.host_ladder_partials_identity, lib.host_ladder_each,
+               lib.host_ladder_partials_identity, lib.host_ladder_each, lib.host_rlc_scalars,
                lib.host_quad_add_cached):
         fn.restype = None
     return lib
@@ -906,27 +912,46 @@ def test_ladder_combined_body_matches_plain(host_lib, tampered, threads):
         assert int(c.min()) >= 0 and int(c.max()) <= limbs.LIMB_MASK
 
 
-@pytest.mark.parametrize("threads", [2, 32])
-def test_ladder_partials_identity_body_matches_plain(host_lib, threads):
-    """ladder_partials_identity_kernel's block over k totals: P, -P, Q, -Q
-    and the identity sum to the identity (in non-canonical coordinates:
-    scaled by random factors), one more point does not; equal to the plain
-    tree-sum and identity test."""
-    rng = random.Random(90)
-    p = he.pt_scalar_mul(he.BASEPOINT, rng.randrange(L))
-    q = he.pt_scalar_mul(he.BASEPOINT, rng.randrange(L))
-    neg = lambda a: ((-a[0]) % he.P, a[1], a[2], (-a[3]) % he.P)  # noqa: E731
-    for pts, want in (([p, neg(p), q, he.IDENTITY, neg(q)], True),
-                      ([p, neg(p), q, he.IDENTITY, neg(q), p], False)):
-        scaled = []
-        for a in pts:
-            f = rng.randrange(1, he.P)
-            scaled.append((a[0] * f % he.P, a[1] * f % he.P, a[2] * f % he.P,
-                           a[3] * f % he.P))
-        parts = curve.points_to_device(scaled, "cpu")
-        ok = torch.empty((1,), dtype=torch.uint8)
-        host_lib.host_ladder_partials_identity(ptr_array(parts), ptr(ok), len(pts), threads)
-        assert bool(ok[0]) is bool(verify.partials_identity_plain(parts)) is want
+@pytest.mark.parametrize("valid", [True, False], ids=["valid", "tampered"])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 33, 92])
+def test_ladder_partials_identity_body_matches_plain(host_lib, k, valid):
+    """ladder_partials_identity_kernel's block over k totals, every quad and
+    level in its order: pairs P, -P (and the identity for odd k) in
+    non-canonical coordinates (scaled by random factors) sum to the
+    identity, one replaced point does not; equal to the plain tree-sum and
+    identity test.  k = 1 is the identity test alone, 2..8 quads within a
+    warp (shuffle levels only), 33 and 92 past the 32 quads (a quad sums two
+    or three totals in turn, two levels across warps)."""
+    parts = tuple(torch.from_numpy(c) for c in partial_totals(90 + k, k, valid))
+    ok = torch.empty((1,), dtype=torch.uint8)
+    host_lib.host_ladder_partials_identity(ptr_array(parts), ptr(ok), k)
+    assert bool(ok[0]) is bool(verify.partials_identity_plain(parts)) is valid
+
+
+@pytest.mark.parametrize("case,n,threads", [
+    ("random", 1, 0), ("random", 77, 0), ("random", 4096, 0), ("random", 16384, 0),
+    ("l_minus_1", 130, 0), ("ninth_word", 1500, 0), ("random", 77, 32), ("random", 1100, 64)],
+    ids=["one_row", "ragged", "n4096", "n16384", "l_minus_1", "ninth_word",
+         "ragged_32_threads", "n1100_64_threads"])
+def test_rlc_scalars_body_matches_plain(host_lib, case, n, threads):
+    """rlc_scalars_kernel's bodies (``csrc/sc25519_w32.cuh``: a row's two
+    threads, the 9-word sum, the last block's reduction and corrections)
+    over every block, the warps' shuffle levels and the last block, as the
+    card runs them (threads 0: the kernel's block size), equal to
+    ``rlc_scalars_plain`` limb for limb: one row, a count no block size
+    divides, the main path's 4096 and 16,384 rows, every scalar l - 1, and
+    1,500 rows whose a s sum past 2^256 (the ninth word); also at blocks of
+    one and two warps."""
+    al, cl, sl, bl = (torch.from_numpy(sc.ints_to_limbs(v))
+                      for v in rlc_case(np.random.default_rng(120 + n), case, n))
+    out = [empty(n) for _ in range(3)] + [empty(1) for _ in range(2)]
+    host_lib.host_rlc_scalars(ptr(al), ptr(cl), ptr(sl), ptr(bl), *(ptr(o) for o in out), n,
+                              threads)
+    want = sk.rlc_scalars_plain(al, cl, sl, bl)
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+    if case == "ninth_word":
+        terms = sum(a * s % L for a, s in zip(sc.limbs_to_ints(al), sc.limbs_to_ints(sl)))
+        assert terms >= 2**256
 
 
 def host_each(lib, shared, seed, threads, n=11):

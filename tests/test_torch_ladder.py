@@ -28,7 +28,8 @@ from cpzk_tpu_torch.ops import backend as tb
 from cpzk_tpu_torch.ops import ladder_kernels as lk
 from cpzk_tpu_torch.ops import limbs as tl
 from cpzk_tpu_torch.ops import verify as tv
-from torch_ladder_inputs import combined_inputs, each_inputs, make_rows, weights
+from torch_ladder_inputs import (combined_inputs, each_inputs, make_rows, partial_totals,
+                                 weights)
 
 EACH_ROWS, EACH_LANES = 18, 21
 EACH_TAMPERED = {2: "s", 5: "r1", 11: "r2"}
@@ -128,3 +129,18 @@ def test_chunked_combined_matches_jax(tampered):
     assert_points_equal(jstacked, tparts)
     assert bool(tv.partials_identity(tparts)) is jok is (not tampered)
     assert tb.chunked_combined_identity(CHUNKED_PAD, CHUNK, *port) is jok
+
+
+@pytest.mark.parametrize("valid", [True, False], ids=["valid", "tampered"])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_partials_identity_matches_jax(k, valid):
+    """k chunk totals from one numpy seed (pairs P, -P and the identity for
+    odd k, in scaled coordinates; one replaced when tampered) through
+    ``backend._partials_impl`` and the port's ``partials_identity_plain``
+    (and ``partials_identity``, which routes CPU tensors to it): the same
+    verdict, the expected one."""
+    arrays = partial_totals(60 + k, k, valid)
+    jok = bool(jax.jit(jb._partials_impl)(arrays))
+    parts = convert.point(arrays, "cpu")
+    assert jok is bool(tv.partials_identity_plain(parts)) is valid
+    assert bool(tv.partials_identity(parts)) is valid

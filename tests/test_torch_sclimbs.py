@@ -213,6 +213,32 @@ def test_scalar_plane_matches_the_jax_package(n):
         assert (got.numpy() == np.asarray(want)).all()
 
 
+@pytest.mark.parametrize("case,n", [("edges", 1), ("edges", 77), ("l_minus_1", 130)])
+def test_rlc_scalars_plain_matches_jax_at_edges(case, n):
+    """``rlc_scalars_plain`` (and the wrapper on CPU tensors) against the
+    reference's ``_rlc_scalar_groups`` bit for bit in the 13-bit limbs: one
+    row, 77 rows (no block size of the kernel divides it) with 0, 1, l - 1
+    and l - 2 among random scalars, and 130 rows of every scalar l - 1."""
+    import jax.numpy as jnp
+
+    from cpzk_tpu.ops import backend as jb
+
+    rng = random.Random(30 + n)
+    if case == "l_minus_1":
+        cols = [[L - 1] * n for _ in range(3)] + [[L - 1]]
+    else:
+        edges = [0, 1, L - 1, L - 2]
+        cols = [[rng.randrange(L) for _ in range(n)] for _ in range(3)] + [[L - 1]]
+        for k, v in enumerate(cols[:3]):
+            v[:min(n, 4)] = (edges[k:] + edges[:k])[:min(n, 4)]
+    al, cl, sl, bl = (limbs(v) for v in cols)
+    got = sk.rlc_scalars_plain(al, cl, sl, bl)
+    want = jb._rlc_scalar_groups(*(jnp.asarray(t.numpy()) for t in (al, cl, sl, bl)))
+    for g, w in zip(got, want):
+        assert (g.numpy() == np.asarray(w)).all()
+    assert all(torch.equal(g, r) for g, r in zip(sk.rlc_scalars(al, cl, sl, bl), got))
+
+
 def test_scalar_kernel_wrappers_check_their_inputs():
     a = limbs([1, 2, 3, 4])
     one = limbs([1])

@@ -8,6 +8,7 @@ use it too."""
 
 import numpy as np
 
+from cpzk_tpu_torch.bench_kernels import random_totals
 from cpzk_tpu_torch.core import edwards as he
 from cpzk_tpu_torch.core.ristretto import Ristretto255
 from cpzk_tpu_torch.core.scalars import L
@@ -95,3 +96,12 @@ def tile(rows: dict, n: int) -> dict:
     """The rows repeated to n (wide inputs without n fresh proofs)."""
     reps = -(-n // len(rows["s"]))
     return {k: (v * reps)[:n] for k, v in rows.items()}
+
+
+def partial_totals(seed: int, k: int, valid: bool) -> tuple[np.ndarray, ...]:
+    """k chunk totals as ``[20, k]`` int32 limbs x 4: ``bench_kernels``'
+    ``random_totals`` from a numpy seed (pairs P, -P and, for odd k, the
+    identity, in scaled coordinates; not ``valid``: one replaced)."""
+    pts = random_totals(np.random.default_rng(seed), k, valid)
+    return tuple(np.ascontiguousarray(limbs.ints_to_limbs([p[c] for p in pts]))
+                 for c in range(4))
