@@ -56,8 +56,9 @@ seconds since the script started):
    252 doublings on one quad), ``commitments`` at n in {1, 127, 4096,
    16,384} lanes (bytes identical, and equal to the host core's comb on a
    sample; its chain floor, one lane), ``keccak_chain`` with 3 masks (a
-   state per row and one shared) and ``reduce_wide`` of random 64-byte
-   values: exact; device times at 4096 and 16,384; and the per-row ladder kernels
+   state per row and one shared) and ``reduce_wide`` of 64-byte values
+   led by its edge values (0, 1, l - 1, l, 2 l, 2^252, 2^256 - 1, 2^512 -
+   1): exact; device times at 4096 and 16,384; and the per-row ladder kernels
    (``ladder_combined``, ``ladder_partials_identity``, ``ladder_each``)
    against their plain versions, the step-by-step composition over the
    point kernels, on rows tiling the corpus: the combined check at 127,
@@ -127,7 +128,8 @@ seconds since the script started):
    plain version and to the host's scalars), counted on their own; then
    ``keccak_chain`` on those rows' masks against its plain version
    (exact), and both kernels timed at these shapes, which the kernels line
-   reports for them; then at
+   reports for them, beside their chain floors (the first row alone,
+   checked first); then at
    4096 and 16,384 rows, 3 turns after a warm one, the whole call and its
    parts (host mask placement, upload, the kernel by CUDA events,
    download) against the host core's ``derive_challenges_batch``;
@@ -3420,15 +3422,15 @@ def prover_kernels_vs_plain(dev, ns, timed_ns, k: int, int32_ops_per_s: float) -
     0, 1 and l - 1, both tables): bytes identical, and equal to the host
     core's comb on a sample, with its chain floor (one lane);
     ``keccak_chain`` (random states, one a row and one shared, k random
-    masks) and ``reduce_wide`` (random 64-byte values, the largest
-    included): exact (``torch.equal``).  Device times at ``timed_ns``."""
+    masks) and ``reduce_wide`` (64-byte values led by 0, 1, l - 1, l, 2 l,
+    2^252, 2^256 - 1 and 2^512 - 1, then random): exact (``torch.equal``).  Device times at ``timed_ns``."""
     import random
 
     import numpy as np
     import torch
 
     from cpzk_tpu_torch import Parameters, Ristretto255, Scalar
-    from cpzk_tpu_torch.bench_kernels import event_ms
+    from cpzk_tpu_torch.bench_kernels import event_ms, wide_case
     from cpzk_tpu_torch.core.scalars import L
     from cpzk_tpu_torch.ops import curve, keccak_kernels as kk
     from cpzk_tpu_torch.ops import prove_kernels as pvk, scalar_kernels as sk, sclimbs as sc
@@ -3513,8 +3515,7 @@ def prover_kernels_vs_plain(dev, ns, timed_ns, k: int, int32_ops_per_s: float) -
                     lambda: kk.keccak_chain_plain(s_hi, s_lo, m_hi, m_lo), 20))
             rows["keccak_chain"].append(row)
 
-        blobs = np_rng.integers(0, 256, size=(n, 64), dtype=np.uint8)
-        blobs[0] = 0xFF
+        blobs = wide_case(np_rng, n)
         wide = torch.from_numpy(sc.bytes_wide_to_limbs(blobs)).to(dev)
         got = sc.reduce_wide(wide)
         synchronize()
@@ -3783,7 +3784,8 @@ def device_challenges_phase(params, proofs_out, ns, reps: int, int32_ops_per_s: 
     version and to the host's scalars); counts set to 0 just before and read
     just after.  Then ``keccak_chain`` on the same rows' masks against its
     plain version (exact), and both kernels timed at these shapes beside
-    their bounds.  Then, at each of ``ns`` rows, in turns: the whole call
+    their bounds and their chain floors (the first row alone, checked
+    first).  Then, at each of ``ns`` rows, in turns: the whole call
     and its parts (host mask placement, upload, the kernel by CUDA events,
     download) against the host core's ``derive_challenges_batch``."""
     import numpy as np
@@ -3839,6 +3841,17 @@ def device_challenges_phase(params, proofs_out, ns, reps: int, int32_ops_per_s: 
     k, shared = m_hi.shape[0], s_hi.shape[-1] == 1
     main_rows = {"keccak_chain": {"n": n, "k": k, "shared_state": shared, "max_abs_err": 0},
                  "reduce_wide": {"n": n, "rows": wide.shape[0], "max_abs_err": 0}}
+    # each kernel's chain floor: the path's first row alone (one pair of
+    # threads; one lane), checked first
+    one_chain = tensors[:2] + [m[:, :, :1].contiguous() for m in tensors[2:]]
+    one_wide = wide[:, :1].contiguous()
+    got = kk.keccak_chain(*one_chain)
+    synchronize()
+    ref = kk.keccak_chain_plain(*one_chain)
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError("keccak_chain differs from its plain version on one row")
+    if not torch.equal(sc.reduce_wide(one_wide), sc.reduce_wide_plain(one_wide)):
+        raise AssertionError("reduce_wide differs from its plain version on one lane")
     if on_card:
         main_rows["keccak_chain"].update(bound_of(*kk.keccak_chain_work(n, k, shared),
                                                   int32_ops_per_s))
@@ -3848,6 +3861,11 @@ def device_challenges_phase(params, proofs_out, ns, reps: int, int32_ops_per_s: 
                                                  int32_ops_per_s))
         main_rows["reduce_wide"].update(kernel_ms(lambda: sc.reduce_wide(wide),
                                                   lambda: sc.reduce_wide_plain(wide), 20))
+        for name, call in (("keccak_chain", lambda: kk.keccak_chain(*one_chain)),
+                           ("reduce_wide", lambda: sc.reduce_wide(one_wide))):
+            floor = kernel_ms(call, None, 20)
+            main_rows[name]["chain_floor_ms"] = floor["ms"]
+            main_rows[name]["chain_floor_runs"] = floor["ms_runs"]
     out = {"rows": n, "tolerance": "exact (bytes, words, limbs)", "launches": launches,
            "masks": k, "kernels_at_path_shape": main_rows}
 

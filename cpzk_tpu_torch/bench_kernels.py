@@ -3,8 +3,9 @@ of their sources, in one run on one card; then the scalar and MSM kernels
 against their plain versions.
 
     python -m cpzk_tpu_torch.bench_kernels [--ns 1,6144,16384] [--reps 50]
-        [--rounds 4] [--sass] [--no-pippenger] [--ladder | --prove | --small]
-        [--ks 1,2,8,92] [NAME=CSRC_DIR ...]
+        [--rounds 4] [--sass] [--no-pippenger]
+        [--ladder | --prove | --small | --challenge] [--ks 1,2,8,92]
+        [NAME=CSRC_DIR ...]
 
 Each ``NAME=CSRC_DIR`` names a directory holding a ``point_ops.cu`` with the
 C launch interface of ``cpzk_tpu_torch/csrc/point_ops.cu``, for example an
@@ -84,6 +85,18 @@ builds that have ``cpzk_launch_floor``).  ``ladder_partials_identity/2``
 is the partials' chain floor (one add), ``rlc_scalars/1`` the scalars'
 (one row).  With ``--sass``, each kernel's static SASS count.  One JSON
 line, then the ``nvidia-smi`` line.
+
+With ``--challenge``, instead, the A/B of the device challenges' two
+kernels of each build at each of ``--ns`` rows: ``keccak_chain`` with
+three random masks and one shared random state (the path's shape) and
+``reduce_wide`` of 40-limb wide values (:func:`wide_case`: 0, 1, l - 1, l,
+2 l, 2^252, 2^256 - 1, 2^512 - 1, then random), each build first checked
+(words and limbs equal to the plain versions', ``torch.equal``), then
+timed in turns by :func:`event_ms`, ``reps`` launches held behind a spin
+kernel; beside them the launch floor (an empty kernel).  ``/1`` is each
+kernel's chain floor (one row).  With ``--sass``, each kernel's static
+SASS count; registers and spills from ``-Xptxas -v``.  One JSON line,
+then the ``nvidia-smi`` line.
 """
 
 from __future__ import annotations
@@ -726,6 +739,107 @@ def small_ab(dev: torch.device, specs, ns, ks, reps: int, rounds: int, sass: boo
                        "rlc_scalars outputs equal to the plain versions'"}
 
 
+CHALLENGE_KERNELS = ("keccak_chain", "reduce_wide")
+#: masks of one transcript on the device challenges' path (a 32-byte
+#: context and six points absorb into three permutations)
+CHALLENGE_MASKS = 3
+
+
+def wide_edges() -> list[int]:
+    """The wide values every ``reduce_wide`` check leads with: 0, 1, l - 1,
+    l, 2 l, 2^252, 2^256 - 1 and 2^512 - 1."""
+    from .core.scalars import L
+
+    return [0, 1, L - 1, L, 2 * L, 2**252, 2**256 - 1, 2**512 - 1]
+
+
+def wide_case(rng: np.random.Generator, n: int) -> np.ndarray:
+    """``[n, 64]`` uint8 little-endian values below 2^512: the
+    :func:`wide_edges` (as many as fit), then random ones.  The inputs of
+    ``reduce_wide`` here, in ``chip_smoke.py`` and in the tests."""
+    blobs = rng.integers(0, 256, size=(n, 64), dtype=np.uint8)
+    for j, v in enumerate(wide_edges()[:n]):
+        blobs[j] = np.frombuffer(v.to_bytes(64, "little"), dtype=np.uint8)
+    return blobs
+
+
+def challenge_ab(dev: torch.device, specs, ns, reps: int, rounds: int, sass: bool) -> dict:
+    """The ``--challenge`` A/B (see the module docstring)."""
+    from .ops import keccak_kernels as kk, sclimbs as sc
+
+    rng = np.random.default_rng(20)
+
+    def ints(shape):
+        return torch.from_numpy(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+
+    k = CHALLENGE_MASKS
+    chains = {n: (ints((25, 1)), ints((25, 1)), ints((k, 25, n)), ints((k, 25, n))) for n in ns}
+    wides = {n: torch.from_numpy(sc.bytes_wide_to_limbs(wide_case(rng, n))).to(dev) for n in ns}
+    refs = {n: (kk.keccak_chain_plain(*chains[n]), sc.reduce_wide_plain(wides[n])) for n in ns}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    builds = {}
+    for name, csrc in specs:
+        path, report = pk.build(Path(csrc))
+        lib = pk.load(path)
+        launchers = {}
+        for n in ns:
+            state = [torch.empty((25, n), dtype=torch.int32, device=dev) for _ in range(2)]
+            ptrs = [t.data_ptr() for t in chains[n]]
+
+            def chain(lib=lib, ptrs=ptrs, state=state, n=n):
+                rc = lib.cpzk_keccak_chain(ptrs[0], ptrs[1], 1, ptrs[2], ptrs[3], k, n,
+                                           state[0].data_ptr(), state[1].data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"keccak_chain launch failed: CUDA error {rc}")
+
+            reduced = torch.empty((20, n), dtype=torch.int32, device=dev)
+
+            def reduce(lib=lib, n=n, reduced=reduced):
+                rc = lib.cpzk_reduce_wide(wides[n].data_ptr(), 40, reduced.data_ptr(), n,
+                                          stream)
+                if rc:
+                    raise RuntimeError(f"reduce_wide launch failed: CUDA error {rc}")
+
+            chain()
+            reduce()
+            torch.cuda.synchronize()
+            if not (torch.equal(state[0], refs[n][0][0]) and torch.equal(state[1], refs[n][0][1])):
+                raise AssertionError(f"{name} keccak_chain n={n}: words differ from plain")
+            if not torch.equal(reduced, refs[n][1]):
+                raise AssertionError(f"{name} reduce_wide n={n}: limbs differ from plain")
+            launchers[("keccak_chain", n)] = chain
+            launchers[("reduce_wide", n)] = reduce
+        if hasattr(lib, "cpzk_launch_floor"):
+            def empty(lib=lib):
+                rc = lib.cpzk_launch_floor(stream)
+                if rc:
+                    raise RuntimeError(f"cpzk_launch_floor failed: CUDA error {rc}")
+
+            launchers[("launch_floor", 0)] = empty
+        builds[name] = {"launchers": launchers, "csrc": csrc,
+                        "ptxas": {k: v for k, v in pk.ptxas_report(report).items()
+                                  if k in CHALLENGE_KERNELS},
+                        "sass": sass_counts(path, CHALLENGE_KERNELS) if sass else None,
+                        "ms": {f"{k}/{n}": [] for k, n in launchers}}
+    order = list(builds)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            b = builds[name]
+            for (kname, n), launch in b["launchers"].items():
+                b["ms"][f"{kname}/{n}"].append(event_ms(launch, reps, hold=True))
+    return {"challenge_ab": {name: {key: b[key] for key in ("csrc", "ptxas", "sass")}
+                             | {"reps": reps, "rounds": rounds, "masks": k,
+                                "timed_by": "event_ms, launches held behind a spin kernel",
+                                "ms_per_launch": {key: {"median": statistics.median(v),
+                                                        "runs": v}
+                                                  for key, v in b["ms"].items()}}
+                             for name, b in builds.items()},
+            "checked": "each build's keccak_chain words (a shared state, 3 random masks) "
+                       "and reduce_wide limbs (the wide edge values, then random) equal to "
+                       "the plain versions' at every n"}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ns", default="1,6144,16384")
@@ -736,6 +850,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--ladder", action="store_true")
     ap.add_argument("--prove", action="store_true")
     ap.add_argument("--small", action="store_true")
+    ap.add_argument("--challenge", action="store_true")
     ap.add_argument("--ks", default="1,2,8,92")
     ap.add_argument("builds", nargs="*", metavar="NAME=CSRC_DIR")
     args = ap.parse_args(argv)
@@ -750,6 +865,11 @@ def main(argv: list[str] | None = None) -> int:
     if args.small:
         ks = [int(x) for x in args.ks.split(",")]
         print(json.dumps(small_ab(dev, specs, ns, ks, args.reps, args.rounds, args.sass)),
+              flush=True)
+        print(smi.stdout.strip().splitlines()[0], flush=True)
+        return 0
+    if args.challenge:
+        print(json.dumps(challenge_ab(dev, specs, ns, args.reps, args.rounds, args.sass)),
               flush=True)
         print(smi.stdout.strip().splitlines()[0], flush=True)
         return 0

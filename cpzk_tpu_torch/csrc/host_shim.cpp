@@ -302,17 +302,16 @@ void host_comb_recode(const int32_t* digits, int32_t* out, int n) {
   }
 }
 
-// keccak_chain_kernel's thread body for every lane j < n
+// keccak_chain_kernel's row body for every row j < n, both threads of a
+// row's pair at once
 void host_keccak_chain(const uint32_t* s_hi, const uint32_t* s_lo, int shared,
                        const uint32_t* m_hi, const uint32_t* m_lo, int k, int n,
                        uint32_t* o_hi, uint32_t* o_lo) {
   for (int j = 0; j < n; ++j) {
-    uint64_t a[cpzk::KECCAK_LANES];
-    cpzk::keccak_chain_lane(a, s_hi, s_lo, shared != 0, m_hi, m_lo, k, n, j);
-    for (int i = 0; i < cpzk::KECCAK_LANES; ++i) {
-      o_hi[(long)i * n + j] = (uint32_t)(a[i] >> 32);
-      o_lo[(long)i * n + j] = (uint32_t)a[i];
-    }
+    cpzk::KeccakPair a[cpzk::KECCAK_LANES];
+    cpzk::keccak_chain_row(a, s_hi, s_lo, shared != 0, m_hi, m_lo, k, n, j, 0);
+    for (int i = 0; i < cpzk::KECCAK_LANES; ++i)
+      cpzk::keccak_store(o_hi, o_lo, (long)i * n + j, a[i], 0);
   }
 }
 
@@ -333,18 +332,12 @@ void host_sc_op(int op, const int32_t* a, const int32_t* b, int32_t* out, int n)
   }
 }
 
-// [40, n] canonical limbs of values below 2^512 -> [20, n] limbs mod l.
-void host_sc_reduce_wide(const int32_t* x, int32_t* out, int n) {
-  for (int j = 0; j < n; ++j) {
-    int32_t l[2 * NL];
-    for (int i = 0; i < 2 * NL; ++i) l[i] = x[(long)i * n + j];
-    uint32_t w[2 * NW];
-    cpzk::sc_wide_from_limbs(w, l);
-    Sc r;
-    cpzk::sc_reduce_wide(r, w);
-    store_sc(out, r, n, j);
-  }
+// reduce_wide_kernel's lane body for every lane j < n: [rows <= 40, n]
+// canonical limbs of values below 2^512 -> [20, n] limbs mod l.
+void host_reduce_wide(const int32_t* x, int rows, int32_t* out, int n) {
+  for (int j = 0; j < n; ++j) cpzk::reduce_wide_lane(x, rows, out, n, j);
 }
+
 
 // [20, n] scalars -> [64, n] 4-bit windows (MSB first).
 void host_sc_windows(const int32_t* a, int32_t* out, int n) {

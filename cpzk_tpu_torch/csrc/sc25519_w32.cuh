@@ -15,19 +15,18 @@
 // * a scalar is 8 unsigned 32-bit words, value = sum(w[i] 2^(32 i)); every
 //   function takes and returns canonical values (below l), as the plain
 //   versions do;
-// * a product is 64 word products into 16 words, reduced by Barrett
-//   (HAC 14.42) at base b = 2^32, k = 8: l = 2^252 + d has a 125-bit d, so
-//   there is no cheap fold as for p; mu = floor(b^16 / l) has 9 words, the
-//   quotient estimate is at most 2 below the true one, and two conditional
-//   subtractions of l finish;
+// * a product is 64 word products into 16 words, reduced by folding at
+//   bit 252 (l = 2^252 + c with a 125-bit c, so 2^252 = -c mod l): three
+//   folds by c (60 word products, where Barrett at base 2^32 takes 125)
+//   and one conditional subtraction of l (sc_reduce_wide);
 // * the kernels' [20, n] canonical 13-bit limbs become words on entry
 //   (sc_from_limbs) and limbs once on exit (sc_to_limbs);
 // * the 4-bit window recode (MSB window first) and the signed c-bit recode
 //   (LSB window first, digits in [-2^(c-1), 2^(c-1)], a carry chain) read
 //   the words directly.
 //
-// Portable C++ only (no __int128, no inline PTX), so the host build runs the
-// very code the card runs.
+// Portable C++ only (no __int128; one inline-PTX load, sc_load_early, on the
+// card only), so the host build runs the very arithmetic the card runs.
 #pragma once
 
 #include <stdint.h>
@@ -44,11 +43,6 @@ struct Sc {
 #define CPZK_L_WORDS                                                    \
   {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu,                  \
    0x00000000u, 0x00000000u, 0x00000000u, 0x10000000u}
-// mu = floor(2^512 / l), 9 words (it is below 2^260)
-#define CPZK_MU_WORDS                                                   \
-  {0x0a2c131bu, 0xed9ce5a3u, 0x086329a7u, 0x2106215du, 0xffffffebu,     \
-   0xffffffffu, 0xffffffffu, 0xffffffffu, 0x0000000fu}
-
 // Canonical limbs (digits in [0, 2^13), value below 2^256) -> words.
 FE_FN void sc_from_limbs(Sc& out, const int32_t l[NL]) {
 #pragma unroll
@@ -94,57 +88,90 @@ FE_FN void sc_sub_l9(uint32_t x[NW + 1]) {
   x[NW] -= borrow;
 }
 
-// 16-word x (below 2^512) -> x mod l (Barrett, HAC 14.42, b = 2^32, k = 8).
+// 16-word x (below 2^512) -> x mod l, by folding at bit 252: l = 2^252 + c
+// with c < 2^125 (four words), so 2^252 = -c (mod l) and x = x_lo + 2^252
+// x_hi = x_lo - c x_hi.  Three folds, each adding l to stay positive:
+//   t = c x_hi      (x_hi < 2^260: 4 x 9 word products, t < 2^385)
+//   u = c t_hi      (t_hi < 2^133: 4 x 5, u < 2^258)
+//   v = x_lo + l - t_lo + u           (0 < v < 2^259)
+//   w = v_lo + l - c v_hi             (v_hi < 2^7; l - 2^132 < w < 2l)
+// and one conditional subtraction of l: 60 word products in all, where a
+// Barrett reduction at base 2^32 (q1 mu and q3 l) takes 125.
 FE_FN void sc_reduce_wide(Sc& out, const uint32_t x[2 * NW]) {
-  const uint32_t mu[NW + 1] = CPZK_MU_WORDS;
+  const uint32_t c[4] = {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu};
   const uint32_t l[NW] = CPZK_L_WORDS;
-  // q1 = floor(x / b^7) (9 words); q2 = q1 mu (18 words); q3 = floor(q2 / b^9)
-  uint32_t q2[2 * NW + 2];
+  constexpr uint32_t LO28 = 0x0fffffffu;  // word 7's bits below 2^252
+  // x_hi = x >> 252 (9 words, the top one 4 bits)
+  uint32_t h[NW + 1];
 #pragma unroll
-  for (int i = 0; i < 2 * NW + 2; ++i) q2[i] = 0;
+  for (int i = 0; i < NW; ++i) h[i] = (x[NW - 1 + i] >> 28) | (x[NW + i] << 4);
+  h[NW] = x[2 * NW - 1] >> 28;
+  // t = c h (13 words), a row a word of h
+  uint32_t t[13];
+#pragma unroll
+  for (int i = 0; i < 13; ++i) t[i] = 0;
 #pragma unroll
   for (int i = 0; i < NW + 1; ++i) {
-    uint64_t t = 0;
+    uint64_t acc = 0;
 #pragma unroll
-    for (int j = 0; j < NW + 1; ++j) {
-      t = mac(x[NW - 1 + i], mu[j], q2[i + j], (uint32_t)(t >> 32));
-      q2[i + j] = (uint32_t)t;
+    for (int j = 0; j < 4; ++j) {
+      acc = mac(c[j], h[i], t[i + j], (uint32_t)(acc >> 32));
+      t[i + j] = (uint32_t)acc;
     }
-    q2[i + NW + 1] = (uint32_t)(t >> 32);
+    t[i + 4] = (uint32_t)(acc >> 32);
   }
-  const uint32_t* q3 = q2 + NW + 1;  // 9 words
-  // r2 = (q3 l) mod b^9
-  uint32_t r2[NW + 1];
+  // u = c (t >> 252) (9 words; t >> 252 has 5, the top one 5 bits)
+  uint32_t th[5];
 #pragma unroll
-  for (int i = 0; i < NW + 1; ++i) r2[i] = 0;
+  for (int i = 0; i < 5; ++i) th[i] = (t[NW - 1 + i] >> 28) | (t[NW + i] << 4);
+  uint32_t u[NW + 1];
 #pragma unroll
-  for (int i = 0; i < NW + 1; ++i) {
-    uint64_t t = 0;
+  for (int i = 0; i < NW + 1; ++i) u[i] = 0;
 #pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      if (i + j < NW + 1) {
-        t = mac(q3[i], l[j], r2[i + j], (uint32_t)(t >> 32));
-        r2[i + j] = (uint32_t)t;
-      }
+  for (int i = 0; i < 5; ++i) {
+    uint64_t acc = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc = mac(c[j], th[i], u[i + j], (uint32_t)(acc >> 32));
+      u[i + j] = (uint32_t)acc;
     }
-    if (i + NW < NW + 1) r2[i + NW] += (uint32_t)(t >> 32);
+    u[i + 4] = (uint32_t)(acc >> 32);
   }
-  // r = (x mod b^9) - r2, modulo b^9 (which adds b^9 when it is negative)
-  uint32_t r[NW + 1];
-  uint32_t borrow = 0;
+  // v = x_lo + l - t_lo + u (9 words, below 2^259), a signed carry chain
+  uint32_t v[NW + 1];
+  int64_t carry = 0;
 #pragma unroll
   for (int i = 0; i < NW + 1; ++i) {
-    const uint64_t t = (uint64_t)x[i] - r2[i] - borrow;
-    r[i] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
+    const uint32_t xi = i < NW - 1 ? x[i] : i == NW - 1 ? x[i] & LO28 : 0u;
+    const uint32_t ti = i < NW - 1 ? t[i] : i == NW - 1 ? t[i] & LO28 : 0u;
+    const uint32_t li = i < NW ? l[i] : 0u;
+    const int64_t s = (int64_t)xi + li + u[i] - ti + carry;
+    v[i] = (uint32_t)s;
+    carry = s >> 32;
   }
-  // r < 3l: at most two subtractions
+  // w = v_lo + l - c q, q = v >> 252 (below 2^7); l - 2^132 < w < 2l
+  const uint32_t q = (v[NW - 1] >> 28) | (v[NW] << 4);
+  uint32_t cq[5];
+  uint64_t acc = 0;
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    if (sc_geq_l9(r)) sc_sub_l9(r);
+  for (int j = 0; j < 4; ++j) {
+    acc = mac(c[j], q, 0u, (uint32_t)(acc >> 32));
+    cq[j] = (uint32_t)acc;
   }
+  cq[4] = (uint32_t)(acc >> 32);
+  uint32_t w[NW + 1];
+  carry = 0;
 #pragma unroll
-  for (int i = 0; i < NW; ++i) out.w[i] = r[i];
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t vi = i < NW - 1 ? v[i] : v[i] & LO28;
+    const int64_t s = (int64_t)vi + l[i] - (i < 5 ? cq[i] : 0u) + carry;
+    w[i] = (uint32_t)s;
+    carry = s >> 32;
+  }
+  w[NW] = (uint32_t)carry;
+  if (sc_geq_l9(w)) sc_sub_l9(w);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) out.w[i] = w[i];
 }
 
 // Canonical 13-bit limbs l[0 .. 40) of a value below 2^512 (the layout of
@@ -279,6 +306,40 @@ FE_FN void sc_store(int32_t* dst, const Sc& v, long stride, long j) {
   sc_to_limbs(l, v);
 #pragma unroll
   for (int i = 0; i < NL; ++i) dst[(long)i * stride + j] = l[i];
+}
+
+// p[at] if `load`, else 0, loaded where it stands: on the card by a
+// predicated inline-PTX load, which the compiler neither moves towards the
+// value's first use nor guards by a branch (on the H100 plain loads left a
+// lane's Barrett reduction 0.1-0.5 us slower than these, and the fold
+// slower than Barrett); on the host a plain load.
+FE_FN int32_t sc_load_early(const int32_t* p, long at, bool load) {
+#if defined(__CUDA_ARCH__)
+  int32_t v;
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\tmov.b32 %0, 0;\n\t"
+      "@q ld.global.nc.b32 %0, [%1];\n\t}"
+      : "=r"(v)
+      : "l"(__cvta_generic_to_global(p + at)), "r"((unsigned)load)
+      : "memory");
+  return v;
+#else
+  return load ? p[at] : 0;
+#endif
+}
+
+// reduce_wide_kernel's lane body (scalar_ops.cu): lane j < n of the
+// rows <= 40 canonical 13-bit limbs of x (limb i at i n + j, a value below
+// 2^512; the limbs past `rows` are 0) reduced mod l into out's 20 limbs.
+FE_FN void reduce_wide_lane(const int32_t* x, int rows, int32_t* out, long n, long j) {
+  int32_t l[2 * NL];
+#pragma unroll
+  for (int i = 0; i < 2 * NL; ++i) l[i] = sc_load_early(x, (long)i * n + j, i < rows);
+  uint32_t w[2 * NW];
+  sc_wide_from_limbs(w, l);
+  Sc r;
+  sc_reduce_wide(r, w);
+  sc_store(out, r, n, j);
 }
 
 FE_FN void sc9_zero(uint32_t x[RLC_SUM_WORDS]) {

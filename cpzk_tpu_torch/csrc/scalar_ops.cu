@@ -17,10 +17,11 @@
 // limbs, limb i of lane j at i * pad + j; windows are [64, pad] (MSB first),
 // digits [nwin, m] (LSB first).  One thread owns one lane (two a row in
 // rlc_scalars), so a warp's load of one limb is consecutive words; the
-// arithmetic is sc25519_w32.cuh.
+// arithmetic is sc25519_w32.cuh (a product reduced mod l by three folds
+// at bit 252).
 //
 // What bounds them: rlc_scalars moves 6 x 80 bytes a row (three scalars in,
-// three products out) and needs about 1.9k int32 operations a row (four
+// three products out) and needs about 1.5k int32 operations a row (four
 // products mod l and a 9-word add; ops/scalar_kernels.py counts them), so
 // it is bound by bytes, under a microsecond at the main path's widths; what
 // it takes is the launch and a chain: a row's products, the sum over the
@@ -33,8 +34,10 @@
 // last block to take one sums the partials the same way, resets the ticket
 // (so the wrapper zeroes it once a stream, not once a call) and finishes
 // in the same launch.  reduce_wide moves 160 + 80 bytes a lane and needs
-// about 300 int32 operations (one Barrett reduction), so it is bound by
-// bytes.
+// about 230 int32 operations (three folds at bit 252), so it is bound by
+// bytes; what it takes is the launch, one round trip to memory for a
+// lane's 40 limbs (all loaded before any arithmetic) and one lane's chain
+// of 60 word products.
 // scalar_recode moves 80 bytes in and 256 (windows) or 4 nwin
 // (digits) out a lane and does a few shifts per output word: bound by bytes.
 #include <cuda_runtime.h>
@@ -45,7 +48,6 @@
 namespace {
 
 using cpzk::NL;
-using cpzk::NW;
 using cpzk::Sc;
 
 constexpr int kRlcThreads = cpzk::RLC_THREADS;
@@ -61,14 +63,6 @@ __device__ __forceinline__ void load_sc(Sc& out, const int32_t* __restrict__ src
 #pragma unroll
   for (int i = 0; i < NL; ++i) l[i] = src[(long)i * stride + j];
   cpzk::sc_from_limbs(out, l);
-}
-
-__device__ __forceinline__ void store_sc(int32_t* __restrict__ dst, const Sc& v,
-                                         long stride, long j) {
-  int32_t l[NL];
-  cpzk::sc_to_limbs(l, v);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) dst[(long)i * stride + j] = l[i];
 }
 
 // x summed over the lanes from lane `from` down, by shuffle levels of half
@@ -203,20 +197,14 @@ scalar_recode_kernel(const int32_t* __restrict__ g0, const int32_t* __restrict__
 }
 
 // Lane j < n: the W <= 40 canonical 13-bit limbs of x (limb i at i n + j,
-// a value below 2^512) reduced mod l into out's 20 limbs.
+// a value below 2^512) reduced mod l into out's 20 limbs
+// (cpzk::reduce_wide_lane: the fold of sc_reduce_wide).
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_wide_kernel(const int32_t* __restrict__ x, int rows, int32_t* __restrict__ out,
                    int n) {
   const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  int32_t l[2 * NL];
-#pragma unroll
-  for (int i = 0; i < 2 * NL; ++i) l[i] = i < rows ? x[(long)i * n + j] : 0;
-  uint32_t w[2 * NW];
-  cpzk::sc_wide_from_limbs(w, l);
-  Sc r;
-  cpzk::sc_reduce_wide(r, w);
-  store_sc(out, r, n, j);
+  cpzk::reduce_wide_lane(x, rows, out, n, j);
 }
 
 }  // namespace

@@ -9,18 +9,20 @@ kernel             replaces
                    zeros)
 =================  ==========================================================
 
-Sources: ``csrc/keccak_u64.cuh`` (the permutation on 25 native 64-bit lanes
-for one thread, ``__host__ __device__``) and ``csrc/keccak_ops.cu`` (the
-kernel and its C launch interface), built into the package's kernel library
-by :func:`.point_kernels.library`.
+Sources: ``csrc/keccak_u64.cuh`` (the permutation and the absorb chain of
+one row on the 32-bit halves of its 25 lanes, ``__host__ __device__``) and
+``csrc/keccak_ops.cu`` (the kernel and its C launch interface), built into
+the package's kernel library by :func:`.point_kernels.library`.
 
 The wrapper takes and returns the reference's tensors: the state as (hi,
 lo) ``[25, n]`` int32 words (or ``[25, 1]``, one state for every row) and
 the masks as ``[k, 25, n]``; so kernel and plain version compare with
-``torch.equal``.  One thread per row keeps the state in registers as
-uint64 lanes through all k permutations.  What bounds it on an H100:
-:func:`keccak_chain_work` counts the bytes and int32 operations (it is
-bound by operations); ``PERF.md`` holds the measured times.
+``torch.equal``.  Two neighbouring threads of a warp own a row, one the lo
+and one the hi words of its 25 lanes, in registers through all k
+permutations; a rotation takes the other half by a warp shuffle, and the
+next mask is loaded while the current permutation runs.  What bounds it on
+an H100: :func:`keccak_chain_work` counts the bytes and int32 operations
+(it is bound by operations); ``PERF.md`` holds the measured times.
 
 Routing: the wrapper runs the plain version for tensors on the CPU and
 launches its kernel for CUDA tensors; any other device raises, and a failed

@@ -25,10 +25,10 @@ C launch interface), built into the package's kernel library by
 
 The wrappers take and return the reference's tensors: ``[20, pad]`` int32
 canonical limbs in, int32 limbs, windows or digits out; so kernel and plain
-version compare with ``torch.equal``.  Design: one thread per lane;
-``rlc_scalars`` two threads a row, each two of the row's four Barrett
-products (operands picked by the thread's part, so a warp does not
-diverge), and ``sum(a s)`` over the grid in the same launch as a plain
+version compare with ``torch.equal``.  Design: one thread per lane, a
+product mod l reduced by three folds at bit 252 (``sc_reduce_wide``);
+``rlc_scalars`` two threads a row, each two of the row's four products
+(operands picked by the thread's part, so a warp does not diverge), and ``sum(a s)`` over the grid in the same launch as a plain
 9-word integer (warp shuffles, one pass over a block's warps, per-block
 partials, then the last block by an atomic ticket, which it leaves zeroed,
 so the wrapper keeps one a stream), reduced mod l once at the end: exact
@@ -59,16 +59,20 @@ NLIMBS = sc.NLIMBS
 #: wrapper adds one where it launches its kernel and nowhere else.
 LAUNCHES = {"rlc_scalars": 0, "scalar_recode": 0, "reduce_wide": 0}
 
-#: int32 operations of one product mod l on 8 x 32-bit words
-#: (``sc25519_w32.cuh``): a word product is 2 (the low and the high
-#: multiply-add), a row of products ends in one carry; 64 products and 8
-#: carries for a b, 81 and 9 for the Barrett quotient q1 mu, 44 and 1 for
-#: the low words of q3 l, a 9-word subtraction, and two conditional
-#: subtractions of l (a 9-word compare and a 9-word subtract each).
-SC_MUL_OPS = (64 * 2 + 8) + (81 * 2 + 9) + (44 * 2 + 1) + 9 + 2 * (9 + 9)
-#: one Barrett reduction of a 16-word value (the product's ops of
-#: :data:`SC_MUL_OPS` less the 64 word products and their 8 carries)
-SC_REDUCE_OPS = SC_MUL_OPS - (64 * 2 + 8)
+#: int32 operations of one reduction mod l of a 16-word value
+#: (``sc25519_w32.cuh`` ``sc_reduce_wide``, three folds at bit 252): a word
+#: product is 2 (the low and the high multiply-add), a row of products
+#: ends in one carry; x >> 252 in 9 shifts, 36 products and 9 carries for
+#: c x_hi, 5 shifts, 20 products and 5 carries for c t_hi, a 9-word sum of
+#: four terms with carries (36, and 2 masks), v >> 252 (2), 4 products and
+#: a carry for c q, an 8-word sum of three terms (24), and one conditional
+#: subtraction of l (a 9-word compare and a 9-word subtract).  Where the
+#: bounds use it the bytes bound the kernels, so its value does not move
+#: them.
+SC_REDUCE_OPS = 9 + (36 * 2 + 9) + 5 + (20 * 2 + 5) + 36 + 2 + 2 + (4 * 2 + 1) + 24 + (9 + 9)
+#: one product mod l: 64 word products and 8 carries for a b, then
+#: :data:`SC_REDUCE_OPS`
+SC_MUL_OPS = (64 * 2 + 8) + SC_REDUCE_OPS
 #: words of ``rlc_scalars``' sum and of each block's partial: the rows'
 #: ``a s mod l`` summed as plain integers (below 2^280 for up to 2^27 rows)
 RLC_SUM_WORDS = 9
@@ -93,7 +97,7 @@ def rlc_scalars_work(pad: int) -> tuple[int, int]:
 def reduce_wide_work(rows: int, n: int) -> tuple[int, int]:
     """(bytes, int32 operations) of one ``reduce_wide`` over n lanes of
     ``rows`` limbs: the limbs read once, 20 limbs written a lane, one
-    Barrett reduction a lane."""
+    reduction of a 16-word value a lane."""
     return 4 * rows * n + 4 * NLIMBS * n, SC_REDUCE_OPS * n
 
 

@@ -3,7 +3,9 @@ same CUDA tensors: the point kernels equal after canonicalization with every
 output limb within the loose bound (they compute in their own radix); the
 scalar kernels exact (``torch.equal``: both canonical); the MSM kernels
 equal as group elements (the encodings: the order of the adds differs).
-The Keccak chain and the wide reduction exact; the comb tables equal
+The Keccak chain and the wide reduction exact (the chain also at 17, 33
+and 4097 rows with k = 0 to 5; the reduction also on edge values and 24
+limbs); the comb tables equal
 after canonicalization; the commitments' bytes identical (and equal to the
 host core's comb).  The ristretto DECODE kernel's canonical words and
 validity exact, on valid, random and rejected encodings; the matmulfold
@@ -26,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from cpzk_tpu_torch.bench_kernels import rlc_case
+from cpzk_tpu_torch.bench_kernels import rlc_case, wide_edges
 from cpzk_tpu_torch.core import edwards as he
 from cpzk_tpu_torch.core.scalars import L
 from cpzk_tpu_torch.ops import curve, limbs, msm, msm_kernels as mk, point_kernels as pk
@@ -198,6 +200,47 @@ def test_keccak_chain_matches_plain_on_card(dev, n):
         ref = kk.keccak_chain_plain(s_hi, s_lo, m_hi, m_lo)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert kk.LAUNCHES == {"keccak_chain": 3}
+
+
+@pytest.mark.parametrize("n", [1, 17, 33, 4097])
+def test_keccak_chain_edge_shapes_on_card(dev, n):
+    """Row counts that leave the last pair of threads and the last warp
+    partly empty, a shared and a per-row state, k = 0, 1, 3, 5: words equal
+    to the plain version's, one launch a call."""
+    rng = np.random.default_rng(300 + n)
+    ints = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).to(dev)
+    kk.reset_launches()
+    for width in (1, n):
+        for k in (0, 1, 3, 5):
+            s_hi, s_lo, m_hi, m_lo = ints((25, width)), ints((25, width)), \
+                ints((k, 25, n)), ints((k, 25, n))
+            got = kk.keccak_chain(s_hi, s_lo, m_hi, m_lo)
+            torch.cuda.synchronize()
+            ref = kk.keccak_chain_plain(s_hi, s_lo, m_hi, m_lo)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (width, k)
+    assert kk.LAUNCHES == {"keccak_chain": 8}
+
+
+@pytest.mark.parametrize("rows", [40, 24])
+def test_reduce_wide_edges_on_card(dev, rows):
+    """W = rows limbs: the edge values that fit (0, 1, l - 1, l, 2 l, 2^252,
+    2^256 - 1, 2^512 - 1), the largest value W limbs hold, values of every
+    bit length and random ones over 4097 lanes: limbs equal to the plain
+    version's and to the value mod l, one launch."""
+    rng = random.Random(400 + rows)
+    top = 2 ** min(512, 13 * rows)
+    values = [v for v in wide_edges() if v < top] + [top - 1]
+    values += [rng.getrandbits(bits) | 1 << (bits - 1) for bits in range(1, top.bit_length())]
+    values += [rng.randrange(top) for _ in range(4097 - len(values))]
+    wide = torch.tensor([[(v >> (13 * i)) & 0x1FFF for v in values] for i in range(rows)],
+                        dtype=torch.int32).to(dev)
+    sk.reset_launches()
+    got = sc.reduce_wide(wide)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc.reduce_wide_plain(wide))
+    assert sc.limbs_to_ints(got) == [v % L for v in values]
+    assert sk.LAUNCHES["reduce_wide"] == 1
 
 
 @pytest.mark.parametrize("n", [1, 127, 4096])

@@ -5,6 +5,12 @@ twins of the six cases of ``tests/test_ops_keccak.py``, and the same seeded
 inputs through the JAX package's ``keccak_f1600``, ``_absorb_permute_chain``
 and ``derive_challenges_device``.
 
+And the kernels' own bodies, compiled for the host through
+``csrc/host_shim.cpp``: ``keccak_chain``'s row body (both threads of a
+row's pair) and ``reduce_wide``'s lane body on the same seeded states,
+masks and wide values as the JAX package's ``_absorb_permute_chain`` and
+``sclimbs.reduce_wide``.
+
 Tolerance: exact (lane words bit for bit, challenge bytes, scalars)."""
 
 import numpy as np
@@ -15,12 +21,15 @@ import jax
 
 from cpzk_tpu.ops import challenge as jchallenge
 from cpzk_tpu.ops import keccak as jkeccak
+from cpzk_tpu.ops import sclimbs as jsclimbs
+from cpzk_tpu_torch.bench_kernels import wide_case
 from cpzk_tpu_torch.core import keccak as host
 from cpzk_tpu_torch.core.scalars import sc_from_bytes_mod_order_wide
 from cpzk_tpu_torch.core.transcript import (
     CHALLENGE_DST, PROTOCOL_DST, PROTOCOL_LABEL, MerlinTranscript, derive_challenges_batch,
 )
 from cpzk_tpu_torch.ops import challenge, keccak, keccak_kernels as kk, sclimbs as sc
+import torch_host_shim
 import torch_reference_core
 
 
@@ -29,6 +38,11 @@ def reference_core():
     """The reference's host core, built under a lock (see
     ``tests/torch_reference_core.py``) and loaded in this worker."""
     return torch_reference_core.require()
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return torch_host_shim.build(tmp_path_factory)
 
 
 def random_lanes(seed, n):
@@ -87,6 +101,44 @@ def test_absorb_chain_matches_jax():
     want = jchallenge._absorb_permute_chain(s_hi, s_lo, m_hi, m_lo)
     assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
     assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("shared,k", [(False, 3), (True, 3), (True, 1), (False, 0)])
+def test_chain_row_body_matches_jax(host_lib, shared, k):
+    """``keccak_chain``'s row body from ``csrc/keccak_u64.cuh`` (compiled
+    for the host: both threads of each row's pair at once) on seeded states
+    (one a row, or one shared) and k seeded masks: the words of the JAX
+    ``_absorb_permute_chain`` on the same arrays (the state broadcast)."""
+    rng = np.random.default_rng(40 + k + shared)
+    n = 33
+    width = 1 if shared else n
+    s_hi, s_lo = (rng.integers(-2**31, 2**31, (25, width), dtype=np.int64).astype(np.int32)
+                  for _ in range(2))
+    m_hi, m_lo = (rng.integers(-2**31, 2**31, (k, 25, n), dtype=np.int64).astype(np.int32)
+                  for _ in range(2))
+    tensors = [torch.from_numpy(a) for a in (s_hi, s_lo, m_hi, m_lo)]
+    out = [torch.empty((25, n), dtype=torch.int32) for _ in range(2)]
+    host_lib.host_keccak_chain(*(t.data_ptr() for t in tensors[:2]), int(shared),
+                               *(t.data_ptr() for t in tensors[2:]), k, n,
+                               out[0].data_ptr(), out[1].data_ptr())
+    want = (np.broadcast_to(s_hi, (25, n)), np.broadcast_to(s_lo, (25, n)))
+    if k:
+        want = jchallenge._absorb_permute_chain(*want, m_hi, m_lo)
+    assert np.array_equal(out[0].numpy(), np.asarray(want[0]))
+    assert np.array_equal(out[1].numpy(), np.asarray(want[1]))
+
+
+def test_reduce_wide_lane_body_matches_jax(host_lib):
+    """``reduce_wide``'s lane body from ``csrc/sc25519_w32.cuh`` (the fold at
+    bit 252, compiled for the host) on seeded 64-byte values led by 0, 1,
+    l - 1, l, 2 l, 2^252, 2^256 - 1 and 2^512 - 1: the limbs of the JAX
+    ``sclimbs.reduce_wide``."""
+    blobs = wide_case(np.random.default_rng(41), 96)
+    wide = torch.from_numpy(sc.bytes_wide_to_limbs(blobs))
+    out = torch.empty((20, wide.shape[1]), dtype=torch.int32)
+    host_lib.host_reduce_wide(wide.data_ptr(), 40, out.data_ptr(), wide.shape[1])
+    want = np.asarray(jax.jit(jsclimbs.reduce_wide)(wide.numpy()))
+    assert np.array_equal(out.numpy(), want)
 
 
 def columns(seed, n, names, width=32):

@@ -28,8 +28,11 @@ recode, constant-time select, mixed add, ENCODE) against the plain
 commitments and the host core's comb (bytes identical, scalars at or
 above 2^255 too), and its recode (65 digits in [-8, 8] summing to the
 scalar); and ``csrc/keccak_u64.cuh``'s absorb chain of
-``keccak_chain_kernel`` against the plain int32-pair Keccak (words
-identical); and ``ristretto_decode``'s lane body (``csrc/ristretto_w32.cuh``)
+``keccak_chain_kernel``, both threads of a row's pair at once, against the
+plain int32-pair Keccak (words identical; 1, 17, 33 and 4097 rows, a
+shared and a per-row state, k = 0, 1, 3, 5); ``reduce_wide``'s lane body
+(the fold at bit 252) on 40 and 24 limbs, edge values and every bit
+length, against ``reduce_wide_plain`` limb for limb; and ``ristretto_decode``'s lane body (``csrc/ristretto_w32.cuh``)
 on ``chip_smoke.py``'s decode inputs against the plain and the JAX
 ``curve.decode``, the host core's ``batch_decode`` and the pure decode
 (validity equal, canonical words exact).
@@ -55,20 +58,19 @@ Skips where g++ is missing."""
 
 import ctypes
 import random
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
-from cpzk_tpu_torch.bench_kernels import rlc_case
+from cpzk_tpu_torch.bench_kernels import rlc_case, wide_edges
 from cpzk_tpu_torch.core import edwards as he
 from cpzk_tpu_torch.core.scalars import L
 from cpzk_tpu_torch.ops import curve, limbs, msm, point_kernels as pk, sclimbs as sc
 from cpzk_tpu_torch.ops import decode_kernels as dk
 from cpzk_tpu_torch.ops import keccak, keccak_kernels as kk, prove_kernels as pvk
 from cpzk_tpu_torch.ops import scalar_kernels as sk, verify
+import torch_host_shim
 from torch_ladder_inputs import combined_inputs, each_inputs, make_rows, partial_totals, weights
 
 N = 96
@@ -100,58 +102,7 @@ EDGE_VALUES = [
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not found: cannot build the host copy of fe25519_w32.cuh")
-    out = tmp_path_factory.mktemp("fe25519") / "libfe25519_host.so"
-    src = pk.CSRC / "host_shim.cpp"
-    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", str(src), "-o", str(out)],
-                   check=True, capture_output=True, text=True, timeout=300)
-    lib = ctypes.CDLL(str(out))
-    P_, I = ctypes.c_void_p, ctypes.c_int
-    lib.host_d2.argtypes = [P_]
-    lib.host_to_words.argtypes = [P_, P_, I]
-    lib.host_fe_op.argtypes = [I, P_, P_, P_, I]
-    lib.host_point_add.argtypes = [P_] * 12 + [I]
-    lib.host_point_double_k.argtypes = [P_] * 7 + [I, I]
-    lib.host_sc_op.argtypes = [I, P_, P_, P_, I]
-    lib.host_sc_reduce_wide.argtypes = [P_, P_, I]
-    lib.host_sc_windows.argtypes = [P_, P_, I]
-    lib.host_sc_signed_digits.argtypes = [P_, I, I, P_, I]
-    lib.host_msm_bucket.argtypes = [P_] * 9 + [I] * 5
-    lib.host_msm_window_reduce.argtypes = [P_] * 8 + [I] * 4
-    lib.host_quad_double_k.argtypes = [P_] * 7 + [I, I]
-    lib.host_quad_add.argtypes = [P_] * 12 + [I]
-    lib.host_fe_is_negative.argtypes = [P_, P_, I]
-    lib.host_fe_sqrt_ratio_m1.argtypes = [P_] * 4 + [I]
-    lib.host_ristretto_encode.argtypes = [P_] * 5 + [I]
-    lib.host_ristretto_decode.argtypes = [P_] * 3 + [I]
-    lib.host_comb_tables.argtypes = [P_] * 5
-    lib.host_commitments.argtypes = [P_] * 5 + [I]
-    lib.host_comb_recode.argtypes = [P_, P_, I]
-    lib.host_keccak_chain.argtypes = [P_, P_, I, P_, P_, I, I, P_, P_]
-    lib.host_ladder_table.argtypes = [P_, P_, I]
-    lib.host_ladder_steps.argtypes = [P_, P_, P_, I, I, P_, I]
-    lib.host_ladder_is_identity.argtypes = [P_, P_, I]
-    lib.host_ladder_combined.argtypes = [P_, P_, P_, P_, I, I]
-    lib.host_ladder_partials_identity.argtypes = [P_, P_, I]
-    lib.host_rlc_scalars.argtypes = [P_] * 9 + [I] * 2
-    lib.host_ladder_each.argtypes = [P_, P_, P_, P_, I, I]
-    lib.host_quad_add_cached.argtypes = [P_] * 4 + [I]
-    for fn in (lib.host_d2, lib.host_to_words, lib.host_fe_op, lib.host_point_add,
-               lib.host_point_double_k, lib.host_sc_op, lib.host_sc_reduce_wide,
-               lib.host_sc_windows, lib.host_sc_signed_digits, lib.host_msm_bucket,
-               lib.host_msm_window_reduce, lib.host_quad_double_k,
-               lib.host_quad_add, lib.host_fe_is_negative,
-               lib.host_fe_sqrt_ratio_m1, lib.host_ristretto_encode,
-               lib.host_ristretto_decode, lib.host_comb_tables,
-               lib.host_commitments, lib.host_comb_recode, lib.host_keccak_chain,
-               lib.host_ladder_table, lib.host_ladder_steps, lib.host_ladder_is_identity,
-               lib.host_ladder_combined,
-               lib.host_ladder_partials_identity, lib.host_ladder_each, lib.host_rlc_scalars,
-               lib.host_quad_add_cached):
-        fn.restype = None
-    return lib
+    return torch_host_shim.build(tmp_path_factory)
 
 
 def value_limbs(v: int) -> np.ndarray:
@@ -319,7 +270,7 @@ def test_scalar_wide_reduction_matches_plain(host_lib):
     blobs[1] = 0      # zero
     wide = torch.from_numpy(sc.bytes_wide_to_limbs(blobs))
     out = empty(40)
-    host_lib.host_sc_reduce_wide(ptr(wide), ptr(out), 40)
+    host_lib.host_reduce_wide(ptr(wide), 40, ptr(out), 40)
     assert torch.equal(out, sc.reduce_wide(wide))
     assert sc.limbs_to_ints(out) == [int.from_bytes(b.tobytes(), "little") % L for b in blobs]
 
@@ -792,6 +743,53 @@ def test_keccak_chain_matches_plain(host_lib, k, shared):
         for j in range(n):
             assert [int(v) for v in got[j]] == host_keccak.keccak_f1600(
                 [int(v) for v in lanes[j]])
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared_state", "row_state"])
+@pytest.mark.parametrize("k", [0, 1, 3, 5])
+@pytest.mark.parametrize("n", [1, 17, 33, 4097])
+def test_keccak_chain_row_pairs_match_plain(host_lib, n, k, shared):
+    """keccak_chain_kernel's row body, both threads of each row's pair (the
+    lo and the hi halves of the 25 lanes, rotations across the pair) at
+    once, at row counts that leave the last pair and the last warp partly
+    empty on the card; k = 0 returns the state, one shared by every row or
+    one a row.  Words identical to the plain int32-pair chain."""
+    rng = np.random.default_rng(1000 * k + n + shared)
+    width = 1 if shared else n
+    ints = lambda shape: torch.from_numpy(  # noqa: E731
+        rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32))
+    s_hi, s_lo, m_hi, m_lo = ints((25, width)), ints((25, width)), ints((k, 25, n)), \
+        ints((k, 25, n))
+    o_hi, o_lo = (torch.empty((25, n), dtype=torch.int32) for _ in range(2))
+    host_lib.host_keccak_chain(ptr(s_hi), ptr(s_lo), int(shared), ptr(m_hi), ptr(m_lo), k, n,
+                               ptr(o_hi), ptr(o_lo))
+    ref = kk.keccak_chain_plain(s_hi, s_lo, m_hi, m_lo)
+    assert torch.equal(o_hi, ref[0]) and torch.equal(o_lo, ref[1])
+
+
+def wide_limbs(values: list[int], rows: int) -> torch.Tensor:
+    """``[rows, n]`` canonical 13-bit limbs of values below 2^(13 rows)."""
+    return torch.tensor([[(v >> (13 * i)) & 0x1FFF for v in values] for i in range(rows)],
+                        dtype=torch.int32)
+
+
+@pytest.mark.parametrize("rows", [40, 24])
+def test_reduce_wide_lane_matches_plain(host_lib, rows):
+    """reduce_wide_kernel's lane body (the fold at bit 252) on W = rows limbs:
+    the edge values that fit (0, 1, l - 1, l, 2 l, 2^252, 2^256 - 1, 2^512 -
+    1), the largest value W limbs hold, values of every bit length and
+    random ones; limbs equal to ``reduce_wide_plain``'s and to the value mod
+    l."""
+    rng = random.Random(2000 + rows)
+    top = 2 ** min(512, 13 * rows)
+    values = [v for v in wide_edges() if v < top] + [top - 1]
+    values += [rng.getrandbits(bits) | 1 << (bits - 1) for bits in range(1, top.bit_length())]
+    values += [rng.randrange(top) for _ in range(256)]
+    wide = wide_limbs(values, rows)
+    out = empty(len(values))
+    host_lib.host_reduce_wide(ptr(wide), rows, ptr(out), len(values))
+    assert torch.equal(out, sc.reduce_wide_plain(wide))
+    assert sc.limbs_to_ints(out) == [v % L for v in values]
 
 
 # -- the per-row ladders (ladder_w32.cuh) -------------------------------------
