@@ -36,9 +36,9 @@ seconds since the script started):
    per-row path's width (windows, corrections at lane n) and the Pippenger
    path's (digits at c in {4, 11, 13}), and ``rlc_scalars`` at 77 rows, at
    130 rows of every scalar l - 1 and at 1,500 rows whose a s sum past
-   2^256: exact (``torch.equal``); ``rlc_scalars`` timed by CUDA events
-   and by the profiler, beside its one-row chain floor and an empty
-   kernel's launch floor; and the
+   2^256: exact (``torch.equal``); ``rlc_scalars`` and ``scalar_recode``
+   (digits and windows) timed by CUDA events and by the profiler, beside
+   their one-row chain floors and an empty kernel's launch floor; and the
    MSM kernels (``msm_bucket``, ``msm_window_reduce``) against the plain
    MSM at m in {2048, 18432} terms (18,432: the 4096-row check's terms,
    two chunks at c = 11), with the digits of random scalars, the same with
@@ -430,7 +430,8 @@ SOURCES = {
     "ladder_partials_identity": _LADDER_SOURCES,
     "ladder_each": _LADDER_SOURCES,
     "rlc_scalars": [_CSRC + "scalar_ops.cu", _CSRC + "sc25519_w32.cuh"],
-    "scalar_recode": [_CSRC + "scalar_ops.cu", _CSRC + "sc25519_w32.cuh"],
+    "scalar_recode": [_CSRC + "scalar_ops.cu", _CSRC + "recode_w32.cuh",
+                      _CSRC + "sc25519_w32.cuh"],
     "msm_bucket": [_CSRC + "msm_ops.cu", _CSRC + "msm_w32.cuh", _CSRC + "fe25519_w32.cuh"],
     "msm_window_reduce": [_CSRC + "msm_ops.cu", _CSRC + "msm_w32.cuh",
                           _CSRC + "fe25519_w32.cuh"],
@@ -438,8 +439,8 @@ SOURCES = {
     "commitments": _PROVE_SOURCES,
     "keccak_chain": [_CSRC + "keccak_ops.cu", _CSRC + "keccak_u64.cuh"],
     "reduce_wide": [_CSRC + "scalar_ops.cu", _CSRC + "sc25519_w32.cuh"],
-    "ristretto_decode": [_CSRC + "decode_ops.cu", _CSRC + "ristretto_w32.cuh",
-                         _CSRC + "fe25519_w32.cuh"],
+    "ristretto_decode": [_CSRC + "decode_ops.cu", _CSRC + "decode_w32.cuh",
+                         _CSRC + "ristretto_w32.cuh", _CSRC + "fe25519_w32.cuh"],
 }
 #: the ladder kernels' checks: the combined check's lane widths (ragged, a
 #: 4096-row check's 4097 lanes padded, one full lane chunk), the per-row
@@ -2727,8 +2728,9 @@ def scalar_kernels_vs_plain(dev, ns, cs, timed_ns, int32_ops_per_s: float) -> di
     :data:`RLC_EDGE_CASES`.  Device times at ``timed_ns``: ``rlc_scalars``
     by ``kernel_ms`` (a call: its ticket's zeroing and its launch) and by
     the profiler (its kernel alone), beside its chain floor (one row, by
-    ``kernel_ms``) and the launch floor; ``scalar_recode`` by the
-    profiler."""
+    ``kernel_ms``) and the launch floor; ``scalar_recode`` in both modes
+    (the Pippenger path's digits, the per-row path's windows) the same way,
+    beside its chain floor (the digits of one row)."""
     import random
 
     import numpy as np
@@ -2774,6 +2776,8 @@ def scalar_kernels_vs_plain(dev, ns, cs, timed_ns, int32_ops_per_s: float) -> di
                   [sk.rlc_digits_plain(groups, *corr, n, m_pad, c)])
         if n == 1:
             one_row = kernel_ms(lambda: sk.rlc_scalars(*narrow, bl), None, SMALL_REPS)
+            one_recode = kernel_ms(lambda: sk.rlc_digits(groups, *corr, 1, m, MSM_C), None,
+                                   SMALL_REPS)
         if n not in timed_ns:
             continue
         row = {"n": n, "lanes": pw, "max_abs_err": 0, "exact_at_c": list(cs),
@@ -2790,13 +2794,25 @@ def scalar_kernels_vs_plain(dev, ns, cs, timed_ns, int32_ops_per_s: float) -> di
         nwin = msm.num_windows(MSM_C)
         row = {"n": n, "terms": m_pad, "c": MSM_C, "max_abs_err": 0,
                **bound_of(*sk.scalar_recode_work(m_pad, nwin, 4 * n + 2), int32_ops_per_s)}
-        row.update(device_ms(
-            "scalar_recode", lambda: sk.rlc_digits(groups, *corr, n, m_pad, MSM_C),
-            lambda: sk.rlc_digits_plain(groups, *corr, n, m_pad, MSM_C), 20, 2))
+
+        def digits(groups=groups, corr=corr, n=n, m_pad=m_pad):
+            return sk.rlc_digits(groups, *corr, n, m_pad, MSM_C)
+
+        row.update(kernel_ms(digits, lambda: sk.rlc_digits_plain(groups, *corr, n, m_pad, MSM_C),
+                             SMALL_REPS))
+        prof = device_ms("scalar_recode", digits, None, 20, 0)
+        row.update({"profiler_ms": prof["ms"], "profiled_launches": prof["profiled_launches"],
+                    "chain_floor_ms": one_recode["ms"], "chain_floor_runs": one_recode["ms_runs"],
+                    "chain_floor_shape": {"n": 1, "terms": 6, "c": MSM_C}, **floor})
         wgroups, wcorr = (al, *wide[:3]), wide[3:]
-        windows = device_ms("scalar_recode", lambda: sk.rlc_windows(wgroups, *wcorr, n),
-                            lambda: sk.rlc_windows_plain(wgroups, *wcorr, n), 20, 2)
-        row["windows"] = {"lanes": pad, **windows,
+
+        def windows(wgroups=wgroups, wcorr=wcorr, n=n):
+            return sk.rlc_windows(wgroups, *wcorr, n)
+
+        timed = kernel_ms(windows, lambda: sk.rlc_windows_plain(wgroups, *wcorr, n), SMALL_REPS)
+        prof = device_ms("scalar_recode", windows, None, 20, 0)
+        row["windows"] = {"lanes": pad, **timed, "profiler_ms": prof["ms"],
+                          "profiled_launches": prof["profiled_launches"],
                           **bound_of(*sk.scalar_recode_work(4 * pad, 64, 4 * pad),
                                      int32_ops_per_s)}
         rows["scalar_recode"].append(row)
@@ -4039,11 +4055,23 @@ def decode_phase(dev, corpus, ns, mul_n: int, reps: int, int32_ops_per_s: float,
                           lambda n=n: dk.ristretto_decode_plain(on_dev[n]),
                           reps) if on_card else {}
         out["results"].append({
-            "n": n, "max_abs_err": err, "host_max_abs_err": host_err,
+            "n": n,
+            "max_abs_err": err, "host_max_abs_err": host_err,
             "valid_lanes": int(ok.sum()), "random_valid": int(sum(
                 bool(ok[i]) for i, k in enumerate(kinds) if k == "random")),
             "cases": {k: int(ok[kinds.index(k)]) for k in kinds[:7]},
             **timed, **bound_of(*dk.decode_work(n), int32_ops_per_s)})
+    # the chain floor: one lane (the first wire, a rejected case), exact
+    # against the plain version, timed by kernel_ms
+    one = on_dev[ns[0]][:1].contiguous()
+    words, valid = dk.ristretto_decode(one, device=dev)
+    plain_words, plain_valid = dk.ristretto_decode_plain(one)
+    if not (torch.equal(words.cpu(), plain_words.cpu())
+            and torch.equal(valid.cpu(), plain_valid.cpu())):
+        raise AssertionError("decode: one lane differs from the plain version")
+    out["chain_floor"] = {"n": 1, "max_abs_err": 0,
+                          **(kernel_ms(lambda: dk.ristretto_decode(one, device=dev), None, reps)
+                             if on_card else {"ms": None})}
 
     rng = np.random.default_rng(SEED + 29)
     a, b = (torch.from_numpy(rng.integers(-limbs.BOUND, limbs.BOUND + 1, (20, mul_n),
@@ -6079,9 +6107,13 @@ def main() -> int:
             "launches_in_daemon_all_valid_batch":
                 served["pippenger"]["all_valid_batch"]["launches"][name],
         })
-        if name == "rlc_scalars":
+        if name in ("rlc_scalars", "scalar_recode"):
             kernels[-1].update({k: main_row[k] for k in (
                 "ms_runs", "timed_by", "profiler_ms", "chain_floor_ms", "launch_floor_ms")})
+        if name == "scalar_recode":
+            kernels[-1]["windows"] = [{"n": r["n"], **{k: r["windows"][k] for k in (
+                "lanes", "ms", "ms_runs", "plain_ms", "profiler_ms", "bound_ms", "bound_by")}}
+                for r in timed]
         if name in MSM_GLOBALS:
             one = next(r for r in timed if r["case"] == "one_bucket")
             kernels[-1].update({
@@ -6135,6 +6167,8 @@ def main() -> int:
             "library_ms": None, "shape": {"n": MAIN_N},
             "timed": [{k: r[k] for k in ("n", "ms", "plain_ms", "bound_ms", "bound_by")}
                       for r in results],
+            "chain_floor_ms": decoded["chain_floor"]["ms"],
+            "chain_floor": decoded["chain_floor"],
             "registers": per_kernel[name].get("registers"),
             "spill_bytes": per_kernel[name].get("spill_store_bytes"),
             "launches_in_decode": decoded["launches"][name],

@@ -4,7 +4,7 @@ against their plain versions.
 
     python -m cpzk_tpu_torch.bench_kernels [--ns 1,6144,16384] [--reps 50]
         [--rounds 4] [--sass] [--no-pippenger]
-        [--ladder | --prove | --small | --challenge] [--ks 1,2,8,92]
+        [--ladder | --prove | --small | --challenge | --decode] [--ks 1,2,8,92]
         [NAME=CSRC_DIR ...]
 
 Each ``NAME=CSRC_DIR`` names a directory holding a ``point_ops.cu`` with the
@@ -83,8 +83,24 @@ timed in turns by :func:`event_ms`, ``reps`` calls held behind a spin
 kernel; beside them an empty kernel's time (``launch_floor``, from the
 builds that have ``cpzk_launch_floor``).  ``ladder_partials_identity/2``
 is the partials' chain floor (one add), ``rlc_scalars/1`` the scalars'
-(one row).  With ``--sass``, each kernel's static SASS count.  One JSON
-line, then the ``nvidia-smi`` line.
+(one row).  Beside them ``scalar_recode`` of each build at the paths'
+shapes (:data:`RECODE_CASES`: the digits of a 4096-row Pippenger check,
+18,432 terms at c = 11; the windows of a 4096- and a 16,384-row per-row
+check, 4 x 6,144 and 4 x 18,432 lanes; and its chain floor, the digits of
+one row), called through the C entry point with the wrappers' arguments,
+each first checked against ``rlc_digits_plain``/``rlc_windows_plain``
+(``torch.equal``).  With ``--sass``, each kernel's static SASS count.  One
+JSON line, then the ``nvidia-smi`` line.
+
+With ``--decode``, instead, the A/B of ``ristretto_decode`` of each build
+at each of ``--ns`` lanes (:func:`decode_case`: the generators' and the
+identity's encodings, rejected cases, then random bytes), each build first
+checked (words and validity equal to ``ristretto_decode_plain``'s,
+``torch.equal``), then timed in turns by :func:`event_ms`, ``reps``
+launches held behind a spin kernel; ``/1`` is the chain floor (one lane);
+beside them the launch floor.  With ``--sass``, the kernel's static SASS
+count; registers and spills from ``-Xptxas -v``.  One JSON line, then the
+``nvidia-smi`` line.
 
 With ``--challenge``, instead, the A/B of the device challenges' two
 kernels of each build at each of ``--ns`` rows: ``keccak_chain`` with
@@ -663,6 +679,7 @@ def small_ab(dev: torch.device, specs, ns, ks, reps: int, rounds: int, sass: boo
     scalars = {n: tuple(torch.from_numpy(sc.ints_to_limbs(v)).to(dev)
                         for v in rlc_case(rng, "random", n)) for n in ns}
     refs = {n: sk.rlc_scalars_plain(*args) for n, args in scalars.items()}
+    recodes = {case: recode_case(rng, dev, *shape) for case, shape in RECODE_CASES.items()}
     stream = torch.cuda.current_stream(dev).cuda_stream
     builds = {}
     for name, csrc in specs:
@@ -711,6 +728,19 @@ def small_ab(dev: torch.device, specs, ns, ks, reps: int, rounds: int, sass: boo
                 # call as its wrapper makes it, without the fill launch
                 launchers[("rlc_scalars_kept_ticket", n)] = (
                     lambda rlc=rlc: rlc(zero=False), None)
+        for case, (args, ref) in recodes.items():
+            out = torch.empty_like(ref)
+
+            def recode(lib=lib, args=args, out=out):
+                rc = lib.cpzk_scalar_recode(*args[:12], out.data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"scalar_recode launch failed: CUDA error {rc}")
+
+            recode()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{name} scalar_recode {case}: differs from plain")
+            launchers[("scalar_recode", case)] = (recode, out)
         if hasattr(lib, "cpzk_launch_floor"):
             def empty(lib=lib):
                 rc = lib.cpzk_launch_floor(stream)
@@ -720,8 +750,9 @@ def small_ab(dev: torch.device, specs, ns, ks, reps: int, rounds: int, sass: boo
             launchers[("launch_floor", 0)] = (empty, None)
         builds[name] = {"launchers": launchers, "csrc": csrc,
                         "ptxas": {k: v for k, v in pk.ptxas_report(report).items()
-                                  if k in SMALL_KERNELS},
-                        "sass": sass_counts(path, SMALL_KERNELS) if sass else None,
+                                  if k in SMALL_KERNELS + ("scalar_recode",)},
+                        "sass": sass_counts(path, SMALL_KERNELS + ("scalar_recode",))
+                        if sass else None,
                         "ms": {f"{k}/{n}": [] for k, n in launchers}}
     order = list(builds)
     for r in range(rounds):
@@ -735,8 +766,44 @@ def small_ab(dev: torch.device, specs, ns, ks, reps: int, rounds: int, sass: boo
                             "ms_per_launch": {key: {"median": statistics.median(v), "runs": v}
                                               for key, v in b["ms"].items()}}
                          for name, b in builds.items()},
-            "checked": "each build's partials verdicts (valid and tampered) and "
-                       "rlc_scalars outputs equal to the plain versions'"}
+            "checked": "each build's partials verdicts (valid and tampered), "
+                       "rlc_scalars outputs and scalar_recode windows and digits equal "
+                       "to the plain versions'"}
+
+
+#: ``scalar_recode``'s A/B cases: (mode, rows n, lanes pad, terms m, c),
+#: the shapes of the paths (pad and m as ``ops/backend.py`` pads them)
+RECODE_CASES = {
+    "digits_4096_rows": (1, 4096, 4096, 18432, 11),
+    "windows_4096_rows": (0, 4096, 6144, 0, 4),
+    "windows_16384_rows": (0, 16384, 18432, 0, 4),
+    "digits_1_row": (1, 1, 1, 6, 11),
+}
+
+
+def recode_case(rng: np.random.Generator, dev: torch.device, mode: int, n: int, pad: int,
+                m: int, c: int):
+    """(the C entry point's arguments but the output and the stream, the
+    plain version's output) of a ``scalar_recode`` case: four random
+    ``[20, pad]`` groups below l (0, 1, l - 1 and 2^253 - 1 in the first
+    lanes) and two random corrections, lane n spliced (windows) or the
+    first n lanes of each group as terms (digits)."""
+    from .core.scalars import L
+    from .ops import msm, scalar_kernels as sk, sclimbs as sc
+
+    def limbs_of(count: int) -> torch.Tensor:
+        vals = [int.from_bytes(rng.bytes(64), "little") % L for _ in range(count)]
+        vals[:min(count, 4)] = [0, 1, L - 1, 2**253 - 1][:min(count, 4)]
+        return torch.from_numpy(sc.ints_to_limbs(vals)).to(dev)
+
+    groups = [limbs_of(pad) for _ in range(4)]
+    corr0, corr1 = limbs_of(1), limbs_of(1)
+    nwin = 64 if mode == 0 else msm.num_windows(c)
+    ref = (sk.rlc_windows_plain(groups, corr0, corr1, n) if mode == 0
+           else sk.rlc_digits_plain(groups, corr0, corr1, n, m, c))
+    args = [*(g.data_ptr() for g in groups), corr0.data_ptr(), corr1.data_ptr(), n, pad,
+            mode, c, nwin, m, (groups, corr0, corr1)]
+    return args, ref
 
 
 CHALLENGE_KERNELS = ("keccak_chain", "reduce_wide")
@@ -840,6 +907,79 @@ def challenge_ab(dev: torch.device, specs, ns, reps: int, rounds: int, sass: boo
                        "the plain versions' at every n"}
 
 
+def decode_case(rng: np.random.Generator, n: int) -> np.ndarray:
+    """``[n, 32]`` uint8 wires of a ``--decode`` case: the generators' and
+    the identity's encodings, p + 2, 3 and 32 bytes of 0xff (rejected),
+    then random bytes (about one in eight a point).  DECODE runs the same
+    steps for every wire, so the timing does not depend on the mix."""
+    from . import Parameters
+    from .core import edwards
+
+    params = Parameters.new()
+    rows = [params.generator_g.wire(), params.generator_h.wire(), bytes(32),
+            (edwards.P + 2).to_bytes(32, "little"), (3).to_bytes(32, "little"), b"\xff" * 32]
+    rows = (rows + [rng.bytes(32) for _ in range(max(n - len(rows), 0))])[:n]
+    return np.frombuffer(b"".join(rows), dtype=np.uint8).reshape(n, 32).copy()
+
+
+def decode_ab(dev: torch.device, specs, ns, reps: int, rounds: int, sass: bool) -> dict:
+    """The ``--decode`` A/B (see the module docstring)."""
+    from .ops import decode_kernels as dk
+
+    rng = np.random.default_rng(21)
+    wires = {n: torch.from_numpy(decode_case(rng, n)).to(dev) for n in ns}
+    refs = {n: dk.ristretto_decode_plain(w) for n, w in wires.items()}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    builds = {}
+    for name, csrc in specs:
+        path, report = pk.build(Path(csrc))
+        lib = pk.load(path)
+        launchers = {}
+        for n in ns:
+            words = torch.empty((4, 8, n), dtype=torch.int32, device=dev)
+            valid = torch.empty((n,), dtype=torch.uint8, device=dev)
+            ptrs = (wires[n].data_ptr(), n, words.data_ptr(), valid.data_ptr())
+
+            def decode(lib=lib, ptrs=ptrs):
+                rc = lib.cpzk_ristretto_decode(*ptrs, stream)
+                if rc:
+                    raise RuntimeError(f"ristretto_decode launch failed: CUDA error {rc}")
+
+            words.fill_(-1)
+            valid.fill_(7)
+            decode()
+            torch.cuda.synchronize()
+            if not (torch.equal(words, refs[n][0]) and torch.equal(valid, refs[n][1])):
+                raise AssertionError(f"{name} ristretto_decode n={n}: differs from plain")
+            launchers[("ristretto_decode", n)] = decode
+        if hasattr(lib, "cpzk_launch_floor"):
+            def empty(lib=lib):
+                rc = lib.cpzk_launch_floor(stream)
+                if rc:
+                    raise RuntimeError(f"cpzk_launch_floor failed: CUDA error {rc}")
+
+            launchers[("launch_floor", 0)] = empty
+        builds[name] = {"launchers": launchers, "csrc": csrc,
+                        "ptxas": pk.ptxas_report(report).get("ristretto_decode"),
+                        "sass": sass_counts(path, ("ristretto_decode",)) if sass else None,
+                        "ms": {f"{k}/{n}": [] for k, n in launchers}}
+    order = list(builds)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            b = builds[name]
+            for (key, n), launch in b["launchers"].items():
+                b["ms"][f"{key}/{n}"].append(event_ms(launch, reps, hold=True))
+    return {"decode_ab": {name: {key: b[key] for key in ("csrc", "ptxas", "sass")}
+                          | {"reps": reps, "rounds": rounds,
+                             "timed_by": "event_ms, launches held behind a spin kernel",
+                             "ms_per_launch": {key: {"median": statistics.median(v),
+                                                     "runs": v}
+                                               for key, v in b["ms"].items()}}
+                          for name, b in builds.items()},
+            "checked": "each build's words and validity equal to ristretto_decode_plain's "
+                       "at every n"}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ns", default="1,6144,16384")
@@ -851,6 +991,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--prove", action="store_true")
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--challenge", action="store_true")
+    ap.add_argument("--decode", action="store_true")
     ap.add_argument("--ks", default="1,2,8,92")
     ap.add_argument("builds", nargs="*", metavar="NAME=CSRC_DIR")
     args = ap.parse_args(argv)
@@ -868,9 +1009,9 @@ def main(argv: list[str] | None = None) -> int:
               flush=True)
         print(smi.stdout.strip().splitlines()[0], flush=True)
         return 0
-    if args.challenge:
-        print(json.dumps(challenge_ab(dev, specs, ns, args.reps, args.rounds, args.sass)),
-              flush=True)
+    if args.challenge or args.decode:
+        ab = challenge_ab if args.challenge else decode_ab
+        print(json.dumps(ab(dev, specs, ns, args.reps, args.rounds, args.sass)), flush=True)
         print(smi.stdout.strip().splitlines()[0], flush=True)
         return 0
     if args.ladder or args.prove:

@@ -1,5 +1,6 @@
 // Test-only host build of fe25519_w32.cuh, sc25519_w32.cuh, msm_w32.cuh,
-// ristretto_w32.cuh, prove_w32.cuh, keccak_u64.cuh and ladder_w32.cuh:
+// ristretto_w32.cuh, decode_w32.cuh, recode_w32.cuh, prove_w32.cuh,
+// keccak_u64.cuh and ladder_w32.cuh:
 // a C interface over limb-major [20, n] int32 arrays, looping over lanes on
 // the CPU, so the tests can hold the kernels' field, point and scalar
 // arithmetic, the Pippenger thread bodies, ristretto encode and decode, the prover's
@@ -18,11 +19,13 @@
 #include <utility>
 #include <vector>
 
+#include "decode_w32.cuh"
 #include "fe25519_w32.cuh"
 #include "keccak_u64.cuh"
 #include "ladder_w32.cuh"
 #include "msm_w32.cuh"
 #include "prove_w32.cuh"
+#include "recode_w32.cuh"
 #include "ristretto_w32.cuh"
 #include "sc25519_w32.cuh"
 
@@ -228,18 +231,56 @@ void host_ristretto_encode(const int32_t* x, const int32_t* y, const int32_t* z,
   }
 }
 
-// ristretto_decode_kernel's thread body for every lane j < n: [n, 32] byte
-// rows -> [4, 8, n] canonical words and [n] validity bytes
+// ristretto_decode_kernel's thread body (decode_w32.cuh) for every lane
+// j < n: [n, 32] byte rows -> [4, 8, n] canonical words and [n] validity
+// bytes
 void host_ristretto_decode(const uint8_t* wire, uint32_t* words, uint8_t* valid, int n) {
   for (int j = 0; j < n; ++j) {
+    uint32_t in[NW];
+    for (int i = 0; i < NW; ++i) {
+      const uint8_t* b = wire + (long)j * 32 + 4 * i;
+      in[i] = (uint32_t)b[0] | ((uint32_t)b[1] << 8) | ((uint32_t)b[2] << 16) |
+              ((uint32_t)b[3] << 24);
+    }
     Fe p[4];
-    const uint32_t ok = cpzk::ristretto_decode(p, wire + (long)j * 32);
+    const uint32_t ok = cpzk::dec_ristretto(p, in);
     for (int c = 0; c < 4; ++c) {
       Fe v;
       cpzk::fe_canonical(v, p[c]);
       for (int i = 0; i < NW; ++i) words[(long)(8 * c + i) * n + j] = v.w[i];
     }
     valid[j] = (uint8_t)ok;
+  }
+}
+
+// decode_w32.cuh's radix-2^25.5 ops on [20, n] limbs, through its word
+// conversions: op 0 a b, 1 a^2, 2 a^((p - 5) / 8), 3 the conversion round
+// trip, 4 a b with the product's limbs checked against the carry's bound
+// (out is all 0 where one exceeds h_i < 2^b_i + 2^14)
+void host_fe10_op(int op, const int32_t* a, const int32_t* b, int32_t* out, int n) {
+  for (int j = 0; j < n; ++j) {
+    Fe x, y, z;
+    load_fe(x, a, n, j);
+    load_fe(y, b, n, j);
+    cpzk::Fe10 f, g;
+    cpzk::fe10_from_words(f, x);
+    cpzk::fe10_from_words(g, y);
+    switch (op) {
+      case 0: cpzk::fe10_mul(f, f, g); break;
+      case 1: cpzk::fe10_sq(f, f); break;
+      case 2: cpzk::fe10_pow_p58(f, f); break;
+      case 4: {
+        cpzk::fe10_mul(f, f, g);
+        bool ok = true;
+        for (int i = 0; i < cpzk::NT; ++i)
+          ok = ok && f.v[i] < (1u << cpzk::ten_bits(i)) + (1u << 14);
+        if (!ok) f = cpzk::Fe10{};
+        break;
+      }
+      default: break;
+    }
+    cpzk::fe10_to_words(z, f);
+    store_fe(out, z, n, j);
   }
 }
 
@@ -339,22 +380,36 @@ void host_reduce_wide(const int32_t* x, int rows, int32_t* out, int n) {
 }
 
 
-// [20, n] scalars -> [64, n] 4-bit windows (MSB first).
+// [20, n] scalars -> [64, n] 4-bit windows (MSB first), recode_w32.cuh's
+// lane body for every lane.
 void host_sc_windows(const int32_t* a, int32_t* out, int n) {
   for (int j = 0; j < n; ++j) {
     Sc x;
-    load_sc(x, a, n, j);
-    cpzk::sc_windows4(out + j, n, x);
+    cpzk::recode_load(x, a + j, n);
+    cpzk::recode_windows(out + j, n, x);
   }
 }
 
-// [20, n] scalars -> [nwin, n] signed c-bit digits (LSB first).
+// [20, n] scalars -> [nwin, n] signed c-bit digits (LSB first), the same way.
 void host_sc_signed_digits(const int32_t* a, int c, int nwin, int32_t* out, int n) {
   for (int j = 0; j < n; ++j) {
     Sc x;
-    load_sc(x, a, n, j);
-    cpzk::sc_signed_digits(out + j, n, x, c, nwin);
+    uint32_t w[NW];
+    cpzk::recode_load(x, a + j, n);
+    cpzk::recode_digits(out + j, n, c, nwin, x, w, 1);
   }
+}
+
+// scalar_recode_kernel's body (recode_w32.cuh's recode_thread) for every
+// thread of a call, with the kernel's arguments: mode 0 -> [4, 64, pad]
+// windows (lane n spliced), mode 1 -> [nwin, m] digits.
+void host_scalar_recode(const int32_t* g0, const int32_t* g1, const int32_t* g2,
+                        const int32_t* g3, const int32_t* corr0, const int32_t* corr1, int n,
+                        int pad, int mode, int c, int nwin, int m, int32_t* out) {
+  const cpzk::RecodeArgs args{g0, g1, g2, g3, corr0, corr1, n, pad, m, mode, c, nwin, out};
+  const int threads = cpzk::recode_threads(args);
+  uint32_t w[NW];
+  for (int t = 0; t < threads; ++t) cpzk::recode_thread(args, t, w, 1);
 }
 
 // rlc_scalars_kernel over every block of `threads` threads (whole warps;

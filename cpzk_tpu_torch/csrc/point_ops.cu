@@ -128,6 +128,10 @@ int threads_for(int n, int sms) {
 // warp for every scheduler, then blocks of up to 256 threads.
 extern "C" int cpzk_block_threads(int n) { return threads_for(n, sm_count()); }
 
+// SMs of the current device (0 when it cannot be read): scalar_ops.cu sizes
+// scalar_recode's grid by it.
+extern "C" int cpzk_sm_count() { return sm_count(); }
+
 // Each entry point launches on `stream` (a cudaStream_t), does not
 // synchronise, and returns cudaGetLastError() of the launch (0 = success).
 extern "C" int cpzk_point_add(const void* x1, const void* y1, const void* z1,

@@ -1,15 +1,14 @@
-// Ristretto255 ENCODE and DECODE (RFC 9496 sections 4.3.2 and 4.3.1) and the
-// field functions they need, for one lane, on the 8 x 32-bit words of
+// Ristretto255 ENCODE (RFC 9496 section 4.3.2) and the field functions it
+// and DECODE need, for one lane, on the 8 x 32-bit words of
 // fe25519_w32.cuh, written for an H100 thread.  Host and device code:
-// prove_ops.cu and decode_ops.cu call these per thread, and the tests
-// compile this header with a host C++ compiler (through host_shim.cpp) to
-// hold it against the plain PyTorch versions in cpzk_tpu_torch/ops/curve.py
-// (encode, decode) and ops/limbs.py (canonical, _pow_p58, sqrt_ratio_m1,
-// is_negative).
+// prove_ops.cu calls these per thread, decode_w32.cuh builds DECODE on
+// them, and the tests compile this header with a host C++ compiler
+// (through host_shim.cpp) to hold it against the plain PyTorch versions in
+// cpzk_tpu_torch/ops/curve.py (encode) and ops/limbs.py (canonical,
+// _pow_p58, sqrt_ratio_m1, is_negative).
 //
 // It replaces cpzk_tpu/ops/curve.py::encode (with ops/limbs.py::_pow_p58,
-// ::inv and ::sqrt_ratio_m1) inside the commitments kernel, and
-// cpzk_tpu/ops/curve.py::decode in ristretto_decode_kernel.  A field value
+// ::inv and ::sqrt_ratio_m1) inside the commitments kernel.  A field value
 // here is any 8-word value below 2^256 (fe25519_w32.cuh's lazy form); only
 // fe_canonical brings it below p, and every test of a value (sign, zero,
 // equality) goes through it.  Everything is constant time: no branch and
@@ -212,63 +211,6 @@ FE_FN void ristretto_encode(uint8_t out[32], const Fe p[4]) {
   fe_mul(s, den_inv, t);
   fe_abs(s, s);
   fe_to_bytes(out, s);
-}
-
-// The 256-bit little-endian value of 32 bytes, bit 255 included (a value
-// below 2^256, so a field value in the lazy form above).
-FE_FN void fe_from_bytes(Fe& out, const uint8_t in[32]) {
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    out.w[i] = (uint32_t)in[4 * i] | ((uint32_t)in[4 * i + 1] << 8) |
-               ((uint32_t)in[4 * i + 2] << 16) | ((uint32_t)in[4 * i + 3] << 24);
-  }
-}
-
-// RFC 9496 DECODE of 32 bytes, the steps of ops/curve.py::decode.  Returns
-// 1 when they are the canonical encoding of a point, which p then holds as
-// (X, Y, Z, T) = (x, y, 1, x y); else 0, and p is the identity (0, 1, 1, 0).
-// The checks, all taken together by masks: the bytes read as s are s's own
-// canonical encoding (s < p, so bit 255 is clear), s is even, the square
-// root exists (was_square), t = x y is non-negative and y is not zero.
-FE_FN uint32_t ristretto_decode(Fe p[4], const uint8_t in[32]) {
-  const Fe d = {CPZK_D_WORDS};
-  Fe s, c, one, zero;
-  fe_from_bytes(s, in);
-  fe_canonical(c, s);
-  uint32_t diff = 0;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) diff |= c.w[i] ^ s.w[i];
-  const uint32_t canonical_ok = (uint32_t)(((uint64_t)diff - 1u) >> 63);
-  const uint32_t even_ok = 1u - (in[0] & 1u);
-  fe_set_small(one, 1);
-  fe_set_small(zero, 0);
-  Fe ss, u1, u2, u2_sqr, v, t;
-  fe_sq(ss, s);
-  fe_sub(u1, one, ss);     // 1 - s^2
-  fe_add(u2, one, ss);     // 1 + s^2
-  fe_sq(u2_sqr, u2);
-  fe_sq(t, u1);
-  fe_mul(t, d, t);
-  fe_neg(t, t);
-  fe_sub(v, t, u2_sqr);    // -(d u1^2) - u2^2
-  fe_mul(t, v, u2_sqr);
-  Fe invsqrt, den_x, den_y, x, y;
-  const uint32_t was_square = fe_sqrt_ratio_m1(invsqrt, one, t);
-  fe_mul(den_x, invsqrt, u2);
-  fe_mul(den_y, invsqrt, den_x);
-  fe_mul(den_y, den_y, v);
-  fe_mul2(x, s);
-  fe_mul(x, x, den_x);
-  fe_abs(x, x);            // |2 s den_x|
-  fe_mul(y, u1, den_y);
-  fe_mul(t, x, y);
-  const uint32_t valid = canonical_ok & even_ok & was_square &
-                         (1u - fe_is_negative(t)) & (1u - fe_eq(y, zero));
-  fe_select(p[0], valid, x, zero);
-  fe_select(p[1], valid, y, one);
-  p[2] = one;
-  fe_select(p[3], valid, t, zero);
-  return valid;
 }
 
 }  // namespace cpzk

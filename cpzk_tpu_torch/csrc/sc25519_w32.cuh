@@ -20,10 +20,8 @@
 //   folds by c (60 word products, where Barrett at base 2^32 takes 125)
 //   and one conditional subtraction of l (sc_reduce_wide);
 // * the kernels' [20, n] canonical 13-bit limbs become words on entry
-//   (sc_from_limbs) and limbs once on exit (sc_to_limbs);
-// * the 4-bit window recode (MSB window first) and the signed c-bit recode
-//   (LSB window first, digits in [-2^(c-1), 2^(c-1)], a carry chain) read
-//   the words directly.
+//   (sc_from_limbs) and limbs once on exit (sc_to_limbs); the recodes
+//   read the words directly (recode_w32.cuh).
 //
 // Portable C++ only (no __int128; one inline-PTX load, sc_load_early, on the
 // card only), so the host build runs the very arithmetic the card runs.
@@ -232,40 +230,6 @@ FE_FN void sc_neg(Sc& out, const Sc& a) {
     const uint64_t t = (uint64_t)l[i] - a.w[i] - borrow;
     out.w[i] = any ? (uint32_t)t : 0u;
     borrow = (uint32_t)(t >> 63);
-  }
-}
-
-FE_FN void sc_zero(Sc& out) {
-#pragma unroll
-  for (int i = 0; i < NW; ++i) out.w[i] = 0;
-}
-
-// The 64 4-bit windows of a (below 2^256), most significant first:
-// out[k * stride] is the window of bits 4 (63 - k) .. 4 (63 - k) + 3, the
-// layout of cpzk_tpu/ops/curve.py::scalars_to_windows.
-FE_FN void sc_windows4(int32_t* out, long stride, const Sc& a) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    out[(long)(63 - i) * stride] = (int32_t)((a.w[i >> 3] >> (4 * (i & 7))) & 15u);
-  }
-}
-
-// The nwin signed c-bit digits of a (below 2^253), least significant window
-// first: out[k * stride] for k < nwin, digit k of weight 2^(c k), in
-// [-2^(c-1), 2^(c-1)]: the unsigned window plus the carry, less 2^c (and a
-// carry of 1 into the next) when that reaches 2^(c-1).  4 <= c <= 16, and
-// nwin c >= 256, so the last carry is 0 for a < 2^(c nwin - 1).
-FE_FN void sc_signed_digits(int32_t* out, long stride, const Sc& a, int c, int nwin) {
-  const int half = 1 << (c - 1);
-  int carry = 0;
-  for (int k = 0; k < nwin; ++k) {
-    const int bit = c * k, wd = bit >> 5, sh = bit & 31;
-    uint64_t v = 0;
-    if (wd < NW) v = a.w[wd];
-    if (wd + 1 < NW) v |= (uint64_t)a.w[wd + 1] << 32;
-    const int t = (int)((v >> sh) & ((1u << c) - 1u)) + carry;
-    carry = t >= half;
-    out[(long)k * stride] = t - (carry << c);
   }
 }
 

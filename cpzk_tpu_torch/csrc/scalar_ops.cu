@@ -38,12 +38,21 @@
 // bytes; what it takes is the launch, one round trip to memory for a
 // lane's 40 limbs (all loaded before any arithmetic) and one lane's chain
 // of 60 word products.
-// scalar_recode moves 80 bytes in and 256 (windows) or 4 nwin
-// (digits) out a lane and does a few shifts per output word: bound by bytes.
+// scalar_recode moves 80 bytes in and 256 (windows) or 4 nwin (digits) out
+// a lane and does a few shifts per output word: bound by bytes, and at the
+// paths' widths within microseconds of its launch's cost; what it takes
+// past that is one thread's chain and the stores' drain.  Its design
+// (recode_w32.cuh): one lane a thread with a short chain (one 32-bit
+// division for its place where a 64-bit division and modulo were, its
+// source by selects where a stack array was, the digit loop's word reads
+// overlapping its carry chain), and blocks sized so that every SM gets one.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "recode_w32.cuh"
 #include "sc25519_w32.cuh"
+
+extern "C" int cpzk_sm_count();  // point_ops.cu
 
 namespace {
 
@@ -156,44 +165,15 @@ __global__ void launch_floor_kernel() {}
 // rlc_scalars' blocks for n rows.
 long rlc_blocks(int n) { return (2L * n + kRlcThreads - 1) / kRlcThreads; }
 
-// mode 0 (windows): thread t = g pad + j of 4 pad writes the 64 windows of
-// group g's lane j into out[g][64][pad], where lane n holds corr0 (g = 0),
-// corr1 (g = 1) or 0 (g = 2, 3) instead of the group's own scalar.
-// mode 1 (digits): thread t < m writes the nwin digits of term t into
-// out[nwin][m], terms ordered g0[0..n) | g1 | g2 | g3 | corr0 | corr1 | 0.
+// One thread a lane (or term), its whole body recode_w32.cuh's
+// recode_thread: mode 0 the windows of group g's lanes with lane n
+// spliced, mode 1 the digits of the terms.
 __global__ void __launch_bounds__(kRecodeThreads)
-scalar_recode_kernel(const int32_t* __restrict__ g0, const int32_t* __restrict__ g1,
-                     const int32_t* __restrict__ g2, const int32_t* __restrict__ g3,
-                     const int32_t* __restrict__ corr0, const int32_t* __restrict__ corr1,
-                     int n, int pad, int mode, int c, int nwin, int m,
-                     int32_t* __restrict__ out) {
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int32_t* groups[4] = {g0, g1, g2, g3};
-  Sc v;
-  if (mode == 0) {
-    if (t >= 4L * pad) return;
-    const int g = (int)(t / pad), j = (int)(t % pad);
-    if (j != n) {
-      load_sc(v, groups[g], pad, j);
-    } else if (g < 2) {
-      load_sc(v, g == 0 ? corr0 : corr1, 1, 0);
-    } else {
-      cpzk::sc_zero(v);
-    }
-    cpzk::sc_windows4(out + (long)g * 64 * pad + j, pad, v);
-    return;
-  }
-  if (t >= m) return;
-  if (t < 4L * n) {
-    load_sc(v, groups[t / n], pad, t % n);
-  } else if (t == 4L * n) {
-    load_sc(v, corr0, 1, 0);
-  } else if (t == 4L * n + 1) {
-    load_sc(v, corr1, 1, 0);
-  } else {
-    cpzk::sc_zero(v);
-  }
-  cpzk::sc_signed_digits(out + t, m, v, c, nwin);
+scalar_recode_kernel(cpzk::RecodeArgs args, int threads) {
+  __shared__ uint32_t words[cpzk::NW][kRecodeThreads];
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= threads) return;
+  cpzk::recode_thread(args, t, &words[0][threadIdx.x], kRecodeThreads);
 }
 
 // Lane j < n: the W <= 40 canonical 13-bit limbs of x (limb i at i n + j,
@@ -244,12 +224,18 @@ extern "C" int cpzk_scalar_recode(const void* g0, const void* g1, const void* g2
       (mode == 1 && (n < 1 || pad < n || m < 4L * n + 2 || c < 4 || c > 16 ||
                      nwin * c < 256)))
     return (int)cudaErrorInvalidValue;
-  const long threads = mode == 0 ? 4L * pad : (long)m;
-  const long blocks = (threads + kRecodeThreads - 1) / kRecodeThreads;
-  scalar_recode_kernel<<<(unsigned)blocks, kRecodeThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)g0, (const int32_t*)g1, (const int32_t*)g2, (const int32_t*)g3,
-      (const int32_t*)corr0, (const int32_t*)corr1, n, pad, mode, c, nwin, m,
-      (int32_t*)out);
+  const cpzk::RecodeArgs args{(const int32_t*)g0, (const int32_t*)g1, (const int32_t*)g2,
+                              (const int32_t*)g3, (const int32_t*)corr0,
+                              (const int32_t*)corr1, n, pad, m, mode, c, nwin,
+                              (int32_t*)out};
+  const int threads = cpzk::recode_threads(args);
+  // blocks of 256 threads, halved down to one warp while that leaves an
+  // SM without a block
+  const int sms = cpzk_sm_count();
+  int block = kRecodeThreads;
+  while (block > 32 && (threads + block - 1) / block < sms) block /= 2;
+  scalar_recode_kernel<<<(unsigned)((threads + block - 1) / block), block, 0,
+                         (cudaStream_t)stream>>>(args, threads);
   return (int)cudaGetLastError();
 }
 

@@ -8,10 +8,10 @@ kernel                 replaces
                        an XLA program in the JAX package)
 =====================  ======================================================
 
-Sources: ``csrc/ristretto_w32.cuh`` (``ristretto_decode`` for one lane on
-8 x 32-bit words, ``__host__ __device__``) and ``csrc/decode_ops.cu`` (the
-kernel and its C launch interface), built into the package's kernel library
-by :func:`.point_kernels.library`.
+Sources: ``csrc/decode_w32.cuh`` (``dec_ristretto`` for one lane,
+``__host__ __device__``, on ``csrc/ristretto_w32.cuh``'s field functions)
+and ``csrc/decode_ops.cu`` (the kernel and its C launch interface), built
+into the package's kernel library by :func:`.point_kernels.library`.
 
 Layout: the wrapper takes the kernel's own layout only, the wires as one
 ``[n, 32]`` uint8 tensor (lane j's encoding in row j), and returns the point
@@ -27,8 +27,13 @@ the port of ``curve.decode``, held against the plain version and the host
 core on the card.
 
 What bounds it on an H100: :func:`decode_work` counts the bytes and the
-int32 operations (it is bound by operations); ``PERF.md`` holds the
-measured times.
+int32 operations (it is bound by operations), but a lane is one chain of
+284 dependent products, and up to one warp a scheduler (16,384 lanes) that
+chain is the kernel's time.  The design shortens it: one thread a lane,
+the 262 products of SQRT_RATIO_M1's power in radix 2^25.5 (ten 64-bit
+column sums of single multiply-adds, a short carry), 174 instructions a
+squaring where words take 218.  ``PERF.md`` holds the measured times and
+the designs that lost (a lane split over two or four threads among them).
 
 Routing: :func:`ristretto_decode` runs on ``cuda:0`` unless the caller
 passes a device (and raises without CUDA, as

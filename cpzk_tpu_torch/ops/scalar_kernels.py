@@ -33,10 +33,15 @@ product mod l reduced by three folds at bit 252 (``sc_reduce_wide``);
 partials, then the last block by an atomic ticket, which it leaves zeroed,
 so the wrapper keeps one a stream), reduced mod l once at the end: exact
 in any order, the plain version's result bit for bit.
-``scalar_recode`` reads a lane's scalar (or the correction, at the
-reference's place) and writes its 64 windows or nwin digits.  What bounds
+``scalar_recode`` runs one lane (or term) a thread, which reads its scalar
+(or the correction, at the reference's place, picked by selects after one
+32-bit division) and writes its 64 windows or nwin digits.  What bounds
 them on an H100: :func:`rlc_scalars_work` and :func:`scalar_recode_work`
-count the bytes and int32 operations; ``PERF.md`` holds the measured times.
+count the bytes and int32 operations; the recode is bound by bytes, and at
+the paths' widths what it takes past its launch is one thread's chain and
+the stores' drain, so its design keeps that chain short (several lanes a
+thread in 16-byte accesses made it longer and lost at every shape).
+``PERF.md`` holds the measured times.
 
 Routing: each wrapper runs the plain version for tensors on the CPU and
 launches its kernel for CUDA tensors; any other device raises, and a failed

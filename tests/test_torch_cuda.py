@@ -8,7 +8,9 @@ and 4097 rows with k = 0 to 5; the reduction also on edge values and 24
 limbs); the comb tables equal
 after canonicalization; the commitments' bytes identical (and equal to the
 host core's comb).  The ristretto DECODE kernel's canonical words and
-validity exact, on valid, random and rejected encodings; the matmulfold
+validity exact, on valid, random and rejected encodings, also at lane
+counts that leave a block partly past n; the scalar recode exact at
+ragged row and term counts; the matmulfold
 multiply bit for bit the schoolbook one in float64 on the card.  The
 per-row ladder kernels against their plain versions (the step-by-step
 composition over the point kernels): per-row bits and combined verdicts
@@ -314,6 +316,39 @@ def test_ristretto_decode_matches_plain_on_card(dev):
     with pytest.raises(ValueError, match=r"\[n, 32\] uint8"):
         dk.ristretto_decode(wires.t().contiguous())
     assert dk.LAUNCHES == {"ristretto_decode": 1}
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+def test_ristretto_decode_edge_widths_on_card(dev, n):
+    """DECODE at lane counts that leave a block partly past n (one lane, a
+    short warp, a warp and a lane, a lane past 4096): one launch, words and
+    validity exact against the plain version."""
+    from cpzk_tpu_torch.bench_kernels import decode_case
+
+    wires = torch.from_numpy(decode_case(np.random.default_rng(n), n)).to(dev)
+    ref_words, ref_ok = dk.ristretto_decode_plain(wires)
+    dk.reset_launches()
+    words, ok = dk.ristretto_decode(wires)
+    torch.cuda.synchronize()
+    assert dk.LAUNCHES == {"ristretto_decode": 1}
+    assert torch.equal(ok, ref_ok) and torch.equal(words, ref_words)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 127, 130])
+def test_scalar_recode_ragged_on_card(dev, n):
+    """``scalar_recode`` at row counts that are no multiple of a thread's
+    four lanes: windows at pad n + 1 (the splice in the last lane) and n +
+    3, digits at m = 4 n + 2 (rows 8-byte aligned every other one) and
+    4 n + 5 for c = 4, 11, 16; ``torch.equal`` to the plain versions."""
+    for pad in (n + 1, n + 3):
+        groups = [scalars(dev, pad, 5 * n + pad + k) for k in range(4)]
+        corr = [scalars(dev, 1, 9 * n + k) for k in range(2)]
+        assert torch.equal(sk.rlc_windows(groups, *corr, n),
+                           sk.rlc_windows_plain(groups, *corr, n))
+        for c in (4, 11, 16):
+            for m in (4 * n + 2, 4 * n + 5):
+                assert torch.equal(sk.rlc_digits(groups, *corr, n, m, c),
+                                   sk.rlc_digits_plain(groups, *corr, n, m, c)), (pad, c, m)
 
 
 def test_matmulfold_matches_schoolbook_on_card(dev, monkeypatch):

@@ -32,10 +32,14 @@ scalar); and ``csrc/keccak_u64.cuh``'s absorb chain of
 plain int32-pair Keccak (words identical; 1, 17, 33 and 4097 rows, a
 shared and a per-row state, k = 0, 1, 3, 5); ``reduce_wide``'s lane body
 (the fold at bit 252) on 40 and 24 limbs, edge values and every bit
-length, against ``reduce_wide_plain`` limb for limb; and ``ristretto_decode``'s lane body (``csrc/ristretto_w32.cuh``)
-on ``chip_smoke.py``'s decode inputs against the plain and the JAX
+length, against ``reduce_wide_plain`` limb for limb; ``ristretto_decode``'s
+lane body (``csrc/decode_w32.cuh``, its products in radix 2^25.5) on
+``chip_smoke.py``'s decode inputs against the plain and the JAX
 ``curve.decode``, the host core's ``batch_decode`` and the pure decode
-(validity equal, canonical words exact).
+(validity equal, canonical words exact), and that radix's products, power
+and conversions against :mod:`cpzk_tpu_torch.ops.limbs`; and ``scalar_recode``'s whole thread body (``csrc/recode_w32.cuh``,
+four lanes a thread) over every thread of a call against
+``rlc_windows_plain`` and ``rlc_digits_plain`` (exact).
 
 And the per-row ladders' thread bodies (``csrc/ladder_w32.cuh``), the code
 ``ladder_combined``, ``ladder_partials_identity`` and ``ladder_each`` run
@@ -286,6 +290,59 @@ def test_scalar_recodes_match_plain(host_lib, c):
     digits = torch.empty((nwin, n), dtype=torch.int32)
     host_lib.host_sc_signed_digits(ptr(a), c, nwin, ptr(digits), n)
     assert torch.equal(digits, sc.to_signed_digits(a, c))
+
+
+# -- scalar_recode's whole thread body (recode_w32.cuh) ----------------------
+
+#: the scalars every recode case leads with (rolled between the groups)
+RECODE_EDGES = [0, 1, L - 1, 2**253 - 1]
+
+
+def recode_operands(seed, pad):
+    """Four [20, pad] groups of random scalars below l led by
+    :data:`RECODE_EDGES`, and the corrections l - 1 and 2^253 - 1."""
+    rng = random.Random(seed)
+    groups = []
+    for g in range(4):
+        vals = [rng.randrange(L) for _ in range(pad)]
+        vals[:min(pad, 4)] = (RECODE_EDGES[g:] + RECODE_EDGES[:g])[:min(pad, 4)]
+        groups.append(torch.from_numpy(sc.ints_to_limbs(vals)))
+    corr = [torch.from_numpy(sc.ints_to_limbs([v])) for v in (L - 1, 2**253 - 1)]
+    return groups, corr
+
+
+def host_recode(lib, groups, corr, n, mode, c, nwin, m, shape):
+    """``host_scalar_recode``: every thread of a ``scalar_recode`` call."""
+    out = torch.full(shape, -(2**31), dtype=torch.int32)
+    lib.host_scalar_recode(*(ptr(g) for g in groups), *(ptr(x) for x in corr), n,
+                           groups[0].shape[1], mode, c, nwin, m, ptr(out))
+    return out
+
+
+@pytest.mark.parametrize("n,pad", [(1, 2), (5, 6), (5, 8), (126, 127), (127, 128), (127, 130)])
+def test_scalar_recode_windows_thread_matches_plain(host_lib, n, pad):
+    """``scalar_recode_kernel``'s thread body in mode 0 over every thread:
+    the four groups' windows with lane n spliced (corr0, corr1, 0, 0) equal
+    ``rlc_windows_plain``'s; the splice at the last lane (n = pad - 1) and
+    lane counts that are not a multiple of a thread's four lanes."""
+    groups, corr = recode_operands(n + pad, pad)
+    got = host_recode(host_lib, groups, corr, n, 0, 4, 64, 0, (4, 64, pad))
+    assert torch.equal(got, sk.rlc_windows_plain(groups, *corr, n))
+
+
+@pytest.mark.parametrize("c", [4, 11, 13, 16])
+@pytest.mark.parametrize("zeros", [0, 3])
+@pytest.mark.parametrize("n", [1, 5, 127])
+def test_scalar_recode_digits_thread_matches_plain(host_lib, n, zeros, c):
+    """``scalar_recode_kernel``'s thread body in mode 1 over every thread:
+    the digits of a | a c | b a | b a c | corr0 | corr1 | zeros (m - 4 n - 2
+    zero terms) equal ``rlc_digits_plain``'s, for a run of terms that
+    crosses a group's end inside a thread (n = 1, 5, 127) and a ragged m."""
+    pad = 1 << (n - 1).bit_length()
+    groups, corr = recode_operands(7 * n + c, pad)
+    m, nwin = 4 * n + 2 + zeros, msm.num_windows(c)
+    got = host_recode(host_lib, groups, corr, n, 1, c, nwin, m, (nwin, m))
+    assert torch.equal(got, sk.rlc_digits_plain(groups, *corr, n, m, c))
 
 
 # -- the Pippenger thread bodies (msm_w32.cuh) -------------------------------
@@ -609,6 +666,76 @@ def test_decode_matches_plain_jax_and_host_core(host_lib, decode_inputs):
             assert bool(ok[i]) == (kind in ("corpus", "identity")), (i, kind)
     assert 0 < int(ok[[i for i, k in enumerate(kinds) if k == "random"]].sum()) < kinds.count(
         "random")  # random bytes met both verdicts
+
+
+@pytest.fixture(scope="module")
+def decode_refs(decode_inputs):
+    """The 96 lanes' references: the plain ``curve.decode``'s words and
+    validity, the JAX package's words and validity, the host core's, and
+    the reference's pure decode's verdict a row.  ``decode_wires`` gives
+    the same first rows at any n, so n lanes' references are their first
+    n."""
+    import jax.numpy as jnp
+
+    from cpzk_tpu.ops import curve as jax_curve
+
+    wires, kinds, host_decode_words = decode_inputs
+    plain = dk.ristretto_decode_plain(torch.from_numpy(wires))
+    point, jax_valid = jax_curve.decode(jnp.asarray(wires.T.astype(np.int32)))
+    jax_words = dk.limbs_to_words(tuple(torch.from_numpy(np.array(c)) for c in point))
+    pure = [he.ristretto_decode(w.tobytes()) is not None for w in wires]
+    return (plain, (jax_words, torch.from_numpy(np.array(jax_valid)).to(torch.uint8)),
+            host_decode_words(wires), pure)
+
+
+@pytest.mark.parametrize("n", [1, 33, 96])
+def test_decode_lane_body_matches_plain_jax_and_host_core(host_lib, decode_inputs, decode_refs,
+                                                          n):
+    """DECODE's lane body (``csrc/decode_w32.cuh``: the products in radix
+    2^25.5) on ``chip_smoke.py``'s first n decode inputs (one wire, the
+    seven listed cases and 26 more, all 96): words and validity exact
+    against the plain and the JAX package's ``curve.decode`` (canonical
+    words), the host core's ``batch_decode`` on valid lanes and the
+    identity on invalid ones, and every row decided as the reference's
+    pure decode decides it."""
+    smoke_wires, kinds, _ = decode_inputs
+    wires = torch.from_numpy(smoke_wires[:n].copy())
+    words = torch.empty((4, 8, n), dtype=torch.int32)
+    valid = torch.empty(n, dtype=torch.uint8)
+    host_lib.host_ristretto_decode(ptr(wires), ptr(words), ptr(valid), n)
+    (plain_words, plain_valid), (jax_words, jax_valid), (host_words, host_valid), pure = \
+        decode_refs
+    assert torch.equal(valid, plain_valid[:n]) and torch.equal(words, plain_words[..., :n])
+    assert torch.equal(valid, jax_valid[:n]) and torch.equal(words, jax_words[..., :n])
+    ok = valid.bool()
+    assert torch.equal(valid, host_valid[:n])
+    assert torch.equal(words[..., ok], host_words[..., :n][..., ok])
+    identity = dk.limbs_to_words(tuple(torch.from_numpy(limbs.int_to_limbs(v)[:, None])
+                                       for v in (0, 1, 1, 0)))
+    assert torch.equal(words[..., ~ok], identity.expand(4, 8, int((~ok).sum())))
+    assert [bool(v) for v in ok] == pure[:n]
+    for i, kind in enumerate(kinds[:n]):
+        if kind != "random":
+            assert bool(ok[i]) == (kind in ("corpus", "identity")), (i, kind)
+
+
+@pytest.mark.parametrize("op", ["mul", "square", "pow_p58", "round_trip", "mul_bound"])
+def test_fe10_ops_match_plain(host_lib, op):
+    """``decode_w32.cuh``'s radix-2^25.5 arithmetic through its word
+    conversions, on the adversarial and edge limbs (2^256 - 1 among them:
+    bit 255 set, every word all ones): products, squares, the
+    a^((p-5)/8) chain and the round trip equal ``limbs.mul`` and
+    ``limbs._pow_p58`` after canonicalization, and a product's limbs stay
+    within the carry's bound (``mul_bound``: the shim zeroes a lane that
+    leaves it)."""
+    a, b = limb_inputs(31, 2)
+    out = empty()
+    code = {"mul": 0, "square": 1, "pow_p58": 2, "round_trip": 3, "mul_bound": 4}[op]
+    host_lib.host_fe10_op(code, ptr(a), ptr(b), ptr(out), N)
+    want = {"mul": lambda: limbs.mul(a, b), "square": lambda: limbs.mul(a, a),
+            "pow_p58": lambda: limbs._pow_p58(a), "round_trip": lambda: a,
+            "mul_bound": lambda: limbs.mul(a, b)}[op]()
+    assert_canonical_equal(out, want)
 
 
 # -- the batch prover's thread bodies (prove_w32.cuh) ------------------------

@@ -7,8 +7,10 @@ waits for the multi-GPU port) against the host oracle, plus differentials
 against the JAX package: the same numpy limbs through
 ``cpzk_tpu.ops.sclimbs`` and ``cpzk_tpu_torch.ops.sclimbs``, and the same
 rows through the reference's ``_rlc_products``, ``_rlc_scalar_groups`` and
-``_pippenger_digits_device`` and the port's.  Tolerance everywhere: exact
-(limb for limb; every output is canonical)."""
+``_pippenger_digits_device`` and the port's; and ``scalar_recode``'s
+thread body (``csrc/recode_w32.cuh``, through the host shim of
+``tests/torch_host_shim.py``) against the reference's windows and digits.
+Tolerance everywhere: exact (limb for limb; every output is canonical)."""
 
 import random
 
@@ -237,6 +239,66 @@ def test_rlc_scalars_plain_matches_jax_at_edges(case, n):
     for g, w in zip(got, want):
         assert (g.numpy() == np.asarray(w)).all()
     assert all(torch.equal(g, r) for g, r in zip(sk.rlc_scalars(al, cl, sl, bl), got))
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    import torch_host_shim
+
+    return torch_host_shim.build(tmp_path_factory)
+
+
+def _edge_rows(n, seed):
+    """n rows' (alpha, c, s) and beta as duck-typed scalars (``.value``):
+    alpha led by 0, 1, l - 1 and 2^253 - 1, the rest random below l."""
+    from types import SimpleNamespace as NS
+
+    rng = random.Random(seed)
+    alphas = [rng.randrange(L) for _ in range(n)]
+    alphas[:min(n, 4)] = [0, 1, L - 1, 2**253 - 1][:min(n, 4)]
+    rows = [NS(alpha=NS(value=a), c=NS(value=rng.randrange(L)), s=NS(value=rng.randrange(L)))
+            for a in alphas]
+    return rows, NS(value=rng.randrange(L))
+
+
+def _host_recode(lib, groups, corr, n, mode, c, nwin, m, shape):
+    out = torch.full(shape, -(2**31), dtype=torch.int32)
+    lib.host_scalar_recode(*(t.contiguous().data_ptr() for t in (*groups, *corr)), n,
+                           groups[0].shape[1], mode, c, nwin, m, out.data_ptr())
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 5, 127])
+def test_scalar_recode_body_matches_jax(host_lib, n):
+    """``scalar_recode``'s thread body (``csrc/recode_w32.cuh``, through the
+    host shim) on the products of the port's ``rlc_scalars`` against the
+    JAX package: the windows of ``_rlc_products`` with the corrections at
+    lane n = pad - 1, and the digits of ``_pippenger_digits_device`` at
+    c = 4, 11, 13, 16, with m - 4 n - 2 = 0 or 3 zero terms; alpha led by
+    0, 1, l - 1 and 2^253 - 1.  Exact."""
+    import jax.numpy as jnp
+
+    from cpzk_tpu.ops import backend as jb
+    from cpzk_tpu_torch.ops import msm
+
+    rows, beta = _edge_rows(n, 40 + n)
+    pad = n + 1
+    al, cl, sl, bl = backend_mod._marshal_scalar_limbs(rows, beta, pad, "cpu")
+    ac, ba, bac, corr0, corr1 = sk.rlc_scalars(al, cl, sl, bl)
+    got = _host_recode(host_lib, (al, ac, ba, bac), (corr0, corr1), n, 0, 4, 64, 0,
+                       (4, 64, pad))
+    want = jb._rlc_products(jnp.int32(n), *(jnp.asarray(t.numpy()) for t in (al, cl, sl, bl)))
+    for g, w in zip(got, want):
+        assert (g.numpy() == np.asarray(w)).all()
+    pw = backend_mod._pad_pow2(n)
+    al, cl, sl, bl = backend_mod._marshal_scalar_limbs(rows, beta, pw, "cpu")
+    ac, ba, bac, corr0, corr1 = sk.rlc_scalars(al, cl, sl, bl)
+    for c, zeros in ((4, 0), (11, 3), (13, 0), (16, 3)):
+        m, nwin = 4 * n + 2 + zeros, msm.num_windows(c)
+        got = _host_recode(host_lib, (al, ac, ba, bac), (corr0, corr1), n, 1, c, nwin, m,
+                           (nwin, m))
+        want = jb._pippenger_digits_device(rows, beta, m, c)
+        assert (got.numpy() == np.asarray(want)).all(), (c, zeros)
 
 
 def test_scalar_kernel_wrappers_check_their_inputs():

@@ -33,6 +33,7 @@ def build(tmp_path_factory) -> ctypes.CDLL:
     lib.host_reduce_wide.argtypes = [P_, I, P_, I]
     lib.host_sc_windows.argtypes = [P_, P_, I]
     lib.host_sc_signed_digits.argtypes = [P_, I, I, P_, I]
+    lib.host_scalar_recode.argtypes = [P_] * 6 + [I] * 6 + [P_]
     lib.host_msm_bucket.argtypes = [P_] * 9 + [I] * 5
     lib.host_msm_window_reduce.argtypes = [P_] * 8 + [I] * 4
     lib.host_quad_double_k.argtypes = [P_] * 7 + [I, I]
@@ -41,6 +42,7 @@ def build(tmp_path_factory) -> ctypes.CDLL:
     lib.host_fe_sqrt_ratio_m1.argtypes = [P_] * 4 + [I]
     lib.host_ristretto_encode.argtypes = [P_] * 5 + [I]
     lib.host_ristretto_decode.argtypes = [P_] * 3 + [I]
+    lib.host_fe10_op.argtypes = [I, P_, P_, P_, I]
     lib.host_comb_tables.argtypes = [P_] * 5
     lib.host_commitments.argtypes = [P_] * 5 + [I]
     lib.host_comb_recode.argtypes = [P_, P_, I]
@@ -59,7 +61,8 @@ def build(tmp_path_factory) -> ctypes.CDLL:
                lib.host_msm_window_reduce, lib.host_quad_double_k,
                lib.host_quad_add, lib.host_fe_is_negative,
                lib.host_fe_sqrt_ratio_m1, lib.host_ristretto_encode,
-               lib.host_ristretto_decode, lib.host_comb_tables,
+               lib.host_ristretto_decode, lib.host_fe10_op, lib.host_scalar_recode,
+               lib.host_comb_tables,
                lib.host_commitments, lib.host_comb_recode, lib.host_keccak_chain,
                lib.host_ladder_table, lib.host_ladder_steps, lib.host_ladder_is_identity,
                lib.host_ladder_combined,
